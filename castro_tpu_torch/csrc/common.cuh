@@ -1,0 +1,171 @@
+// Shared helpers of the castro_tpu_torch CUDA kernels: the fixed state
+// layout of the kernel path, grid indexing with the edge clamp of
+// ops/stencil.py:shifted, sign(), block reductions, and the gamma-law EOS.
+//
+// Every kernel is templated on the working type T (float or double) and on
+// NPASS, the number of passively advected components (species + aux).
+// Constants are converted to T where they are written (T(0.5)), so float
+// code never does double arithmetic; the small_* floors arrive from the
+// host already rounded to T, as the JAX package's weakly typed constants
+// are.
+#pragma once
+
+#include <cuda_runtime.h>
+#include <float.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace ctt {
+
+// Conserved, primitive, auxiliary and Godunov-state indices of the kernel
+// path (castro_tpu_torch/state.py without shock_var, hybrid momenta, MHD or
+// radiation; the wrappers check the layout).
+enum { URHO = 0, UMX = 1, UMY = 2, UMZ = 3, UEDEN = 4, UEINT = 5, UTEMP = 6, UFS = 7 };
+enum { QRHO = 0, QU = 1, QV = 2, QW = 3, QGAME = 4, QPRES = 5, QREINT = 6, QTEMP = 7, QFS = 8 };
+enum { QGAMC = 0, QC = 1, QDPDR = 2, QDPDE = 3, NQAUX = 4 };
+enum { GDRHO = 0, GDU = 1, GDV = 2, GDW = 3, GDPRES = 4, GDGAME = 5, NGDNV = 6 };
+enum { MAXSPEC = 8 };
+
+// BC codes (AMReX phys_bc)
+enum { BC_INTERIOR = 0, BC_INFLOW = 1, BC_OUTFLOW = 2, BC_SYMMETRY = 3,
+       BC_SLIPWALL = 4, BC_NOSLIPWALL = 5 };
+
+// Grown grid extents; arrays are component-major [NC, n0, n1, n2] with the
+// last axis contiguous, and S = n0*n1*n2 is the component stride.
+struct Grid {
+  int n[3];
+  long long S;
+  __device__ __forceinline__ long long stride(int a) const {
+    return a == 0 ? (long long)n[1] * n[2] : (a == 1 ? (long long)n[2] : 1LL);
+  }
+  __device__ __forceinline__ long long idx(int i, int j, int k) const {
+    return ((long long)i * n[1] + j) * n[2] + k;
+  }
+};
+
+__device__ __forceinline__ int clampi(int i, int n) {
+  return i < 0 ? 0 : (i >= n ? n - 1 : i);
+}
+
+// A cell's position and its edge-clamped neighbours along one axis.
+struct Cell {
+  int c[3];
+  __device__ __forceinline__ Cell shift(const Grid& g, int a, int off) const {
+    Cell o = *this;
+    o.c[a] = clampi(c[a] + off, g.n[a]);
+    return o;
+  }
+  __device__ __forceinline__ long long at(const Grid& g) const {
+    return g.idx(c[0], c[1], c[2]);
+  }
+};
+
+__device__ __forceinline__ Cell cell_of(const Grid& g, long long t) {
+  Cell c;
+  c.c[2] = (int)(t % g.n[2]);
+  long long r = t / g.n[2];
+  c.c[1] = (int)(r % g.n[1]);
+  c.c[0] = (int)(r / g.n[1]);
+  return c;
+}
+
+// jnp.sign: 0 at 0, so a stationary wave gets half weight on each side
+template <typename T>
+__device__ __forceinline__ T sgn(T x) {
+  return x > T(0) ? T(1) : (x < T(0) ? T(-1) : T(0));
+}
+// max/min that propagate NaN from either side, as torch.maximum/clamp and
+// jnp.maximum do (fmaxf would drop it)
+template <typename T>
+__device__ __forceinline__ T vmax(T a, T b) { return (a > b || a != a) ? a : b; }
+template <typename T>
+__device__ __forceinline__ T vmin(T a, T b) { return (a < b || a != a) ? a : b; }
+template <typename T>
+__device__ __forceinline__ T clip(T x, T lo, T hi) { return vmin(vmax(x, lo), hi); }
+// IEEE sqrt and |x| of the working type; tiny() is finfo(T).tiny
+__device__ __forceinline__ float vsqrt(float x) { return sqrtf(x); }
+__device__ __forceinline__ double vsqrt(double x) { return sqrt(x); }
+__device__ __forceinline__ float vabs(float x) { return fabsf(x); }
+__device__ __forceinline__ double vabs(double x) { return fabs(x); }
+template <typename T> __device__ __forceinline__ T tiny();
+template <> __device__ __forceinline__ float tiny<float>() { return FLT_MIN; }
+template <> __device__ __forceinline__ double tiny<double>() { return DBL_MIN; }
+
+// Gamma-law EOS constants (castro_tpu_torch/eos/gamma_law.py): 1/mu =
+// sum_s xn_s * num_s / A_s; cv = k_B/m_u / (mu (gamma-1)).
+template <typename T>
+struct EosGL {
+  T gamma, gm1, kb_over_mu;
+  int nspec;
+  int neutral;
+  T num[MAXSPEC];
+  T aion[MAXSPEC];
+
+  __device__ __forceinline__ T cv(const T* xn) const {
+    T inv_mu = neutral ? xn[0] / aion[0] : xn[0] * num[0] / aion[0];
+    for (int s = 1; s < nspec; ++s)
+      inv_mu = inv_mu + (neutral ? xn[s] / aion[s] : xn[s] * num[s] / aion[s]);
+    T mu = T(1) / inv_mu;
+    return kb_over_mu / (mu * gm1);
+  }
+};
+
+template <typename T>
+EosGL<T> make_eos(double gamma, double kb_over_mu, int nspec, int neutral,
+                  const double* num, const double* aion) {
+  EosGL<T> e;
+  e.gamma = T(gamma);
+  e.gm1 = T(gamma - 1.0);
+  e.kb_over_mu = T(kb_over_mu);
+  e.nspec = nspec;
+  e.neutral = neutral;
+  for (int s = 0; s < MAXSPEC; ++s) {
+    e.num[s] = s < nspec ? T(num[s]) : T(1);
+    e.aion[s] = s < nspec ? T(aion[s]) : T(1);
+  }
+  return e;
+}
+
+// Block-wide reductions over blockDim.x <= 1024 threads (a multiple of 32,
+// every thread taking part); the result is valid in thread 0.
+template <typename T, typename Op>
+__device__ T block_reduce(T v, Op op) {
+  __shared__ T part[32];
+  for (int o = 16; o > 0; o >>= 1) v = op(v, __shfl_down_sync(0xffffffffu, v, o));
+  int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  __syncthreads();  // part[] may still be read by a previous reduction
+  if (lane == 0) part[w] = v;
+  __syncthreads();
+  int nw = (blockDim.x + 31) >> 5;
+  if (w == 0) {
+    v = lane < nw ? part[lane] : part[0];
+    for (int o = 16; o > 0; o >>= 1) v = op(v, __shfl_down_sync(0xffffffffu, v, o));
+  }
+  return v;
+}
+
+struct MaxOp { template <typename T> __device__ T operator()(T a, T b) const { return vmax(a, b); } };
+struct MinOp { template <typename T> __device__ T operator()(T a, T b) const { return vmin(a, b); } };
+struct SumOp { template <typename T> __device__ T operator()(T a, T b) const { return a + b; } };
+
+// Order-preserving atomics on the bit pattern of a float or double.
+__device__ __forceinline__ void atomic_max_nonneg(float* a, float v) {
+  atomicMax((int*)a, __float_as_int(v));
+}
+__device__ __forceinline__ void atomic_max_nonneg(double* a, double v) {
+  atomicMax((long long*)a, __double_as_longlong(v));
+}
+__device__ __forceinline__ void atomic_min(float* a, float v) {
+  if (v >= 0.0f) atomicMin((int*)a, __float_as_int(v));
+  else atomicMax((unsigned int*)a, __float_as_uint(v));
+}
+__device__ __forceinline__ void atomic_min(double* a, double v) {
+  if (v >= 0.0) atomicMin((long long*)a, __double_as_longlong(v));
+  else atomicMax((unsigned long long*)a, (unsigned long long)__double_as_longlong(v));
+}
+
+inline int blocks_for(long long n, int threads) {
+  return (int)((n + threads - 1) / threads);
+}
+
+}  // namespace ctt

@@ -1,0 +1,292 @@
+"""Single-level simulation driver: the Castro advance loop on one device.
+
+Counterpart of `castro_tpu/driver/sim.py` (reference `Castro::advance` /
+`do_advance_ctu` / retry, `Source/driver/Castro_advance.cpp:20`,
+`Castro_advance_ctu.cpp:16,404,504`, and the coarse-timestep loop in
+`main()`, `Source/driver/main.cpp:118-214`). The state `u` always carries
+its ghost zones; every step ends with clean + ghost fill.
+
+A step has the structure of the JAX package's fused path: prim_aux,
+flatten, 3 trace_ppm, 3 paired ctu_face corner stages, 3 ctu_face final
+stages with consup, clean_fill (`ops/kernels.py`). On the card
+(`device="cuda"`, the default) each is a CUDA kernel; on the CPU each
+runs its plain PyTorch version. Sources, reactions, radiation, MHD, SDC, AMR and I/O are not
+ported (ROADMAP.md); a configuration that needs them raises.
+"""
+
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass, replace
+from typing import Callable, List, Optional
+
+import numpy as np
+import torch
+
+from castro_tpu_torch.config import Params
+from castro_tpu_torch.driver.timestep import estdt_cfl
+from castro_tpu_torch.eos import make_eos
+from castro_tpu_torch.geometry import geometry_from_params, torch_dtype
+from castro_tpu_torch.network import make_network
+from castro_tpu_torch.ops import kernels as K
+from castro_tpu_torch.ops.ctu import HydroConfig, ctu_hydro
+from castro_tpu_torch.ops.stencil import interior_slice
+from castro_tpu_torch.state import layout_from_params
+
+
+@dataclass
+class StepStatus:
+    min_rho: float
+    has_nan: bool
+
+    @property
+    def success(self) -> bool:
+        return (not self.has_nan) and self.min_rho > 0.0
+
+
+def resolve_device(device=None) -> torch.device:
+    """`None` means the card. Without a card, only an explicit
+    device="cpu" runs; anything else raises."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device found; pass device='cpu' to run on the CPU")
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {dev}")
+    return dev
+
+
+def _unported(params):
+    """The ROADMAP.md item of the first unported feature a config needs."""
+    c = params.castro
+    checks = [
+        (params.dim != 3, "1D and 2D hydro (queue 1 item 4)"),
+        (params.geometry.coord_sys != 0, "curvilinear coordinates (queue 1 item 4)"),
+        (c.do_hydro != 1, "castro.do_hydro=0 (queue 1 item 9)"),
+        (c.ppm_type != 1, "PLM tracing (queue 1 item 4)"),
+        (c.riemann_solver not in (0, 2), "riemann_solver=1, riemanncg (queue 1 item 4)"),
+        (bool(c.hybrid_riemann), "hybrid_riemann (queue 1 item 4)"),
+        (bool(c.use_shock_var), "use_shock_var (queue 1 item 4)"),
+        (bool(c.hybrid_momentum), "hybrid momenta (queue 1 item 4)"),
+        (bool(c.transverse_use_eos), "transverse_use_eos (queue 1 item 4)"),
+        (bool(c.limit_fluxes_on_small_dens) or c.speed_limit > 0.0,
+         "flux limiters and speed_limit (queue 1 item 4)"),
+        (bool(c.do_grav or c.do_rotation or c.do_sponge or c.add_ext_src
+              or c.do_thermal_diffusion or c.diffuse_temp),
+         "source terms (queue 1 items 7, 9)"),
+        (bool(c.do_react) or c.time_integration_method != 0,
+         "reactions and SDC (queue 1 items 6, 11)"),
+        (bool(c.do_radiation), "radiation (queue 1 item 8)"),
+        (bool(c.do_mhd), "MHD (queue 1 item 10)"),
+        (params.amr.max_level > 0, "AMR (queue 1 item 5)"),
+        (any(b == 1 for b in tuple(c.lo_bc[:3]) + tuple(c.hi_bc[:3])),
+         "inflow boundaries and problem_fill (queue 1 item 4)"),
+    ]
+    return next((item for bad, item in checks if bad), None)
+
+
+class Simulation:
+    """Owns params, layout, geometry, EOS/network and the state, and runs
+    the step on one device."""
+
+    def __init__(self, params: Params, problem_init: Optional[Callable] = None,
+                 device=None):
+        """device: None = "cuda"; the tests pass "cpu"."""
+        item = _unported(params)
+        if item is not None:
+            raise NotImplementedError(f"not ported yet: {item}, see ROADMAP.md")
+        self.device = resolve_device(device)
+        self.network = make_network(params)
+        params = replace(params, network=replace(
+            params.network, nspec=self.network.nspec,
+            spec_names=self.network.spec_names, aux_names=self.network.aux_names))
+        self.params = params
+        self.layout = layout_from_params(params)
+        self.dtype = torch_dtype(params.tpu.dtype)
+        self.geom = geometry_from_params(params, self.dtype, self.device)
+        self.eos = make_eos(params, self.network)
+        self.problem_init = problem_init
+        K.check_kernel_layout(self.layout)
+        K.check_kernel_eos(self.eos, self.layout)
+
+        c = params.castro
+        self.ng = self.layout.ngrow
+        self.small_temp = max(c.small_temp, 1e-200)
+        self.cfg = HydroConfig(
+            use_flattening=bool(c.use_flattening),
+            difmag=c.difmag,
+            riemann_solver=c.riemann_solver,
+            small_dens=max(c.small_dens, 1e-200),
+            small_pres=max(c.small_pres, 1e-200),
+            small_ener=1e-200,
+            transverse_reset_density=bool(c.transverse_reset_density),
+            transverse_reset_rhoe=bool(c.transverse_reset_rhoe),
+            ppm_type=c.ppm_type,
+            use_kernels=True,
+            lo_bc=tuple(c.lo_bc[:3]),
+            hi_bc=tuple(c.hi_bc[:3]),
+            ng=self.ng,
+        )
+        self.t = 0.0
+        self.step_count = 0
+        self.dt = None
+        self.u = None
+        self.num_zones_advanced = 0  # FOM accounting (main.cpp:169-214)
+
+    # -- allocation & init -------------------------------------------------
+    def grown_shape(self):
+        return tuple(n + 2 * self.ng for n in self.geom.n_cell)
+
+    def allocate(self):
+        return torch.zeros((self.layout.NVAR,) + self.grown_shape(), dtype=self.dtype,
+                           device=self.device)
+
+    def init_data(self):
+        """Fill the state from the problem hook (reference Castro::initData,
+        Castro.cpp:934), enforce UEDEN = UEINT + KE, then clean and fill."""
+        u = self.allocate()
+        if self.problem_init is not None:
+            u = self.problem_init(self, u)
+        L = self.layout
+        u = u.to(self.dtype).clone()
+        rho_i = torch.clamp(u[L.URHO], min=1e-300)
+        ke = 0.5 * (u[L.UMX] ** 2 + u[L.UMY] ** 2 + u[L.UMZ] ** 2) / rho_i
+        u[L.UEDEN] = u[L.UEINT] + ke
+        self.u = self._clean_fill_impl(u)
+        return self.u
+
+    def _clean_fill_impl(self, u, with_status=False):
+        c = self.params.castro
+        args = (u, self.layout, self.eos, self.cfg.lo_bc, self.cfg.hi_bc, self.ng,
+                self.cfg.small_dens, self.small_temp, c.dual_energy_eta2,
+                bool(c.normalize_species))
+        return K.clean_fill(*args, with_status=with_status)
+
+    # -- dt ------------------------------------------------------------------
+    def _estdt_impl(self, u):
+        c = self.params.castro
+        return estdt_cfl(u, self.layout, self.eos, self.geom, self.ng, c.cfl)
+
+    def estimate_dt(self) -> float:
+        c = self.params.castro
+        if c.fixed_dt > 0:
+            return c.fixed_dt
+        dt = float(self._estdt_impl(self.u))
+        if self.step_count == 0:
+            dt = c.initial_dt if c.initial_dt > 0 else dt * c.init_shrink
+        elif self.dt is not None:
+            dt = min(dt, c.change_max * self.dt)
+        return min(dt, c.max_dt)
+
+    # -- the step --------------------------------------------------------------
+    def _step_impl(self, u, dt, t=0.0):
+        """One CTU step of pure hydro (reference do_advance_ctu,
+        Castro_advance_ctu.cpp:16). `u` is ghost-filled on entry. Returns
+        (u_new, min_rho, nan_flag) with the two checks as 0-d tensors:
+        the pre-clean interior min density, and a flag for a non-finite
+        state or a Courant number above 1 (Castro_hydro.cpp:234)."""
+        L = self.layout
+        c = self.params.castro
+        cfg = self.cfg
+        dtw = K.wt(dt, self.dtype)
+        check_cfl = bool(c.check_cfl_violation)
+        res = K.prim_aux(u, L, self.eos, cfg.small_dens, self.small_temp,
+                         self.geom.dx, courant_dt=dtw if check_cfl else None)
+        q, qaux, div_node = res[0], res[1], res[2]
+        u_new, _, _ = ctu_hydro(u, q, qaux, None, dtw, self.geom, L, cfg,
+                                div_node=div_node, fold_update_dt=dtw)
+        u_new, min_rho, nan_flag = self._clean_fill_impl(u_new, with_status=True)
+        if check_cfl:
+            nan_flag = nan_flag | (res[3] > 1.0)
+        return u_new, min_rho, nan_flag
+
+    def try_step(self, dt: float, t: Optional[float] = None):
+        """One trial step from time t (default self.t)."""
+        t = self.t if t is None else t
+        u_new, min_rho, nan_flag = self._step_impl(self.u, dt, t)
+        # one host sync for both checks
+        mr, nf = torch.stack([min_rho.to(torch.float64), nan_flag.to(torch.float64)]).tolist()
+        return u_new, StepStatus(min_rho=mr, has_nan=bool(nf))
+
+    def advance(self, dt: float) -> float:
+        """Advance by dt with retry/subcycling on failure (reference
+        retry_advance_ctu / subcycle_advance_ctu,
+        Castro_advance_ctu.cpp:404,504). Returns the dt actually taken."""
+        c = self.params.castro
+        u_new, status = self.try_step(dt)
+        if status.success or not c.use_retry:
+            self.u = u_new
+            self.t += dt
+            self._count_zones(1)
+            return dt
+        # retry with subcycling: restore the pre-step state, re-subcycle
+        dt_sub = dt * c.retry_subcycle_factor
+        for _ in range(c.max_subcycles):
+            t_adv = 0.0
+            ok = True
+            u_save = self.u
+            nsub = 0
+            while t_adv < dt * (1 - 1e-12):
+                step_dt = min(dt_sub, dt - t_adv)
+                u_new, status = self.try_step(step_dt, t=self.t + t_adv)
+                if not status.success:
+                    ok = False
+                    break
+                self.u = u_new
+                t_adv += step_dt
+                nsub += 1
+            if ok:
+                self.t += dt
+                self._count_zones(nsub)
+                return dt
+            self.u = u_save
+            dt_sub *= c.retry_subcycle_factor
+            if dt_sub < c.dt_cutoff:
+                break
+        raise RuntimeError(
+            f"advance failed at t={self.t}: dt_sub={dt_sub} below cutoff "
+            f"(min_rho={status.min_rho}, nan={status.has_nan})")
+
+    def _count_zones(self, nsteps):
+        self.num_zones_advanced += nsteps * int(np.prod(self.geom.n_cell))
+
+    # -- main loop -----------------------------------------------------------
+    def run(self, max_step: Optional[int] = None, stop_time: Optional[float] = None,
+            verbose: Optional[bool] = None, callbacks: Optional[List[Callable]] = None):
+        """The coarse-timestep loop (main.cpp:118-214) without plotfile or
+        checkpoint output; prints STEP lines and the zones-per-microsecond
+        figure of merit with `verbose`."""
+        a = self.params.amr
+        max_step = max_step if max_step is not None else (a.max_step if a.max_step >= 0 else 10 ** 9)
+        stop_time = stop_time if stop_time is not None else (a.stop_time if a.stop_time >= 0 else np.inf)
+        verbose = self.params.castro.v if verbose is None else verbose
+        if self.u is None:
+            self.init_data()
+        zones0 = self.num_zones_advanced
+        self._sync()
+        wall0 = time.perf_counter()
+        while self.step_count < max_step and self.t < stop_time * (1 - 1e-12):
+            dt = self.estimate_dt()
+            if self.t + dt > stop_time:
+                dt = stop_time - self.t
+            self.dt = self.advance(dt)
+            self.step_count += 1
+            if verbose:
+                print(f"STEP {self.step_count} t={self.t:.6e} dt={self.dt:.6e}")
+            for cb in callbacks or []:
+                cb(self)
+        self._sync()
+        wall = time.perf_counter() - wall0
+        if verbose and wall > 0:
+            fom = (self.num_zones_advanced - zones0) / wall / 1e6
+            print(f"  Average number of zones advanced per microsecond: {fom:.3f} "
+                  f"({self.device})")
+        return self
+
+    def _sync(self):
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    # -- views -----------------------------------------------------------------
+    def interior(self, u=None):
+        u = self.u if u is None else u
+        return u[interior_slice(self.ng, self.layout.dim)]

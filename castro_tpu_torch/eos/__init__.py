@@ -1,0 +1,19 @@
+"""Equation-of-state factory (counterpart of `castro_tpu/eos/__init__.py`).
+
+Only the gamma-law EOS is ported; the others are ROADMAP.md queue 1 item 6."""
+
+from __future__ import annotations
+
+from castro_tpu_torch.eos.base import Eos, EosState
+from castro_tpu_torch.eos.gamma_law import GammaLawEos
+
+__all__ = ["Eos", "EosState", "GammaLawEos", "make_eos"]
+
+
+def make_eos(params, network=None) -> Eos:
+    name = params.eos.eos_name
+    if name == "gamma_law":
+        return GammaLawEos(gamma=params.eos.eos_gamma, network=network,
+                           assume_neutral=bool(params.eos.eos_assume_neutral))
+    raise NotImplementedError(
+        f"EOS {name!r} is not ported (ROADMAP.md, queue 1 item 6)")

@@ -1,0 +1,90 @@
+"""Physical boundary-condition ghost fill (counterpart of
+`castro_tpu/ops/fill.py:fill_ghosts`).
+
+Reference behavior: AMReX FillPatch physical BCs + `ca_statefill`
+(`Source/problems/Castro_bc_fill_nd.cpp:11-180`): Interior(0)/periodic,
+Outflow(2) first-order extrapolation, Symmetry(3)/SlipWall(4) mirror + odd
+normal velocity, NoSlipWall(5) mirror + all velocities odd. Inflow(1) gets
+the outflow baseline; its problem hook is not ported (ROADMAP.md).
+
+One gather per axis (wrap, clamp or reflect index map) in x, y, z order,
+then the sign flips of that axis: a ghost cell takes the value of its source
+cell composed axis by axis. `ops/kernels.py:clean_fill` fuses this with
+`clean_state` on the card.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import numpy as np
+import torch
+
+# AMReX phys_bc integer codes
+INTERIOR, INFLOW, OUTFLOW, SYMMETRY, SLIPWALL, NOSLIPWALL = 0, 1, 2, 3, 4, 5
+WALLS = (SYMMETRY, SLIPWALL, NOSLIPWALL)
+
+
+def axis_fill_index(N, ng, lo, hi):
+    """Ghost -> source index map along one grown axis: wrap (periodic),
+    clamp (outflow/inflow baseline) or reflect (symmetry/walls)."""
+    n = N - 2 * ng
+    idx = np.arange(N)
+    if lo == INTERIOR:
+        idx[:ng] = np.arange(n, n + ng)
+    elif lo in (OUTFLOW, INFLOW):
+        idx[:ng] = ng
+    else:
+        idx[:ng] = np.arange(2 * ng - 1, ng - 1, -1)
+    if hi == INTERIOR:
+        idx[n + ng:] = np.arange(ng, 2 * ng)
+    elif hi in (OUTFLOW, INFLOW):
+        idx[n + ng:] = n + ng - 1
+    else:
+        idx[n + ng:] = np.arange(n + ng - 1, n - 1, -1)
+    return idx
+
+
+def axis_flips(layout, d, lo, hi):
+    """{component: (flip_lo, flip_hi)} of the reflection-odd momenta on
+    the wall faces of axis d (NoSlipWall flips every velocity)."""
+    dim = layout.dim
+    out = {}
+    for side, bc in ((0, lo), (1, hi)):
+        if bc not in WALLS:
+            continue
+        comps = {layout.momentum_index(d)}
+        if bc == NOSLIPWALL:
+            comps |= {layout.momentum_index(k) for k in range(dim)}
+        for c in comps:
+            flags = out.setdefault(c, [False, False])
+            flags[side] = True
+    return out
+
+
+def fill_ghosts(u: torch.Tensor, layout, lo_bc: Sequence[int],
+                hi_bc: Sequence[int], ng: int) -> torch.Tensor:
+    """Fill ng ghost cells on every face of a component-major grown array."""
+    dim = layout.dim
+    for d in range(dim):
+        axis = u.dim() - dim + d
+        N = u.shape[axis]
+        n = N - 2 * ng
+        lo, hi = lo_bc[d], hi_bc[d]
+        idx = torch.as_tensor(axis_fill_index(N, ng, lo, hi), device=u.device)
+        u = torch.index_select(u, axis, idx)
+        flips = axis_flips(layout, d, lo, hi)
+        if flips:
+            shape = [1] * dim
+            shape[d] = N
+            u = u.clone()
+            for comp, (flo, fhi) in sorted(flips.items()):
+                sv = np.ones(N)
+                if flo:
+                    sv[:ng] = -1.0
+                if fhi:
+                    sv[n + ng:] = -1.0
+                u[comp] = u[comp] * torch.as_tensor(
+                    sv.reshape(shape), dtype=u.dtype, device=u.device)
+    return u
+

@@ -1,0 +1,603 @@
+"""The hand-written CUDA kernels of the 3D CTU step, their wrappers, and
+the plain PyTorch version of each.
+
+Counterpart of `castro_tpu/ops/pallas_kernels.py`. Five kernels, one
+source each under `castro_tpu_torch/csrc/`:
+
+  prim_aux    ctoprim + node div u + whole-grid Courant max  (prim_aux.cu)
+  flatten     Miller-Colella flattening, 3 directions + min    (flatten.cu)
+  trace_ppm   PPM trace of one direction [+ 1D Riemann + flux] (trace_ppm.cu)
+  ctu_face    one CTU face stage [paired | + consup]           (ctu_face.cu)
+  clean_fill  clean_state + ghost fill [+ status]              (clean_fill.cu)
+
+Each wrapper takes the JAX function's arguments and returns what it
+returns. On a CPU tensor it runs its plain version (`*_plain`, composed from
+the ported modules); on a CUDA tensor it checks device, dtype, shape and
+contiguity, launches its kernel on the current stream and adds one to its
+`launches` count, or raises. Nothing falls back from the card to the plain
+version.
+
+The kernels are compiled with nvcc for sm_90a at first use into
+`castro_tpu_torch/_build/<hash of the sources>/`, one nvcc per source run
+together, linked into one shared library with a plain C interface and
+loaded with ctypes.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from castro_tpu_torch.driver.clean import clean_state
+from castro_tpu_torch.ops import advection_util as au
+from castro_tpu_torch.ops.fill import WALLS, fill_ghosts
+from castro_tpu_torch.ops.flatten import DZCUT, SHKTST, ZCUT1, small_pressure, uflatten
+from castro_tpu_torch.ops.riemann import cmpflx
+from castro_tpu_torch.ops.stencil import interior_slice, shifted
+from castro_tpu_torch.ops.trace_ppm import trace_ppm as trace_ppm_xla
+from castro_tpu_torch.ops.trans import term_bundle, trans_apply_bundle
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_ROOT = Path(__file__).resolve().parent.parent / "_build"
+SOURCES = ("prim_aux.cu", "flatten.cu", "trace_ppm.cu", "ctu_face.cu", "clean_fill.cu")
+# --fmad=false: no multiply-add contraction, so each operation rounds as
+# the plain version's does. The kernels are bound by bytes, and at the
+# sharp edge of a Sedov blast the trace cancels O(100) terms down to
+# O(1e-5) values, where contraction alone moved results by 1e-4
+# (measured on an H100, f32 at 128^3), outside the float32 budget of 2e-5.
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "--fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# passive components (species + aux) the kernels are instantiated for
+KERNEL_NPASS = (1,)
+MAXSPEC = 8
+
+
+# -- build and load ------------------------------------------------------------
+
+class _Library:
+    """The loaded kernel library and its build log."""
+
+    def __init__(self):
+        self.lib = None
+        self.build_log = ""
+        self.path = None
+
+
+_LIB = _Library()
+
+
+def _nvcc() -> str:
+    for cand in (shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels are built on a machine "
+                       "with the CUDA toolkit")
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for f in sorted(CSRC.iterdir()):
+        if f.suffix in (".cu", ".cuh"):
+            h.update(f.name.encode())
+            h.update(f.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def build() -> Path:
+    """Compile the kernels (if this source state has not been built yet)
+    and return the shared library's path. Raises on any compiler error."""
+    out_dir = BUILD_ROOT / _digest()
+    lib = out_dir / "libcastro_kernels.so"
+    if lib.exists():
+        return lib
+    nvcc = _nvcc()
+    BUILD_ROOT.mkdir(parents=True, exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(dir=BUILD_ROOT, prefix="tmp-"))
+    try:
+        procs = []
+        for src in SOURCES:
+            obj = tmp / (Path(src).stem + ".o")
+            cmd = [nvcc, *NVCC_FLAGS, "-c", str(CSRC / src), "-o", str(obj)]
+            procs.append((src, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                stderr=subprocess.STDOUT, text=True)))
+        log, failed = [], []
+        for src, p in procs:
+            text, _ = p.communicate()
+            log.append(f"== {src} (rc {p.returncode})\n{text}")
+            if p.returncode != 0:
+                failed.append(src)
+        (tmp / "build.log").write_text("\n".join(log))
+        if failed:
+            raise RuntimeError(f"nvcc failed for {failed}:\n" + "\n".join(log))
+        objs = [str(tmp / (Path(s).stem + ".o")) for s in SOURCES]
+        link = subprocess.run([nvcc, "-shared", "-gencode", "arch=compute_90a,code=sm_90a",
+                               "-o", str(tmp / lib.name), *objs],
+                              capture_output=True, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"link failed:\n{link.stdout}\n{link.stderr}")
+        try:
+            os.replace(tmp, out_dir)
+        except OSError:  # another process finished the same build first
+            shutil.rmtree(tmp, ignore_errors=True)
+    except BaseException:
+        shutil.rmtree(tmp, ignore_errors=True)
+        raise
+    return lib
+
+
+_VP, _INT, _DBL = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+_SIGNATURES = {
+    "prim_aux": [_VP, _VP, _VP, _VP, _VP, _VP, _INT, _VP, _INT, _INT, _VP, _VP,
+                 _DBL, _DBL, _VP, _VP, _VP],
+    "flatten": [_VP, _VP, _VP, _INT, _INT, _VP, _VP],
+    "trace_ppm": [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _INT, _INT, _VP,
+                  _INT, _INT, _INT, _VP],
+    "ctu_face": [_VP, _VP, _VP, _VP, _INT, _INT, _INT, _INT, _VP, _VP, _VP, _VP, _VP,
+                 _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _INT, _INT, _INT, _INT,
+                 _INT, _INT, _DBL, _DBL, _VP],
+    "clean_fill": [_VP, _VP, _VP, _VP, _VP, _INT, _VP, _VP, _INT, _VP, _INT, _INT,
+                   _VP, _VP, _VP, _INT, _VP],
+}
+
+
+def library():
+    """The loaded kernel library (built on first use)."""
+    if _LIB.lib is None:
+        path = build()
+        lib = ctypes.CDLL(str(path))
+        for name, args in _SIGNATURES.items():
+            for suffix in ("f32", "f64"):
+                fn = getattr(lib, f"ctt_{name}_{suffix}")
+                fn.argtypes = args
+                fn.restype = ctypes.c_int
+        _LIB.lib = lib
+        _LIB.path = path
+        log = path.parent / "build.log"
+        _LIB.build_log = log.read_text() if log.exists() else ""
+    return _LIB.lib
+
+
+def build_log() -> str:
+    library()
+    return _LIB.build_log
+
+
+def _fn(name, dtype):
+    return getattr(library(), f"ctt_{name}_{'f64' if dtype == torch.float64 else 'f32'}")
+
+
+def _call(name, like, *args):
+    """Launch kernel `name` for tensor `like`'s dtype on its device; raise if
+    the launch returned an error."""
+    with torch.cuda.device(like.device):
+        rc = _fn(name, like.dtype)(*args)
+    if rc != 0:
+        raise RuntimeError(f"CUDA kernel {name} failed to launch: cudaError {rc}")
+
+
+# -- argument checks -----------------------------------------------------------
+
+def _on_cuda(*tensors) -> bool:
+    """True for CUDA tensors, False for CPU tensors; raises otherwise."""
+    dev = tensors[0].device
+    for t in tensors:
+        if t is not None and t.device != dev:
+            raise ValueError(f"tensors on different devices: {t.device} vs {dev}")
+    if dev.type == "cuda":
+        return True
+    if dev.type == "cpu":
+        return False
+    raise ValueError(f"no kernel or plain version for device {dev}")
+
+
+def _check(t, name, dtype, shape):
+    if not t.is_cuda:
+        raise ValueError(f"{name} must be a CUDA tensor")
+    if t.dtype != dtype or t.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype} (float32/float64)")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def check_kernel_layout(layout):
+    """Raise NotImplementedError unless the kernels cover this layout."""
+    L = layout
+    if L.dim != 3:
+        raise NotImplementedError("the CUDA kernels are 3D (ROADMAP.md, queue 1 item 4)")
+    if L.shock_var or L.hybrid_momentum or L.mhd or L.radiation:
+        raise NotImplementedError(
+            "the CUDA kernels cover pure hydro without shock_var or hybrid momenta "
+            "(ROADMAP.md, queue 1 items 4, 8, 10)")
+    if L.naux != 0 or L.nspec not in KERNEL_NPASS:
+        raise NotImplementedError(
+            f"the CUDA kernels are built for {KERNEL_NPASS} species and no aux "
+            "components (ROADMAP.md, queue 2, kernel coverage)")
+
+
+def check_kernel_eos(eos, layout):
+    """Raise unless the kernels can evaluate this EOS in-kernel."""
+    if not getattr(eos, "pallas_safe", False) or not hasattr(eos, "species_coefficients"):
+        raise NotImplementedError(
+            "the CUDA kernels evaluate the gamma-law EOS only (ROADMAP.md, queue 1 item 6)")
+    if len(eos.species_coefficients()[1]) != layout.nspec or layout.nspec > MAXSPEC:
+        raise ValueError("EOS species do not match the layout")
+
+
+def _eos_args(eos, layout):
+    check_kernel_eos(eos, layout)
+    num, aion = eos.species_coefficients()
+    return ((_DBL * 2)(eos.gamma, eos._KB_OVER_MU), len(aion), int(eos.assume_neutral),
+            (_DBL * len(num))(*num), (_DBL * len(aion))(*aion))
+
+
+def _ints(*xs):
+    return (_INT * len(xs))(*xs)
+
+
+def _dbls(*xs):
+    return (_DBL * len(xs))(*(float(x) for x in xs))
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _stream(t):
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def wt(x, dtype):
+    """A host scalar in the working precision (np.float32/np.float64), so
+    that derived scalars (dt/dx, dt/2) are rounded as the JAX package's
+    traced f32 scalars are."""
+    return (np.float64 if dtype == torch.float64 else np.float32)(x)
+
+
+def _wall_index(mask):
+    return (-1, -1) if mask is None else (mask.lo, mask.hi)
+
+
+# -- 1. prim_aux ---------------------------------------------------------------
+
+def prim_aux_plain(u, layout, eos, small_dens, small_temp, dx, with_divu=True,
+                   courant_dt=None):
+    q, qaux = au.ctoprim(u, layout, eos, small_dens, small_temp)
+    ret = [q, qaux]
+    if with_divu:
+        ret.append(au.divu_node(q, dx, layout))
+    if courant_dt is not None:
+        ret.append(torch.max(au.courant_field(q, qaux, wt(courant_dt, u.dtype), dx, layout)))
+    return tuple(ret)
+
+
+def prim_aux(u, layout, eos, small_dens, small_temp, dx, with_divu=True,
+             courant_dt=None):
+    """ctoprim (+ node div u) (+ whole-grid max Courant number for dt):
+    (q, qaux[, div][, courant]) as `pallas_kernels.prim_aux_pallas`."""
+    if not _on_cuda(u):
+        return prim_aux_plain(u, layout, eos, small_dens, small_temp, dx,
+                              with_divu, courant_dt)
+    L = layout
+    check_kernel_layout(L)
+    g = tuple(u.shape[1:])
+    _check(u, "u", u.dtype, (L.NVAR,) + g)
+    eos_d, nspec, neutral, num, aion = _eos_args(eos, L)
+    q = torch.empty((L.NQ,) + g, dtype=u.dtype, device=u.device)
+    qaux = torch.empty((L.NQAUX,) + g, dtype=u.dtype, device=u.device)
+    div = torch.empty(g, dtype=u.dtype, device=u.device) if with_divu else None
+    cou = torch.zeros((), dtype=u.dtype, device=u.device) if courant_dt is not None else None
+    dtw = wt(0.0 if courant_dt is None else courant_dt, u.dtype)
+    dtdx = [dtw / wt(d_, u.dtype) for d_ in dx]
+    _call("prim_aux", u, u.data_ptr(), q.data_ptr(), qaux.data_ptr(), _ptr(div),
+          _ptr(cou), _ints(*g), L.nspec + L.naux, eos_d, nspec, neutral, num, aion,
+          float(wt(small_dens, u.dtype)), float(wt(1e-200, u.dtype)), _dbls(*dx),
+          _dbls(*dtdx), _stream(u))
+    prim_aux.launches += 1
+    ret = [q, qaux]
+    if with_divu:
+        ret.append(div)
+    if courant_dt is not None:
+        ret.append(cou)
+    return tuple(ret)
+
+
+prim_aux.launches = 0
+
+
+# -- 2. flatten ----------------------------------------------------------------
+
+def flatten_plain(q, layout):
+    return uflatten(q, layout)
+
+
+def flatten(q, layout):
+    """Miller-Colella flattening coefficient flatn[grid] (all directions)."""
+    if not _on_cuda(q):
+        return flatten_plain(q, layout)
+    L = layout
+    check_kernel_layout(L)
+    g = tuple(q.shape[1:])
+    _check(q, "q", q.dtype, (L.NQ,) + g)
+    out = torch.empty(g, dtype=q.dtype, device=q.device)
+    consts = _dbls(wt(small_pressure(q.dtype), q.dtype), wt(SHKTST, q.dtype),
+                   wt(ZCUT1, q.dtype), wt(DZCUT, q.dtype))
+    _call("flatten", q, q.data_ptr(), out.data_ptr(), _ints(*g), L.QPRES, L.QU,
+          consts, _stream(q))
+    flatten.launches += 1
+    return out
+
+
+flatten.launches = 0
+
+
+# -- 3. trace_ppm --------------------------------------------------------------
+
+def trace_ppm_plain(q, qaux, srcQ, flatn, d, dt, dx_d, layout, small_dens,
+                    small_pres, small_ener, fuse_riemann=None):
+    qm, qp = trace_ppm_xla(q, qaux, srcQ, flatn, d, wt(dt, q.dtype), dx_d, layout,
+                           small_dens, small_pres, small_ener)
+    if fuse_riemann is None:
+        return qm, qp
+    flux, qe = cmpflx(qm, qp, qaux, d, layout, fuse_riemann["coord"],
+                      fuse_riemann["riemann_solver"], small_dens, small_pres,
+                      bnd_mask=fuse_riemann.get("bnd_mask"))
+    return qm, qp, flux, qe
+
+
+def trace_ppm(q, qaux, srcQ, flatn, d, dt, dx_d, layout, small_dens, small_pres,
+              small_ener, fuse_riemann=None):
+    """PPM trace of direction d: (qm, qp), or with `fuse_riemann = dict(
+    coord=, riemann_solver=, bnd_mask=)` also the 1D flux and Godunov state:
+    (qm, qp, flux, qe), as `pallas_kernels.trace_ppm_pallas`."""
+    if not _on_cuda(q, qaux, flatn, srcQ):
+        return trace_ppm_plain(q, qaux, srcQ, flatn, d, dt, dx_d, layout, small_dens,
+                               small_pres, small_ener, fuse_riemann)
+    L = layout
+    check_kernel_layout(L)
+    g = tuple(q.shape[1:])
+    _check(q, "q", q.dtype, (L.NQ,) + g)
+    _check(qaux, "qaux", q.dtype, (L.NQAUX,) + g)
+    _check(flatn, "flatn", q.dtype, g)
+    if srcQ is not None:
+        _check(srcQ, "srcQ", q.dtype, (L.NQ,) + g)
+    solver = 0
+    mask = None
+    if fuse_riemann is not None:
+        solver = _kernel_solver(fuse_riemann["riemann_solver"])
+        _check_cartesian(fuse_riemann["coord"])
+        mask = fuse_riemann.get("bnd_mask")
+    qm = torch.empty((L.NQ,) + g, dtype=q.dtype, device=q.device)
+    qp = torch.empty_like(qm)
+    flux = qe = None
+    if fuse_riemann is not None:
+        flux = torch.empty((L.NVAR,) + g, dtype=q.dtype, device=q.device)
+        qe = torch.empty((L.NGDNV,) + g, dtype=q.dtype, device=q.device)
+    dtw = wt(dt, q.dtype)
+    consts = _dbls(dtw / wt(dx_d, q.dtype), wt(0.5, q.dtype) * dtw, wt(small_dens, q.dtype),
+                   wt(small_pres, q.dtype), wt(small_dens * small_ener, q.dtype))
+    mlo, mhi = _wall_index(mask)
+    _call("trace_ppm", q, q.data_ptr(), qaux.data_ptr(), flatn.data_ptr(),
+          _ptr(srcQ), qm.data_ptr(), qp.data_ptr(), _ptr(flux), _ptr(qe), _ints(*g),
+          L.nspec + L.naux, d, consts, solver, mlo, mhi, _stream(q))
+    trace_ppm.launches += 1
+    if fuse_riemann is None:
+        return qm, qp
+    return qm, qp, flux, qe
+
+
+trace_ppm.launches = 0
+
+
+def _kernel_solver(riemann_solver):
+    if riemann_solver not in (0, 2):
+        raise NotImplementedError(
+            f"riemann_solver={riemann_solver} has no CUDA kernel (ROADMAP.md, queue 1 item 4)")
+    return riemann_solver
+
+
+def _check_cartesian(coord):
+    if int(coord) != 0:
+        raise NotImplementedError(
+            "the CUDA face kernels are Cartesian (ROADMAP.md, queue 1 item 4)")
+
+
+# -- 4. ctu_face ---------------------------------------------------------------
+
+def _face_solve_plain(qm, qp, qaux, d, terms, layout, coord, riemann_solver,
+                      small_dens, small_pres, reset_density, reset_rhoe, bnd_mask):
+    if terms:
+        dfp, drep, dpp = term_bundle(terms, qaux, d, 0, layout)
+        dfm, drem, dpm = term_bundle(terms, qaux, d, -1, layout)
+        qm = trans_apply_bundle(qm, dfm, drem, dpm, layout, small_pres,
+                                reset_density, reset_rhoe)
+        qp = trans_apply_bundle(qp, dfp, drep, dpp, layout, small_pres,
+                                reset_density, reset_rhoe)
+    return cmpflx(qm, qp, qaux, d, layout, coord, riemann_solver, small_dens,
+                  small_pres, bnd_mask=bnd_mask)
+
+
+def consup_plain(flux, qe, d, layout, consup):
+    """This direction's consup folded onto the final flux: artificial
+    viscosity, species normalization, the flux divergence and p div u added
+    to hsrc, and u + dt*hsrc with `finalize_dt`. Returns (flux', hsrc')."""
+    L = layout
+    dx = consup["dx"]
+    u = consup["u"]
+    flc = au.apply_av(flux, d, consup["div_node"], u, L, consup["difmag"], dx)
+    flc = au.normalize_species_fluxes(flc, L)
+    inv = 1.0 / float(dx[d])
+    rows = -(shifted(flc, 1, 1 + d) - flc) * inv
+    pg = qe[L.GDPRES]
+    ug = qe[(L.GDU, L.GDV, L.GDW)[d]]
+    pdivu = 0.5 * (shifted(pg, 1, d) + pg) * (shifted(ug, 1, d) - ug) * inv
+    rows[L.UEINT] = rows[L.UEINT] - pdivu
+    htot = consup["hsrc"] + rows
+    fin = consup.get("finalize_dt")
+    if fin is not None:
+        htot = u + wt(fin, u.dtype) * htot
+    return flc, htot
+
+
+def ctu_face_plain(qm, qp, qaux, d, terms, layout, coord, riemann_solver,
+                   small_dens, small_pres, reset_density, reset_rhoe, bnd_mask=None,
+                   terms2=None, consup=None):
+    args = (layout, coord, riemann_solver, small_dens, small_pres, reset_density,
+            reset_rhoe, bnd_mask)
+    out = _face_solve_plain(qm, qp, qaux, d, terms, *args)
+    if terms2 is not None:
+        return out, _face_solve_plain(qm, qp, qaux, d, terms2, *args)
+    if consup is not None:
+        flc, hsrc = consup_plain(out[0], out[1], d, layout, consup)
+        return (flc, out[1]), hsrc
+    return out
+
+
+def ctu_face(qm, qp, qaux, d, terms, layout, coord, riemann_solver, small_dens,
+             small_pres, reset_density, reset_rhoe, bnd_mask=None, terms2=None,
+             consup=None):
+    """One CTU face stage, as `pallas_kernels.ctu_face_pallas`: terms=[]
+    (plain Riemann), one corner term, two final terms; `terms2` pairs a
+    second corner stage of the same normal and returns ((flux1, qe1),
+    (flux2, qe2)); `consup = dict(hsrc=, div_node=, u=, difmag=, dx=,
+    finalize_dt=)` (final stage) returns ((flux', qe), hsrc'). Each term is
+    {'flux', 'qe', 't_dir', 'cdtdx'}."""
+    if not _on_cuda(qm, qp, qaux):
+        return ctu_face_plain(qm, qp, qaux, d, terms, layout, coord, riemann_solver,
+                              small_dens, small_pres, reset_density, reset_rhoe,
+                              bnd_mask, terms2, consup)
+    L = layout
+    check_kernel_layout(L)
+    _check_cartesian(coord)
+    solver = _kernel_solver(riemann_solver)
+    dt_ = qm.dtype
+    g = tuple(qm.shape[1:])
+    _check(qm, "qm", dt_, (L.NQ,) + g)
+    _check(qp, "qp", dt_, (L.NQ,) + g)
+    _check(qaux, "qaux", dt_, (L.NQAUX,) + g)
+    all_terms = list(terms) + list(terms2 or [])
+    nt1, nt2 = len(terms), len(terms2 or [])
+    variants = {(0, 0, False), (1, 0, False), (1, 1, False), (2, 0, False), (2, 0, True)}
+    if (nt1, nt2, consup is not None) not in variants:
+        raise ValueError(f"no ctu_face variant with {nt1}+{nt2} terms, consup={consup is not None}")
+    S = int(np.prod(g))
+    isz = qm.element_size()
+    F, pg, ug, cdt, tdir = [], [], [], [], []
+    for t in all_terms:
+        _check(t["flux"], "term flux", dt_, (L.NVAR,) + g)
+        _check(t["qe"], "term qe", dt_, (L.NGDNV,) + g)
+        base = t["qe"].data_ptr()
+        F.append(t["flux"].data_ptr())
+        pg.append(base + L.GDPRES * S * isz)
+        ug.append(base + (L.GDU, L.GDV, L.GDW)[t["t_dir"]] * S * isz)
+        cdt.append(float(wt(t["cdtdx"], dt_)))
+        tdir.append(int(t["t_dir"]))
+    while len(F) < 3:
+        F.append(None), pg.append(None), ug.append(None), cdt.append(0.0), tdir.append(0)
+    flux1 = torch.empty((L.NVAR,) + g, dtype=dt_, device=qm.device)
+    qe1 = torch.empty((L.NGDNV,) + g, dtype=dt_, device=qm.device)
+    flux2 = qe2 = hsrc = div = u = hout = None
+    if nt2:
+        flux2, qe2 = torch.empty_like(flux1), torch.empty_like(qe1)
+    cons = [0.0, 0.0, 0.0, 0.0]
+    with_fin = 0
+    if consup is not None:
+        hsrc, div, u = consup["hsrc"], consup["div_node"], consup["u"]
+        _check(hsrc, "hsrc", dt_, (L.NVAR,) + g)
+        _check(div, "div_node", dt_, g)
+        _check(u, "u", dt_, (L.NVAR,) + g)
+        hout = torch.empty_like(hsrc)
+        dxd = float(consup["dx"][d])
+        fin = consup.get("finalize_dt")
+        with_fin = int(fin is not None)
+        cons = [wt(consup["difmag"], dt_), wt(dxd, dt_), wt(1.0 / dxd, dt_),
+                wt(0.0 if fin is None else fin, dt_)]
+    vp3 = ctypes.c_void_p * 3
+    mlo, mhi = _wall_index(bnd_mask)
+    _call("ctu_face", qm, qm.data_ptr(), qp.data_ptr(), qaux.data_ptr(), _ints(*g),
+          L.nspec + L.naux, d, nt1, nt2, vp3(*F), vp3(*pg), vp3(*ug), _dbls(*cdt),
+          _ints(*tdir), flux1.data_ptr(), qe1.data_ptr(), _ptr(flux2), _ptr(qe2),
+          _ptr(hsrc), _ptr(div), _ptr(u), _ptr(hout), _dbls(*cons), with_fin, solver,
+          mlo, mhi, int(bool(reset_density)), int(bool(reset_rhoe)),
+          float(wt(small_dens, dt_)), float(wt(small_pres, dt_)), _stream(qm))
+    ctu_face.launches += 1
+    if nt2:
+        return (flux1, qe1), (flux2, qe2)
+    if consup is not None:
+        return (flux1, qe1), hout
+    return flux1, qe1
+
+
+ctu_face.launches = 0
+
+
+# -- 5. clean_fill ---------------------------------------------------------------
+
+def clean_fill_plain(u, layout, eos, lo_bc, hi_bc, ng, small_dens, small_temp,
+                     dual_energy_eta2, do_normalize_species, with_status=False):
+    status = None
+    if with_status:
+        inner = u[interior_slice(ng, layout.dim)]
+        status = (torch.min(inner[layout.URHO]), ~torch.isfinite(torch.sum(inner)))
+    out = clean_state(u, layout, eos, small_dens=small_dens, small_temp=small_temp,
+                      dual_energy_eta2=dual_energy_eta2,
+                      do_normalize_species=do_normalize_species)
+    out = fill_ghosts(out, layout, lo_bc, hi_bc, ng)
+    return (out,) + status if with_status else out
+
+
+def clean_fill(u, layout, eos, lo_bc, hi_bc, ng, small_dens, small_temp,
+               dual_energy_eta2, do_normalize_species, with_status=False):
+    """clean_state + ghost fill; with_status also returns the pre-clean
+    interior min rho and the non-finite flag, as
+    `pallas_kernels.clean_fill_pallas`."""
+    if not _on_cuda(u):
+        return clean_fill_plain(u, layout, eos, lo_bc, hi_bc, ng, small_dens, small_temp,
+                                dual_energy_eta2, do_normalize_species, with_status)
+    L = layout
+    check_kernel_layout(L)
+    g = tuple(u.shape[1:])
+    _check(u, "u", u.dtype, (L.NVAR,) + g)
+    for code in tuple(lo_bc) + tuple(hi_bc):
+        if code not in (0, 1, 2) + WALLS:
+            raise ValueError(f"unsupported BC code {code}")
+    eos_d, nspec, neutral, num, aion = _eos_args(eos, L)
+    out = torch.empty_like(u)
+    mrho = total = None
+    if with_status:
+        mrho = torch.full((), float("inf"), dtype=u.dtype, device=u.device)
+        total = torch.zeros((), dtype=u.dtype, device=u.device)
+    dt_ = u.dtype
+    consts = _dbls(wt(small_dens, dt_), wt(small_temp, dt_), wt(dual_energy_eta2, dt_),
+                   wt(1e-300, dt_), wt(1e-30, dt_), wt(1.0 / L.nspec, dt_))
+    _call("clean_fill", u, u.data_ptr(), out.data_ptr(), _ptr(mrho), _ptr(total),
+          _ints(*g), L.nspec + L.naux, _ints(*lo_bc), _ints(*hi_bc), ng, eos_d, nspec,
+          neutral, num, aion, consts, int(bool(do_normalize_species)), _stream(u))
+    clean_fill.launches += 1
+    if with_status:
+        return out, mrho, ~torch.isfinite(total)
+    return out
+
+
+clean_fill.launches = 0
+
+
+KERNELS = (prim_aux, flatten, trace_ppm, ctu_face, clean_fill)
+
+
+def reset_launch_counts():
+    for k in KERNELS:
+        k.launches = 0
+
+
+def launch_counts() -> dict:
+    return {k.__name__: k.launches for k in KERNELS}

@@ -1,0 +1,244 @@
+"""CTU transverse corrections (corner coupling), 3D Cartesian.
+
+Counterpart of `castro_tpu/ops/trans.py` (reference `Source/hydro/trans.cpp`):
+- `trans_single` (:15/:67): add one transverse flux difference to the
+  normal-direction interface states (the six corner-coupling passes of 3D
+  CTU, cdtdx = dt/(3dx));
+- `trans_final` (:442): add two corner-coupled transverse flux differences
+  (the 3D final pass, cdtdx = dt/(2dx)).
+
+The prim interface state is converted to conserved form, the transverse
+flux divergence subtracted, a p-evolution-equation update applied to the
+pressure, with the reference's reset ladder. The RZ area weighting, the
+radiation terms and `transverse_use_eos` are not ported (ROADMAP.md).
+
+Face convention: face arrays registered at i = interface i-1/2. For the
+plus state (from cell i) cell_shift=0; for the minus state (from cell i-1)
+cell_shift=-1.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from castro_tpu_torch.ops.stencil import shifted
+
+
+def _register(arr, n_ax, cell_shift, t_ax=None, t_off=0):
+    """Register a grid array at the state's cell: shift along the
+    transverse axis by t_off, then along the normal axis by cell_shift.
+    Leading component axes are allowed."""
+    comp = arr.dim() - 3
+    out = arr
+    if t_off:
+        out = shifted(out, t_off, comp + t_ax)
+    if cell_shift:
+        out = shifted(out, cell_shift, comp + n_ax)
+    return out
+
+
+def _pass_ranges(layout):
+    npass = layout.nspec + layout.naux
+    return (list(range(layout.QFS, layout.QFS + npass)),
+            list(range(layout.UFS, layout.UFS + npass)))
+
+
+def _trans_apply(q_face, cell_shift, n_ax, terms, qaux, layout, small_pres,
+                 transverse_reset_density=True, transverse_reset_rhoe=False):
+    """Apply one or two transverse flux-difference corrections.
+
+    terms: list of dicts {flux [NVAR], qe [NGDNV], t_dir, cdtdx}, the
+    flux and Godunov state face-registered along t_dir."""
+    L = layout
+
+    def C(arr, t_ax=None, t_off=0):
+        return _register(arr, n_ax, cell_shift, t_ax, t_off)
+
+    rho = q_face[L.QRHO]
+    u = q_face[L.QU]
+    v = q_face[L.QV]
+    w = q_face[L.QW]
+    reint = q_face[L.QREINT]
+    p = q_face[L.QPRES]
+
+    rr = rho
+    ru, rv, rw = rho * u, rho * v, rho * w
+    ekin = 0.5 * rho * (u * u + v * v + w * w)
+    re = reint + ekin
+
+    drr = dru = drv = drw = dre_tot = dreint = dp = 0.0
+    pass_q, pass_u = _pass_ranges(L)
+    dpass = {qc: 0.0 for qc in pass_q}
+    gamc = C(qaux[L.QGAMC])
+
+    for t in terms:
+        F = t["flux"]
+        qe = t["qe"]
+        t_ax = t["t_dir"]
+        cdtdx = t["cdtdx"]
+
+        def dflux(comp):
+            return cdtdx * (C(F[comp], t_ax=t_ax, t_off=1) - C(F[comp], t_ax=t_ax))
+
+        gdu_comp = (L.GDU, L.GDV, L.GDW)[t_ax]
+        pgm = C(qe[L.GDPRES], t_ax=t_ax)
+        pgp = C(qe[L.GDPRES], t_ax=t_ax, t_off=1)
+        ugm = C(qe[gdu_comp], t_ax=t_ax)
+        ugp = C(qe[gdu_comp], t_ax=t_ax, t_off=1)
+        dup = pgp * ugp - pgm * ugm
+        du = ugp - ugm
+        pav = 0.5 * (pgp + pgm)
+
+        drr = drr + dflux(L.URHO)
+        dru = dru + dflux(L.UMX)
+        drv = drv + dflux(L.UMY)
+        drw = drw + dflux(L.UMZ)
+        dre_tot = dre_tot + dflux(L.UEDEN)
+        dreint = dreint + dflux(L.UEINT) + cdtdx * pav * du
+        dp = dp + cdtdx * (dup + pav * du * (gamc - 1.0))
+        for qc, uc in zip(pass_q, pass_u):
+            dpass[qc] = dpass[qc] + dflux(uc)
+
+    rrnew = rr - drr
+    runew = ru - dru
+    rvnew = rv - drv
+    rwnew = rw - drw
+    renew = re - dre_tot
+
+    # negative-density reset (trans.cpp:355-372)
+    bad = (rrnew < 0.0) if transverse_reset_density else torch.zeros_like(rr, dtype=torch.bool)
+    rrnew = torch.where(bad, rr, rrnew)
+    runew = torch.where(bad, ru, runew)
+    rvnew = torch.where(bad, rv, rvnew)
+    rwnew = torch.where(bad, rw, rwnew)
+    renew = torch.where(bad, re, renew)
+
+    out = q_face.clone()
+    out[L.QRHO] = rrnew
+    rhoinv = 1.0 / rrnew
+    out[L.QU] = runew * rhoinv
+    out[L.QV] = rvnew * rhoinv
+    out[L.QW] = rwnew * rhoinv
+
+    rhoeken = 0.5 * (runew ** 2 + rvnew ** 2 + rwnew ** 2) * rhoinv
+    reint_new = renew - rhoeken
+    if transverse_reset_rhoe:
+        reint_new = torch.where(reint_new <= 0.0, reint - dreint, reint_new)
+    # fall back to the untouched interface value if still non-positive
+    reint_new = torch.where(reint_new <= 0.0, reint, reint_new)
+    out[L.QREINT] = torch.where(bad, reint, reint_new)
+    out[L.QPRES] = torch.where(bad, p, torch.clamp(p - dp, min=small_pres))
+
+    for qc in pass_q:
+        out[qc] = torch.where(bad, q_face[qc], (rr * q_face[qc] - dpass[qc]) / rrnew)
+    return out
+
+
+def term_bundle(terms, qaux, n_ax, cell_shift, layout):
+    """The summed transverse bundle registered at the target state's cell:
+    dflux [NVAR] = sum_t cdtdx_t (F_t(hi) - F_t(lo)), dre = sum_t cdtdx_t
+    pav_t du_t, dp = sum_t cdtdx_t (dup_t + pav_t du_t (gamc - 1))
+    (`castro_tpu/ops/trans.py:_term_bundle`, Cartesian)."""
+    L = layout
+
+    def C(arr, t_ax=None, t_off=0):
+        return _register(arr, n_ax, cell_shift, t_ax, t_off)
+
+    gamc = C(qaux[L.QGAMC])
+    dflux = dre = dp = 0.0
+    for t in terms:
+        F, qe, t_ax, cdtdx = t["flux"], t["qe"], t["t_dir"], t["cdtdx"]
+        gdu_comp = (L.GDU, L.GDV, L.GDW)[t_ax]
+        dflux = dflux + cdtdx * (C(F, t_ax=t_ax, t_off=1) - C(F, t_ax=t_ax))
+        pgm = C(qe[L.GDPRES], t_ax=t_ax)
+        pgp = C(qe[L.GDPRES], t_ax=t_ax, t_off=1)
+        ugm = C(qe[gdu_comp], t_ax=t_ax)
+        ugp = C(qe[gdu_comp], t_ax=t_ax, t_off=1)
+        dup = pgp * ugp - pgm * ugm
+        du = ugp - ugm
+        pav = 0.5 * (pgp + pgm)
+        dre = dre + cdtdx * pav * du
+        dp = dp + cdtdx * (dup + pav * du * (gamc - 1.0))
+    return dflux, dre, dp
+
+
+def trans_apply_bundle(q, df, dre_x, dp_b, layout, small_pres, reset_density,
+                       reset_rhoe):
+    """The conserved update + reset ladder of the reference
+    actual_trans_single/final (trans.cpp:67,442) given a summed bundle
+    (`castro_tpu/ops/pallas_kernels.py:_trans_apply_block`;
+    `csrc/trans.cuh` per face)."""
+    L = layout
+    rho = q[L.QRHO]
+    uu = q[L.QU]
+    vv = q[L.QV]
+    ww = q[L.QW]
+    reint = q[L.QREINT]
+    p = q[L.QPRES]
+
+    rr = rho
+    ru, rv, rw = rho * uu, rho * vv, rho * ww
+    ekin = 0.5 * rho * (uu * uu + vv * vv + ww * ww)
+    re = reint + ekin
+
+    rrnew = rr - df[L.URHO]
+    runew = ru - df[L.UMX]
+    rvnew = rv - df[L.UMY]
+    rwnew = rw - df[L.UMZ]
+    renew = re - df[L.UEDEN]
+    dreint = df[L.UEINT] + dre_x
+
+    bad = (rrnew < 0.0) if reset_density else torch.zeros_like(rr, dtype=torch.bool)
+    rrnew = torch.where(bad, rr, rrnew)
+    runew = torch.where(bad, ru, runew)
+    rvnew = torch.where(bad, rv, rvnew)
+    rwnew = torch.where(bad, rw, rwnew)
+    renew = torch.where(bad, re, renew)
+
+    rhoinv = 1.0 / rrnew
+    rhoeken = 0.5 * (runew ** 2 + rvnew ** 2 + rwnew ** 2) * rhoinv
+    reint_new = renew - rhoeken
+    if reset_rhoe:
+        reint_new = torch.where(reint_new <= 0.0, reint - dreint, reint_new)
+    reint_new = torch.where(reint_new <= 0.0, reint, reint_new)
+    reint_new = torch.where(bad, reint, reint_new)
+    pnew = torch.where(bad, p, torch.clamp(p - dp_b, min=small_pres))
+
+    comps = [q[i] for i in range(L.NQ)]
+    comps[L.QRHO] = rrnew
+    comps[L.QU] = runew * rhoinv
+    comps[L.QV] = rvnew * rhoinv
+    comps[L.QW] = rwnew * rhoinv
+    comps[L.QREINT] = reint_new
+    comps[L.QPRES] = pnew
+    pass_q, pass_u = _pass_ranges(L)
+    for qc, uc in zip(pass_q, pass_u):
+        comps[qc] = torch.where(bad, q[qc], (rr * q[qc] - df[uc]) / rrnew)
+    return torch.stack(comps)
+
+
+def trans_single(qm, qp, flux_t, qe_t, qaux, n_dir, t_dir, cdtdx, layout,
+                 small_pres, reset_density=True, reset_rhoe=False):
+    """Single transverse correction of both interface states
+    (reference `trans_single`, trans.cpp:15)."""
+    term = {"flux": flux_t, "qe": qe_t, "t_dir": t_dir, "cdtdx": cdtdx}
+    qpo = _trans_apply(qp, 0, n_dir, [term], qaux, layout, small_pres,
+                       reset_density, reset_rhoe)
+    qmo = _trans_apply(qm, -1, n_dir, [term], qaux, layout, small_pres,
+                       reset_density, reset_rhoe)
+    return qmo, qpo
+
+
+def trans_final(qm, qp, flux_t1, qe_t1, flux_t2, qe_t2, qaux,
+                n_dir, t1_dir, t2_dir, cdtdx_t1, cdtdx_t2, layout,
+                small_pres, reset_density=True, reset_rhoe=False):
+    """Double transverse correction (reference `trans_final`, trans.cpp:442)."""
+    terms = [
+        {"flux": flux_t1, "qe": qe_t1, "t_dir": t1_dir, "cdtdx": cdtdx_t1},
+        {"flux": flux_t2, "qe": qe_t2, "t_dir": t2_dir, "cdtdx": cdtdx_t2},
+    ]
+    qpo = _trans_apply(qp, 0, n_dir, terms, qaux, layout, small_pres,
+                       reset_density, reset_rhoe)
+    qmo = _trans_apply(qm, -1, n_dir, terms, qaux, layout, small_pres,
+                       reset_density, reset_rhoe)
+    return qmo, qpo

@@ -1,0 +1,42 @@
+"""Helpers for problem initialization (counterpart of
+`castro_tpu/problems/util.py`)."""
+
+from __future__ import annotations
+
+import torch
+
+
+def fill_from_prim(sim, u, rho, vel, p=None, T=None, xn=None):
+    """Fill the conserved state (everywhere, ghosts included) from primitive
+    fields. `vel` is a 3-tuple of tensors/scalars; `xn` [nspec, ...] mass
+    fractions (default: first species = 1)."""
+    L = sim.layout
+    shape = u.shape[1:]
+
+    def full(a):
+        return torch.as_tensor(a, dtype=u.dtype, device=u.device).expand(shape)
+
+    rho = full(rho)
+    vx, vy, vz = (full(v) for v in vel)
+    if xn is None:
+        xn = torch.zeros((L.nspec,) + tuple(shape), dtype=u.dtype, device=u.device)
+        xn[0] = 1.0
+    else:
+        xn = torch.as_tensor(xn, dtype=u.dtype, device=u.device).expand((L.nspec,) + tuple(shape))
+    if p is not None:
+        es = sim.eos.rp(rho=rho, p=full(p), xn=xn)
+    else:
+        es = sim.eos.rt(rho=rho, T=full(T), xn=xn)
+    ke = 0.5 * rho * (vx * vx + vy * vy + vz * vz)
+    u = u.clone()
+    u[L.URHO] = rho
+    u[L.UMX] = rho * vx
+    u[L.UMY] = rho * vy
+    u[L.UMZ] = rho * vz
+    u[L.UEINT] = rho * es.e
+    u[L.UEDEN] = rho * es.e + ke
+    u[L.UTEMP] = es.T
+    u[L.UFS: L.UFS + L.nspec] = xn * rho[None]
+    if L.naux > 0:
+        u[L.UFX: L.UFX + L.naux] = 0.0
+    return u
