@@ -2,7 +2,7 @@
 [ns.key=value ...] [device=cpu]`, the counterpart of `python -m castro_tpu`
 (reference `Source/driver/main.cpp:33`): parse inputs, run the
 coarse-timestep loop on the card, print the STEP lines and the FOM.
-Only problem=sedov is ported."""
+problem= one of sedov, sod."""
 
 from __future__ import annotations
 
@@ -13,9 +13,10 @@ from castro_tpu_torch.config import load_inputs, parse_inputs_text
 
 def main(argv=None):
     from castro_tpu_torch.driver.sim import Simulation
-    from castro_tpu_torch.problems import sedov
+    from castro_tpu_torch.problems import sedov, sod
 
-    problems = {"sedov": (sedov.make_params, sedov.problem_init)}
+    problems = {"sedov": (sedov.make_params, sedov.problem_init),
+                "sod": (sod.make_params, sod.problem_init)}
     argv = list(sys.argv[1:] if argv is None else argv)
     if not argv:
         print(__doc__)
@@ -30,8 +31,8 @@ def main(argv=None):
             overrides.append(a.replace("=", " = ", 1))
         else:
             inputs_path = a
-    if problem is None and inputs_path and "sedov" in inputs_path.lower():
-        problem = "sedov"
+    if problem is None and inputs_path:
+        problem = next((name for name in problems if name in inputs_path.lower()), None)
     if problem not in problems:
         print(f"unknown problem {problem!r} (have: {sorted(problems)})")
         return 1

@@ -28,6 +28,7 @@
 // VMEM sizing (:356-383) have no counterpart: a thread computes its own
 // clamped indices.
 #include "common.cuh"
+#include "consup.cuh"
 #include "riemann.cuh"
 #include "trans.cuh"
 
@@ -43,13 +44,7 @@ struct FaceParams {
   T* qe1;
   T* flux2;
   T* qe2;
-  // consup fold
-  const T* hsrc;
-  const T* div;
-  const T* u;
-  T* hout;
-  T difmag, dxd, inv_dx, fin_dt;
-  int with_fin;
+  ConsupParams<T> cs;  // consup fold
   int d, solver, mask_lo, mask_hi, reset_density, reset_rhoe;
   T small_dens, small_pres;
 };
@@ -99,34 +94,6 @@ __device__ __forceinline__ void load_states(const FaceParams<T>& p, const Grid& 
   }
 }
 
-// The final-stage flux at face y with artificial viscosity and species
-// normalization applied (apply_av + normalize_species_fluxes).
-template <typename T, int NPASS>
-__device__ __forceinline__ void consup_flux(const FaceParams<T>& p, const Grid& g,
-                                            const Cell& y, FaceOut<T, NPASS>& o) {
-  const long long S = g.S;
-  int o1 = trans1(p.d), o2 = trans2(p.d);
-  // node divergence averaged over the face's nodes: {0,+1} along o1, then o2
-  Cell y1 = y.shift(g, o1, 1), y2 = y.shift(g, o2, 1), y12 = y1.shift(g, o2, 1);
-  T a1 = T(0.5) * (p.div[y.at(g)] + p.div[y1.at(g)]);
-  T a2 = T(0.5) * (p.div[y2.at(g)] + p.div[y12.at(g)]);
-  T div1 = T(0.5) * (a1 + a2);
-  T coeff = p.difmag * vmin(div1, T(0)) * p.dxd;
-  long long iy = y.at(g), il = y.shift(g, p.d, -1).at(g);
-#pragma unroll
-  for (int c = 0; c < UFS + NPASS; ++c) {
-    if (c == UTEMP) continue;
-    o.flux[c] = o.flux[c] + coeff * (p.u[c * S + iy] - p.u[c * S + il]);
-  }
-  // species: nspec == NPASS on the kernel path (no aux components)
-  T sumn = o.flux[UFS];
-#pragma unroll
-  for (int k = 1; k < NPASS; ++k) sumn = sumn + o.flux[UFS + k];
-  T fac = sumn != T(0) ? o.flux[URHO] / sumn : T(1);
-#pragma unroll
-  for (int k = 0; k < NPASS; ++k) o.flux[UFS + k] = o.flux[UFS + k] * fac;
-}
-
 template <typename T, int NPASS, int NT1, int NT2, bool CONSUP>
 __global__ void __launch_bounds__(128) ctu_face_kernel(const __grid_constant__ FaceParams<T> p,
                                                        Grid g) {
@@ -148,27 +115,19 @@ __global__ void __launch_bounds__(128) ctu_face_kernel(const __grid_constant__ F
     for (int c = 0; c < NGDNV; ++c) p.qe2[c * S + t] = o2.qe[c];
   }
   if (CONSUP) {
-    consup_flux<T, NPASS>(p, g, x, o);
+    consup_flux<T, NPASS>(p.cs, g, x, o.flux);
     Cell xp = x.shift(g, p.d, 1);
     FaceOut<T, NPASS> op;
     if (xp.c[p.d] != x.c[p.d]) {
       T qmp[NQ], qpp[NQ];
       load_states<T, NPASS>(p, g, xp.at(g), qmp, qpp);
       stage<T, NPASS, NT1>(p, p.terms, g, xp, qmp, qpp, op);
-      consup_flux<T, NPASS>(p, g, xp, op);
+      consup_flux<T, NPASS>(p.cs, g, xp, op.flux);
     } else {
       op = o;
     }
-    T pdivu = T(0.5) * (op.qe[GDPRES] + o.qe[GDPRES]) *
-              (op.qe[GDU + p.d] - o.qe[GDU + p.d]) * p.inv_dx;
-#pragma unroll
-    for (int c = 0; c < NVAR; ++c) {
-      T row = -(op.flux[c] - o.flux[c]) * p.inv_dx;
-      if (c == UEINT) row = row - pdivu;
-      T h = p.hsrc[c * S + t] + row;
-      if (p.with_fin) h = p.u[c * S + t] + p.fin_dt * h;
-      p.hout[c * S + t] = h;
-    }
+    consup_update<T, NPASS>(p.cs, g, t, o.flux, op.flux, o.qe[GDPRES], op.qe[GDPRES],
+                            o.qe[GDU + p.d], op.qe[GDU + p.d]);
   }
 #pragma unroll
   for (int c = 0; c < NVAR; ++c) p.flux1[c * S + t] = o.flux[c];
@@ -208,15 +167,7 @@ int launch_ctu_face(const void* qm, const void* qp, const void* qaux, const int*
   p.qe1 = (T*)qe1;
   p.flux2 = (T*)flux2;
   p.qe2 = (T*)qe2;
-  p.hsrc = (const T*)hsrc;
-  p.div = (const T*)div;
-  p.u = (const T*)u;
-  p.hout = (T*)hout;
-  p.difmag = T(cons[0]);
-  p.dxd = T(cons[1]);
-  p.inv_dx = T(cons[2]);
-  p.fin_dt = T(cons[3]);
-  p.with_fin = with_fin;
+  p.cs = make_consup<T>(hsrc, div, u, hout, cons, with_fin, d);
   p.d = d;
   p.solver = solver;
   p.mask_lo = mask_lo;

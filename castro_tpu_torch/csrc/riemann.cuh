@@ -1,5 +1,6 @@
 // The pointwise Riemann solve and flux assembly of one face, shared by the
-// fused trace kernel (trace_ppm.cu) and the CTU face kernel (ctu_face.cu).
+// cmpflx and trans_cmpflx kernels, the fused trace kernel (trace_ppm.cu)
+// and the CTU face kernel (ctu_face.cu).
 // Same arithmetic, in the same order, as castro_tpu_torch/ops/riemann.py:
 // riemannus (CGF two-shock, riemann_solvers.H:599), riemann_hllc (:993)
 // and compute_flux (compute_flux_q, :16-120), Cartesian.

@@ -1,6 +1,7 @@
 // The transverse bundle and the trans-apply reset ladder of one interface
 // state (reference trans.cpp:67,442 actual_trans_single/final), shared by
-// the variants of the CTU face kernel (ctu_face.cu). Same arithmetic as
+// the CTU face kernel (ctu_face.cu) and the standalone trans_apply and
+// trans_cmpflx kernels. Same arithmetic as
 // castro_tpu_torch/ops/trans.py:term_bundle + trans_apply_bundle.
 // Replaces castro_tpu/ops/pallas_kernels.py:_trans_apply_block (:85-142)
 // and the in-kernel bundle of ctu_face_pallas (:606-648).

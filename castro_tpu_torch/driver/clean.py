@@ -12,6 +12,9 @@ from __future__ import annotations
 
 import torch
 
+from castro_tpu_torch.ops.fill import fill_ghosts
+from castro_tpu_torch.ops.stencil import interior_slice
+
 
 def _full(like, value):
     return torch.full_like(like, value)
@@ -174,3 +177,19 @@ def clean_state(u, layout, eos, small_dens=1e-200, small_temp=1e-200,
         if cval is None:
             comps[i] = u[i]
     return torch.stack(comps)
+
+
+def clean_and_fill(u, layout, eos, lo_bc, hi_bc, ng, small_dens, small_temp,
+                   dual_energy_eta2, do_normalize_species, with_status=False):
+    """`clean_state`, then the ghost fill. With `with_status` also the
+    interior's minimum density and non-finite flag before the clean, as 0-d
+    tensors: (u, min_rho, nan_flag). In 3D `ops/kernels.py:clean_fill` does
+    the same in one kernel."""
+    if with_status:
+        inner = u[interior_slice(ng, layout.dim)]
+        status = (torch.min(inner[layout.URHO]), ~torch.isfinite(torch.sum(inner)))
+    out = clean_state(u, layout, eos, small_dens=small_dens, small_temp=small_temp,
+                      dual_energy_eta2=dual_energy_eta2,
+                      do_normalize_species=do_normalize_species)
+    out = fill_ghosts(out, layout, lo_bc, hi_bc, ng)
+    return (out,) + status if with_status else out

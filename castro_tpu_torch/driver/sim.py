@@ -6,12 +6,18 @@ Counterpart of `castro_tpu/driver/sim.py` (reference `Castro::advance` /
 `main()`, `Source/driver/main.cpp:118-214`). The state `u` always carries
 its ghost zones; every step ends with clean + ghost fill.
 
-A step has the structure of the JAX package's fused path: prim_aux,
-flatten, 3 trace_ppm, 3 paired ctu_face corner stages, 3 ctu_face final
-stages with consup, clean_fill (`ops/kernels.py`). On the card
-(`device="cuda"`, the default) each is a CUDA kernel; on the CPU each
-runs its plain PyTorch version. Sources, reactions, radiation, MHD, SDC, AMR and I/O are not
-ported (ROADMAP.md); a configuration that needs them raises.
+A step has the kernel structure of the JAX package on its accelerator
+(`ops/ctu.py`, `ops/kernels.py`). In 3D: prim_aux, then either the fused
+chain (flatten, 3 trace_ppm, 3 paired ctu_face corner stages, 3 ctu_face
+final stages with consup) or, with `riemann_solver=1` or `hybrid_riemann`,
+the unfused one (flatten, 3 trace_ppm, torch-op Riemann solves, 18
+trans_apply, 3 consup), then clean_fill. In 1D and 2D ctoprim, the trace,
+the Courant check, the status checks and clean + fill are torch ops and
+only the Riemann and transverse stages are kernels. On the card
+(`device="cuda"`, the default) each kernel is a CUDA kernel; on the CPU it
+runs its plain PyTorch version. Sources, reactions, radiation, MHD, SDC,
+AMR and I/O are not ported (ROADMAP.md); a configuration that needs them
+raises.
 """
 
 from __future__ import annotations
@@ -24,10 +30,12 @@ import numpy as np
 import torch
 
 from castro_tpu_torch.config import Params
+from castro_tpu_torch.driver.clean import clean_and_fill
 from castro_tpu_torch.driver.timestep import estdt_cfl
 from castro_tpu_torch.eos import make_eos
 from castro_tpu_torch.geometry import geometry_from_params, torch_dtype
 from castro_tpu_torch.network import make_network
+from castro_tpu_torch.ops import advection_util as au
 from castro_tpu_torch.ops import kernels as K
 from castro_tpu_torch.ops.ctu import HydroConfig, ctu_hydro
 from castro_tpu_torch.ops.stencil import interior_slice
@@ -59,12 +67,9 @@ def _unported(params):
     """The ROADMAP.md item of the first unported feature a config needs."""
     c = params.castro
     checks = [
-        (params.dim != 3, "1D and 2D hydro (queue 1 item 4)"),
         (params.geometry.coord_sys != 0, "curvilinear coordinates (queue 1 item 4)"),
         (c.do_hydro != 1, "castro.do_hydro=0 (queue 1 item 9)"),
         (c.ppm_type != 1, "PLM tracing (queue 1 item 4)"),
-        (c.riemann_solver not in (0, 2), "riemann_solver=1, riemanncg (queue 1 item 4)"),
-        (bool(c.hybrid_riemann), "hybrid_riemann (queue 1 item 4)"),
         (bool(c.use_shock_var), "use_shock_var (queue 1 item 4)"),
         (bool(c.hybrid_momentum), "hybrid momenta (queue 1 item 4)"),
         (bool(c.transverse_use_eos), "transverse_use_eos (queue 1 item 4)"),
@@ -78,7 +83,7 @@ def _unported(params):
         (bool(c.do_radiation), "radiation (queue 1 item 8)"),
         (bool(c.do_mhd), "MHD (queue 1 item 10)"),
         (params.amr.max_level > 0, "AMR (queue 1 item 5)"),
-        (any(b == 1 for b in tuple(c.lo_bc[:3]) + tuple(c.hi_bc[:3])),
+        (any(b == 1 for b in tuple(c.lo_bc[:params.dim]) + tuple(c.hi_bc[:params.dim])),
          "inflow boundaries and problem_fill (queue 1 item 4)"),
     ]
     return next((item for bad, item in checks if bad), None)
@@ -105,7 +110,7 @@ class Simulation:
         self.geom = geometry_from_params(params, self.dtype, self.device)
         self.eos = make_eos(params, self.network)
         self.problem_init = problem_init
-        K.check_kernel_layout(self.layout)
+        K.check_kernel_layout(self.layout, dims=(1, 2, 3))
         K.check_kernel_eos(self.eos, self.layout)
 
         c = params.castro
@@ -121,9 +126,11 @@ class Simulation:
             transverse_reset_density=bool(c.transverse_reset_density),
             transverse_reset_rhoe=bool(c.transverse_reset_rhoe),
             ppm_type=c.ppm_type,
+            shock_threshold=c.shock_detection_threshold,
+            hybrid_riemann=bool(c.hybrid_riemann),
             use_kernels=True,
-            lo_bc=tuple(c.lo_bc[:3]),
-            hi_bc=tuple(c.hi_bc[:3]),
+            lo_bc=tuple(c.lo_bc[:self.layout.dim]),
+            hi_bc=tuple(c.hi_bc[:self.layout.dim]),
             ng=self.ng,
         )
         self.t = 0.0
@@ -155,11 +162,13 @@ class Simulation:
         return self.u
 
     def _clean_fill_impl(self, u, with_status=False):
+        """clean_state + ghost fill; with_status also the pre-clean interior
+        min density and non-finite flag. One kernel in 3D, torch ops below."""
         c = self.params.castro
-        args = (u, self.layout, self.eos, self.cfg.lo_bc, self.cfg.hi_bc, self.ng,
-                self.cfg.small_dens, self.small_temp, c.dual_energy_eta2,
-                bool(c.normalize_species))
-        return K.clean_fill(*args, with_status=with_status)
+        impl = K.clean_fill if self.layout.dim == 3 else clean_and_fill
+        return impl(u, self.layout, self.eos, self.cfg.lo_bc, self.cfg.hi_bc, self.ng,
+                    self.cfg.small_dens, self.small_temp, c.dual_energy_eta2,
+                    bool(c.normalize_species), with_status=with_status)
 
     # -- dt ------------------------------------------------------------------
     def _estdt_impl(self, u):
@@ -189,14 +198,25 @@ class Simulation:
         cfg = self.cfg
         dtw = K.wt(dt, self.dtype)
         check_cfl = bool(c.check_cfl_violation)
-        res = K.prim_aux(u, L, self.eos, cfg.small_dens, self.small_temp,
-                         self.geom.dx, courant_dt=dtw if check_cfl else None)
-        q, qaux, div_node = res[0], res[1], res[2]
-        u_new, _, _ = ctu_hydro(u, q, qaux, None, dtw, self.geom, L, cfg,
-                                div_node=div_node, fold_update_dt=dtw)
+        courant = None
+        if L.dim == 3:
+            res = K.prim_aux(u, L, self.eos, cfg.small_dens, self.small_temp,
+                             self.geom.dx, courant_dt=dtw if check_cfl else None)
+            q, qaux, div_node = res[0], res[1], res[2]
+            if check_cfl:
+                courant = res[3]
+        else:
+            q, qaux = au.ctoprim(u, L, self.eos, cfg.small_dens, self.small_temp)
+            div_node = None
+            if check_cfl:
+                courant = au.max_courant(q, qaux, dtw, self.geom, L, self.ng,
+                                         whole_grid=True)
+        u_new = ctu_hydro(u, q, qaux, None, dtw, self.geom, L, cfg,
+                          div_node=div_node, fold_update_dt=dtw)[0]
+        del q, qaux, div_node
         u_new, min_rho, nan_flag = self._clean_fill_impl(u_new, with_status=True)
         if check_cfl:
-            nan_flag = nan_flag | (res[3] > 1.0)
+            nan_flag = nan_flag | (courant > 1.0)
         return u_new, min_rho, nan_flag
 
     def try_step(self, dt: float, t: Optional[float] = None):

@@ -2,8 +2,8 @@
 species-flux normalization, the Courant check.
 
 Counterpart of `castro_tpu/ops/advection_util.py` (reference
-`Source/hydro/advection_util.cpp`: ctoprim :27, divu :367, apply_av :483,
-normalize_species_fluxes :578). The flux limiters and `shock` are not
+`Source/hydro/advection_util.cpp`: ctoprim :27, shock :204, divu :367,
+apply_av :483, normalize_species_fluxes :578). The flux limiters are not
 ported yet (ROADMAP.md).
 """
 
@@ -63,6 +63,26 @@ def src_to_prim(q, qaux, src, layout):
     srcq[L.QPRES] = (qaux[L.QDPDE] * (srcq[L.QREINT] - e * srcq[L.QRHO]) * rhoinv
                      + qaux[L.QDPDR] * srcq[L.QRHO])
     return srcq
+
+
+def shock(q, dx, layout, threshold=2.0 / 3.0):
+    """Multidimensional shock detector (reference `shock`,
+    advection_util.cpp:204): 1 in zones with converging flow and a pressure
+    jump above `threshold` relative to the local minimum pressure, else 0."""
+    L = layout
+    p = q[L.QPRES]
+    div_u = torch.zeros_like(p)
+    for d in range(L.dim):
+        vel = q[L.velocity_index(d)]
+        div_u = div_u + 0.5 * (shifted(vel, 1, d) - shifted(vel, -1, d)) / dx[d]
+    dp2 = torch.zeros_like(p)
+    p_min = p
+    for d in range(L.dim):
+        pp, pm = shifted(p, 1, d), shifted(p, -1, d)
+        dp2 = dp2 + (0.5 * (pp - pm)) ** 2
+        p_min = torch.minimum(p_min, torch.minimum(pp, pm))
+    flagged = (div_u < 0.0) & (torch.sqrt(dp2) / p_min > threshold)
+    return flagged.to(p.dtype)
 
 
 def divu_node(q, dx, layout):

@@ -1,23 +1,34 @@
-"""The CTU (corner transport upwind) unsplit Godunov hydro update, 3D.
+"""The CTU (corner transport upwind) unsplit Godunov hydro update, Cartesian,
+in one, two or three dimensions.
 
 Counterpart of `castro_tpu/ops/ctu.py` (reference `construct_ctu_hydro_source`,
-`Source/hydro/Castro_ctu_hydro.cpp:17-1528`): ctoprim -> flatten ->
-PPM trace per dim -> 1D Riemann -> six corner-coupled transverse stages ->
-three final stages -> artificial viscosity, species flux normalization and
-the conservative update with p div(u).
+`Source/hydro/Castro_ctu_hydro.cpp:17-1528`): ctoprim -> flatten -> shock
+detect -> PPM trace per dim -> 1D Riemann -> transverse corrections (2D: one
+pass per direction; 3D: six corner-coupled stages and three final stages) ->
+artificial viscosity, species flux normalization and the conservative
+update with p div(u).
 
-Two structures compute the same update:
-- the kernel structure (`cfg.use_kernels`, the JAX package's fused Pallas
-  structure `ctu.py:185-325`): the trace kernel emits the 1D fluxes, one
-  `ctu_face` launch per normal pairs its two corner stages, and the final
-  stage of each normal folds its consup pass, normal 2 emitting
-  u + dt*hsrc. It runs on the card through the CUDA kernels and on the CPU
-  through their plain versions;
-- the plain structure (the JAX package's XLA path, `ctu.py:326-358`,
-  `:424-480`) of separate trace, Riemann, transverse and consup passes.
+`cfg.use_kernels` chooses between two structures that compute the same
+update. With it (CUDA kernels on the card, their plain versions on the CPU):
+- 3D fused (`riemann_solver` 0 or 2, no `hybrid_riemann`; the JAX package's
+  fused Pallas structure, `ctu.py:185-325`): the trace kernel emits the 1D
+  fluxes, one `ctu_face` launch per normal pairs its two corner stages, and
+  the final stage of each normal folds its consup pass, normal 2 emitting
+  u + dt*hsrc;
+- 3D unfused (`riemann_solver=1` or `hybrid_riemann`; `ctu.py:326-358`,
+  `:394-411`): flatten and trace kernels, the 12 Riemann solves as torch
+  ops (riemanncg, or riemannus + the HLL hybrid), 18 `trans_apply` launches
+  and one `consup` launch per direction;
+- 2D: `cmpflx` for the two 1D solves and `trans_cmpflx` for the final stage
+  of each direction (the JAX package launches `trans_apply_pallas` four
+  times and `cmpflx_pallas` twice there; the arithmetic per face is the
+  same), or with `riemann_solver=1` / `hybrid_riemann` four `trans_apply`
+  launches around torch-op solves; 1D: one `cmpflx`.
+Without it, the plain structure (the JAX package's XLA path, `ctu.py:326-358`,
+`:424-480`) of separate trace, Riemann, transverse and consup passes.
 
-The 1D and 2D branches, PLM, hybrid Riemann, shock variables, curvilinear
-coordinates and the flux limiters are not ported (ROADMAP.md).
+PLM, shock variables, curvilinear coordinates, the flux limiters, hybrid
+momenta and `transverse_use_eos` are not ported (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -34,7 +45,7 @@ from castro_tpu_torch.ops.flatten import uflatten
 from castro_tpu_torch.ops.riemann import WallMask, cmpflx
 from castro_tpu_torch.ops.stencil import shifted
 from castro_tpu_torch.ops.trace_ppm import trace_ppm
-from castro_tpu_torch.ops.trans import trans_final, trans_single
+from castro_tpu_torch.ops.trans import term_bundle, trans_final, trans_single
 
 
 class HydroConfig(NamedTuple):
@@ -49,6 +60,8 @@ class HydroConfig(NamedTuple):
     transverse_reset_density: bool = True
     transverse_reset_rhoe: bool = False
     ppm_type: int = 1
+    shock_threshold: float = 2.0 / 3.0
+    hybrid_riemann: bool = False
     #: the kernel structure (CUDA kernels on the card, their plain versions
     #: on the CPU) instead of the plain structure
     use_kernels: bool = False
@@ -73,8 +86,6 @@ def _bnd_masks(grid_shape, dim, ng, lo_bc, hi_bc):
 
 
 def _check_supported(geom, layout, cfg):
-    if layout.dim != 3:
-        raise NotImplementedError("only the 3D CTU branch is ported (ROADMAP.md, queue 1 item 4)")
     if geom.coord != CoordSys.CARTESIAN:
         raise NotImplementedError("curvilinear CTU is not ported (ROADMAP.md, queue 1 item 4)")
     if cfg.ppm_type == 0:
@@ -90,59 +101,108 @@ def ctu_hydro(u, q, qaux, srcQ, dt, geom, layout, cfg: HydroConfig,
 
     Returns (hsrc [NVAR], or u + fold_update_dt*hsrc when given; the final
     fluxes per dim [NVAR, faces]; the Godunov states per dim [NGDNV,
-    faces]). The interior is valid; the ghost margin is garbage."""
+    faces]; the shock flag, or None unless `hybrid_riemann`). The interior
+    is valid; the ghost margin is garbage."""
     L = layout
+    dim = L.dim
     _check_supported(geom, L, cfg)
     dx = geom.dx
+    coord = geom.coord
     grid_shape = tuple(q.shape[1:])
     dt = K.wt(dt, q.dtype)
+    kern = cfg.use_kernels
+    # riemann_solver 0 and 2 have a kernel; riemanncg and the HLL hybrid do not
+    kernel_solve = kern and not cfg.hybrid_riemann and cfg.riemann_solver in (0, 2)
     if cfg.use_flattening:
-        flatn = K.flatten(q, L) if cfg.use_kernels else uflatten(q, L)
+        flatn = K.flatten(q, L) if kern and dim == 3 else uflatten(q, L)
     else:
         flatn = torch.ones(grid_shape, dtype=q.dtype, device=q.device)
+    shk = au.shock(q, dx, L, cfg.shock_threshold) if cfg.hybrid_riemann else None
     if div_node is None:
         div_node = au.divu_node(q, dx, L)
-    masks = _bnd_masks(grid_shape, 3, cfg.ng, cfg.lo_bc, cfg.hi_bc)
-    third = dt / 3.0
-    hdt = 0.5 * dt
-    if cfg.use_kernels:
-        return _ctu_kernels(u, q, qaux, srcQ, dt, dx, geom.coord, flatn, div_node,
-                            masks, third, hdt, L, cfg, fold_update_dt)
+    masks = _bnd_masks(grid_shape, dim, cfg.ng, cfg.lo_bc, cfg.hi_bc)
+    if kernel_solve and dim == 3:
+        return _ctu_kernels(u, q, qaux, srcQ, dt, dx, coord, flatn, div_node, masks, L,
+                            cfg, fold_update_dt) + (None,)
+
+    def trace(d):
+        tracer = K.trace_ppm if kern and dim == 3 else trace_ppm
+        return tracer(q, qaux, srcQ, flatn, d, dt, dx[d], L, cfg.small_dens,
+                      cfg.small_pres, cfg.small_ener)
 
     def solve(qm, qp, d):
-        return cmpflx(qm, qp, qaux, d, L, geom.coord, riemann_solver=cfg.riemann_solver,
+        return cmpflx(qm, qp, qaux, d, L, coord, riemann_solver=cfg.riemann_solver,
                       small_dens=cfg.small_dens, small_pres=cfg.small_pres,
-                      bnd_mask=masks[d])
+                      bnd_mask=masks[d], hybrid_riemann=cfg.hybrid_riemann, shk=shk,
+                      use_kernels=kern)
 
-    states = [trace_ppm(q, qaux, srcQ, flatn, d, dt, dx[d], L, cfg.small_dens,
-                        cfg.small_pres, cfg.small_ener) for d in range(3)]
-    f1d = [solve(states[d][0], states[d][1], d) for d in range(3)]
-    # corner-coupled states q{n}|{t}
-    fint = {}
-    for n in range(3):
-        for t in range(3):
-            if t == n:
+    reset = (cfg.transverse_reset_density, cfg.transverse_reset_rhoe)
+    states = [trace(d) for d in range(dim)]
+    if dim == 1:
+        fluxes_qe = [solve(states[0][0], states[0][1], 0)]
+    elif dim == 2:
+        f1d = [solve(states[d][0], states[d][1], d) for d in range(2)]
+        hdt = 0.5 * dt
+        fluxes_qe = []
+        for n, t in ((0, 1), (1, 0)):
+            # correct the n-states with the t-fluxes, then solve (reference
+            # 2D pass, Castro_ctu_hydro.cpp:575-696)
+            if kernel_solve:
+                fluxes_qe.append(_trans_solve(states[n], f1d[t], qaux, n, t, hdt / dx[t], L,
+                                              coord, cfg, masks[n]))
                 continue
-            qm_c, qp_c = trans_single(
-                states[n][0], states[n][1], f1d[t][0], f1d[t][1], qaux, n, t,
-                third / dx[t], L, cfg.small_pres, cfg.transverse_reset_density,
-                cfg.transverse_reset_rhoe)
-            fint[(n, t)] = solve(qm_c, qp_c, n)
-    # final states: q{n} corrected by F^{t1|t2} and F^{t2|t1}
-    fluxes, qes = [], []
-    for n in range(3):
-        t1, t2 = [d for d in range(3) if d != n]
-        qm_f, qp_f = trans_final(
-            states[n][0], states[n][1], fint[(t1, t2)][0], fint[(t1, t2)][1],
-            fint[(t2, t1)][0], fint[(t2, t1)][1], qaux, n, t1, t2,
-            hdt / dx[t1], hdt / dx[t2], L, cfg.small_pres,
-            cfg.transverse_reset_density, cfg.transverse_reset_rhoe)
-        f, qe = solve(qm_f, qp_f, n)
-        fluxes.append(f)
-        qes.append(qe)
+            qm_c, qp_c = trans_single(states[n][0], states[n][1], f1d[t][0], f1d[t][1],
+                                      qaux, n, t, hdt / dx[t], L, cfg.small_pres, *reset,
+                                      use_kernels=kern)
+            fluxes_qe.append(solve(qm_c, qp_c, n))
+        del f1d
+    else:
+        # 3D full corner coupling (reference Castro_ctu_hydro.cpp:700-1150)
+        third = dt / 3.0
+        hdt = 0.5 * dt
+        f1d = [solve(states[d][0], states[d][1], d) for d in range(3)]
+        # F^{n|t} from the corner-coupled states q{n}|{t}
+        fint = {}
+        for n in range(3):
+            for t in range(3):
+                if t == n:
+                    continue
+                qm_c, qp_c = trans_single(
+                    states[n][0], states[n][1], f1d[t][0], f1d[t][1], qaux, n, t,
+                    third / dx[t], L, cfg.small_pres, *reset, use_kernels=kern)
+                fint[(n, t)] = solve(qm_c, qp_c, n)
+                del qm_c, qp_c
+        del f1d
+        # final states: q{n} corrected by F^{t1|t2} and F^{t2|t1}
+        fluxes_qe = []
+        for n in range(3):
+            t1, t2 = [d for d in range(3) if d != n]
+            qm_f, qp_f = trans_final(
+                states[n][0], states[n][1], fint[(t1, t2)][0], fint[(t1, t2)][1],
+                fint[(t2, t1)][0], fint[(t2, t1)][1], qaux, n, t1, t2,
+                hdt / dx[t1], hdt / dx[t2], L, cfg.small_pres, *reset, use_kernels=kern)
+            fluxes_qe.append(solve(qm_f, qp_f, n))
+            del qm_f, qp_f
+        del fint
+    del states
+    fluxes = [fq[0] for fq in fluxes_qe]
+    qes = [fq[1] for fq in fluxes_qe]
+
+    if kern and dim == 3:
+        # one consup launch per direction, accumulated over 0, 1, 2; the
+        # last emits u + dt*hsrc
+        hsrc = torch.zeros_like(u)
+        for d in range(3):
+            fin = fold_update_dt if d == 2 else None
+            hsrc, fluxes[d] = K.consup(hsrc, fluxes[d], qes[d][L.GDPRES],
+                                       qes[d][(L.GDU, L.GDV, L.GDW)[d]], div_node, u, d, L,
+                                       cfg.difmag, dx, finalize_dt=fin)
+        if fold_update_dt is None:
+            hsrc[L.UTEMP] = 0.0
+        return hsrc, fluxes, qes, shk
 
     # artificial viscosity + species flux normalization
-    for d in range(3):
+    for d in range(dim):
         fluxes[d] = au.apply_av(fluxes[d], d, div_node, u, L, cfg.difmag, dx)
         fluxes[d] = au.normalize_species_fluxes(fluxes[d], L)
 
@@ -151,7 +211,7 @@ def ctu_hydro(u, q, qaux, srcQ, dt, geom, layout, cfg: HydroConfig,
     volinv = 1.0 / geom.volume(cfg.ng)
     hsrc = torch.zeros_like(u)
     pdivu = torch.zeros(grid_shape, dtype=q.dtype, device=q.device)
-    for d in range(3):
+    for d in range(dim):
         av = geom.face_area(d, cfg.ng) * volinv
         hsrc = hsrc + (av * fluxes[d] - av * shifted(fluxes[d], 1, 1 + d))
         gdu = qes[d][(L.GDU, L.GDV, L.GDW)[d]]
@@ -161,12 +221,29 @@ def ctu_hydro(u, q, qaux, srcQ, dt, geom, layout, cfg: HydroConfig,
     hsrc[L.UTEMP] = 0.0
     if fold_update_dt is not None:
         hsrc = u + K.wt(fold_update_dt, u.dtype) * hsrc
-    return hsrc, fluxes, qes
+    return hsrc, fluxes, qes, shk
 
 
-def _ctu_kernels(u, q, qaux, srcQ, dt, dx, coord, flatn, div_node, masks, third,
-                 hdt, L, cfg, fold_update_dt):
-    """The kernel structure: 3 trace + 3 paired corner + 3 final launches."""
+def _trans_solve(state, f_t, qaux, n, t, cdtdx, L, coord, cfg, mask):
+    """The 2D final stage of normal n as one `trans_cmpflx` launch: both
+    states corrected by the t-direction flux difference, then solved."""
+    term = [{"flux": f_t[0], "qe": f_t[1], "t_dir": t, "cdtdx": cdtdx}]
+    df_p, dre_p, dp_p = term_bundle(term, qaux, n, 0, L)
+    df_m, dre_m, dp_m = term_bundle(term, qaux, n, -1, L)
+    c, g = qaux[L.QC], qaux[L.QGAMC]
+    return K.trans_cmpflx(state[0], state[1], df_m, df_p, dre_m, dre_p, dp_m, dp_p,
+                          shifted(g, -1, n), g, shifted(c, -1, n), c, n, L, coord,
+                          cfg.riemann_solver, cfg.small_dens, cfg.small_pres,
+                          cfg.transverse_reset_density, cfg.transverse_reset_rhoe,
+                          bnd_mask=mask)
+
+
+def _ctu_kernels(u, q, qaux, srcQ, dt, dx, coord, flatn, div_node, masks, L, cfg,
+                 fold_update_dt):
+    """The fused 3D kernel structure: 3 trace + 3 paired corner + 3 final
+    launches."""
+    third = dt / 3.0
+    hdt = 0.5 * dt
     res = [K.trace_ppm(q, qaux, srcQ, flatn, d, dt, dx[d], L, cfg.small_dens,
                        cfg.small_pres, cfg.small_ener,
                        fuse_riemann=dict(coord=coord, riemann_solver=cfg.riemann_solver,

@@ -1,14 +1,21 @@
-"""The hand-written CUDA kernels of the 3D CTU step, their wrappers, and
-the plain PyTorch version of each.
+"""The hand-written CUDA kernels of the CTU step, their wrappers, and the
+plain PyTorch version of each.
 
-Counterpart of `castro_tpu/ops/pallas_kernels.py`. Five kernels, one
+Counterpart of `castro_tpu/ops/pallas_kernels.py`. Nine kernels, one
 source each under `castro_tpu_torch/csrc/`:
 
-  prim_aux    ctoprim + node div u + whole-grid Courant max  (prim_aux.cu)
-  flatten     Miller-Colella flattening, 3 directions + min    (flatten.cu)
-  trace_ppm   PPM trace of one direction [+ 1D Riemann + flux] (trace_ppm.cu)
-  ctu_face    one CTU face stage [paired | + consup]           (ctu_face.cu)
-  clean_fill  clean_state + ghost fill [+ status]              (clean_fill.cu)
+  prim_aux      ctoprim + node div u + whole-grid Courant max  (prim_aux.cu)
+  flatten       Miller-Colella flattening, 3 directions + min    (flatten.cu)
+  trace_ppm     PPM trace of one direction [+ 1D Riemann + flux] (trace_ppm.cu)
+  ctu_face      one CTU face stage [paired | + consup]           (ctu_face.cu)
+  clean_fill    clean_state + ghost fill [+ status]              (clean_fill.cu)
+  cmpflx        pointwise Riemann solve + flux, 1D/2D/3D         (cmpflx.cu)
+  trans_apply   transverse apply on a summed bundle, 2D/3D       (trans_apply.cu)
+  trans_cmpflx  trans_apply of both states + cmpflx, one pass    (trans_cmpflx.cu)
+  consup        one direction's conservative update, 3D          (consup.cu)
+
+The first five and consup are 3D; the three pointwise kernels take a grid
+of any dimension.
 
 Each wrapper takes the JAX function's arguments and returns what it
 returns. On a CPU tensor it runs its plain version (`*_plain`, composed from
@@ -36,18 +43,20 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from castro_tpu_torch.driver.clean import clean_state
+from castro_tpu_torch.driver.clean import clean_and_fill
 from castro_tpu_torch.ops import advection_util as au
-from castro_tpu_torch.ops.fill import WALLS, fill_ghosts
+from castro_tpu_torch.ops.fill import WALLS
 from castro_tpu_torch.ops.flatten import DZCUT, SHKTST, ZCUT1, small_pressure, uflatten
-from castro_tpu_torch.ops.riemann import cmpflx
-from castro_tpu_torch.ops.stencil import interior_slice, shifted
+from castro_tpu_torch.ops.riemann import cmpflx as cmpflx_qaux
+from castro_tpu_torch.ops.riemann import compute_flux, riemann_inputs, solve
+from castro_tpu_torch.ops.stencil import shifted
 from castro_tpu_torch.ops.trace_ppm import trace_ppm as trace_ppm_xla
 from castro_tpu_torch.ops.trans import term_bundle, trans_apply_bundle
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent.parent / "_build"
-SOURCES = ("prim_aux.cu", "flatten.cu", "trace_ppm.cu", "ctu_face.cu", "clean_fill.cu")
+SOURCES = ("prim_aux.cu", "flatten.cu", "trace_ppm.cu", "ctu_face.cu", "clean_fill.cu",
+           "cmpflx.cu", "trans_apply.cu", "trans_cmpflx.cu", "consup.cu")
 # --fmad=false: no multiply-add contraction, so each operation rounds as
 # the plain version's does. The kernels are bound by bytes, and at the
 # sharp edge of a Sedov blast the trace cancels O(100) terms down to
@@ -145,6 +154,12 @@ _SIGNATURES = {
                  _INT, _INT, _DBL, _DBL, _VP],
     "clean_fill": [_VP, _VP, _VP, _VP, _VP, _INT, _VP, _VP, _INT, _VP, _INT, _INT,
                    _VP, _VP, _VP, _INT, _VP],
+    "cmpflx": [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _INT, _INT, _INT, _INT, _INT,
+               _DBL, _DBL, _VP],
+    "trans_apply": [_VP, _VP, _VP, _VP, _VP, _VP, _INT, _INT, _INT, _DBL, _VP],
+    "trans_cmpflx": [_VP] * 14 + [_VP, _INT, _INT, _INT, _INT, _INT, _INT, _INT,
+                                  _DBL, _DBL, _VP],
+    "consup": [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _INT, _INT, _VP, _INT, _VP],
 }
 
 
@@ -209,11 +224,14 @@ def _check(t, name, dtype, shape):
         raise ValueError(f"{name} must be contiguous")
 
 
-def check_kernel_layout(layout):
-    """Raise NotImplementedError unless the kernels cover this layout."""
+def check_kernel_layout(layout, dims=(3,)):
+    """Raise NotImplementedError unless a kernel that takes grids of the
+    dimensions `dims` covers this layout."""
     L = layout
-    if L.dim != 3:
-        raise NotImplementedError("the CUDA kernels are 3D (ROADMAP.md, queue 1 item 4)")
+    if L.dim not in dims:
+        raise NotImplementedError(
+            f"this CUDA kernel takes {'/'.join(f'{k}D' for k in dims)} grids, not {L.dim}D "
+            "(ROADMAP.md, queue 2, kernel coverage)")
     if L.shock_var or L.hybrid_momentum or L.mhd or L.radiation:
         raise NotImplementedError(
             "the CUDA kernels cover pure hydro without shock_var or hybrid momenta "
@@ -265,6 +283,12 @@ def wt(x, dtype):
 
 def _wall_index(mask):
     return (-1, -1) if mask is None else (mask.lo, mask.hi)
+
+
+def _grid3(g):
+    """Grid extents padded with trailing 1s to the kernels' three axes:
+    axis d of a 1D or 2D grid stays axis d, and the strides agree."""
+    return _ints(*(tuple(g) + (1,) * (3 - len(g))))
 
 
 # -- 1. prim_aux ---------------------------------------------------------------
@@ -348,9 +372,9 @@ def trace_ppm_plain(q, qaux, srcQ, flatn, d, dt, dx_d, layout, small_dens,
                            small_dens, small_pres, small_ener)
     if fuse_riemann is None:
         return qm, qp
-    flux, qe = cmpflx(qm, qp, qaux, d, layout, fuse_riemann["coord"],
-                      fuse_riemann["riemann_solver"], small_dens, small_pres,
-                      bnd_mask=fuse_riemann.get("bnd_mask"))
+    flux, qe = cmpflx_qaux(qm, qp, qaux, d, layout, fuse_riemann["coord"],
+                           fuse_riemann["riemann_solver"], small_dens, small_pres,
+                           bnd_mask=fuse_riemann.get("bnd_mask"))
     return qm, qp, flux, qe
 
 
@@ -401,7 +425,8 @@ trace_ppm.launches = 0
 def _kernel_solver(riemann_solver):
     if riemann_solver not in (0, 2):
         raise NotImplementedError(
-            f"riemann_solver={riemann_solver} has no CUDA kernel (ROADMAP.md, queue 1 item 4)")
+            f"riemann_solver={riemann_solver} has no CUDA kernel: riemanncg runs as torch "
+            "ops (ops/riemann.py)")
     return riemann_solver
 
 
@@ -422,30 +447,8 @@ def _face_solve_plain(qm, qp, qaux, d, terms, layout, coord, riemann_solver,
                                 reset_density, reset_rhoe)
         qp = trans_apply_bundle(qp, dfp, drep, dpp, layout, small_pres,
                                 reset_density, reset_rhoe)
-    return cmpflx(qm, qp, qaux, d, layout, coord, riemann_solver, small_dens,
-                  small_pres, bnd_mask=bnd_mask)
-
-
-def consup_plain(flux, qe, d, layout, consup):
-    """This direction's consup folded onto the final flux: artificial
-    viscosity, species normalization, the flux divergence and p div u added
-    to hsrc, and u + dt*hsrc with `finalize_dt`. Returns (flux', hsrc')."""
-    L = layout
-    dx = consup["dx"]
-    u = consup["u"]
-    flc = au.apply_av(flux, d, consup["div_node"], u, L, consup["difmag"], dx)
-    flc = au.normalize_species_fluxes(flc, L)
-    inv = 1.0 / float(dx[d])
-    rows = -(shifted(flc, 1, 1 + d) - flc) * inv
-    pg = qe[L.GDPRES]
-    ug = qe[(L.GDU, L.GDV, L.GDW)[d]]
-    pdivu = 0.5 * (shifted(pg, 1, d) + pg) * (shifted(ug, 1, d) - ug) * inv
-    rows[L.UEINT] = rows[L.UEINT] - pdivu
-    htot = consup["hsrc"] + rows
-    fin = consup.get("finalize_dt")
-    if fin is not None:
-        htot = u + wt(fin, u.dtype) * htot
-    return flc, htot
+    return cmpflx_qaux(qm, qp, qaux, d, layout, coord, riemann_solver, small_dens,
+                       small_pres, bnd_mask=bnd_mask)
 
 
 def ctu_face_plain(qm, qp, qaux, d, terms, layout, coord, riemann_solver,
@@ -457,8 +460,12 @@ def ctu_face_plain(qm, qp, qaux, d, terms, layout, coord, riemann_solver,
     if terms2 is not None:
         return out, _face_solve_plain(qm, qp, qaux, d, terms2, *args)
     if consup is not None:
-        flc, hsrc = consup_plain(out[0], out[1], d, layout, consup)
-        return (flc, out[1]), hsrc
+        flux, qe = out
+        hsrc, flc = consup_plain(
+            consup["hsrc"], flux, qe[layout.GDPRES], qe[(layout.GDU, layout.GDV, layout.GDW)[d]],
+            consup["div_node"], consup["u"], d, layout, consup["difmag"], consup["dx"],
+            finalize_dt=consup.get("finalize_dt"))
+        return (flc, qe), hsrc
     return out
 
 
@@ -542,17 +549,7 @@ ctu_face.launches = 0
 
 # -- 5. clean_fill ---------------------------------------------------------------
 
-def clean_fill_plain(u, layout, eos, lo_bc, hi_bc, ng, small_dens, small_temp,
-                     dual_energy_eta2, do_normalize_species, with_status=False):
-    status = None
-    if with_status:
-        inner = u[interior_slice(ng, layout.dim)]
-        status = (torch.min(inner[layout.URHO]), ~torch.isfinite(torch.sum(inner)))
-    out = clean_state(u, layout, eos, small_dens=small_dens, small_temp=small_temp,
-                      dual_energy_eta2=dual_energy_eta2,
-                      do_normalize_species=do_normalize_species)
-    out = fill_ghosts(out, layout, lo_bc, hi_bc, ng)
-    return (out,) + status if with_status else out
+clean_fill_plain = clean_and_fill
 
 
 def clean_fill(u, layout, eos, lo_bc, hi_bc, ng, small_dens, small_temp,
@@ -591,7 +588,187 @@ def clean_fill(u, layout, eos, lo_bc, hi_bc, ng, small_dens, small_temp,
 clean_fill.launches = 0
 
 
-KERNELS = (prim_aux, flatten, trace_ppm, ctu_face, clean_fill)
+# -- 6. cmpflx -------------------------------------------------------------------
+
+def cmpflx_plain(qm, qp, gamc_l, gamc_r, c_l, c_r, d, layout, coord, riemann_solver,
+                 small_dens, small_pres, bnd_mask=None):
+    ri = riemann_inputs(qm, qp, gamc_l, gamc_r, c_l, c_r, d, layout, small_dens)
+    gd = solve(ri, _kernel_solver(riemann_solver), small_dens, small_pres)
+    if bnd_mask is not None:
+        bnd_mask = bnd_mask.tensor(qm.dtype, qm.device, qm.dim() - 1)
+    return compute_flux(gd, qm, qp, d, layout, coord, bnd_mask=bnd_mask)
+
+
+def cmpflx(qm, qp, gamc_l, gamc_r, c_l, c_r, d, layout, coord, riemann_solver,
+           small_dens, small_pres, bnd_mask=None):
+    """Pointwise Riemann solve (riemann_solver 0 or 2), flux [NVAR] and
+    Godunov state [NGDNV] on every face of a 1D, 2D or 3D grid, given the
+    face states and the gamc and c of the cells on both sides, as
+    `pallas_kernels.cmpflx_pallas`; `bnd_mask` (a WallMask of direction d)
+    zeroes the interface velocity on wall faces as `compute_flux` does."""
+    if not _on_cuda(qm, qp, gamc_l, gamc_r, c_l, c_r):
+        return cmpflx_plain(qm, qp, gamc_l, gamc_r, c_l, c_r, d, layout, coord,
+                            riemann_solver, small_dens, small_pres, bnd_mask)
+    L = layout
+    check_kernel_layout(L, dims=(1, 2, 3))
+    _check_cartesian(coord)
+    solver = _kernel_solver(riemann_solver)
+    dt_ = qm.dtype
+    g = tuple(qm.shape[1:])
+    _check(qm, "qm", dt_, (L.NQ,) + g)
+    _check(qp, "qp", dt_, (L.NQ,) + g)
+    for name, t in (("gamc_l", gamc_l), ("gamc_r", gamc_r), ("c_l", c_l), ("c_r", c_r)):
+        _check(t, name, dt_, g)
+    flux = torch.empty((L.NVAR,) + g, dtype=dt_, device=qm.device)
+    qe = torch.empty((L.NGDNV,) + g, dtype=dt_, device=qm.device)
+    mlo, mhi = _wall_index(bnd_mask)
+    _call("cmpflx", qm, qm.data_ptr(), qp.data_ptr(), gamc_l.data_ptr(), gamc_r.data_ptr(),
+          c_l.data_ptr(), c_r.data_ptr(), flux.data_ptr(), qe.data_ptr(), _grid3(g),
+          L.nspec + L.naux, d, solver, mlo, mhi, float(wt(small_dens, dt_)),
+          float(wt(small_pres, dt_)), _stream(qm))
+    cmpflx.launches += 1
+    return flux, qe
+
+
+cmpflx.launches = 0
+
+
+# -- 7. trans_apply ----------------------------------------------------------------
+
+trans_apply_plain = trans_apply_bundle
+
+
+def trans_apply(q_face, dflux, dreint_extra, dp, layout, small_pres, reset_density,
+                reset_rhoe):
+    """The transverse correction of one interface state given its summed
+    bundle (`trans.term_bundle`): the conserved update, the density and
+    (rho e) reset ladder, back to primitive; untouched components are
+    copied through. As `pallas_kernels.trans_apply_pallas`, any dimension."""
+    if not _on_cuda(q_face, dflux, dreint_extra, dp):
+        return trans_apply_plain(q_face, dflux, dreint_extra, dp, layout, small_pres,
+                                 reset_density, reset_rhoe)
+    L = layout
+    check_kernel_layout(L, dims=(1, 2, 3))
+    dt_ = q_face.dtype
+    g = tuple(q_face.shape[1:])
+    _check(q_face, "q_face", dt_, (L.NQ,) + g)
+    _check(dflux, "dflux", dt_, (L.NVAR,) + g)
+    _check(dreint_extra, "dreint_extra", dt_, g)
+    _check(dp, "dp", dt_, g)
+    out = torch.empty_like(q_face)
+    _call("trans_apply", q_face, q_face.data_ptr(), dflux.data_ptr(), dreint_extra.data_ptr(),
+          dp.data_ptr(), out.data_ptr(), _grid3(g), L.nspec + L.naux,
+          int(bool(reset_density)), int(bool(reset_rhoe)), float(wt(small_pres, dt_)),
+          _stream(q_face))
+    trans_apply.launches += 1
+    return out
+
+
+trans_apply.launches = 0
+
+
+# -- 8. trans_cmpflx ---------------------------------------------------------------
+
+def trans_cmpflx_plain(qm, qp, df_m, df_p, dre_m, dre_p, dp_m, dp_p, gamc_l, gamc_r,
+                       c_l, c_r, d, layout, coord, riemann_solver, small_dens, small_pres,
+                       reset_density, reset_rhoe, bnd_mask=None):
+    qm_c = trans_apply_bundle(qm, df_m, dre_m, dp_m, layout, small_pres, reset_density,
+                              reset_rhoe)
+    qp_c = trans_apply_bundle(qp, df_p, dre_p, dp_p, layout, small_pres, reset_density,
+                              reset_rhoe)
+    return cmpflx_plain(qm_c, qp_c, gamc_l, gamc_r, c_l, c_r, d, layout, coord,
+                        riemann_solver, small_dens, small_pres, bnd_mask)
+
+
+def trans_cmpflx(qm, qp, df_m, df_p, dre_m, dre_p, dp_m, dp_p, gamc_l, gamc_r, c_l, c_r,
+                 d, layout, coord, riemann_solver, small_dens, small_pres,
+                 reset_density, reset_rhoe, bnd_mask=None):
+    """Transverse-correct both interface states with their summed bundles,
+    then the Riemann solve and flux, in one pass: the corrected states are
+    never written to memory. As `pallas_kernels.trans_cmpflx_pallas`."""
+    tensors = (qm, qp, df_m, df_p, dre_m, dre_p, dp_m, dp_p, gamc_l, gamc_r, c_l, c_r)
+    if not _on_cuda(*tensors):
+        return trans_cmpflx_plain(*tensors, d, layout, coord, riemann_solver, small_dens,
+                                  small_pres, reset_density, reset_rhoe, bnd_mask)
+    L = layout
+    check_kernel_layout(L, dims=(1, 2, 3))
+    _check_cartesian(coord)
+    solver = _kernel_solver(riemann_solver)
+    dt_ = qm.dtype
+    g = tuple(qm.shape[1:])
+    names = ("qm", "qp", "df_m", "df_p", "dre_m", "dre_p", "dp_m", "dp_p", "gamc_l",
+             "gamc_r", "c_l", "c_r")
+    lead = ((L.NQ,), (L.NQ,), (L.NVAR,), (L.NVAR,)) + ((),) * 8
+    for name, t, nc in zip(names, tensors, lead):
+        _check(t, name, dt_, nc + g)
+    flux = torch.empty((L.NVAR,) + g, dtype=dt_, device=qm.device)
+    qe = torch.empty((L.NGDNV,) + g, dtype=dt_, device=qm.device)
+    mlo, mhi = _wall_index(bnd_mask)
+    _call("trans_cmpflx", qm, *(t.data_ptr() for t in tensors), flux.data_ptr(),
+          qe.data_ptr(), _grid3(g), L.nspec + L.naux, d, solver, mlo, mhi,
+          int(bool(reset_density)), int(bool(reset_rhoe)), float(wt(small_dens, dt_)),
+          float(wt(small_pres, dt_)), _stream(qm))
+    trans_cmpflx.launches += 1
+    return flux, qe
+
+
+trans_cmpflx.launches = 0
+
+
+# -- 9. consup -----------------------------------------------------------------------
+
+def consup_plain(hsrc, flux, pg, ug, div_node, u, d, layout, difmag, dx, finalize_dt=None):
+    """Direction d's consup: artificial viscosity, species normalization,
+    the flux divergence and p div u added to hsrc, and u + dt*hsrc with
+    `finalize_dt`. Returns (hsrc', flux'). The divergence multiplies by the
+    rounded reciprocal of dx_d, as `consup_pallas` does."""
+    L = layout
+    flc = au.apply_av(flux, d, div_node, u, L, difmag, dx)
+    flc = au.normalize_species_fluxes(flc, L)
+    inv = 1.0 / float(dx[d])
+    rows = -(shifted(flc, 1, 1 + d) - flc) * inv
+    pdivu = 0.5 * (shifted(pg, 1, d) + pg) * (shifted(ug, 1, d) - ug) * inv
+    rows[L.UEINT] = rows[L.UEINT] - pdivu
+    htot = hsrc + rows
+    if finalize_dt is not None:
+        htot = u + wt(finalize_dt, u.dtype) * htot
+    return htot, flc
+
+
+def consup(hsrc, flux, pg, ug, div_node, u, d, layout, difmag, dx, finalize_dt=None):
+    """One direction's conservative update of a 3D Cartesian grid, as
+    `pallas_kernels.consup_pallas`: (hsrc + direction d's contribution, or
+    u + finalize_dt * that; the flux with artificial viscosity and species
+    normalization applied). `pg`, `ug` are the Godunov pressure and normal
+    velocity on the faces of d. hsrc is returned new, not updated in place."""
+    if not _on_cuda(hsrc, flux, pg, ug, div_node, u):
+        return consup_plain(hsrc, flux, pg, ug, div_node, u, d, layout, difmag, dx,
+                            finalize_dt)
+    L = layout
+    check_kernel_layout(L)
+    dt_ = flux.dtype
+    g = tuple(flux.shape[1:])
+    for name, t in (("hsrc", hsrc), ("flux", flux), ("u", u)):
+        _check(t, name, dt_, (L.NVAR,) + g)
+    for name, t in (("pg", pg), ("ug", ug), ("div_node", div_node)):
+        _check(t, name, dt_, g)
+    hout = torch.empty_like(hsrc)
+    fout = torch.empty_like(flux)
+    dxd = float(dx[d])
+    cons = _dbls(wt(difmag, dt_), wt(dxd, dt_), wt(1.0 / dxd, dt_),
+                 wt(0.0 if finalize_dt is None else finalize_dt, dt_))
+    _call("consup", flux, hsrc.data_ptr(), flux.data_ptr(), pg.data_ptr(), ug.data_ptr(),
+          div_node.data_ptr(), u.data_ptr(), hout.data_ptr(), fout.data_ptr(), _ints(*g),
+          L.nspec + L.naux, d, cons, int(finalize_dt is not None), _stream(flux))
+    consup.launches += 1
+    return hout, fout
+
+
+consup.launches = 0
+
+
+KERNELS = (prim_aux, flatten, trace_ppm, ctu_face, clean_fill, cmpflx, trans_apply,
+           trans_cmpflx, consup)
 
 
 def reset_launch_counts():

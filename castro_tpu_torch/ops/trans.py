@@ -1,4 +1,4 @@
-"""CTU transverse corrections (corner coupling), 3D Cartesian.
+"""CTU transverse corrections (corner coupling), Cartesian, 2D and 3D.
 
 Counterpart of `castro_tpu/ops/trans.py` (reference `Source/hydro/trans.cpp`):
 - `trans_single` (:15/:67): add one transverse flux difference to the
@@ -6,6 +6,9 @@ Counterpart of `castro_tpu/ops/trans.py` (reference `Source/hydro/trans.cpp`):
   CTU, cdtdx = dt/(3dx));
 - `trans_final` (:442): add two corner-coupled transverse flux differences
   (the 3D final pass, cdtdx = dt/(2dx)).
+With `use_kernels` each state's bundle is summed by `term_bundle` (torch
+ops) and applied by `kernels.trans_apply`, as the JAX package does with
+`trans_apply_pallas` (`castro_tpu/ops/trans.py:316-328`, `:356-371`).
 
 The prim interface state is converted to conserved form, the transverse
 flux divergence subtracted, a p-evolution-equation update applied to the
@@ -24,11 +27,11 @@ import torch
 from castro_tpu_torch.ops.stencil import shifted
 
 
-def _register(arr, n_ax, cell_shift, t_ax=None, t_off=0):
-    """Register a grid array at the state's cell: shift along the
-    transverse axis by t_off, then along the normal axis by cell_shift.
-    Leading component axes are allowed."""
-    comp = arr.dim() - 3
+def _register(arr, ndim, n_ax, cell_shift, t_ax=None, t_off=0):
+    """Register an array on an `ndim`-D grid at the state's cell: shift
+    along the transverse axis by t_off, then along the normal axis by
+    cell_shift. Leading component axes are allowed."""
+    comp = arr.dim() - ndim
     out = arr
     if t_off:
         out = shifted(out, t_off, comp + t_ax)
@@ -52,7 +55,7 @@ def _trans_apply(q_face, cell_shift, n_ax, terms, qaux, layout, small_pres,
     L = layout
 
     def C(arr, t_ax=None, t_off=0):
-        return _register(arr, n_ax, cell_shift, t_ax, t_off)
+        return _register(arr, qaux.dim() - 1, n_ax, cell_shift, t_ax, t_off)
 
     rho = q_face[L.QRHO]
     u = q_face[L.QU]
@@ -142,7 +145,7 @@ def term_bundle(terms, qaux, n_ax, cell_shift, layout):
     L = layout
 
     def C(arr, t_ax=None, t_off=0):
-        return _register(arr, n_ax, cell_shift, t_ax, t_off)
+        return _register(arr, qaux.dim() - 1, n_ax, cell_shift, t_ax, t_off)
 
     gamc = C(qaux[L.QGAMC])
     dflux = dre = dp = 0.0
@@ -217,28 +220,43 @@ def trans_apply_bundle(q, df, dre_x, dp_b, layout, small_pres, reset_density,
     return torch.stack(comps)
 
 
-def trans_single(qm, qp, flux_t, qe_t, qaux, n_dir, t_dir, cdtdx, layout,
-                 small_pres, reset_density=True, reset_rhoe=False):
-    """Single transverse correction of both interface states
-    (reference `trans_single`, trans.cpp:15)."""
-    term = {"flux": flux_t, "qe": qe_t, "t_dir": t_dir, "cdtdx": cdtdx}
-    qpo = _trans_apply(qp, 0, n_dir, [term], qaux, layout, small_pres,
-                       reset_density, reset_rhoe)
-    qmo = _trans_apply(qm, -1, n_dir, [term], qaux, layout, small_pres,
-                       reset_density, reset_rhoe)
-    return qmo, qpo
+def _corrected_states(qm, qp, terms, qaux, n_dir, layout, small_pres, reset_density,
+                      reset_rhoe, use_kernels):
+    """Both interface states of normal n_dir corrected by `terms`: the plus
+    state registered at its own cell (shift 0), the minus state at the cell
+    below (shift -1)."""
+    if use_kernels:
+        from castro_tpu_torch.ops import kernels as K
 
-
-def trans_final(qm, qp, flux_t1, qe_t1, flux_t2, qe_t2, qaux,
-                n_dir, t1_dir, t2_dir, cdtdx_t1, cdtdx_t2, layout,
-                small_pres, reset_density=True, reset_rhoe=False):
-    """Double transverse correction (reference `trans_final`, trans.cpp:442)."""
-    terms = [
-        {"flux": flux_t1, "qe": qe_t1, "t_dir": t1_dir, "cdtdx": cdtdx_t1},
-        {"flux": flux_t2, "qe": qe_t2, "t_dir": t2_dir, "cdtdx": cdtdx_t2},
-    ]
+        out = []
+        for q_face, cshift in ((qp, 0), (qm, -1)):
+            df, dre, dp = term_bundle(terms, qaux, n_dir, cshift, layout)
+            out.append(K.trans_apply(q_face, df, dre, dp, layout, small_pres,
+                                     reset_density, reset_rhoe))
+        return out[1], out[0]
     qpo = _trans_apply(qp, 0, n_dir, terms, qaux, layout, small_pres,
                        reset_density, reset_rhoe)
     qmo = _trans_apply(qm, -1, n_dir, terms, qaux, layout, small_pres,
                        reset_density, reset_rhoe)
     return qmo, qpo
+
+
+def trans_single(qm, qp, flux_t, qe_t, qaux, n_dir, t_dir, cdtdx, layout,
+                 small_pres, reset_density=True, reset_rhoe=False, use_kernels=False):
+    """Single transverse correction of both interface states
+    (reference `trans_single`, trans.cpp:15)."""
+    terms = [{"flux": flux_t, "qe": qe_t, "t_dir": t_dir, "cdtdx": cdtdx}]
+    return _corrected_states(qm, qp, terms, qaux, n_dir, layout, small_pres,
+                             reset_density, reset_rhoe, use_kernels)
+
+
+def trans_final(qm, qp, flux_t1, qe_t1, flux_t2, qe_t2, qaux,
+                n_dir, t1_dir, t2_dir, cdtdx_t1, cdtdx_t2, layout,
+                small_pres, reset_density=True, reset_rhoe=False, use_kernels=False):
+    """Double transverse correction (reference `trans_final`, trans.cpp:442)."""
+    terms = [
+        {"flux": flux_t1, "qe": qe_t1, "t_dir": t1_dir, "cdtdx": cdtdx_t1},
+        {"flux": flux_t2, "qe": qe_t2, "t_dir": t2_dir, "cdtdx": cdtdx_t2},
+    ]
+    return _corrected_states(qm, qp, terms, qaux, n_dir, layout, small_pres,
+                             reset_density, reset_rhoe, use_kernels)

@@ -6,21 +6,29 @@
 From the root of a checkout, on a machine with one card and the CUDA
 toolkit. In order:
   1. print the card (nvidia-smi name and power limit, torch's name, count);
-  2. build the five CUDA kernels from castro_tpu_torch/csrc and print each
+  2. build the nine CUDA kernels from castro_tpu_torch/csrc and print each
      kernel's registers, stack, shared memory and spills (ptxas -v);
   3. hold each kernel against its plain PyTorch version on the card, at the
-     main path's shapes (3D Sedov, 128^3 interior, 136^3 grown, float32,
-     on the initial state and the state after one step), and on the
-     branches the main path does not take at 32^3 (HLLC, srcQ, the face
-     stages terms=[], one corner and final without consup, wall masks,
-     symmetry/periodic/no-slip fills, prim_aux without div u);
-  4. drive the main path: Simulation(...).run() on Sedov 128^3 float32 on
-     the card, with every launch count zeroed just before and read just
-     after, checked against the step's structure; check mass conservation
-     and that a 32^3 run on the card agrees with the same run on the CPU;
-  5. time the main path (zones/s at 128^3 and 256^3, peak memory) and each
-     kernel (its device time under torch.profiler) beside its bound and its
-     plain version's time (CUDA events).
+     main paths' shapes (3D Sedov 128^3 interior, 136^3 grown; 2D Sedov
+     4096^2, 4104^2 grown; 1D Sod 4096; float32), and on the branches the
+     main paths do not take at 32^3 and 64^2 (HLLC, srcQ, the face stages
+     terms=[], one corner and final without consup, wall masks,
+     symmetry/periodic/no-slip fills, prim_aux without div u, both reset
+     flags of trans_apply);
+  4. drive the main paths through Simulation(...).run() on the card, each
+     with every launch count zeroed just before and read just after and
+     checked against the step's structure, with mass conservation and a
+     small run on the card held against the same run on the CPU:
+       A  3D Sedov 128^3, the fused kernel structure;
+       B  3D Sedov 128^3 with riemann_solver=1 and 64^3 with
+          hybrid_riemann=1 (some zones must be flagged as shocks): the
+          unfused structure (trace, trans_apply x18, consup x3);
+       C  2D Sedov 4096^2 (cmpflx x2, trans_cmpflx x2) and 1D Sod n=4096
+          to t=0.2 (cmpflx), held against the exact Riemann solution;
+  5. time the main paths (zones/s, ms/step, peak memory, device time by
+     kernel under torch.profiler) and each kernel (its device time under
+     torch.profiler) beside its bound and its plain version's time (CUDA
+     events).
 Any failure exits non-zero. The last two lines are the kernels' JSON and
 the {"ok": true, ...} line. Without a card, or without the package beside
 this file, it exits 2 and prints no result.
@@ -34,7 +42,9 @@ import time
 
 # Kernel vs plain version, on the same inputs on the card. flatten,
 # trace_ppm and ctu_face are built with --fmad=false and do their plain
-# versions' operations in the same order: they must agree bit for bit.
+# versions' operations in the same order: they must agree bit for bit. So
+# must cmpflx, trans_apply, trans_cmpflx and consup, whose bodies are the
+# device functions of ctu_face.
 # prim_aux and clean_fill divide k_B/m_u by mu (gamma-1) for the EOS's cv,
 # where torch computes a scalar over a tensor as a reciprocal times the
 # scalar, one rounding more; they are held pointwise to RTOL |plain| with no
@@ -43,7 +53,8 @@ import time
 # plus RTOL times each component's largest magnitude, as the float64 tests
 # against JAX scale their floor (tests/test_torch_sedov.py). RTOL is the
 # fused-vs-XLA float32 budget of the JAX package (tests/test_pallas.py:41).
-EXACT = ("flatten", "trace_ppm", "ctu_face")
+EXACT = ("flatten", "trace_ppm", "ctu_face", "cmpflx", "trans_apply", "trans_cmpflx",
+         "consup")
 RTOL = 2e-5
 MASS_RTOL = 1e-6
 # H100 SXM, published peaks (NVIDIA's data sheet): HBM bytes/s and float32
@@ -53,6 +64,11 @@ FP32_OPS_PER_S = 67e12
 N_MAIN, STEPS_MAIN = 128, 10
 N_BIG, STEPS_BIG = 256, 4
 N_SMALL = 32
+N_HYBRID, STEPS_HYBRID = 64, 20   # path B with hybrid_riemann
+N_2D, STEPS_2D = 4096, 10         # path C
+N_2D_SMALL = 64
+N_1D = 4096
+SOD_L1_BOUND = 0.015              # mean |rho - exact| / mean exact (tests/test_sod.py)
 
 REPLACES = {
     "prim_aux": "castro_tpu/ops/pallas_kernels.py:770",
@@ -60,6 +76,10 @@ REPLACES = {
     "trace_ppm": "castro_tpu/ops/pallas_kernels.py:1415",
     "ctu_face": "castro_tpu/ops/pallas_kernels.py:395",
     "clean_fill": "castro_tpu/ops/pallas_kernels.py:1019",
+    "cmpflx": "castro_tpu/ops/pallas_kernels.py:210",
+    "trans_apply": "castro_tpu/ops/pallas_kernels.py:255",
+    "trans_cmpflx": "castro_tpu/ops/pallas_kernels.py:145",
+    "consup": "castro_tpu/ops/pallas_kernels.py:1243",
 }
 # aten operations counted as arithmetic when the plain version's operations
 # are counted (count_ops); data movement (copies, cat, stack, views, fills)
@@ -71,6 +91,10 @@ ARITH_OPS = {
     "logical_not", "logical_or", "lt", "max", "maximum", "min", "minimum", "mul", "ne",
     "neg", "pow", "reciprocal", "rsqrt", "rsub", "sign", "sgn", "sqrt", "sub", "sum",
     "where"}
+
+
+# the profiler's own bookkeeping, reported among the device events
+PROFILER_OVERHEAD = ("Command Buffer Full", "Buffer Flush", "Activity Buffer Request")
 
 
 def fail(msg):
@@ -91,7 +115,7 @@ def compare(got, ref, rtol, floor=(), report=False):
     """(max |got - ref|, max |got - ref| / |ref|, whether every element lies
     within rtol |ref|); the outputs whose indices are in `floor` (all of them
     for floor=True) also get rtol times each component's largest |ref| (the
-    leading axis of a 4-D output). rtol = 0 asks for equality. With `report`,
+    leading axis of an output with components). rtol = 0 asks for equality. With `report`,
     print the worst violation of each output."""
     import torch
 
@@ -110,8 +134,8 @@ def compare(got, ref, rtol, floor=(), report=False):
         tol = rtol * r.abs()
         if floor is True or i in floor:
             mag = torch.nan_to_num(r.abs(), nan=0.0)
-            if r.dim() == 4:
-                tol = tol + rtol * mag.flatten(1).amax(1).reshape(-1, 1, 1, 1)
+            if r.dim() >= 2:
+                tol = tol + rtol * mag.flatten(1).amax(1).reshape((-1,) + (1,) * (r.dim() - 1))
             else:
                 tol = tol + rtol * mag.max()
         excess = torch.where(both_nan, -1.0, torch.nan_to_num(d - tol, nan=1.0))
@@ -155,30 +179,36 @@ def time_ms(fn, reps, warm=2):
 
 def kernel_device_ms(fn, reps):
     """Device time of one launch of the kernel that `fn` launches, from
-    torch.profiler: the mean over the launches of `reps` calls that the
-    profiler recorded (it may miss one) of the ctt:: kernel alone, without
-    the wrapper's allocations and fills. None if the profiler saw no
-    device time."""
+    torch.profiler: the median over the launches of `reps` calls that the
+    profiler recorded (it may miss or cut one) of the ctt:: kernel alone,
+    without the wrapper's allocations and fills. A trace without any such
+    record is taken once more; then None."""
+    import statistics
+
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    total_us, count = 0.0, 0
-    for e in prof.key_averages():
-        if "ctt::" in e.key:
-            dev_us = getattr(e, "self_device_time_total", None)
-            total_us += dev_us if dev_us is not None else getattr(e, "self_cuda_time_total", 0.0)
-            count += e.count
-    if total_us <= 0:
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        times_us = []
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA and "ctt::" in e.name:
+                dev_us = getattr(e, "self_device_time_total", None)
+                times_us.append(dev_us if dev_us is not None
+                                else getattr(e, "self_cuda_time_total", 0.0))
+        times_us = [t for t in times_us if t > 0]
+        if times_us:
+            break
+    if not times_us:
         return None
-    if not 0 < count <= reps:
-        fail(f"the profiler counted {count} kernel launches in {reps} calls")
-    return total_us / count / 1e3
+    if len(times_us) > reps:
+        fail(f"the profiler counted {len(times_us)} kernel launches in {reps} calls")
+    return statistics.median(times_us) / 1e3
 
 
 def count_ops(fn):
@@ -207,7 +237,8 @@ def count_ops(fn):
 def profile_steps(sim, steps, card):
     """Device busy time by kernel over a few steps of `sim.run`, under
     torch.profiler; the idle share is 1 - busy / wall (the profiler's own
-    host overhead included)."""
+    host overhead included). Also the share of the busy time spent in this
+    repo's kernels (ctt::) against torch's own."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -218,7 +249,15 @@ def profile_steps(sim, steps, card):
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     rows = []
-    for e in prof.key_averages():
+    averages = prof.key_averages()
+    host_names = {e.key for e in averages if e.device_type != torch.autograd.DeviceType.CUDA}
+    for e in averages:
+        # kernels, copies and fills only: a host-side aten:: row, and the
+        # device-side annotation of the same name, repeat the time of the
+        # kernels the operation launched
+        if e.device_type != torch.autograd.DeviceType.CUDA or e.key in host_names \
+                or e.key in PROFILER_OVERHEAD:
+            continue
         dev_us = getattr(e, "self_device_time_total", None)
         if dev_us is None:
             dev_us = getattr(e, "self_cuda_time_total", 0.0)
@@ -229,9 +268,12 @@ def profile_steps(sim, steps, card):
         return
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows)
+    ours = sum(r[0] for r in rows if "ctt::" in r[2])
     print(f"profile [{card}]: {steps} steps under torch.profiler, wall {wall_us / steps:.1f} "
           f"us/step, device busy {busy / steps:.1f} us/step, idle share "
-          f"{1.0 - busy / wall_us:.4f}; device time by name (us/step, launches/step):")
+          f"{1.0 - busy / wall_us:.4f}; hand-written kernels {ours / steps:.1f} us/step "
+          f"({ours / busy:.4f} of busy), torch ops {(busy - ours) / steps:.1f} us/step; "
+          f"device time by name (us/step, launches/step):")
     for dev_us, count, key in rows[:14]:
         print(f"  {dev_us / steps:10.1f}  {count / steps:5.1f}  {key[:90]}")
 
@@ -247,8 +289,13 @@ def main():
     try:
         from castro_tpu_torch.driver.sim import Simulation
         from castro_tpu_torch.ops import kernels as K
+        from castro_tpu_torch.ops import advection_util as au
         from castro_tpu_torch.ops.ctu import _bnd_masks
-        from castro_tpu_torch.problems import sedov
+        from castro_tpu_torch.ops.stencil import shifted
+        from castro_tpu_torch.ops.trace_ppm import trace_ppm as trace_ppm_ops
+        from castro_tpu_torch.ops.trans import term_bundle
+        from castro_tpu_torch.problems import sedov, sod
+        from castro_tpu_torch.utils.exact_riemann import solution as exact_solution
     except ImportError as e:
         print(f"castro_tpu_torch not found beside chip_smoke.py: {e}", file=sys.stderr)
         return 2
@@ -270,11 +317,15 @@ def main():
                 or "spill" in line:
             print("  " + line.replace("ptxas info    : ", "").strip())
 
-    def sedov_sim(n, dtype="float32", bc=2, device="cuda"):
-        p = sedov.make_params(n=n, dim=3, stop_time=1.0, r_init=0.1, exp_energy=0.5,
+    def sedov_sim(n, dtype="float32", bc=2, device="cuda", dim=3, **castro):
+        p = sedov.make_params(n=n, dim=dim, stop_time=1.0, r_init=0.1, exp_energy=0.5,
                               dtype=dtype)
-        p = p.with_ns("castro", lo_bc=(bc,) * 3, hi_bc=(bc,) * 3)
+        p = p.with_ns("castro", lo_bc=(bc,) * 3, hi_bc=(bc,) * 3, **castro)
         return Simulation(p, problem_init=sedov.problem_init, device=device)
+
+    def sod_sim(n, device="cuda"):
+        return Simulation(sod.make_params(n=n, dim=1, dtype="float32"),
+                          problem_init=sod.problem_init, device=device)
 
     # -- 3. kernel vs plain --------------------------------------------------------
     errs = {name: [0.0, 0.0] for name in REPLACES}
@@ -371,84 +422,308 @@ def main():
         args = (s.u, s.layout, s.eos, s.cfg.small_dens, s.small_temp, s.geom.dx)
         check("prim_aux", K.prim_aux(*args, with_divu=False),
               K.prim_aux_plain(*args, with_divu=False), f"{label}, no divu")
+
+    def compare_unfused_3d(x, label):
+        """The kernels of the unfused 3D structure at the shapes path B gives
+        them: the trace without the solve, trans_apply on corner and final
+        bundles, consup per direction; and cmpflx on a 3D grid."""
+        L, cfg, dt, dx, u, qaux = x["L"], x["cfg"], x["dt"], x["dx"], x["u"], x["qaux"]
+        sd, sp = cfg.small_dens, cfg.small_pres
+        g, c = qaux[L.QGAMC], qaux[L.QC]
+        tr, f1d = [], []
+        for d in range(3):
+            a = (x["q"], qaux, None, x["flatn"], d, dt, dx[d], L, sd, sp, cfg.small_ener)
+            ref = K.trace_ppm_plain(*a)
+            check("trace_ppm", K.trace_ppm(*a), ref, f"{label}, no solve d={d}")
+            tr.append(ref)
+            a = (ref[0], ref[1], shifted(g, -1, d), g, shifted(c, -1, d), c, d, L, 0, 0, sd, sp)
+            f1d.append(K.cmpflx_plain(*a, bnd_mask=x["masks"][d]))
+            check("cmpflx", K.cmpflx(*a, bnd_mask=x["masks"][d]), f1d[-1], f"{label}, 3D d={d}")
+        dtw = K.wt(dt, u.dtype)
+
+        def term(t, f):
+            return {"flux": f1d[t][0], "qe": f1d[t][1], "t_dir": t, "cdtdx": f * dtw / dx[t]}
+
+        for n, terms, kind in ((0, [term(1, 1 / 3)], "corner"), (1, [term(2, 1 / 3)], "corner"),
+                               (2, [term(0, 0.5), term(1, 0.5)], "final")):
+            for q_face, shift, side in ((tr[n][1], 0, "p"), (tr[n][0], -1, "m")):
+                a = (q_face, *term_bundle(terms, qaux, n, shift, L), L, sp, True, False)
+                check("trans_apply", K.trans_apply(*a), K.trans_apply_plain(*a),
+                      f"{label}, {kind} n={n} {side} state")
+        hsrc = torch.zeros_like(u)
+        for d in range(3):
+            a = (hsrc, f1d[d][0], f1d[d][1][L.GDPRES], f1d[d][1][L.GDU + d], x["div"], u, d, L,
+                 cfg.difmag, dx)
+            fin = dt if d == 2 else None
+            ref = K.consup_plain(*a, finalize_dt=fin)
+            check("consup", K.consup(*a, finalize_dt=fin), ref,
+                  f"{label}, d={d}" + (", finalize" if d == 2 else ""))
+            hsrc = ref[0]
+
+    def inputs_low_dim(sim, u, dt, solver=0):
+        """The face states, 1D fluxes and bundles of a 1D or 2D step, made by
+        torch ops and the plain versions."""
+        L, cfg, dx, dim = sim.layout, sim.cfg, sim.geom.dx, sim.layout.dim
+        sd, sp = cfg.small_dens, cfg.small_pres
+        q, qaux = au.ctoprim(u, L, sim.eos, sd, sim.small_temp)
+        flatn = K.flatten_plain(q, L)
+        masks = _bnd_masks(u.shape[1:], dim, sim.ng, cfg.lo_bc, cfg.hi_bc)
+        dtw = K.wt(dt, u.dtype)
+        g, c = qaux[L.QGAMC], qaux[L.QC]
+        solves = []
+        for d in range(dim):
+            qm, qp = trace_ppm_ops(q, qaux, None, flatn, d, dtw, dx[d], L, sd, sp,
+                                   cfg.small_ener)
+            solves.append((qm, qp, shifted(g, -1, d), g, shifted(c, -1, d), c, d, L, 0,
+                           solver, sd, sp))
+        del q, flatn
+        f1d = [K.cmpflx_plain(*a, bnd_mask=masks[a[6]]) for a in solves]
+        finals = []
+        if dim == 2:
+            for n, t in ((0, 1), (1, 0)):
+                term = [{"flux": f1d[t][0], "qe": f1d[t][1], "t_dir": t,
+                         "cdtdx": 0.5 * dtw / dx[t]}]
+                bp = term_bundle(term, qaux, n, 0, L)
+                bm = term_bundle(term, qaux, n, -1, L)
+                finals.append((solves[n][0], solves[n][1], bm[0], bp[0], bm[1], bp[1], bm[2],
+                               bp[2], *solves[n][2:6], n, L, 0, solver, sd, sp))
+        return dict(solves=solves, f1d=f1d, finals=finals, masks=masks, L=L, sp=sp)
+
+    def compare_low_dim(y, label, resets=((True, False),)):
+        """cmpflx, trans_cmpflx and trans_apply at a 1D or 2D step's shapes."""
+        for a, ref in zip(y["solves"], y["f1d"]):
+            check("cmpflx", K.cmpflx(*a, bnd_mask=y["masks"][a[6]]), ref, f"{label}, d={a[6]}")
+        for a in y["finals"]:
+            n = a[12]
+            for rd, rr in resets:
+                what = f"{label}, final n={n}" + ("" if (rd, rr) == (True, False) else
+                                                 f", resets {rd}/{rr}")
+                check("trans_cmpflx", K.trans_cmpflx(*a, rd, rr, bnd_mask=y["masks"][n]),
+                      K.trans_cmpflx_plain(*a, rd, rr, bnd_mask=y["masks"][n]), what)
+                for q_face, df, dre, dp, side in ((a[1], a[3], a[5], a[7], "p"),
+                                                  (a[0], a[2], a[4], a[6], "m")):
+                    b = (q_face, df, dre, dp, y["L"], y["sp"], rd, rr)
+                    check("trans_apply", K.trans_apply(*b), K.trans_apply_plain(*b),
+                          f"{what} {side} state")
+
+    print(f"kernel vs plain, {N_MAIN}^3 Sedov float32, the unfused structure's shapes:",
+          flush=True)
+    sim = sedov_sim(N_MAIN)
+    sim.init_data()
+    dt = sim.estimate_dt()
+    sim.advance(dt)
+    compare_unfused_3d(inputs(sim, sim.u, dt), "after 1 step")
+    del sim
+    s = sedov_sim(N_SMALL, bc=3)
+    s.init_data()
+    dts = s.estimate_dt()
+    s.advance(dts)
+    compare_unfused_3d(inputs(s, s.u, dts), f"{N_SMALL}^3 symmetry walls")
+    torch.cuda.empty_cache()
+    print(f"kernel vs plain, 2D Sedov {N_2D}^2 and 1D Sod {N_1D} float32 (path C's shapes):",
+          flush=True)
+    sim = sedov_sim(N_2D, dim=2)
+    sim.init_data()
+    dt = sim.estimate_dt()
+    sim.advance(dt)
+    y = inputs_low_dim(sim, sim.u, dt)
+    compare_low_dim(y, f"2D {N_2D}^2 after 1 step")
+    del sim, y
+    torch.cuda.empty_cache()
+    sim = sod_sim(N_1D)
+    sim.run(max_step=20, verbose=False)
+    compare_low_dim(inputs_low_dim(sim, sim.u, sim.dt), f"1D Sod {N_1D} after 20 steps")
+    del sim
+    print(f"kernel vs plain, 2D {N_2D_SMALL}^2, branches off the main paths:", flush=True)
+    s = sedov_sim(N_2D_SMALL, dim=2, bc=3)
+    s.init_data()
+    for _ in range(3):
+        s.advance(s.estimate_dt())
+    compare_low_dim(inputs_low_dim(s, s.u, s.estimate_dt(), solver=2),
+                    "symmetry walls, HLLC", resets=((True, False), (True, True), (False, False)))
+    del s
     torch.cuda.empty_cache()
 
     # -- 4. the main path -------------------------------------------------------------
-    print(f"main path: Sedov {N_MAIN}^3 float32, Simulation.run(max_step={STEPS_MAIN}) "
-          f"on the card", flush=True)
-    sim = sedov_sim(N_MAIN)
-    tries = {"n": 0}
-    step_impl = sim._step_impl
+    path_launches = {}
 
-    def counted(*a, **kw):
-        tries["n"] += 1
-        return step_impl(*a, **kw)
+    def drive(label, sim, per_try, max_step=None, stop_time=None, callbacks=None):
+        """Run `sim` through Simulation.run with the launch counts zeroed just
+        before and read just after; check them against `per_try` (launches a
+        tried step; clean_fill once more at init in 3D), finite values and
+        mass conservation. Returns the number of steps tried."""
+        print(f"main path {label}, Simulation.run on the card", flush=True)
+        tries = {"n": 0}
+        step_impl = sim._step_impl
 
-    sim._step_impl = counted
-    K.reset_launch_counts()
-    sim.init_data()
-    mass0 = float(sim.interior()[sim.layout.URHO].double().sum())
-    sim.run(max_step=STEPS_MAIN, verbose=False)
-    torch.cuda.synchronize()
-    launches = K.launch_counts()
-    n = tries["n"]
-    expected = {"prim_aux": n, "flatten": n, "trace_ppm": 3 * n, "ctu_face": 6 * n,
-                "clean_fill": 1 + n}
-    print(f"  {sim.step_count} steps ({n} tried), t = {sim.t:.6e}; launches {launches}; "
-          f"expected {expected}")
-    if launches != expected or any(v == 0 for v in launches.values()):
-        fail("the main path's launch counts do not match the step's structure")
-    u_end = sim.interior()
-    if not bool(torch.isfinite(u_end).all()):
-        fail("non-finite state after the main path")
-    mass1 = float(u_end[sim.layout.URHO].double().sum())
-    dm = abs(mass1 - mass0) / mass0
-    print(f"  mass: {mass0:.9e} -> {mass1:.9e}, relative change {dm:.3e} (limit {MASS_RTOL:g})")
-    if dm > MASS_RTOL:
-        fail("mass is not conserved on the main path")
-    del sim, u_end
+        def counted(*a, **kw):
+            tries["n"] += 1
+            return step_impl(*a, **kw)
 
-    print(f"card vs CPU, Sedov {N_SMALL}^3 float32, 3 steps (CPU through the plain versions):",
-          flush=True)
-    runs, dts = {}, []
-    for where in ("cpu", "cuda"):
-        s = sedov_sim(N_SMALL, device=where)
-        s.init_data()
-        if where == "cpu":
-            s.run(max_step=3, verbose=False, callbacks=[lambda s_: dts.append(s_.dt)])
-        else:  # the same dt sequence on the card
-            for d_ in dts:
-                s.advance(d_)
-        runs[where] = s.interior().cpu()
-    err, rel, ok = compare(runs["cuda"], runs["cpu"], RTOL, floor=True)
-    print(f"  max abs err {err:.3e} rel {rel:.3e} (tol {RTOL:g}|cpu| + {RTOL:g} max|cpu| "
-          f"per component) {'ok' if ok else 'DISAGREES'}")
-    if not ok:
-        compare(runs["cuda"], runs["cpu"], RTOL, floor=True, report=True)
-        fail("the card and the CPU disagree on the 32^3 run")
+        sim._step_impl = counted
+        K.reset_launch_counts()
+        sim.init_data()
+        mass0 = float(sim.interior()[sim.layout.URHO].double().sum())
+        sim.run(max_step=max_step, stop_time=stop_time, verbose=False, callbacks=callbacks)
+        torch.cuda.synchronize()
+        launches = K.launch_counts()
+        n = tries["n"]
+        expected = {name: per_try.get(name, 0) * n for name in launches}
+        if sim.layout.dim == 3:
+            expected["clean_fill"] += 1
+        print(f"  {sim.step_count} steps ({n} tried), t = {sim.t:.6e}; launches {launches}; "
+              f"expected {expected}")
+        if launches != expected or any(launches[k] == 0 for k in per_try):
+            fail(f"path {label}: the launch counts do not match the step's structure")
+        u_end = sim.interior()
+        if not bool(torch.isfinite(u_end).all()):
+            fail(f"path {label}: non-finite state")
+        mass1 = float(u_end[sim.layout.URHO].double().sum())
+        dm = abs(mass1 - mass0) / mass0
+        print(f"  mass: {mass0:.9e} -> {mass1:.9e}, relative change {dm:.3e} "
+              f"(limit {MASS_RTOL:g})")
+        if dm > MASS_RTOL:
+            fail(f"path {label}: mass is not conserved")
+        path_launches[label] = launches
+        sim._step_impl = step_impl
+        return n
+
+    def card_vs_cpu(label, make, steps=3, per_try=None):
+        """`steps` steps on the CPU (the plain versions), then the same dt
+        sequence on the card; optionally the card run's launch counts."""
+        print(f"card vs CPU, {label} float32, {steps} steps (CPU through the plain versions):",
+              flush=True)
+        runs, dts = {}, []
+        for where in ("cpu", "cuda"):
+            s = make(where)
+            s.init_data()
+            if where == "cpu":
+                s.run(max_step=steps, verbose=False, callbacks=[lambda s_: dts.append(s_.dt)])
+            else:  # the same dt sequence on the card
+                K.reset_launch_counts()
+                for d_ in dts:
+                    s.advance(d_)
+                if per_try is not None:
+                    got = {k: v for k, v in K.launch_counts().items() if k in per_try}
+                    want = {k: v * len(dts) for k, v in per_try.items()}
+                    print(f"  launches {got}; expected {want}")
+                    if got != want:
+                        fail(f"{label}: the launch counts do not match the step's structure")
+            runs[where] = s.interior().cpu()
+        err, rel, ok = compare(runs["cuda"], runs["cpu"], RTOL, floor=True)
+        print(f"  max abs err {err:.3e} rel {rel:.3e} (tol {RTOL:g}|cpu| + {RTOL:g} max|cpu| "
+              f"per component) {'ok' if ok else 'DISAGREES'}")
+        if not ok:
+            compare(runs["cuda"], runs["cpu"], RTOL, floor=True, report=True)
+            fail(f"the card and the CPU disagree on {label}")
+
+    FUSED = {"prim_aux": 1, "flatten": 1, "trace_ppm": 3, "ctu_face": 6, "clean_fill": 1}
+    UNFUSED = {"prim_aux": 1, "flatten": 1, "trace_ppm": 3, "trans_apply": 18, "consup": 3,
+               "clean_fill": 1}
+    TWO_D = {"cmpflx": 2, "trans_cmpflx": 2}
+    TWO_D_UNFUSED = {"trans_apply": 4, "cmpflx": 0, "trans_cmpflx": 0}
+    ONE_D = {"cmpflx": 1}
+
+    # path A: the fused 3D structure
+    drive(f"A: Sedov {N_MAIN}^3 float32, {STEPS_MAIN} steps", sedov_sim(N_MAIN), FUSED,
+          max_step=STEPS_MAIN)
+    card_vs_cpu(f"Sedov {N_SMALL}^3", lambda where: sedov_sim(N_SMALL, device=where))
+
+    # path B: the unfused 3D structure
+    drive(f"B: Sedov {N_MAIN}^3 float32 riemann_solver=1, {STEPS_MAIN} steps",
+          sedov_sim(N_MAIN, riemann_solver=1), UNFUSED, max_step=STEPS_MAIN)
+    torch.cuda.empty_cache()
+    flagged = []
+
+    def count_shocks(s_):
+        q_, _ = au.ctoprim(s_.u, s_.layout, s_.eos, s_.cfg.small_dens, s_.small_temp)
+        shk_ = au.shock(q_, s_.geom.dx, s_.layout, s_.cfg.shock_threshold)
+        flagged.append(int(s_.interior(shk_[None]).sum()))
+
+    drive(f"B: Sedov {N_HYBRID}^3 float32 hybrid_riemann=1, {STEPS_HYBRID} steps",
+          sedov_sim(N_HYBRID, hybrid_riemann=1), UNFUSED, max_step=STEPS_HYBRID,
+          callbacks=[count_shocks])
+    print(f"  zones the shock detector flags after each step (the next step's faces beside "
+          f"them take the HLL flux): {flagged}")
+    if max(flagged[:-1]) == 0:
+        fail("path B with hybrid_riemann: no zone was flagged, no face took the HLL flux")
+    card_vs_cpu(f"Sedov {N_SMALL}^3 riemann_solver=1",
+                lambda where: sedov_sim(N_SMALL, device=where, riemann_solver=1),
+                per_try=UNFUSED)
+    card_vs_cpu(f"Sedov {N_SMALL}^3 hybrid_riemann=1",
+                lambda where: sedov_sim(N_SMALL, device=where, hybrid_riemann=1), steps=8)
+
+    # path C: 2D and 1D
+    drive(f"C: 2D Sedov {N_2D}^2 float32, {STEPS_2D} steps", sedov_sim(N_2D, dim=2), TWO_D,
+          max_step=STEPS_2D)
+    torch.cuda.empty_cache()
+    sim = sod_sim(N_1D)
+    t0 = time.perf_counter()
+    n_sod = drive(f"C: 1D Sod n={N_1D} float32 to t=0.2", sim, ONE_D, stop_time=0.2)
+    sod_ms = 1e3 * (time.perf_counter() - t0) / n_sod
+    rho = sim.interior()[sim.layout.URHO].double().cpu().numpy()
+    xc = sim.geom.cell_centers_1d(0, 0).double().cpu().numpy()
+    rho_ex, _, _ = exact_solution(xc, sim.t, 0.5, 1.0, 0.0, 1.0, 0.125, 0.0, 0.1, 1.4)
+    l1 = float(abs(rho - rho_ex).mean() / rho_ex.mean())
+    print(f"  1D Sod at t = {sim.t:.6f}: mean |rho - exact| / mean exact = {l1:.6e} "
+          f"(bound {SOD_L1_BOUND}); {sod_ms:.3f} ms/step over {n_sod} steps, init included "
+          f"[{card}]")
+    if not l1 < SOD_L1_BOUND:
+        fail("1D Sod disagrees with the exact Riemann solution")
+    del sim
+    card_vs_cpu(f"2D Sedov {N_2D_SMALL}^2",
+                lambda where: sedov_sim(N_2D_SMALL, dim=2, device=where), per_try=TWO_D)
+    card_vs_cpu(f"2D Sedov {N_2D_SMALL}^2 riemann_solver=1",
+                lambda where: sedov_sim(N_2D_SMALL, dim=2, device=where, riemann_solver=1),
+                per_try=TWO_D_UNFUSED)
+    card_vs_cpu("1D Sod n=256", lambda where: sod_sim(256, device=where), steps=10,
+                per_try=ONE_D)
 
     # -- 5. timing ---------------------------------------------------------------------
     results = {}
-    for n_cells, steps in ((N_MAIN, STEPS_MAIN), (N_BIG, STEPS_BIG)):
-        s = sedov_sim(n_cells)
+
+    def time_path(key, label, make, steps, profile=0):
+        """zones/s, ms/step and peak memory of `steps` steps after 2 warm-up
+        steps; with `profile`, that many further steps under torch.profiler."""
+        s = make()
         s.init_data()
         s.run(max_step=2, verbose=False)  # warm-up
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
+        zones0 = s.num_zones_advanced
         t0 = time.perf_counter()
         s.run(max_step=2 + steps, verbose=False)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        zps = steps * n_cells ** 3 / wall
+        zps = (s.num_zones_advanced - zones0) / wall
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
-        results[n_cells] = dict(zones_per_s=zps, step_ms=1e3 * wall / steps, peak_gib=peak)
-        print(f"main path timing [{card}]: Sedov {n_cells}^3 float32, {steps} steps "
+        results[key] = dict(zones_per_s=zps, step_ms=1e3 * wall / steps, peak_gib=peak)
+        print(f"main path timing [{card}]: {label} float32, {steps} steps "
               f"(estimate_dt + advance): {1e3 * wall / steps:.3f} ms/step, {zps:.6e} zones/s, "
               f"peak memory {peak:.3f} GiB", flush=True)
-        if n_cells == N_MAIN:
-            profile_steps(s, 3, card)
+        if profile:
+            profile_steps(s, profile, card)
         del s
         torch.cuda.empty_cache()
+
+    time_path(str(N_MAIN), f"A: Sedov {N_MAIN}^3", lambda: sedov_sim(N_MAIN), STEPS_MAIN,
+              profile=3)
+    time_path(str(N_BIG), f"A: Sedov {N_BIG}^3", lambda: sedov_sim(N_BIG), STEPS_BIG)
+    time_path(f"{N_MAIN}-cg", f"B: Sedov {N_MAIN}^3 riemann_solver=1",
+              lambda: sedov_sim(N_MAIN, riemann_solver=1), 5, profile=2)
+    time_path(f"{N_HYBRID}-hybrid", f"B: Sedov {N_HYBRID}^3 hybrid_riemann=1",
+              lambda: sedov_sim(N_HYBRID, hybrid_riemann=1), 10)
+    try:  # reported, not required: the unfused structure's live set at 264^3
+        time_path(f"{N_BIG}-cg", f"B: Sedov {N_BIG}^3 riemann_solver=1",
+                  lambda: sedov_sim(N_BIG, riemann_solver=1), 2)
+    except torch.cuda.OutOfMemoryError as e:
+        print(f"main path timing [{card}]: B: Sedov {N_BIG}^3 riemann_solver=1 not measured, "
+              f"out of device memory: {str(e).splitlines()[0]}")
+        torch.cuda.empty_cache()
+    time_path(f"{N_2D}^2", f"C: 2D Sedov {N_2D}^2", lambda: sedov_sim(N_2D, dim=2), 5,
+              profile=2)
+    time_path(f"{N_2D}^2-cg", f"C: 2D Sedov {N_2D}^2 riemann_solver=1",
+              lambda: sedov_sim(N_2D, dim=2, riemann_solver=1), 3)
 
     sim = sedov_sim(N_MAIN)
     sim.init_data()
@@ -456,7 +731,6 @@ def main():
     sim.advance(dt)
     x = inputs(sim, sim.u, dt)
     L, cfg, dx, u = x["L"], x["cfg"], x["dx"], sim.u
-    S = u[0].numel()
     isz = u.element_size()
     tr = [K.trace_ppm_plain(x["q"], x["qaux"], None, x["flatn"], d, dt, dx[d], L,
                             cfg.small_dens, cfg.small_pres, cfg.small_ener,
@@ -468,7 +742,7 @@ def main():
 
     fb = (L, 0, 0, cfg.small_dens, cfg.small_pres, True, False)
     hsrc = torch.zeros_like(u)
-    calls = {}  # name -> list of (kernel call, plain call, components moved)
+    calls = {}  # name -> list of (kernel call, plain call, components moved[, elements])
     a = (u, L, x["eos"], cfg.small_dens, sim.small_temp, dx)
     calls["prim_aux"] = [(lambda: K.prim_aux(*a, courant_dt=dt),
                           lambda: K.prim_aux_plain(*a, courant_dt=dt),
@@ -505,16 +779,57 @@ def main():
           x["eta2"], True)
     calls["clean_fill"] = [(lambda: K.clean_fill(*ca, with_status=True),
                             lambda: K.clean_fill_plain(*ca, with_status=True), 2 * L.NVAR)]
+    # the unfused structure's kernels at 136^3: the trace without the solve,
+    # trans_apply on a corner and on a final bundle, consup per direction
+    calls["trace_ppm, no solve"] = []
+    for d in range(3):
+        ta = (x["q"], x["qaux"], None, x["flatn"], d, dt, dx[d], L, cfg.small_dens,
+              cfg.small_pres, cfg.small_ener)
+        calls["trace_ppm, no solve"].append((lambda ta=ta: K.trace_ppm(*ta),
+                                             lambda ta=ta: K.trace_ppm_plain(*ta),
+                                             L.NQ + 2 + 1 + 2 * L.NQ))
+    calls["trans_apply"] = []
+    for n_, terms, q_face, shift in ((0, [term(1, 1 / 3)], tr[0][1], 0),
+                                     (1, [term(2, 1 / 3)], tr[1][0], -1),
+                                     (2, [term(0, 0.5), term(1, 0.5)], tr[2][1], 0)):
+        b = (q_face, *term_bundle(terms, x["qaux"], n_, shift, L), L, cfg.small_pres, True,
+             False)
+        calls["trans_apply"].append((lambda b=b: K.trans_apply(*b),
+                                     lambda b=b: K.trans_apply_plain(*b),
+                                     2 * L.NQ + L.NVAR + 2))
+    calls["consup"] = []
+    for d in range(3):
+        cs = (hsrc, tr[d][2], tr[d][3][L.GDPRES], tr[d][3][L.GDU + d], x["div"], u, d, L,
+              cfg.difmag, dx)
+        fin = dt if d == 2 else None
+        calls["consup"].append((lambda cs=cs, fin=fin: K.consup(*cs, finalize_dt=fin),
+                                lambda cs=cs, fin=fin: K.consup_plain(*cs, finalize_dt=fin),
+                                4 * L.NVAR + 3 + L.NVAR))
+    # path C's kernels at 4104^2
+    sim2 = sedov_sim(N_2D, dim=2)
+    sim2.init_data()
+    dt2 = sim2.estimate_dt()
+    sim2.advance(dt2)
+    y = inputs_low_dim(sim2, sim2.u, dt2)
+    S2 = sim2.u[0].numel()
+    calls["cmpflx"] = [(lambda a=a: K.cmpflx(*a), lambda a=a: K.cmpflx_plain(*a),
+                        2 * L.NQ + 4 + L.NVAR + L.NGDNV, S2) for a in y["solves"]]
+    calls["trans_cmpflx"] = [
+        (lambda a=a: K.trans_cmpflx(*a, True, False),
+         lambda a=a: K.trans_cmpflx_plain(*a, True, False),
+         2 * L.NQ + 2 * L.NVAR + 8 + L.NVAR + L.NGDNV, S2) for a in y["finals"]]
 
-    entries = []
-    print(f"kernel timing [{card}], Sedov {N_MAIN}^3 float32 (grown {u.shape[1]}^3), per "
+    entries, extra = [], {}
+    print(f"kernel timing [{card}], float32, at Sedov {N_MAIN}^3 (grown {u.shape[1]}^3; "
+          f"cmpflx and trans_cmpflx at 2D Sedov {N_2D}^2, grown {sim2.u.shape[1]}^2), per "
           f"launch: the kernel's device time (torch.profiler), the wrapper's and the plain "
           f"version's time (CUDA events); bound = max(bytes / {HBM_BYTES_PER_S:g} B/s, "
           f"operations of the plain version / {FP32_OPS_PER_S:g} op/s):", flush=True)
     for name, variants in calls.items():
         sums = dict(ms=0.0, wrapper_ms=0.0, plain_ms=0.0, bound_ms=0.0, bytes_ms=0.0,
                     ops_ms=0.0)
-        for kern, plain, comps in variants:
+        for kern, plain, comps, *elements in variants:
+            S = elements[0] if elements else u[0].numel()
             w_ms = time_ms(kern, reps=20)
             k_ms = kernel_device_ms(kern, reps=20)
             if k_ms is None:
@@ -531,21 +846,31 @@ def main():
                            ("bound_ms", max(b_bytes, b_ops)), ("bytes_ms", b_bytes),
                            ("ops_ms", b_ops)):
                 sums[key] += v / len(variants)
+        if name not in REPLACES:  # a second variant of a kernel: printed, kept with its kernel
+            extra[name] = sums
+            continue
+        by_path = {label.split(":")[0] + ":" + label.split(":")[1].split(",")[0]: c[name]
+                   for label, c in path_launches.items() if c[name]}
         entries.append({
             "name": name, "route": "cuda", "source": f"castro_tpu_torch/csrc/{name}.cu",
-            "replaces": REPLACES[name], "launches": launches[name],
+            "replaces": REPLACES[name], "launches": sum(by_path.values()),
+            "launches_by_path": by_path,
             "max_abs_err": errs[name][0], "max_rel_err": errs[name][1], "ms": sums["ms"],
             "wrapper_ms": sums["wrapper_ms"], "plain_ms": sums["plain_ms"],
             "bound_ms": sums["bound_ms"],
             "bound_by": "bytes" if sums["bytes_ms"] >= sums["ops_ms"] else "operations",
             "library_ms": None})
-    step_bound = sum(e["bound_ms"] * expected[e["name"]] / n for e in entries
-                     if e["name"] != "clean_fill") + entries[-1]["bound_ms"]
+    for e in entries:
+        if e["name"] == "trace_ppm":  # the variant the unfused structure launches
+            e.update({k + "_no_solve": extra["trace_ppm, no solve"][k]
+                      for k in ("ms", "wrapper_ms", "plain_ms", "bound_ms")})
+    step_bound = sum(e["bound_ms"] * FUSED.get(e["name"], 0) for e in entries)
     print(f"summary [{card}]: " + json.dumps({
-        "zones_per_s": {str(k): v["zones_per_s"] for k, v in results.items()},
-        "step_ms": {str(k): v["step_ms"] for k, v in results.items()},
-        "peak_gib": {str(k): v["peak_gib"] for k, v in results.items()},
-        "step_bound_ms_128": step_bound}))
+        "zones_per_s": {k: v["zones_per_s"] for k, v in results.items()},
+        "step_ms": {k: v["step_ms"] for k, v in results.items()},
+        "peak_gib": {k: v["peak_gib"] for k, v in results.items()},
+        "step_bound_ms_128": step_bound, "sod_1d_ms_per_step": sod_ms, "sod_1d_l1": l1,
+        "shock_zones_flagged": flagged}))
     print(smi_line())
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

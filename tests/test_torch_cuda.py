@@ -5,7 +5,8 @@ is present (the decision is made there, never at import). On the card:
 `python -m pytest -m cuda tests/test_torch_cuda.py`.
 
 Inputs are random states from a seed on a grown grid that is not a cube
-(so that an axis mix-up shows), compared in float64 with rtol = atol =
+(so that an axis mix-up shows; the pointwise kernels also on 1D and 2D
+grids), compared in float64 with rtol = atol =
 1e-9 (the kernel repeats the plain arithmetic without FMA contraction;
 what differs is round-off) and in float32 with rtol = atol = 2e-5 (the
 budget of tests/test_pallas.py:41).
@@ -21,6 +22,8 @@ from castro_tpu_torch.ops import kernels as K
 from castro_tpu_torch.ops.advection_util import ctoprim
 from castro_tpu_torch.ops.ctu import _bnd_masks
 from castro_tpu_torch.ops.flatten import uflatten
+from castro_tpu_torch.ops.stencil import shifted
+from castro_tpu_torch.ops.trans import term_bundle
 from castro_tpu_torch.state import StateLayout
 
 pytestmark = pytest.mark.cuda
@@ -161,6 +164,163 @@ def test_clean_fill_kernel(card, dtype, lo, hi):
     assert bool(K.clean_fill(*args, with_status=True)[2])
 
 
+@DTYPES
+def test_trace_ppm_kernel_without_riemann(card, dtype):
+    """The variant the unfused 3D path launches: the trace alone."""
+    u = _state(1, dtype, card)
+    q, qaux = ctoprim(u, L, EOS, SMALL["small_dens"], SMALL["small_temp"])
+    flatn = uflatten(q, L)
+    for d in range(3):
+        args = (q, qaux, None, flatn, d, DT, DX[d], L, SMALL["small_dens"],
+                SMALL["small_pres"], SMALL["small_ener"])
+        got, ref = K.trace_ppm(*args), K.trace_ppm_plain(*args)
+        assert len(got) == len(ref) == 2
+        for name, g_, r_ in zip(("qm", "qp"), got, ref):
+            _close(g_, r_, dtype, f"d={d} {name}")
+
+
+def _face_inputs(dim, dtype, device, seed=5):
+    """Face states, both sides' gamc and c, and two summed bundles on a
+    `dim`-D grid, from a traced random state."""
+    shape = SHAPE[:dim] if dim > 1 else (SHAPE[2] * 4,)
+    lay = StateLayout(dim=dim, nspec=1)
+    rng = np.random.default_rng(seed)
+
+    def state():
+        q = np.zeros((lay.NQ,) + shape)
+        q[lay.QRHO] = rng.uniform(0.5, 1.5, shape)
+        q[lay.QU:lay.QW + 1] = rng.uniform(-0.6, 0.6, (3,) + shape)
+        q[lay.QPRES] = rng.uniform(0.3, 2.0, shape)
+        q[lay.QREINT] = q[lay.QPRES] / 0.4
+        q[lay.QGAME], q[lay.QTEMP] = 1.4, 1.0
+        q[lay.QFS] = rng.uniform(0.0, 1.0, shape)
+        return torch.as_tensor(q, dtype=dtype, device=device)
+
+    def bundle():
+        df = 0.2 * rng.standard_normal((lay.NVAR,) + shape)
+        df[lay.URHO] = rng.uniform(-0.5, 1.2, shape)  # some densities go negative
+        df[lay.UEDEN] = rng.uniform(-1.0, 4.0, shape)
+        return tuple(torch.as_tensor(a, dtype=dtype, device=device) for a in
+                     (df, 0.1 * rng.standard_normal(shape), 0.3 * rng.standard_normal(shape)))
+
+    aux = [torch.as_tensor(rng.uniform(lo, hi, shape), dtype=dtype, device=device)
+           for lo, hi in ((1.3, 1.7), (1.3, 1.7), (0.5, 1.5), (0.5, 1.5))]
+    return lay, shape, state(), state(), aux, bundle(), bundle()
+
+
+def test_new_entry_points_at_a_tiny_size(card):
+    """Each new C entry point called once on a 6^3 grid (and cmpflx on 1D and
+    2D grids): a wrong ctypes signature faults here, before any larger test."""
+    g = (6, 6, 6)
+    z = lambda nc=None: torch.rand(((nc,) if nc else ()) + g, device=card) + 0.5
+    flux, qe = K.cmpflx(z(L.NQ), z(L.NQ), z(), z(), z(), z(), 0, L, 0, 0, 1e-12, 1e-20)
+    out = K.trans_apply(z(L.NQ), 0.01 * z(L.NVAR), 0.01 * z(), 0.01 * z(), L, 1e-20, True, False)
+    f2, _ = K.trans_cmpflx(z(L.NQ), z(L.NQ), 0.01 * z(L.NVAR), 0.01 * z(L.NVAR), 0.01 * z(),
+                           0.01 * z(), 0.01 * z(), 0.01 * z(), z(), z(), z(), z(), 1, L, 0, 2,
+                           1e-12, 1e-20, True, False)
+    h, fc = K.consup(z(L.NVAR), flux, qe[L.GDPRES], qe[L.GDU], z(), z(L.NVAR), 0, L, 0.1,
+                     (0.1, 0.1, 0.1), finalize_dt=1e-3)
+    for lay, shp in ((StateLayout(dim=1, nspec=1), (7,)), (StateLayout(dim=2, nspec=1), (5, 7))):
+        r = lambda nc=None: torch.rand(((nc,) if nc else ()) + shp, device=card) + 0.5
+        f1, _ = K.cmpflx(r(lay.NQ), r(lay.NQ), r(), r(), r(), r(), len(shp) - 1, lay, 0, 0,
+                         1e-12, 1e-20)
+        assert f1.shape == (lay.NVAR,) + shp
+    torch.cuda.synchronize()
+    for t in (flux, qe, out, f2, h, fc):
+        assert bool(torch.isfinite(t).all())
+
+
+@DTYPES
+@pytest.mark.parametrize("dim", [1, 2, 3])
+@pytest.mark.parametrize("solver,bc", [(0, 2), (2, 3)], ids=["cgf", "hllc-wall"])
+def test_cmpflx_kernel(card, dtype, dim, solver, bc):
+    lay, shape, qm, qp, aux, _, _ = _face_inputs(dim, dtype, card)
+    for d in range(dim):
+        mask = _bnd_masks(shape, dim, NG, (bc,) * dim, (bc,) * dim)[d]
+        args = (qm, qp, *aux, d, lay, 0, solver, SMALL["small_dens"], SMALL["small_pres"])
+        before = K.cmpflx.launches
+        got = K.cmpflx(*args, bnd_mask=mask)
+        assert K.cmpflx.launches == before + 1
+        for g_, r_ in zip(got, K.cmpflx_plain(*args, bnd_mask=mask)):
+            _close(g_, r_, dtype, f"d={d}")
+
+
+@DTYPES
+@pytest.mark.parametrize("dim", [2, 3])
+@pytest.mark.parametrize("reset_density,reset_rhoe", [(True, False), (True, True),
+                                                       (False, False)])
+def test_trans_apply_kernel(card, dtype, dim, reset_density, reset_rhoe):
+    lay, _, q, _, _, (df, dre, dp), _ = _face_inputs(dim, dtype, card)
+    if not reset_density:
+        df[lay.URHO] = torch.clamp(df[lay.URHO], max=0.3)
+    args = (q, df, dre, dp, lay, SMALL["small_pres"], reset_density, reset_rhoe)
+    before = K.trans_apply.launches
+    got = K.trans_apply(*args)
+    assert K.trans_apply.launches == before + 1
+    _close(got, K.trans_apply_plain(*args), dtype)
+
+
+@DTYPES
+@pytest.mark.parametrize("dim,solver,bc", [(2, 0, 2), (2, 2, 3), (3, 0, 3)])
+def test_trans_cmpflx_kernel(card, dtype, dim, solver, bc):
+    lay, shape, qm, qp, aux, bm, bp = _face_inputs(dim, dtype, card)
+    for d in range(dim):
+        mask = _bnd_masks(shape, dim, NG, (bc,) * dim, (bc,) * dim)[d]
+        args = (qm, qp, bm[0], bp[0], bm[1], bp[1], bm[2], bp[2], *aux, d, lay, 0, solver,
+                SMALL["small_dens"], SMALL["small_pres"], True, False)
+        got = K.trans_cmpflx(*args, bnd_mask=mask)
+        ref = K.trans_cmpflx_plain(*args, bnd_mask=mask)
+        # a face whose corrected (rho e) cancels to nothing amplifies a rounding
+        ok = ref[1][lay.GDGAME] < 11.0
+        assert float(ok.double().mean()) > 0.7
+        for g_, r_ in zip(got, ref):
+            _close(g_[:, ok], r_[:, ok], dtype, f"d={d}")
+
+
+@DTYPES
+@pytest.mark.parametrize("d", [0, 1, 2])
+@pytest.mark.parametrize("with_fin", [False, True], ids=["hsrc", "finalize"])
+def test_consup_kernel(card, dtype, d, with_fin):
+    u = _state(4, dtype, card)
+    q, qaux = ctoprim(u, L, EOS, SMALL["small_dens"], SMALL["small_temp"])
+    div = K.prim_aux_plain(u, L, EOS, SMALL["small_dens"], SMALL["small_temp"], DX)[2]
+    flux, qe = K.cmpflx_plain(shifted(q, -1, 1 + d), q, shifted(qaux[L.QGAMC], -1, d),
+                              qaux[L.QGAMC], shifted(qaux[L.QC], -1, d), qaux[L.QC], d, L, 0,
+                              0, SMALL["small_dens"], SMALL["small_pres"])
+    args = (0.1 * u, flux, qe[L.GDPRES], qe[L.GDU + d], 50.0 * div, u, d, L, 0.1, DX)
+    fin = DT if with_fin else None
+    before = K.consup.launches
+    got = K.consup(*args, finalize_dt=fin)
+    assert K.consup.launches == before + 1
+    for name, g_, r_ in zip(("hsrc", "flux"), got, K.consup_plain(*args, finalize_dt=fin)):
+        _close(g_, r_, dtype, name)
+
+
+def test_term_bundle_feeds_trans_apply_as_ctu_face(card):
+    """trans_apply on the torch-op bundle, then cmpflx, equals the fused
+    ctu_face corner stage (float64)."""
+    dtype = torch.float64
+    u = _state(2, dtype, card)
+    q, qaux = ctoprim(u, L, EOS, SMALL["small_dens"], SMALL["small_temp"])
+    flatn = uflatten(q, L)
+    tr = [K.trace_ppm_plain(q, qaux, None, flatn, d, DT, DX[d], L, SMALL["small_dens"],
+                            SMALL["small_pres"], SMALL["small_ener"],
+                            fuse_riemann=dict(coord=0, riemann_solver=0)) for d in range(3)]
+    n, t = 0, 2
+    term = [{"flux": tr[t][2], "qe": tr[t][3], "t_dir": t, "cdtdx": DT / 3 / DX[t]}]
+    qs = []
+    for q_face, shift in ((tr[n][0], -1), (tr[n][1], 0)):
+        df, dre, dp = term_bundle(term, qaux, n, shift, L)
+        qs.append(K.trans_apply(q_face, df, dre, dp, L, SMALL["small_pres"], True, False))
+    g, c = qaux[L.QGAMC], qaux[L.QC]
+    got = K.cmpflx(qs[0], qs[1], shifted(g, -1, n), g, shifted(c, -1, n), c, n, L, 0, 0,
+                   SMALL["small_dens"], SMALL["small_pres"])
+    ref = K.ctu_face(tr[n][0], tr[n][1], qaux, n, term, L, 0, 0, SMALL["small_dens"],
+                     SMALL["small_pres"], True, False)
+    for g_, r_ in zip(got, ref):
+        _close(g_, r_, dtype)
+
+
 def test_wrappers_refuse_bad_inputs(card):
     u = _state(0, torch.float32, card)
     with pytest.raises(TypeError):
@@ -170,6 +330,37 @@ def test_wrappers_refuse_bad_inputs(card):
     with pytest.raises(NotImplementedError):
         K.prim_aux(torch.zeros((9,) + SHAPE, device=card), StateLayout(dim=3, nspec=2),
                    GammaLawEos(1.4, network=GeneralNullNetwork(("X", "Y"))), 1e-12, 1e-12, DX)
+    lay2 = StateLayout(dim=2, nspec=1)
+    z2 = torch.ones((lay2.NVAR, 8, 8), device=card)
+    with pytest.raises(NotImplementedError, match="3D"):  # consup is 3D only
+        K.consup(z2, z2, z2[0], z2[0], z2[0], z2, 0, lay2, 0.1, (0.1, 0.1))
+    q2 = torch.ones((lay2.NQ, 8, 8), device=card)
+    with pytest.raises(NotImplementedError, match="riemann_solver=1"):
+        K.cmpflx(q2, q2, q2[0], q2[0], q2[0], q2[0], 0, lay2, 0, 1, 1e-12, 1e-20)
+    with pytest.raises(ValueError, match="dflux"):
+        K.trans_apply(q2, z2[:, :4], q2[0], q2[0], lay2, 1e-20, True, False)
+
+
+@pytest.mark.parametrize("dim,castro", [
+    (3, dict(riemann_solver=1)), (3, dict(hybrid_riemann=1)), (2, dict()),
+    (2, dict(lo_bc=(3, 3, 3), hi_bc=(3, 3, 3), riemann_solver=2)),
+    (2, dict(riemann_solver=1)), (1, dict())],
+    ids=["3d-cg", "3d-hybrid", "2d", "2d-symmetry-hllc", "2d-cg", "1d"])
+def test_unfused_paths_card_vs_cpu(card, dim, castro):
+    """Three steps of each new path on the card against the CPU (float64)."""
+    from castro_tpu_torch.driver.sim import Simulation
+    from castro_tpu_torch.problems import sedov
+
+    params = sedov.make_params(n=16 if dim == 3 else 32, dim=dim, r_init=0.2, dtype="float64")
+    params = params.with_ns("castro", **castro) if castro else params
+    out = {}
+    for dev in ("cpu", "cuda"):
+        sim = Simulation(params, problem_init=sedov.problem_init, device=dev)
+        sim.init_data()
+        for _ in range(3):
+            sim.advance(2e-3)
+        out[dev] = sim.interior().cpu()
+    _close(out["cuda"], out["cpu"], torch.float64, "state after 3 steps")
 
 
 @pytest.mark.parametrize("bc", [2, 3, 0], ids=["outflow", "symmetry", "periodic"])

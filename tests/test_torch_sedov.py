@@ -98,8 +98,8 @@ def _plain_step(sim, u, dt):
     cfg = sim.cfg._replace(use_kernels=False)
     dtw = K.wt(dt, sim.dtype)
     q, qaux = ctoprim(u, sim.layout, sim.eos, cfg.small_dens, sim.small_temp)
-    u_new, _, _ = ctu_hydro(u, q, qaux, None, dtw, sim.geom, sim.layout, cfg,
-                            fold_update_dt=dtw)
+    u_new = ctu_hydro(u, q, qaux, None, dtw, sim.geom, sim.layout, cfg,
+                      fold_update_dt=dtw)[0]
     c = sim.params.castro
     return K.clean_fill_plain(u_new, sim.layout, sim.eos, cfg.lo_bc, cfg.hi_bc, sim.ng,
                               cfg.small_dens, sim.small_temp, c.dual_energy_eta2,
