@@ -46,7 +46,7 @@ def restart_from_jax_checkpoint(sim, path: str):
             f"{meta['state_variables']} vs {list(sim.layout.cons_names)}")
     if os.path.exists(os.path.join(path, "state.cio")):
         raise NotImplementedError("the native .cio checkpoint form is not ported "
-                                  "(ROADMAP.md, queue 1 item 13)")
+                                  "(ROADMAP.md, queue 1 item 14)")
     with np.load(os.path.join(path, "state.npz")) as data:
         u = data["u"]
     if tuple(u.shape[1:]) != sim.grown_shape():

@@ -11,9 +11,11 @@
 // Design: one thread per face, every access coalesced along the last axis;
 // no neighbours are read (the caller gathers the left cell's gamc and c).
 // The wall mask is the face's position along d, so symmetry and wall runs
-// stay on the kernel. The TPU's tiling (_tiling, _block_spec) has no
-// counterpart. A grid of fewer than three axes arrives padded with
-// trailing extents of 1.
+// stay on the kernel. `coord` (0 Cartesian, 1 cylindrical, 2 spherical)
+// drops the pressure from the radial momentum flux of a curvilinear grid,
+// so RZ and spherical runs solve every face here. The TPU's tiling
+// (_tiling, _block_spec) has no counterpart. A grid of fewer than three
+// axes arrives padded with trailing extents of 1.
 #include "common.cuh"
 #include "riemann.cuh"
 
@@ -23,8 +25,8 @@ template <typename T, int NPASS>
 __global__ void __launch_bounds__(256) cmpflx_kernel(
     const T* __restrict__ qm, const T* __restrict__ qp, const T* __restrict__ gl,
     const T* __restrict__ gr, const T* __restrict__ cl, const T* __restrict__ cr,
-    T* __restrict__ flux, T* __restrict__ qe, Grid g, int d, int solver, int mask_lo,
-    int mask_hi, T small_dens, T small_pres) {
+    T* __restrict__ flux, T* __restrict__ qe, Grid g, int d, int coord, int solver,
+    int mask_lo, int mask_hi, T small_dens, T small_pres) {
   constexpr int NQ = QFS + NPASS, NVAR = UFS + NPASS;
   long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (t >= g.S) return;
@@ -39,7 +41,7 @@ __global__ void __launch_bounds__(256) cmpflx_kernel(
   T mask = (pos == mask_lo || pos == mask_hi) ? T(0) : T(1);
   T fl[NVAR], qg[NGDNV];
   riemann_flux<T, NPASS>(qmv, qpv, gl[t], gr[t], cl[t], cr[t], d, solver, mask, small_dens,
-                         small_pres, fl, qg);
+                         small_pres, fl, qg, coord == 0 || d != 0);
 #pragma unroll
   for (int c = 0; c < NVAR; ++c) flux[c * S + t] = fl[c];
 #pragma unroll
@@ -49,14 +51,16 @@ __global__ void __launch_bounds__(256) cmpflx_kernel(
 template <typename T>
 int launch_cmpflx(const void* qm, const void* qp, const void* gl, const void* gr,
                   const void* cl, const void* cr, void* flux, void* qe, const int* n,
-                  int npass, int d, int solver, int mask_lo, int mask_hi, double small_dens,
-                  double small_pres, cudaStream_t stream) {
+                  int npass, int d, int coord, int solver, int mask_lo, int mask_hi,
+                  double small_dens, double small_pres, cudaStream_t stream) {
   Grid g{{n[0], n[1], n[2]}, (long long)n[0] * n[1] * n[2]};
-  if (npass != 1 || d < 0 || d > 2) return (int)cudaErrorInvalidValue;
+  if (npass != 1 || d < 0 || d > 2 || coord < 0 || coord > 2)
+    return (int)cudaErrorInvalidValue;
   const int threads = 256;
   cmpflx_kernel<T, 1><<<blocks_for(g.S, threads), threads, 0, stream>>>(
       (const T*)qm, (const T*)qp, (const T*)gl, (const T*)gr, (const T*)cl, (const T*)cr,
-      (T*)flux, (T*)qe, g, d, solver, mask_lo, mask_hi, T(small_dens), T(small_pres));
+      (T*)flux, (T*)qe, g, d, coord, solver, mask_lo, mask_hi, T(small_dens),
+      T(small_pres));
   return (int)cudaGetLastError();
 }
 
@@ -65,10 +69,10 @@ int launch_cmpflx(const void* qm, const void* qp, const void* gl, const void* gr
 #define CMPFLX_ENTRY(NAME, T)                                                              \
   extern "C" int NAME(const void* qm, const void* qp, const void* gl, const void* gr,      \
                       const void* cl, const void* cr, void* flux, void* qe, const int* n,  \
-                      int npass, int d, int solver, int mask_lo, int mask_hi,              \
+                      int npass, int d, int coord, int solver, int mask_lo, int mask_hi,   \
                       double small_dens, double small_pres, void* stream) {                \
-    return ctt::launch_cmpflx<T>(qm, qp, gl, gr, cl, cr, flux, qe, n, npass, d, solver,    \
-                                 mask_lo, mask_hi, small_dens, small_pres,                 \
+    return ctt::launch_cmpflx<T>(qm, qp, gl, gr, cl, cr, flux, qe, n, npass, d, coord,     \
+                                 solver, mask_lo, mask_hi, small_dens, small_pres,         \
                                  (cudaStream_t)stream);                                    \
   }
 CMPFLX_ENTRY(ctt_cmpflx_f32, float)

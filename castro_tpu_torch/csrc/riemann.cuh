@@ -3,7 +3,7 @@
 // and the CTU face kernel (ctu_face.cu).
 // Same arithmetic, in the same order, as castro_tpu_torch/ops/riemann.py:
 // riemannus (CGF two-shock, riemann_solvers.H:599), riemann_hllc (:993)
-// and compute_flux (compute_flux_q, :16-120), Cartesian.
+// and compute_flux (compute_flux_q, :16-120), in any coordinate system.
 // Replaces castro_tpu/ops/pallas_kernels.py:_riemann_block (:64-82).
 #pragma once
 
@@ -168,11 +168,13 @@ __device__ Godunov<T> riemann_hllc(const RiemannIn<T>& ri, T small_dens, T small
 
 // Riemann solve (riemann_solver 0 = CGF, 2 = HLLC) and flux assembly of one
 // face: flux[NVAR], qe[NGDNV]. `mask` is 0 on a wall face (bnd_fac,
-// riemann.cpp:55-61) and 1 elsewhere.
+// riemann.cpp:55-61) and 1 elsewhere. `mom_p` is false for the radial
+// direction of a curvilinear grid, whose momentum flux carries no pressure
+// (mom_flux_has_p; the update adds the pressure gradient instead).
 template <typename T, int NPASS>
 __device__ void riemann_flux(const T* qm, const T* qp, T gl, T gr, T cl, T cr,
                              int d, int solver, T mask, T small_dens, T small_pres,
-                             T* flux, T* qe) {
+                             T* flux, T* qe, bool mom_p = true) {
   RiemannIn<T> ri = riemann_inputs(qm, qp, gl, gr, cl, cr, d, small_dens);
   Godunov<T> gd = solver == 2 ? riemann_hllc(ri, small_dens, small_pres)
                               : riemannus(ri, small_dens, small_pres);
@@ -180,7 +182,7 @@ __device__ void riemann_flux(const T* qm, const T* qp, T gl, T gr, T cl, T cr,
   T un = gd.un * mask;
   T frho = gd.rho * un;
   flux[URHO] = frho;
-  flux[UMX + d] = frho * un + gd.p;
+  flux[UMX + d] = mom_p ? frho * un + gd.p : frho * un;
   flux[UMX + t1] = frho * gd.ut;
   flux[UMX + t2] = frho * gd.utt;
   T rhoetot = gd.rhoe + T(0.5) * gd.rho * (un * un + gd.ut * gd.ut + gd.utt * gd.utt);

@@ -13,8 +13,9 @@
 // Design: one thread per face, every access coalesced; the corrected
 // states live in registers only, which is the whole point of the fusion
 // (two [NQ] writes and reads saved against trans_apply x2 + cmpflx). The
-// wall mask is the face's position along d. A grid of fewer than three
-// axes arrives padded with trailing extents of 1.
+// wall mask is the face's position along d; `coord` drops the pressure from
+// the radial momentum flux of a curvilinear grid, as in cmpflx.cu. A grid
+// of fewer than three axes arrives padded with trailing extents of 1.
 #include "common.cuh"
 #include "riemann.cuh"
 #include "trans.cuh"
@@ -37,7 +38,7 @@ struct TransCmpflxParams {
   const T* cr;
   T* flux;
   T* qe;
-  int d, solver, mask_lo, mask_hi, reset_density, reset_rhoe;
+  int d, coord, solver, mask_lo, mask_hi, reset_density, reset_rhoe;
   T small_dens, small_pres;
 };
 
@@ -71,7 +72,7 @@ __global__ void __launch_bounds__(256) trans_cmpflx_kernel(
   T mask = (pos == p.mask_lo || pos == p.mask_hi) ? T(0) : T(1);
   T fl[NVAR], qg[NGDNV];
   riemann_flux<T, NPASS>(qmc, qpc, p.gl[t], p.gr[t], p.cl[t], p.cr[t], p.d, p.solver, mask,
-                         p.small_dens, p.small_pres, fl, qg);
+                         p.small_dens, p.small_pres, fl, qg, p.coord == 0 || p.d != 0);
 #pragma unroll
   for (int c = 0; c < NVAR; ++c) p.flux[c * S + t] = fl[c];
 #pragma unroll
@@ -80,11 +81,12 @@ __global__ void __launch_bounds__(256) trans_cmpflx_kernel(
 
 template <typename T>
 int launch_trans_cmpflx(const void* const* in, void* flux, void* qe, const int* n,
-                        int npass, int d, int solver, int mask_lo, int mask_hi,
+                        int npass, int d, int coord, int solver, int mask_lo, int mask_hi,
                         int reset_density, int reset_rhoe, double small_dens,
                         double small_pres, cudaStream_t stream) {
   Grid g{{n[0], n[1], n[2]}, (long long)n[0] * n[1] * n[2]};
-  if (npass != 1 || d < 0 || d > 2) return (int)cudaErrorInvalidValue;
+  if (npass != 1 || d < 0 || d > 2 || coord < 0 || coord > 2)
+    return (int)cudaErrorInvalidValue;
   TransCmpflxParams<T> p;
   p.qm = (const T*)in[0];
   p.qp = (const T*)in[1];
@@ -101,6 +103,7 @@ int launch_trans_cmpflx(const void* const* in, void* flux, void* qe, const int* 
   p.flux = (T*)flux;
   p.qe = (T*)qe;
   p.d = d;
+  p.coord = coord;
   p.solver = solver;
   p.mask_lo = mask_lo;
   p.mask_hi = mask_hi;
@@ -120,11 +123,11 @@ int launch_trans_cmpflx(const void* const* in, void* flux, void* qe, const int* 
                       const void* dre_m, const void* dre_p, const void* dp_m,              \
                       const void* dp_p, const void* gl, const void* gr, const void* cl,    \
                       const void* cr, void* flux, void* qe, const int* n, int npass,       \
-                      int d, int solver, int mask_lo, int mask_hi, int reset_density,      \
-                      int reset_rhoe, double small_dens, double small_pres,                \
-                      void* stream) {                                                      \
+                      int d, int coord, int solver, int mask_lo, int mask_hi,              \
+                      int reset_density, int reset_rhoe, double small_dens,                \
+                      double small_pres, void* stream) {                                   \
     const void* in[12] = {qm, qp, df_m, df_p, dre_m, dre_p, dp_m, dp_p, gl, gr, cl, cr};   \
-    return ctt::launch_trans_cmpflx<T>(in, flux, qe, n, npass, d, solver, mask_lo,         \
+    return ctt::launch_trans_cmpflx<T>(in, flux, qe, n, npass, d, coord, solver, mask_lo,  \
                                        mask_hi, reset_density, reset_rhoe, small_dens,     \
                                        small_pres, (cudaStream_t)stream);                  \
   }

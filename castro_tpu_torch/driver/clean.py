@@ -180,16 +180,18 @@ def clean_state(u, layout, eos, small_dens=1e-200, small_temp=1e-200,
 
 
 def clean_and_fill(u, layout, eos, lo_bc, hi_bc, ng, small_dens, small_temp,
-                   dual_energy_eta2, do_normalize_species, with_status=False):
-    """`clean_state`, then the ghost fill. With `with_status` also the
-    interior's minimum density and non-finite flag before the clean, as 0-d
-    tensors: (u, min_rho, nan_flag). In 3D `ops/kernels.py:clean_fill` does
-    the same in one kernel."""
+                   dual_energy_eta2, do_normalize_species, with_status=False,
+                   speed_limit=0.0, problem_fill=None, t=0.0):
+    """`clean_state`, then the ghost fill (and the problem's inflow hook at
+    time t). With `with_status` also the interior's minimum density and
+    non-finite flag before the clean, as 0-d tensors: (u, min_rho,
+    nan_flag). In 3D `ops/kernels.py:clean_fill` does the same in one
+    kernel, without speed_limit or a hook."""
     if with_status:
         inner = u[interior_slice(ng, layout.dim)]
         status = (torch.min(inner[layout.URHO]), ~torch.isfinite(torch.sum(inner)))
     out = clean_state(u, layout, eos, small_dens=small_dens, small_temp=small_temp,
                       dual_energy_eta2=dual_energy_eta2,
-                      do_normalize_species=do_normalize_species)
-    out = fill_ghosts(out, layout, lo_bc, hi_bc, ng)
+                      do_normalize_species=do_normalize_species, speed_limit=speed_limit)
+    out = fill_ghosts(out, layout, lo_bc, hi_bc, ng, problem_fill=problem_fill, t=t)
     return (out,) + status if with_status else out

@@ -7,17 +7,24 @@ Counterpart of `castro_tpu/driver/sim.py` (reference `Castro::advance` /
 its ghost zones; every step ends with clean + ghost fill.
 
 A step has the kernel structure of the JAX package on its accelerator
-(`ops/ctu.py`, `ops/kernels.py`). In 3D: prim_aux, then either the fused
-chain (flatten, 3 trace_ppm, 3 paired ctu_face corner stages, 3 ctu_face
-final stages with consup) or, with `riemann_solver=1` or `hybrid_riemann`,
-the unfused one (flatten, 3 trace_ppm, torch-op Riemann solves, 18
-trans_apply, 3 consup), then clean_fill. In 1D and 2D ctoprim, the trace,
-the Courant check, the status checks and clean + fill are torch ops and
-only the Riemann and transverse stages are kernels. On the card
-(`device="cuda"`, the default) each kernel is a CUDA kernel; on the CPU it
-runs its plain PyTorch version. Sources, reactions, radiation, MHD, SDC,
-AMR and I/O are not ported (ROADMAP.md); a configuration that needs them
-raises.
+(`ops/ctu.py`, `ops/kernels.py`), chosen as `castro_tpu/driver/sim.py:
+232-260` chooses it. In 3D: prim_aux, then either the fused chain
+(flatten, 3 trace_ppm, 3 paired ctu_face corner stages, 3 ctu_face final
+stages with consup; with PLM a torch-op trace and 3 more ctu_face launches
+for the 1D solves; with a flux limiter the finals leave consup to torch
+ops) or, with `riemann_solver=1` or `hybrid_riemann`, the unfused one
+(flatten, 3 trace_ppm, torch-op Riemann solves, 18 trans_apply, 3 consup),
+then clean_fill (torch ops with `speed_limit` or a `problem_fill` hook). In
+1D and 2D ctoprim, the trace, the Courant check, the status checks and
+clean + fill are torch ops and only the Riemann and transverse stages are
+kernels. With `transverse_use_eos` the whole step takes the plain structure,
+the JAX package's own route for that option (its EOS re-evaluation rides
+the XLA transverse path). On the card (`device="cuda"`, the default) each
+kernel is a CUDA kernel; on the CPU it runs its plain PyTorch version.
+The 2D RZ geometric source runs through the source path of the step
+(old-time sources traced into the states, the time-centred corrector).
+Other sources, reactions, radiation, MHD, SDC, AMR and I/O are not ported
+(ROADMAP.md); a configuration that needs them raises.
 """
 
 from __future__ import annotations
@@ -33,12 +40,14 @@ from castro_tpu_torch.config import Params
 from castro_tpu_torch.driver.clean import clean_and_fill
 from castro_tpu_torch.driver.timestep import estdt_cfl
 from castro_tpu_torch.eos import make_eos
-from castro_tpu_torch.geometry import geometry_from_params, torch_dtype
+from castro_tpu_torch.geometry import geometry_from_params, resolve_device, torch_dtype
 from castro_tpu_torch.network import make_network
 from castro_tpu_torch.ops import advection_util as au
 from castro_tpu_torch.ops import kernels as K
 from castro_tpu_torch.ops.ctu import HydroConfig, ctu_hydro
+from castro_tpu_torch.ops.fill import fill_ghosts
 from castro_tpu_torch.ops.stencil import interior_slice
+from castro_tpu_torch.sources import build_sources
 from castro_tpu_torch.state import layout_from_params
 
 
@@ -52,39 +61,21 @@ class StepStatus:
         return (not self.has_nan) and self.min_rho > 0.0
 
 
-def resolve_device(device=None) -> torch.device:
-    """`None` means the card. Without a card, only an explicit
-    device="cpu" runs; anything else raises."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device found; pass device='cpu' to run on the CPU")
-    if dev.type not in ("cuda", "cpu"):
-        raise ValueError(f"unsupported device {dev}")
-    return dev
-
-
 def _unported(params):
-    """The ROADMAP.md item of the first unported feature a config needs."""
+    """The ROADMAP.md item of the first unported feature a config needs
+    (sources raise in `sources.build_sources`)."""
     c = params.castro
     checks = [
-        (params.geometry.coord_sys != 0, "curvilinear coordinates (queue 1 item 4)"),
-        (c.do_hydro != 1, "castro.do_hydro=0 (queue 1 item 9)"),
-        (c.ppm_type != 1, "PLM tracing (queue 1 item 4)"),
-        (bool(c.use_shock_var), "use_shock_var (queue 1 item 4)"),
-        (bool(c.hybrid_momentum), "hybrid momenta (queue 1 item 4)"),
-        (bool(c.transverse_use_eos), "transverse_use_eos (queue 1 item 4)"),
-        (bool(c.limit_fluxes_on_small_dens) or c.speed_limit > 0.0,
-         "flux limiters and speed_limit (queue 1 item 4)"),
-        (bool(c.do_grav or c.do_rotation or c.do_sponge or c.add_ext_src
-              or c.do_thermal_diffusion or c.diffuse_temp),
-         "source terms (queue 1 items 7, 9)"),
+        (c.do_hydro != 1, "castro.do_hydro=0 (queue 1 item 10)"),
+        (bool(c.use_shock_var),
+         "use_shock_var, kernel layout generalization (queue 1 item 6)"),
+        (bool(c.hybrid_momentum),
+         "hybrid momenta, kernel layout generalization (queue 1 item 6)"),
         (bool(c.do_react) or c.time_integration_method != 0,
-         "reactions and SDC (queue 1 items 6, 11)"),
-        (bool(c.do_radiation), "radiation (queue 1 item 8)"),
-        (bool(c.do_mhd), "MHD (queue 1 item 10)"),
+         "reactions and SDC (queue 1 items 7, 12)"),
+        (bool(c.do_radiation), "radiation (queue 1 item 9)"),
+        (bool(c.do_mhd), "MHD (queue 1 item 11)"),
         (params.amr.max_level > 0, "AMR (queue 1 item 5)"),
-        (any(b == 1 for b in tuple(c.lo_bc[:params.dim]) + tuple(c.hi_bc[:params.dim])),
-         "inflow boundaries and problem_fill (queue 1 item 4)"),
     ]
     return next((item for bad, item in checks if bad), None)
 
@@ -94,8 +85,10 @@ class Simulation:
     the step on one device."""
 
     def __init__(self, params: Params, problem_init: Optional[Callable] = None,
-                 device=None):
-        """device: None = "cuda"; the tests pass "cpu"."""
+                 device=None, problem_fill: Optional[Callable] = None):
+        """device: None = "cuda"; the tests pass "cpu". `problem_fill(u, t)`
+        sets the ghosts of inflow faces after every fill (reference
+        problem_bc_fill)."""
         item = _unported(params)
         if item is not None:
             raise NotImplementedError(f"not ported yet: {item}, see ROADMAP.md")
@@ -110,8 +103,10 @@ class Simulation:
         self.geom = geometry_from_params(params, self.dtype, self.device)
         self.eos = make_eos(params, self.network)
         self.problem_init = problem_init
+        self.problem_fill = problem_fill
         K.check_kernel_layout(self.layout, dims=(1, 2, 3))
         K.check_kernel_eos(self.eos, self.layout)
+        self.source_fns = build_sources(params, self.geom, self.layout, self.layout.ngrow)
 
         c = params.castro
         self.ng = self.layout.ngrow
@@ -128,11 +123,26 @@ class Simulation:
             ppm_type=c.ppm_type,
             shock_threshold=c.shock_detection_threshold,
             hybrid_riemann=bool(c.hybrid_riemann),
-            use_kernels=True,
+            use_pslope=bool(c.use_pslope),
+            plm_iorder=c.plm_limiter,
+            pslope_cutoff_density=c.pslope_cutoff_density,
+            limit_fluxes_on_small_dens=bool(c.limit_fluxes_on_small_dens),
+            speed_limit=c.speed_limit,
+            cfl=c.cfl,
+            # transverse_use_eos: the reference's own route is the plain
+            # structure (its EOS re-evaluation rides the XLA transverse
+            # path, castro_tpu/driver/sim.py:247-249); not a fallback
+            use_kernels=not c.transverse_use_eos,
             lo_bc=tuple(c.lo_bc[:self.layout.dim]),
             hi_bc=tuple(c.hi_bc[:self.layout.dim]),
             ng=self.ng,
         )
+        # the 3D kernel route of prim_aux, and of clean_fill where neither
+        # speed_limit nor a fill hook asks for the torch ops
+        # (castro_tpu/driver/sim.py:258, :380-392)
+        self._kernel_prim = self.cfg.use_kernels and self.layout.dim == 3
+        self._kernel_clean_fill = (self._kernel_prim and problem_fill is None
+                                   and c.speed_limit <= 0.0)
         self.t = 0.0
         self.step_count = 0
         self.dt = None
@@ -161,14 +171,18 @@ class Simulation:
         self.u = self._clean_fill_impl(u)
         return self.u
 
-    def _clean_fill_impl(self, u, with_status=False):
-        """clean_state + ghost fill; with_status also the pre-clean interior
-        min density and non-finite flag. One kernel in 3D, torch ops below."""
+    def _clean_fill_impl(self, u, with_status=False, t=0.0):
+        """clean_state + ghost fill (+ the problem's inflow fill at time t);
+        with_status also the pre-clean interior min density and non-finite
+        flag. One kernel in 3D, else torch ops."""
         c = self.params.castro
-        impl = K.clean_fill if self.layout.dim == 3 else clean_and_fill
-        return impl(u, self.layout, self.eos, self.cfg.lo_bc, self.cfg.hi_bc, self.ng,
-                    self.cfg.small_dens, self.small_temp, c.dual_energy_eta2,
-                    bool(c.normalize_species), with_status=with_status)
+        args = (u, self.layout, self.eos, self.cfg.lo_bc, self.cfg.hi_bc, self.ng,
+                self.cfg.small_dens, self.small_temp, c.dual_energy_eta2,
+                bool(c.normalize_species))
+        if self._kernel_clean_fill:
+            return K.clean_fill(*args, with_status=with_status)
+        return clean_and_fill(*args, with_status=with_status, speed_limit=c.speed_limit,
+                              problem_fill=self.problem_fill, t=t)
 
     # -- dt ------------------------------------------------------------------
     def _estdt_impl(self, u):
@@ -188,35 +202,70 @@ class Simulation:
 
     # -- the step --------------------------------------------------------------
     def _step_impl(self, u, dt, t=0.0):
-        """One CTU step of pure hydro (reference do_advance_ctu,
-        Castro_advance_ctu.cpp:16). `u` is ghost-filled on entry. Returns
-        (u_new, min_rho, nan_flag) with the two checks as 0-d tensors:
-        the pre-clean interior min density, and a flag for a non-finite
-        state or a Courant number above 1 (Castro_hydro.cpp:234)."""
+        """One CTU step of single-level hydro (reference do_advance_ctu,
+        Castro_advance_ctu.cpp:16, and the source path of do_old_sources /
+        do_new_sources, Castro_sources.cpp:123,185). `u` is ghost-filled on
+        entry (filled again at t with a fill hook). Returns (u_new, min_rho,
+        nan_flag) with the two checks as 0-d tensors: the pre-clean interior
+        min density, and a flag for a non-finite state or a Courant number
+        above 1 (Castro_hydro.cpp:234)."""
         L = self.layout
         c = self.params.castro
         cfg = self.cfg
         dtw = K.wt(dt, self.dtype)
         check_cfl = bool(c.check_cfl_violation)
+        if self.problem_fill is not None:
+            # the inflow ghosts may depend on t (castro_tpu/driver/sim.py:497)
+            u = fill_ghosts(u, L, cfg.lo_bc, cfg.hi_bc, self.ng,
+                            problem_fill=self.problem_fill, t=t)
         courant = None
-        if L.dim == 3:
+        div_node = None
+        if self._kernel_prim:
+            # the Courant maximum rides the kernel over the whole grid,
+            # which needs ghosts that are images of the interior (no hook)
+            fold = check_cfl and self.problem_fill is None
             res = K.prim_aux(u, L, self.eos, cfg.small_dens, self.small_temp,
-                             self.geom.dx, courant_dt=dtw if check_cfl else None)
+                             self.geom.dx, courant_dt=dtw if fold else None)
             q, qaux, div_node = res[0], res[1], res[2]
-            if check_cfl:
+            if fold:
                 courant = res[3]
         else:
             q, qaux = au.ctoprim(u, L, self.eos, cfg.small_dens, self.small_temp)
-            div_node = None
-            if check_cfl:
-                courant = au.max_courant(q, qaux, dtw, self.geom, L, self.ng,
-                                         whole_grid=True)
-        u_new = ctu_hydro(u, q, qaux, None, dtw, self.geom, L, cfg,
-                          div_node=div_node, fold_update_dt=dtw)[0]
-        del q, qaux, div_node
-        u_new, min_rho, nan_flag = self._clean_fill_impl(u_new, with_status=True)
+
+        # old-time sources S(u^n), traced into the interface states
+        src_old = None
+        if self.source_fns:
+            src_old = torch.zeros_like(u)
+            for fn in self.source_fns:
+                src_old = src_old + fn(self, u, q, qaux, t, dtw)
+        srcQ = None if src_old is None else au.src_to_prim(q, qaux, src_old, L)
+
+        u_new = ctu_hydro(u, q, qaux, srcQ, dtw, self.geom, L, cfg, div_node=div_node,
+                          fold_update_dt=dtw,
+                          trans_eos=self.eos if c.transverse_use_eos else None)[0]
+        del div_node, srcQ
+        if src_old is not None:
+            u_new = u_new + dtw * src_old
+        u_new, min_rho, nan_flag = self._clean_fill_impl(u_new, with_status=True, t=t + dt)
         if check_cfl:
+            if courant is None:
+                courant = au.max_courant(q, qaux, dtw, self.geom, L, self.ng,
+                                         whole_grid=self.problem_fill is None)
             nan_flag = nan_flag | (courant > 1.0)
+        del q, qaux
+
+        if self.source_fns:
+            # the time-centred corrector 0.5 dt (S_new - S_old)
+            if self._kernel_prim:
+                q2, qaux2 = K.prim_aux(u_new, L, self.eos, cfg.small_dens, self.small_temp,
+                                       self.geom.dx, with_divu=False)
+            else:
+                q2, qaux2 = au.ctoprim(u_new, L, self.eos, cfg.small_dens, self.small_temp)
+            src_new = torch.zeros_like(u)
+            for fn in self.source_fns:
+                src_new = src_new + fn(self, u_new, q2, qaux2, t + dt, dtw)
+            u_new = u_new + 0.5 * dtw * (src_new - src_old)
+            u_new = self._clean_fill_impl(u_new, t=t + dt)
         return u_new, min_rho, nan_flag
 
     def try_step(self, dt: float, t: Optional[float] = None):

@@ -1,6 +1,6 @@
 """Equation-of-state factory (counterpart of `castro_tpu/eos/__init__.py`).
 
-Only the gamma-law EOS is ported; the others are ROADMAP.md queue 1 item 6."""
+Only the gamma-law EOS is ported; the others are ROADMAP.md queue 1 item 7."""
 
 from __future__ import annotations
 
@@ -16,4 +16,4 @@ def make_eos(params, network=None) -> Eos:
         return GammaLawEos(gamma=params.eos.eos_gamma, network=network,
                            assume_neutral=bool(params.eos.eos_assume_neutral))
     raise NotImplementedError(
-        f"EOS {name!r} is not ported (ROADMAP.md, queue 1 item 6)")
+        f"EOS {name!r} is not ported (ROADMAP.md, queue 1 item 7)")

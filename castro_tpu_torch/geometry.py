@@ -140,7 +140,20 @@ def torch_dtype(name: str) -> torch.dtype:
     return torch.float64 if name == "float64" else torch.float32
 
 
-def geometry_from_params(params, dtype=None, device="cpu") -> Geometry:
+def resolve_device(device=None) -> torch.device:
+    """`None` means the card. Without a card, only an explicit
+    device="cpu" runs; anything else raises."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device found; pass device='cpu' to run on the CPU")
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {dev}")
+    return dev
+
+
+def geometry_from_params(params, dtype=None, device=None) -> Geometry:
+    """The geometry of `params` on `device` (None: the card, as
+    `resolve_device`)."""
     g = params.geometry
     dim = params.dim
     if dtype is None:
@@ -152,5 +165,5 @@ def geometry_from_params(params, dtype=None, device="cpu") -> Geometry:
         prob_hi=tuple(g.prob_hi[:dim]),
         n_cell=tuple(params.amr.n_cell[:dim]),
         dtype=dtype,
-        device=torch.device(device),
+        device=resolve_device(device),
     )

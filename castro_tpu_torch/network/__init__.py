@@ -1,7 +1,7 @@
 """Reaction networks: the inert `general_null` composition carrier.
 
 Counterpart of `castro_tpu/network/general_null.py` and `make_network`.
-Reactive networks are not ported yet (ROADMAP.md, queue 1 item 6)."""
+Reactive networks are not ported yet (ROADMAP.md, queue 1 item 7)."""
 
 from __future__ import annotations
 
@@ -54,4 +54,4 @@ def make_network(params) -> GeneralNullNetwork:
         return GeneralNullNetwork(spec_names=params.network.spec_names or ("X",),
                                   aux_names=params.network.aux_names)
     raise NotImplementedError(
-        f"network {name!r} is not ported (ROADMAP.md, queue 1 item 6)")
+        f"network {name!r} is not ported (ROADMAP.md, queue 1 item 7)")

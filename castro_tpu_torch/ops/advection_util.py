@@ -3,8 +3,8 @@ species-flux normalization, the Courant check.
 
 Counterpart of `castro_tpu/ops/advection_util.py` (reference
 `Source/hydro/advection_util.cpp`: ctoprim :27, shock :204, divu :367,
-apply_av :483, normalize_species_fluxes :578). The flux limiters are not
-ported yet (ROADMAP.md).
+apply_av :483, normalize_species_fluxes :578, and the positivity and
+speed flux limiters :662, :897).
 """
 
 from __future__ import annotations
@@ -135,6 +135,125 @@ def normalize_species_fluxes(flux, layout):
     out = flux.clone()
     out[L.UFS: L.UFS + L.nspec] = flux[L.UFS: L.UFS + L.nspec] * fac[None]
     return out
+
+
+def _cell_flux(u, q, d, coord, layout):
+    """Cell-centred flux vector in direction d from the cell's conserved
+    and primitive states (reference `dflux`, advection_util.H:12), for the
+    Lax-Friedrichs flux of the limiters."""
+    from castro_tpu_torch.ops.riemann import mom_flux_has_p
+
+    L = layout
+    v = q[L.velocity_index(d)]
+    f = torch.zeros_like(u)
+    for c in (L.URHO, L.UMX, L.UMY, L.UMZ, L.UEINT):
+        f[c] = u[c] * v
+    f[L.UEDEN] = (u[L.UEDEN] + q[L.QPRES]) * v
+    if mom_flux_has_p(d, coord):
+        m = L.momentum_index(d)
+        f[m] = f[m] + q[L.QPRES]
+    for c in range(L.UFS, L.UFS + L.nspec + L.naux):
+        f[c] = u[c] * v
+    return f
+
+
+def _shift_maybe(a, off, axis):
+    """Shift a broadcast-shaped metric array only along non-degenerate axes."""
+    return shifted(a, off, axis) if a.shape[axis] > 1 else a
+
+
+def _lf_setup(d, u, q, geom, layout, dt, cfl, ng):
+    """The pieces both Hu-Adams-Shu limiters share: the left and right cell
+    states, the Lax-Friedrichs flux and each side's update coefficient."""
+    L = layout
+    ax = 1 + d
+    uL = shifted(u, -1, ax)
+    uR = u
+    fL = _cell_flux(uL, shifted(q, -1, ax), d, geom.coord, L)
+    fR = _cell_flux(uR, q, d, geom.coord, L)
+    alpha = 1.0 / L.dim
+    dtdx = dt / geom.dx[d]
+    fluxLF = 0.5 * (fL + fR + (cfl / dtdx / alpha) * (uL - uR))
+    area = geom.face_area(d, ng)
+    vol = geom.volume(ng)
+    coefR = 2.0 * (dt / alpha) * area / vol
+    coefL = 2.0 * (dt / alpha) * area / _shift_maybe(vol, -1, d)
+    return uL, uR, fluxLF, coefL, coefR
+
+
+def _safe_div(a, b):
+    tiny = torch.finfo(a.dtype).tiny
+    guard = torch.where(b < 0, torch.full_like(b, -tiny), torch.full_like(b, tiny))
+    return a / torch.where(torch.abs(b) < tiny, guard, b)
+
+
+def _zero_unfluxed(out, layout):
+    out[layout.UTEMP] = 0.0
+    if layout.shock_var:
+        out[layout.USHK] = 0.0
+    return out
+
+
+def limit_hydro_fluxes_on_small_dens(flux, d, u, q, geom, layout, dt, cfl, small_dens, ng):
+    """Positivity-preserving flux limiter (Hu, Adams & Shu 2013 as the
+    reference adapts it, advection_util.cpp:662): blend each face flux
+    toward the Lax-Friedrichs flux so that no single face update pushes a
+    density below the padded floor, then scale as a backstop."""
+    L = layout
+    density_floor = small_dens * 1.1 * 2 * L.dim
+    uL, uR, fluxLF, coefL, coefR = _lf_setup(d, u, q, geom, L, dt, cfl, ng)
+    rhoL0 = uL[L.URHO]
+    rhoR0 = uR[L.URHO]
+    rhoL = rhoL0 - coefL * flux[L.URHO]
+    rhoR = rhoR0 + coefR * flux[L.URHO]
+    rhoLF_L = rhoL0 - coefL * fluxLF[L.URHO]
+    rhoLF_R = rhoR0 + coefR * fluxLF[L.URHO]
+    thetaL = _safe_div(density_floor - rhoLF_L, rhoL - rhoLF_L)
+    thetaR = _safe_div(density_floor - rhoLF_R, rhoR - rhoLF_R)
+    one = torch.ones_like(thetaL)
+    theta = torch.where(rhoL < density_floor, thetaL,
+                        torch.where(rhoR < density_floor, thetaR, one))
+    theta = torch.clamp(theta, 0.0, 1.0)
+    out = _zero_unfluxed((1.0 - theta)[None] * fluxLF + theta[None] * flux, L)
+
+    # backstop: scale the final flux so that the floor cannot be crossed
+    drhoR2 = coefR * out[L.URHO]
+    drhoL2 = coefL * out[L.URHO]
+    scale = torch.where(
+        rhoR0 + drhoR2 < density_floor,
+        torch.abs(_safe_div(density_floor - rhoR0, drhoR2)),
+        torch.where(rhoL0 - drhoL2 < density_floor,
+                    torch.abs(_safe_div(density_floor - rhoL0, drhoL2)), one))
+    out = out * scale[None]
+    # a side already below the floor: no flux until a reset
+    bad = (rhoL0 < density_floor) | (rhoR0 < density_floor)
+    return torch.where(bad[None], torch.zeros_like(out), out)
+
+
+def limit_hydro_fluxes_on_large_vel(flux, d, u, q, geom, layout, dt, cfl, speed_limit, ng):
+    """The velocity analog of the density limiter (reference
+    advection_util.cpp:897): blend toward Lax-Friedrichs where a face
+    update would push |rho u| past rho * speed_limit."""
+    if speed_limit <= 0.0:
+        return flux
+    L = layout
+    uL, uR, fluxLF, coefL, coefR = _lf_setup(d, u, q, geom, L, dt, cfl, ng)
+    lim = speed_limit / (2 * L.dim)
+    one = torch.ones_like(flux[L.URHO])
+    theta = one
+    rhoL = uL[L.URHO] - coefL * flux[L.URHO]
+    rhoR = uR[L.URHO] + coefR * flux[L.URHO]
+    for UM in (L.UMX, L.UMY, L.UMZ):
+        rhouL = torch.abs(uL[UM] - coefL * flux[UM])
+        rhouR = torch.abs(uR[UM] + coefR * flux[UM])
+        rhouLF_L = torch.abs(uL[UM] - coefL * fluxLF[UM])
+        rhouLF_R = torch.abs(uR[UM] + coefR * fluxLF[UM])
+        thL = torch.abs(_safe_div(rhoL * lim - rhouLF_L, rhouL - rhouLF_L))
+        thR = torch.abs(_safe_div(rhoR * lim - rhouLF_R, rhouR - rhouLF_R))
+        th = torch.where(rhouL > rhoL * lim, thL, torch.where(rhouR > rhoR * lim, thR, one))
+        theta = torch.minimum(theta, th)
+    theta = torch.clamp(theta, 0.0, 1.0)
+    return _zero_unfluxed((1.0 - theta)[None] * fluxLF + theta[None] * flux, L)
 
 
 def courant_field(q, qaux, dt, dx, layout):

@@ -5,7 +5,8 @@ Reference behavior: AMReX FillPatch physical BCs + `ca_statefill`
 (`Source/problems/Castro_bc_fill_nd.cpp:11-180`): Interior(0)/periodic,
 Outflow(2) first-order extrapolation, Symmetry(3)/SlipWall(4) mirror + odd
 normal velocity, NoSlipWall(5) mirror + all velocities odd. Inflow(1) gets
-the outflow baseline; its problem hook is not ported (ROADMAP.md).
+the outflow baseline, which the problem's `problem_fill(u, t)` hook then
+overwrites (the reference's problem_bc_fill).
 
 One gather per axis (wrap, clamp or reflect index map) in x, y, z order,
 then the sign flips of that axis: a ghost cell takes the value of its source
@@ -15,7 +16,8 @@ cell composed axis by axis. `ops/kernels.py:clean_fill` fuses this with
 
 from __future__ import annotations
 
-from typing import Sequence
+import inspect
+from typing import Callable, Optional, Sequence
 
 import numpy as np
 import torch
@@ -63,8 +65,11 @@ def axis_flips(layout, d, lo, hi):
 
 
 def fill_ghosts(u: torch.Tensor, layout, lo_bc: Sequence[int],
-                hi_bc: Sequence[int], ng: int) -> torch.Tensor:
-    """Fill ng ghost cells on every face of a component-major grown array."""
+                hi_bc: Sequence[int], ng: int, problem_fill: Optional[Callable] = None,
+                t=0.0) -> torch.Tensor:
+    """Fill ng ghost cells on every face of a component-major grown array;
+    then `problem_fill(u, t)` (or `problem_fill(u)`), when given, sets the
+    inflow ghosts, time-dependent ones included (double Mach reflection)."""
     dim = layout.dim
     for d in range(dim):
         axis = u.dim() - dim + d
@@ -86,5 +91,17 @@ def fill_ghosts(u: torch.Tensor, layout, lo_bc: Sequence[int],
                     sv[n + ng:] = -1.0
                 u[comp] = u[comp] * torch.as_tensor(
                     sv.reshape(shape), dtype=u.dtype, device=u.device)
-    return u
+    return apply_problem_fill(u, problem_fill, t)
+
+
+def apply_problem_fill(u, problem_fill, t):
+    """`problem_fill(u, t)`, or `problem_fill(u)` for a hook of one
+    argument (`castro_tpu/ops/fill.py:apply_problem_fill`)."""
+    if problem_fill is None:
+        return u
+    try:
+        n = len(inspect.signature(problem_fill).parameters)
+    except (TypeError, ValueError):
+        n = 1
+    return problem_fill(u, t) if n >= 2 else problem_fill(u)
 

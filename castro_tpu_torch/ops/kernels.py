@@ -2,7 +2,9 @@
 plain PyTorch version of each.
 
 Counterpart of `castro_tpu/ops/pallas_kernels.py`. Nine kernels, one
-source each under `castro_tpu_torch/csrc/`:
+source each under `castro_tpu_torch/csrc/` (the library also holds the
+three profiling probes of `ops/probes.py`, `prof_cmpflx.cu` and
+`prof_vpu.cu`):
 
   prim_aux      ctoprim + node div u + whole-grid Courant max  (prim_aux.cu)
   flatten       Miller-Colella flattening, 3 directions + min    (flatten.cu)
@@ -56,7 +58,8 @@ from castro_tpu_torch.ops.trans import term_bundle, trans_apply_bundle
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent.parent / "_build"
 SOURCES = ("prim_aux.cu", "flatten.cu", "trace_ppm.cu", "ctu_face.cu", "clean_fill.cu",
-           "cmpflx.cu", "trans_apply.cu", "trans_cmpflx.cu", "consup.cu")
+           "cmpflx.cu", "trans_apply.cu", "trans_cmpflx.cu", "consup.cu", "prof_cmpflx.cu",
+           "prof_vpu.cu")
 # --fmad=false: no multiply-add contraction, so each operation rounds as
 # the plain version's does. The kernels are bound by bytes, and at the
 # sharp edge of a Sedov blast the trace cancels O(100) terms down to
@@ -142,7 +145,7 @@ def build() -> Path:
     return lib
 
 
-_VP, _INT, _DBL = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+_VP, _INT, _DBL, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_double, ctypes.c_longlong
 _SIGNATURES = {
     "prim_aux": [_VP, _VP, _VP, _VP, _VP, _VP, _INT, _VP, _INT, _INT, _VP, _VP,
                  _DBL, _DBL, _VP, _VP, _VP],
@@ -155,12 +158,18 @@ _SIGNATURES = {
     "clean_fill": [_VP, _VP, _VP, _VP, _VP, _INT, _VP, _VP, _INT, _VP, _INT, _INT,
                    _VP, _VP, _VP, _INT, _VP],
     "cmpflx": [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _INT, _INT, _INT, _INT, _INT,
-               _DBL, _DBL, _VP],
+               _INT, _DBL, _DBL, _VP],
     "trans_apply": [_VP, _VP, _VP, _VP, _VP, _VP, _INT, _INT, _INT, _DBL, _VP],
-    "trans_cmpflx": [_VP] * 14 + [_VP, _INT, _INT, _INT, _INT, _INT, _INT, _INT,
+    "trans_cmpflx": [_VP] * 14 + [_VP, _INT, _INT, _INT, _INT, _INT, _INT, _INT, _INT,
                                   _DBL, _DBL, _VP],
     "consup": [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _INT, _INT, _VP, _INT, _VP],
+    # the profiling probes (ops/probes.py)
+    "probe_cmpflx": [_VP] * 8 + [_VP, _INT, _INT, _INT, _INT, _INT, _DBL, _DBL, _VP],
+    "probe_copy": [_VP, _VP, _VP, _VP, _VP, _INT, _INT, _INT, _INT, _VP],
+    "probe_vpu": [_VP, _VP, _LL, _INT, _INT, _DBL, _DBL, _VP],
 }
+# kernels built for float32 alone
+_F32_ONLY = ("probe_vpu",)
 
 
 def library():
@@ -169,7 +178,7 @@ def library():
         path = build()
         lib = ctypes.CDLL(str(path))
         for name, args in _SIGNATURES.items():
-            for suffix in ("f32", "f64"):
+            for suffix in ("f32",) if name in _F32_ONLY else ("f32", "f64"):
                 fn = getattr(lib, f"ctt_{name}_{suffix}")
                 fn.argtypes = args
                 fn.restype = ctypes.c_int
@@ -234,19 +243,19 @@ def check_kernel_layout(layout, dims=(3,)):
             "(ROADMAP.md, queue 2, kernel coverage)")
     if L.shock_var or L.hybrid_momentum or L.mhd or L.radiation:
         raise NotImplementedError(
-            "the CUDA kernels cover pure hydro without shock_var or hybrid momenta "
-            "(ROADMAP.md, queue 1 items 4, 8, 10)")
+            "the CUDA kernels cover pure hydro without shock_var or hybrid momenta: kernel "
+            "layout generalization, radiation, MHD (queue 1 items 6, 9, 11, ROADMAP.md)")
     if L.naux != 0 or L.nspec not in KERNEL_NPASS:
         raise NotImplementedError(
             f"the CUDA kernels are built for {KERNEL_NPASS} species and no aux "
-            "components (ROADMAP.md, queue 2, kernel coverage)")
+            "components: kernel layout generalization (queue 1 item 6, ROADMAP.md)")
 
 
 def check_kernel_eos(eos, layout):
     """Raise unless the kernels can evaluate this EOS in-kernel."""
     if not getattr(eos, "pallas_safe", False) or not hasattr(eos, "species_coefficients"):
         raise NotImplementedError(
-            "the CUDA kernels evaluate the gamma-law EOS only (ROADMAP.md, queue 1 item 6)")
+            "the CUDA kernels evaluate the gamma-law EOS only (ROADMAP.md, queue 1 item 7)")
     if len(eos.species_coefficients()[1]) != layout.nspec or layout.nspec > MAXSPEC:
         raise ValueError("EOS species do not match the layout")
 
@@ -431,9 +440,15 @@ def _kernel_solver(riemann_solver):
 
 
 def _check_cartesian(coord):
+    """trace_ppm and ctu_face are 3D kernels, and a 3D grid is Cartesian."""
     if int(coord) != 0:
-        raise NotImplementedError(
-            "the CUDA face kernels are Cartesian (ROADMAP.md, queue 1 item 4)")
+        raise ValueError(f"the 3D face kernels take Cartesian grids, not coord={int(coord)}")
+
+
+def _coord(coord):
+    if int(coord) not in (0, 1, 2):
+        raise ValueError(f"coord={coord}: 0 Cartesian, 1 cylindrical, 2 spherical")
+    return int(coord)
 
 
 # -- 4. ctu_face ---------------------------------------------------------------
@@ -605,13 +620,14 @@ def cmpflx(qm, qp, gamc_l, gamc_r, c_l, c_r, d, layout, coord, riemann_solver,
     Godunov state [NGDNV] on every face of a 1D, 2D or 3D grid, given the
     face states and the gamc and c of the cells on both sides, as
     `pallas_kernels.cmpflx_pallas`; `bnd_mask` (a WallMask of direction d)
-    zeroes the interface velocity on wall faces as `compute_flux` does."""
+    zeroes the interface velocity on wall faces as `compute_flux` does, and
+    `coord` 1 or 2 drops the pressure from the radial (d=0) momentum flux."""
     if not _on_cuda(qm, qp, gamc_l, gamc_r, c_l, c_r):
         return cmpflx_plain(qm, qp, gamc_l, gamc_r, c_l, c_r, d, layout, coord,
                             riemann_solver, small_dens, small_pres, bnd_mask)
     L = layout
     check_kernel_layout(L, dims=(1, 2, 3))
-    _check_cartesian(coord)
+    coord = _coord(coord)
     solver = _kernel_solver(riemann_solver)
     dt_ = qm.dtype
     g = tuple(qm.shape[1:])
@@ -624,7 +640,7 @@ def cmpflx(qm, qp, gamc_l, gamc_r, c_l, c_r, d, layout, coord, riemann_solver,
     mlo, mhi = _wall_index(bnd_mask)
     _call("cmpflx", qm, qm.data_ptr(), qp.data_ptr(), gamc_l.data_ptr(), gamc_r.data_ptr(),
           c_l.data_ptr(), c_r.data_ptr(), flux.data_ptr(), qe.data_ptr(), _grid3(g),
-          L.nspec + L.naux, d, solver, mlo, mhi, float(wt(small_dens, dt_)),
+          L.nspec + L.naux, d, coord, solver, mlo, mhi, float(wt(small_dens, dt_)),
           float(wt(small_pres, dt_)), _stream(qm))
     cmpflx.launches += 1
     return flux, qe
@@ -685,14 +701,15 @@ def trans_cmpflx(qm, qp, df_m, df_p, dre_m, dre_p, dp_m, dp_p, gamc_l, gamc_r, c
                  reset_density, reset_rhoe, bnd_mask=None):
     """Transverse-correct both interface states with their summed bundles,
     then the Riemann solve and flux, in one pass: the corrected states are
-    never written to memory. As `pallas_kernels.trans_cmpflx_pallas`."""
+    never written to memory. As `pallas_kernels.trans_cmpflx_pallas`;
+    `coord` as in `cmpflx`."""
     tensors = (qm, qp, df_m, df_p, dre_m, dre_p, dp_m, dp_p, gamc_l, gamc_r, c_l, c_r)
     if not _on_cuda(*tensors):
         return trans_cmpflx_plain(*tensors, d, layout, coord, riemann_solver, small_dens,
                                   small_pres, reset_density, reset_rhoe, bnd_mask)
     L = layout
     check_kernel_layout(L, dims=(1, 2, 3))
-    _check_cartesian(coord)
+    coord = _coord(coord)
     solver = _kernel_solver(riemann_solver)
     dt_ = qm.dtype
     g = tuple(qm.shape[1:])
@@ -705,7 +722,7 @@ def trans_cmpflx(qm, qp, df_m, df_p, dre_m, dre_p, dp_m, dp_p, gamc_l, gamc_r, c
     qe = torch.empty((L.NGDNV,) + g, dtype=dt_, device=qm.device)
     mlo, mhi = _wall_index(bnd_mask)
     _call("trans_cmpflx", qm, *(t.data_ptr() for t in tensors), flux.data_ptr(),
-          qe.data_ptr(), _grid3(g), L.nspec + L.naux, d, solver, mlo, mhi,
+          qe.data_ptr(), _grid3(g), L.nspec + L.naux, d, coord, solver, mlo, mhi,
           int(bool(reset_density)), int(bool(reset_rhoe)), float(wt(small_dens, dt_)),
           float(wt(small_pres, dt_)), _stream(qm))
     trans_cmpflx.launches += 1
@@ -771,10 +788,17 @@ KERNELS = (prim_aux, flatten, trace_ppm, ctu_face, clean_fill, cmpflx, trans_app
            trans_cmpflx, consup)
 
 
+def _all_kernels():
+    from castro_tpu_torch.ops import probes
+
+    return KERNELS + probes.PROBES
+
+
 def reset_launch_counts():
-    for k in KERNELS:
+    for k in _all_kernels():
         k.launches = 0
 
 
 def launch_counts() -> dict:
-    return {k.__name__: k.launches for k in KERNELS}
+    """{kernel: launches since the last reset}, the three probes included."""
+    return {k.__name__: k.launches for k in _all_kernels()}

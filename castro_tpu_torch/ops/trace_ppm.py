@@ -1,8 +1,8 @@
 """Characteristic tracing of PPM parabolae to zone edges.
 
 Counterpart of `castro_tpu/ops/trace_ppm.py` (reference
-`Source/hydro/trace_ppm.cpp:16-596`), Cartesian only: the `dloga` geometry
-source of 1D/2D curvilinear runs is not ported (ROADMAP.md).
+`Source/hydro/trace_ppm.cpp:16-596`), with the `dloga` geometry source of
+1D/2D curvilinear runs (`geometry_source`).
 
 Face convention: face index i == interface i-1/2. `qm[i]` (minus/left
 state) comes from cell i-1 tracing to its right edge; `qp[i]` (plus/right
@@ -33,9 +33,29 @@ def wave_weight(speed, is_plus):
     return w_minus if is_plus else (1.0 - w_minus)
 
 
+def geometry_source(q, qaux, un, dloga, dt, dtdx, layout):
+    """The 1D/2D curvilinear geometry source of the x-states (reference
+    trace_ppm.cpp:573-596): (sourcr, sourcp, source) added to the traced
+    rho, p and rho e. `dloga` is d(ln A)/dr, 0 where the metric is flat."""
+    L = layout
+    rho_c = q[L.QRHO]
+    cc = qaux[L.QC]
+    csq = cc * cc
+    courn = dtdx * (cc + torch.abs(un))
+    safe_dloga = torch.where(dloga == 0.0, torch.ones_like(dloga), dloga)
+    eta = (1.0 - courn) / (cc * dt * torch.abs(safe_dloga))
+    dlogatmp = torch.where(dloga == 0.0, torch.zeros_like(eta),
+                           torch.clamp(eta, max=1.0) * dloga)
+    sourcr = -0.5 * dt * rho_c * dlogatmp * un
+    sourcp = sourcr * csq
+    source = sourcp * ((q[L.QPRES] + q[L.QREINT]) / rho_c) / csq
+    return sourcr, sourcp, source
+
+
 def trace_ppm(q, qaux, srcQ, flatn, d, dt, dx_d, layout, small_dens, small_pres,
-              small_ener=1e-200):
-    """Returns (qm_face, qp_face), both [NQ, grid] on faces i-1/2 stored at i."""
+              small_ener=1e-200, dloga=None):
+    """Returns (qm_face, qp_face), both [NQ, grid] on faces i-1/2 stored at i.
+    `dloga` (curvilinear 1D/2D) adds the geometry source to the x-states."""
     L = layout
     ax = d
     QUN, QUT, QUTT = _vel_map(L, d)
@@ -122,6 +142,14 @@ def trace_ppm(q, qaux, srcQ, flatn, d, dt, dx_d, layout, small_dens, small_pres,
                           Im_srho, Im_sun, Im_sp, Im_sre, Im_sut, Im_sutt, True)
     qm_vals = build_state(Ip_rho, Ip_un, Ip_p, Ip_re, Ip_gc, Ip_ut, Ip_utt,
                           Ip_srho, Ip_sun, Ip_sp, Ip_sre, Ip_sut, Ip_sutt, False)
+
+    if dloga is not None and d == 0:
+        sourcr, sourcp, source = geometry_source(q, qaux, un, dloga, dt, dtdx, L)
+        fixed = []
+        for rho_v, un_v, p_v, re_v, ut_v, utt_v in (qp_vals, qm_vals):
+            fixed.append((torch.clamp(rho_v + sourcr, min=small_dens), un_v, p_v + sourcp,
+                          re_v + source, ut_v, utt_v))
+        qp_vals, qm_vals = fixed
 
     # full NQ interface states (QTEMP/QGAME copied through), cell-registered
     qp_comps = [q[i] for i in range(L.NQ)]

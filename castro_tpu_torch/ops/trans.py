@@ -1,19 +1,22 @@
-"""CTU transverse corrections (corner coupling), Cartesian, 2D and 3D.
+"""CTU transverse corrections (corner coupling), 2D and 3D.
 
 Counterpart of `castro_tpu/ops/trans.py` (reference `Source/hydro/trans.cpp`):
 - `trans_single` (:15/:67): add one transverse flux difference to the
-  normal-direction interface states (the six corner-coupling passes of 3D
-  CTU, cdtdx = dt/(3dx));
+  normal-direction interface states (the 2D pass, cdtdx = dt/(2dx), and
+  the six corner-coupling passes of 3D CTU, cdtdx = dt/(3dx));
 - `trans_final` (:442): add two corner-coupled transverse flux differences
   (the 3D final pass, cdtdx = dt/(2dx)).
 With `use_kernels` each state's bundle is summed by `term_bundle` (torch
 ops) and applied by `kernels.trans_apply`, as the JAX package does with
-`trans_apply_pallas` (`castro_tpu/ops/trans.py:316-328`, `:356-371`).
+`trans_apply_pallas` (`castro_tpu/ops/trans.py:316-328`, `:356-371`). The
+2D RZ pass (area-weighted `geom_terms`, `radial_p_fix`) is torch ops, as
+the JAX package leaves it to XLA (`:316-317`).
 
 The prim interface state is converted to conserved form, the transverse
 flux divergence subtracted, a p-evolution-equation update applied to the
-pressure, with the reference's reset ladder. The RZ area weighting, the
-radiation terms and `transverse_use_eos` are not ported (ROADMAP.md).
+pressure, with the reference's reset ladder; `use_eos`
+(transverse_use_eos) then recomputes (p, rho e) from the EOS. The
+radiation terms are not ported (ROADMAP.md).
 
 Face convention: face arrays registered at i = interface i-1/2. For the
 plus state (from cell i) cell_shift=0; for the minus state (from cell i-1)
@@ -47,11 +50,17 @@ def _pass_ranges(layout):
 
 
 def _trans_apply(q_face, cell_shift, n_ax, terms, qaux, layout, small_pres,
-                 transverse_reset_density=True, transverse_reset_rhoe=False):
+                 transverse_reset_density=True, transverse_reset_rhoe=False, use_eos=None):
     """Apply one or two transverse flux-difference corrections.
 
     terms: list of dicts {flux [NVAR], qe [NGDNV], t_dir, cdtdx}, the
-    flux and Godunov state face-registered along t_dir."""
+    flux and Godunov state face-registered along t_dir; in 2D RZ also
+    `area` (face-registered along t_dir), `vol` (cell-registered) and
+    `hdt`, which weight the differences by area/volume in place of cdtdx,
+    and `radial_p_fix` (subtract cdtdx (pgp - pgm) from the radial
+    momentum, whose flux lacks the pressure; trans.cpp:303-306).
+    `use_eos` (an EOS) recomputes (p, rho e) from (rho, e, X) afterwards
+    (transverse_use_eos; reference reset_edge_state_thermo)."""
     L = layout
 
     def C(arr, t_ax=None, t_off=0):
@@ -79,17 +88,31 @@ def _trans_apply(q_face, cell_shift, n_ax, terms, qaux, layout, small_pres,
         qe = t["qe"]
         t_ax = t["t_dir"]
         cdtdx = t["cdtdx"]
+        rz = t.get("area") is not None
+        if rz:
+            area_lo = C(t["area"], t_ax=t_ax)
+            area_hi = C(t["area"], t_ax=t_ax, t_off=1)
+            volinv = 1.0 / C(t["vol"])
+            hdt = t["hdt"]
 
         def dflux(comp):
-            return cdtdx * (C(F[comp], t_ax=t_ax, t_off=1) - C(F[comp], t_ax=t_ax))
+            flo = C(F[comp], t_ax=t_ax)
+            fhi = C(F[comp], t_ax=t_ax, t_off=1)
+            if rz:
+                return hdt * (area_hi * fhi - area_lo * flo) * volinv
+            return cdtdx * (fhi - flo)
 
         gdu_comp = (L.GDU, L.GDV, L.GDW)[t_ax]
         pgm = C(qe[L.GDPRES], t_ax=t_ax)
         pgp = C(qe[L.GDPRES], t_ax=t_ax, t_off=1)
         ugm = C(qe[gdu_comp], t_ax=t_ax)
         ugp = C(qe[gdu_comp], t_ax=t_ax, t_off=1)
-        dup = pgp * ugp - pgm * ugm
-        du = ugp - ugm
+        if rz:
+            dup = area_hi * pgp * ugp - area_lo * pgm * ugm
+            du = area_hi * ugp - area_lo * ugm
+        else:
+            dup = pgp * ugp - pgm * ugm
+            du = ugp - ugm
         pav = 0.5 * (pgp + pgm)
 
         drr = drr + dflux(L.URHO)
@@ -97,10 +120,16 @@ def _trans_apply(q_face, cell_shift, n_ax, terms, qaux, layout, small_pres,
         drv = drv + dflux(L.UMY)
         drw = drw + dflux(L.UMZ)
         dre_tot = dre_tot + dflux(L.UEDEN)
-        dreint = dreint + dflux(L.UEINT) + cdtdx * pav * du
-        dp = dp + cdtdx * (dup + pav * du * (gamc - 1.0))
+        if rz:
+            dreint = dreint + dflux(L.UEINT) + hdt * pav * du * volinv
+            dp = dp + hdt * (dup + pav * du * (gamc - 1.0)) * volinv
+        else:
+            dreint = dreint + dflux(L.UEINT) + cdtdx * pav * du
+            dp = dp + cdtdx * (dup + pav * du * (gamc - 1.0))
         for qc, uc in zip(pass_q, pass_u):
             dpass[qc] = dpass[qc] + dflux(uc)
+        if t.get("radial_p_fix", False):
+            dru = dru + cdtdx * (pgp - pgm)
 
     rrnew = rr - drr
     runew = ru - dru
@@ -134,6 +163,13 @@ def _trans_apply(q_face, cell_shift, n_ax, terms, qaux, layout, small_pres,
 
     for qc in pass_q:
         out[qc] = torch.where(bad, q_face[qc], (rr * q_face[qc] - dpass[qc]) / rrnew)
+
+    if use_eos is not None:
+        es = use_eos.re(rho=out[L.QRHO],
+                        e=torch.clamp(out[L.QREINT] / out[L.QRHO], min=1e-300),
+                        xn=out[L.QFS: L.QFS + L.nspec])
+        out[L.QREINT] = out[L.QRHO] * es.e
+        out[L.QPRES] = torch.clamp(es.p, min=small_pres)
     return out
 
 
@@ -221,7 +257,7 @@ def trans_apply_bundle(q, df, dre_x, dp_b, layout, small_pres, reset_density,
 
 
 def _corrected_states(qm, qp, terms, qaux, n_dir, layout, small_pres, reset_density,
-                      reset_rhoe, use_kernels):
+                      reset_rhoe, use_kernels, use_eos_p=None, use_eos_m=None):
     """Both interface states of normal n_dir corrected by `terms`: the plus
     state registered at its own cell (shift 0), the minus state at the cell
     below (shift -1)."""
@@ -235,28 +271,39 @@ def _corrected_states(qm, qp, terms, qaux, n_dir, layout, small_pres, reset_dens
                                      reset_density, reset_rhoe))
         return out[1], out[0]
     qpo = _trans_apply(qp, 0, n_dir, terms, qaux, layout, small_pres,
-                       reset_density, reset_rhoe)
+                       reset_density, reset_rhoe, use_eos=use_eos_p)
     qmo = _trans_apply(qm, -1, n_dir, terms, qaux, layout, small_pres,
-                       reset_density, reset_rhoe)
+                       reset_density, reset_rhoe, use_eos=use_eos_m)
     return qmo, qpo
 
 
 def trans_single(qm, qp, flux_t, qe_t, qaux, n_dir, t_dir, cdtdx, layout,
-                 small_pres, reset_density=True, reset_rhoe=False, use_kernels=False):
+                 small_pres, reset_density=True, reset_rhoe=False, geom_terms=None,
+                 radial_p_fix=False, hdt=None, use_kernels=False, use_eos=None):
     """Single transverse correction of both interface states
-    (reference `trans_single`, trans.cpp:15)."""
-    terms = [{"flux": flux_t, "qe": qe_t, "t_dir": t_dir, "cdtdx": cdtdx}]
-    return _corrected_states(qm, qp, terms, qaux, n_dir, layout, small_pres,
-                             reset_density, reset_rhoe, use_kernels)
+    (reference `trans_single`, trans.cpp:15). `geom_terms` = {area, vol}
+    and `hdt` weight the 2D RZ pass; it and `radial_p_fix` take the torch
+    ops whatever `use_kernels` says, as the JAX package takes XLA."""
+    term = {"flux": flux_t, "qe": qe_t, "t_dir": t_dir, "cdtdx": cdtdx}
+    if geom_terms:
+        term.update(geom_terms, hdt=hdt)
+    if radial_p_fix:
+        term["radial_p_fix"] = True
+    kern = use_kernels and not geom_terms and not radial_p_fix
+    return _corrected_states(qm, qp, [term], qaux, n_dir, layout, small_pres,
+                             reset_density, reset_rhoe, kern, use_eos, use_eos)
 
 
 def trans_final(qm, qp, flux_t1, qe_t1, flux_t2, qe_t2, qaux,
                 n_dir, t1_dir, t2_dir, cdtdx_t1, cdtdx_t2, layout,
-                small_pres, reset_density=True, reset_rhoe=False, use_kernels=False):
-    """Double transverse correction (reference `trans_final`, trans.cpp:442)."""
+                small_pres, reset_density=True, reset_rhoe=False, use_kernels=False,
+                use_eos=None):
+    """Double transverse correction (reference `trans_final`, trans.cpp:442).
+    `use_eos` re-evaluates the plus state only, as the JAX package's XLA
+    path does (`castro_tpu/ops/trans.py:378-381`)."""
     terms = [
         {"flux": flux_t1, "qe": qe_t1, "t_dir": t1_dir, "cdtdx": cdtdx_t1},
         {"flux": flux_t2, "qe": qe_t2, "t_dir": t2_dir, "cdtdx": cdtdx_t2},
     ]
     return _corrected_states(qm, qp, terms, qaux, n_dir, layout, small_pres,
-                             reset_density, reset_rhoe, use_kernels)
+                             reset_density, reset_rhoe, use_kernels, use_eos, None)

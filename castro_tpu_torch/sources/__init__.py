@@ -1,0 +1,38 @@
+"""The source-term framework (counterpart of `castro_tpu/sources/__init__.py`).
+
+Reference: the ordered source list thermo/diff/hybrid/grav/rot/sponge/ext/
+geom (`Source/driver/Castro.H:100-118`), old-time sources from S^n and the
+time-centred corrector (`Source/sources/Castro_sources.cpp:123,185`).
+
+A source is a callable (sim, u, q, qaux, t, dt) -> src [NVAR, grown grid].
+The step applies dt*S_old with the hydro update (and traces it into the
+interface states through src_to_prim), then the corrector
+0.5*dt*(S_new - S_old). Only the 2D RZ geometric source is ported; every
+other source raises, naming its ROADMAP.md item, where a later slice
+adds it to this list."""
+
+from __future__ import annotations
+
+from castro_tpu_torch.geometry import CoordSys
+from castro_tpu_torch.sources.geom_src import GeomSource
+
+
+def build_sources(params, geom, layout, ng):
+    """The active sources of `params`, in the reference's order."""
+    c = params.castro
+    unported = [
+        (bool(c.do_thermal_diffusion or c.diffuse_temp), "thermal diffusion", 10),
+        (bool(c.do_grav), "gravity", 8),
+        (bool(c.do_rotation), "rotation", 10),
+        (bool(c.do_sponge), "the sponge", 10),
+        (bool(c.hybrid_hydro and layout.hybrid_momentum), "the hybrid-momentum source", 6),
+        (bool(c.add_ext_src), "external sources", 10),
+    ]
+    for on, name, item in unported:
+        if on:
+            raise NotImplementedError(
+                f"not ported yet: {name} (queue 1 item {item}), see ROADMAP.md")
+    srcs = []
+    if geom.coord == CoordSys.CYLINDRICAL and geom.dim == 2:
+        srcs.append(GeomSource(params, geom, layout, ng))
+    return srcs

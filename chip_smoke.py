@@ -6,15 +6,17 @@
 From the root of a checkout, on a machine with one card and the CUDA
 toolkit. In order:
   1. print the card (nvidia-smi name and power limit, torch's name, count);
-  2. build the nine CUDA kernels from castro_tpu_torch/csrc and print each
-     kernel's registers, stack, shared memory and spills (ptxas -v);
+  2. build the twelve CUDA kernels (the nine of the step and the three
+     profiling probes) from castro_tpu_torch/csrc and print each kernel's
+     registers, stack, shared memory and spills (ptxas -v);
   3. hold each kernel against its plain PyTorch version on the card, at the
      main paths' shapes (3D Sedov 128^3 interior, 136^3 grown; 2D Sedov
      4096^2, 4104^2 grown; 1D Sod 4096; float32), and on the branches the
      main paths do not take at 32^3 and 64^2 (HLLC, srcQ, the face stages
      terms=[], one corner and final without consup, wall masks,
      symmetry/periodic/no-slip fills, prim_aux without div u, both reset
-     flags of trans_apply);
+     flags of trans_apply), and cmpflx and trans_cmpflx with coord 1 and 2
+     at the RZ and spherical paths' shapes;
   4. drive the main paths through Simulation(...).run() on the card, each
      with every launch count zeroed just before and read just after and
      checked against the step's structure, with mass conservation and a
@@ -25,6 +27,21 @@ toolkit. In order:
           unfused structure (trace, trans_apply x18, consup x3);
        C  2D Sedov 4096^2 (cmpflx x2, trans_cmpflx x2) and 1D Sod n=4096
           to t=0.2 (cmpflx), held against the exact Riemann solution;
+       D  3D Sedov 128^3 with PLM (ctu_face x9: three 1D solves, three
+          corner pairs, three finals with consup) and with the positivity
+          flux limiter (the finals without consup, the update in torch
+          ops); speed_limit and transverse_use_eos at 32^3, card vs CPU;
+       E  2D RZ Sedov 2048 x 4096 (cmpflx x4 with coord=1, all else torch
+          ops), and RZ 1024 x 2048 and 1D spherical n=1024 to t=0.01 (cmpflx
+          x1 with coord=2), the RZ midplane held against the spherical run;
+       F  2D double Mach reflection (inflow with its fill hook, HLLC, cfl
+          0.9): 128 x 32 to t=0.05 with the checks of
+          tests/test_double_mach.py, 2048 x 512 timed; the 2D acoustic pulse
+          card vs CPU;
+     then the probe entry points (castro_tpu_torch/scripts/prof_cmpflx.py
+     at 128^3 and prof_vpu.py), each probe first held against its plain
+     version (probe_cmpflx at every tiling and probe_copy bit for bit,
+     the vpu bodies as stated at VPU_CHECK_ITERS);
   5. time the main paths (zones/s, ms/step, peak memory, device time by
      kernel under torch.profiler) and each kernel (its device time under
      torch.profiler) beside its bound and its plain version's time (CUDA
@@ -54,7 +71,7 @@ import time
 # against JAX scale their floor (tests/test_torch_sedov.py). RTOL is the
 # fused-vs-XLA float32 budget of the JAX package (tests/test_pallas.py:41).
 EXACT = ("flatten", "trace_ppm", "ctu_face", "cmpflx", "trans_apply", "trans_cmpflx",
-         "consup")
+         "consup", "probe_cmpflx", "probe_copy")
 RTOL = 2e-5
 MASS_RTOL = 1e-6
 # H100 SXM, published peaks (NVIDIA's data sheet): HBM bytes/s and float32
@@ -69,6 +86,21 @@ N_2D, STEPS_2D = 4096, 10         # path C
 N_2D_SMALL = 64
 N_1D = 4096
 SOD_L1_BOUND = 0.015              # mean |rho - exact| / mean exact (tests/test_sod.py)
+N_RZ, STEPS_RZ = 2048, 10         # path E: RZ N x 2N, timed
+N_SPH = 1024                      # path E: RZ N x 2N and 1D spherical N to t=0.01
+RZ_L1_BOUND, RZ_PEAK_CELLS = 0.05, 2   # tests/test_sedov_analytic.py
+DMR_CHECK, DMR_BIG, STEPS_DMR = (128, 32), (2048, 512), 10   # path F
+# the vpu bodies held to their plain versions: fma and div bit for bit;
+# fma_rn (one rounding an iteration against two) to iterations x 2^-23;
+# recip_approx (rcp.approx, at most one ulp from 1/x; the body's map has
+# slope of magnitude one, so errors add) to 2 x iterations x 2^-23; rsqrt
+# and exp (rsqrtf, expf: 2 ulp each; both maps contract to a fixed point,
+# so errors do not grow) to 8 x 2^-23
+VPU_CHECK_ITERS = 300
+VPU_TIME_ITERS = 10000            # the fma body's launch timed for the kernels line
+VPU_RTOL = {"fma": 0.0, "div": 0.0, "fma_rn": VPU_CHECK_ITERS * 2.0 ** -23,
+            "recip_approx": 2 * VPU_CHECK_ITERS * 2.0 ** -23, "rsqrt": 8 * 2.0 ** -23,
+            "exp": 8 * 2.0 ** -23}
 
 REPLACES = {
     "prim_aux": "castro_tpu/ops/pallas_kernels.py:770",
@@ -80,7 +112,12 @@ REPLACES = {
     "trans_apply": "castro_tpu/ops/pallas_kernels.py:255",
     "trans_cmpflx": "castro_tpu/ops/pallas_kernels.py:145",
     "consup": "castro_tpu/ops/pallas_kernels.py:1243",
+    "probe_cmpflx": "scripts/prof_cmpflx.py:47",
+    "probe_copy": "scripts/prof_cmpflx.py:70",
+    "probe_vpu": "scripts/prof_vpu.py:12",
 }
+SOURCE = {"probe_cmpflx": "prof_cmpflx.cu", "probe_copy": "prof_cmpflx.cu",
+          "probe_vpu": "prof_vpu.cu"}
 # aten operations counted as arithmetic when the plain version's operations
 # are counted (count_ops); data movement (copies, cat, stack, views, fills)
 # is not counted
@@ -290,15 +327,19 @@ def main():
         from castro_tpu_torch.driver.sim import Simulation
         from castro_tpu_torch.ops import kernels as K
         from castro_tpu_torch.ops import advection_util as au
+        from castro_tpu_torch.ops import probes as P
         from castro_tpu_torch.ops.ctu import _bnd_masks
         from castro_tpu_torch.ops.stencil import shifted
         from castro_tpu_torch.ops.trace_ppm import trace_ppm as trace_ppm_ops
         from castro_tpu_torch.ops.trans import term_bundle
-        from castro_tpu_torch.problems import sedov, sod
+        from castro_tpu_torch.problems import acoustic_pulse, double_mach, sedov, sod
+        from castro_tpu_torch.scripts import prof_cmpflx, prof_vpu
         from castro_tpu_torch.utils.exact_riemann import solution as exact_solution
     except ImportError as e:
         print(f"castro_tpu_torch not found beside chip_smoke.py: {e}", file=sys.stderr)
         return 2
+
+    import numpy as np
 
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -326,6 +367,30 @@ def main():
     def sod_sim(n, device="cuda"):
         return Simulation(sod.make_params(n=n, dim=1, dtype="float32"),
                           problem_init=sod.problem_init, device=device)
+
+    def curvilinear_sim(geometry, n, device="cuda"):
+        """Sedov on the axis (tests/test_sedov_analytic.py): 2D RZ, r in
+        [0, 1] and z in [-1, 1] on n x 2n cells, or 1D spherical on n."""
+        kw = dict(stop_time=0.01, r_init=0.1, p_ambient=1e-5, exp_energy=1.0, dtype="float32")
+        if geometry == "rz":
+            p = sedov.make_params(n=n, dim=2, coord=1, **kw)
+            p = p.with_ns("geometry", coord_sys=1, prob_lo=(0.0, -1.0, 0.0),
+                          prob_hi=(1.0, 1.0, 0.0)).with_ns("amr", n_cell=(n, 2 * n))
+            p = p.with_ns("castro", lo_bc=(3, 2), hi_bc=(2, 2), cfl=0.4)
+            center = (0.0, 0.0)
+        else:
+            p = sedov.make_params(n=n, dim=1, coord=2, **kw)
+            p = p.with_ns("castro", lo_bc=(3,), hi_bc=(2,), cfl=0.4)
+            center = (0.0,)
+        return Simulation(p, problem_init=lambda s_, u_: sedov.problem_init(s_, u_, center),
+                          device=device)
+
+    def dmr_sim(n, device="cuda"):
+        return double_mach.build(n=n, dtype="float32", device=device)
+
+    def pulse_sim(n, device="cuda"):
+        return Simulation(acoustic_pulse.make_params(n=n, dtype="float32"),
+                          problem_init=acoustic_pulse.problem_init, device=device)
 
     # -- 3. kernel vs plain --------------------------------------------------------
     errs = {name: [0.0, 0.0] for name in REPLACES}
@@ -465,6 +530,7 @@ def main():
         torch ops and the plain versions."""
         L, cfg, dx, dim = sim.layout, sim.cfg, sim.geom.dx, sim.layout.dim
         sd, sp = cfg.small_dens, cfg.small_pres
+        coord = int(sim.geom.coord)
         q, qaux = au.ctoprim(u, L, sim.eos, sd, sim.small_temp)
         flatn = K.flatten_plain(q, L)
         masks = _bnd_masks(u.shape[1:], dim, sim.ng, cfg.lo_bc, cfg.hi_bc)
@@ -474,7 +540,7 @@ def main():
         for d in range(dim):
             qm, qp = trace_ppm_ops(q, qaux, None, flatn, d, dtw, dx[d], L, sd, sp,
                                    cfg.small_ener)
-            solves.append((qm, qp, shifted(g, -1, d), g, shifted(c, -1, d), c, d, L, 0,
+            solves.append((qm, qp, shifted(g, -1, d), g, shifted(c, -1, d), c, d, L, coord,
                            solver, sd, sp))
         del q, flatn
         f1d = [K.cmpflx_plain(*a, bnd_mask=masks[a[6]]) for a in solves]
@@ -486,7 +552,7 @@ def main():
                 bp = term_bundle(term, qaux, n, 0, L)
                 bm = term_bundle(term, qaux, n, -1, L)
                 finals.append((solves[n][0], solves[n][1], bm[0], bp[0], bm[1], bp[1], bm[2],
-                               bp[2], *solves[n][2:6], n, L, 0, solver, sd, sp))
+                               bp[2], *solves[n][2:6], n, L, coord, solver, sd, sp))
         return dict(solves=solves, f1d=f1d, finals=finals, masks=masks, L=L, sp=sp)
 
     def compare_low_dim(y, label, resets=((True, False),)):
@@ -543,15 +609,32 @@ def main():
                     "symmetry walls, HLLC", resets=((True, False), (True, True), (False, False)))
     del s
     torch.cuda.empty_cache()
+    print(f"kernel vs plain, RZ {N_RZ} x {2 * N_RZ} (coord 1) and 1D spherical {N_SPH} "
+          f"(coord 2), float32 (path E's shapes):", flush=True)
+    for geometry, n in (("rz", N_RZ), ("sph", N_SPH)):
+        s = curvilinear_sim(geometry, n)
+        s.init_data()
+        dts = s.estimate_dt()
+        s.advance(dts)
+        compare_low_dim(inputs_low_dim(s, s.u, dts), f"{geometry} after 1 step")
+        del s
+        torch.cuda.empty_cache()
 
     # -- 4. the main path -------------------------------------------------------------
     path_launches = {}
 
-    def drive(label, sim, per_try, max_step=None, stop_time=None, callbacks=None):
+    def mass(sim):
+        """The interior's mass, sum of rho times the cell volume."""
+        vol = sim.geom.volume(0).double()
+        return float((sim.interior()[sim.layout.URHO].double() * vol).sum())
+
+    def drive(label, sim, per_try, max_step=None, stop_time=None, callbacks=None,
+              conserves_mass=True):
         """Run `sim` through Simulation.run with the launch counts zeroed just
         before and read just after; check them against `per_try` (launches a
-        tried step; clean_fill once more at init in 3D), finite values and
-        mass conservation. Returns the number of steps tried."""
+        tried step; clean_fill once more at init where the kernel cleans),
+        finite values and, unless an inflow feeds the grid, mass
+        conservation. Returns the number of steps tried."""
         print(f"main path {label}, Simulation.run on the card", flush=True)
         tries = {"n": 0}
         step_impl = sim._step_impl
@@ -563,26 +646,26 @@ def main():
         sim._step_impl = counted
         K.reset_launch_counts()
         sim.init_data()
-        mass0 = float(sim.interior()[sim.layout.URHO].double().sum())
+        mass0 = mass(sim)
         sim.run(max_step=max_step, stop_time=stop_time, verbose=False, callbacks=callbacks)
         torch.cuda.synchronize()
         launches = K.launch_counts()
         n = tries["n"]
         expected = {name: per_try.get(name, 0) * n for name in launches}
-        if sim.layout.dim == 3:
+        if sim._kernel_clean_fill:
             expected["clean_fill"] += 1
         print(f"  {sim.step_count} steps ({n} tried), t = {sim.t:.6e}; launches {launches}; "
               f"expected {expected}")
-        if launches != expected or any(launches[k] == 0 for k in per_try):
+        if launches != expected or any(launches[k] == 0 for k, v in per_try.items() if v):
             fail(f"path {label}: the launch counts do not match the step's structure")
         u_end = sim.interior()
         if not bool(torch.isfinite(u_end).all()):
             fail(f"path {label}: non-finite state")
-        mass1 = float(u_end[sim.layout.URHO].double().sum())
+        mass1 = mass(sim)
         dm = abs(mass1 - mass0) / mass0
         print(f"  mass: {mass0:.9e} -> {mass1:.9e}, relative change {dm:.3e} "
-              f"(limit {MASS_RTOL:g})")
-        if dm > MASS_RTOL:
+              + (f"(limit {MASS_RTOL:g})" if conserves_mass else "(inflow: not checked)"))
+        if conserves_mass and dm > MASS_RTOL:
             fail(f"path {label}: mass is not conserved")
         path_launches[label] = launches
         sim._step_impl = step_impl
@@ -679,6 +762,115 @@ def main():
     card_vs_cpu("1D Sod n=256", lambda where: sod_sim(256, device=where), steps=10,
                 per_try=ONE_D)
 
+    # path D: PLM, the flux limiters, speed_limit, transverse_use_eos in 3D
+    PLM_3D = {"prim_aux": 1, "flatten": 1, "ctu_face": 9, "clean_fill": 1, "trace_ppm": 0}
+    LIMITED_3D = {"prim_aux": 1, "flatten": 1, "trace_ppm": 3, "ctu_face": 6, "consup": 0,
+                  "clean_fill": 1}
+    SPEED_LIMITED_3D = dict(LIMITED_3D, clean_fill=0)
+    NO_KERNELS = {name: 0 for name in K.launch_counts()}
+    drive(f"D: Sedov {N_MAIN}^3 float32 ppm_type=0, {STEPS_MAIN} steps",
+          sedov_sim(N_MAIN, ppm_type=0), PLM_3D, max_step=STEPS_MAIN)
+    drive(f"D: Sedov {N_MAIN}^3 float32 limit_fluxes_on_small_dens=1, 5 steps",
+          sedov_sim(N_MAIN, limit_fluxes_on_small_dens=1), LIMITED_3D, max_step=5)
+    torch.cuda.empty_cache()
+    card_vs_cpu(f"Sedov {N_SMALL}^3 ppm_type=0",
+                lambda where: sedov_sim(N_SMALL, device=where, ppm_type=0), per_try=PLM_3D)
+    card_vs_cpu(f"Sedov {N_SMALL}^3 speed_limit=1",
+                lambda where: sedov_sim(N_SMALL, device=where, speed_limit=1.0),
+                per_try=SPEED_LIMITED_3D)
+    card_vs_cpu(f"Sedov {N_SMALL}^3 transverse_use_eos=1",
+                lambda where: sedov_sim(N_SMALL, device=where, transverse_use_eos=1),
+                per_try=NO_KERNELS)
+
+    # path E: RZ and spherical
+    RZ = {"cmpflx": 4}
+    drive(f"E: 2D RZ Sedov {N_RZ} x {2 * N_RZ} float32, {STEPS_RZ} steps",
+          curvilinear_sim("rz", N_RZ), RZ, max_step=STEPS_RZ)
+    torch.cuda.empty_cache()
+    cuts = {}
+    for geometry, per_try in (("sph", ONE_D), ("rz", RZ)):
+        sim = curvilinear_sim(geometry, N_SPH)
+        t0 = time.perf_counter()
+        n_tried = drive(f"E: {'1D spherical' if geometry == 'sph' else '2D RZ'} Sedov "
+                        f"n={N_SPH} float32 to t=0.01", sim, per_try, stop_time=0.01)
+        ms = 1e3 * (time.perf_counter() - t0) / n_tried
+        rho = sim.interior()[sim.layout.URHO].double().cpu().numpy()
+        cuts[geometry] = rho if geometry == "sph" else 0.5 * (rho[:, N_SPH - 1] + rho[:, N_SPH])
+        print(f"  {ms:.3f} ms/step over {n_tried} steps, init included [{card}]")
+        del sim
+        torch.cuda.empty_cache()
+    rz_l1 = float(abs(cuts["rz"] - cuts["sph"]).mean() / cuts["sph"].mean())
+    peak_shift = abs(int(cuts["rz"].argmax()) - int(cuts["sph"].argmax()))
+    print(f"  RZ midplane vs 1D spherical at t = 0.01: relative L1 {rz_l1:.6e} (bound "
+          f"{RZ_L1_BOUND}), peaks {peak_shift} cells apart (bound {RZ_PEAK_CELLS})")
+    if not (rz_l1 < RZ_L1_BOUND and peak_shift <= RZ_PEAK_CELLS):
+        fail("the RZ midplane disagrees with the 1D spherical run")
+    card_vs_cpu("2D RZ Sedov 32 x 64", lambda where: curvilinear_sim("rz", 32, device=where),
+                per_try=RZ)
+    card_vs_cpu("1D spherical Sedov n=128",
+                lambda where: curvilinear_sim("sph", 128, device=where), steps=10,
+                per_try=ONE_D)
+
+    # path F: double Mach reflection and the acoustic pulse
+    sim = dmr_sim(DMR_CHECK)
+    drive(f"F: 2D double Mach reflection {DMR_CHECK[0]} x {DMR_CHECK[1]} float32 to t=0.05",
+          sim, TWO_D, stop_time=0.05, conserves_mass=False)
+    L = sim.layout
+    rho = sim.interior()[L.URHO].double().cpu().numpy()
+    xc = sim.geom.cell_centers_1d(0, 0).double().cpu().numpy()
+    xs_num = float(xc[abs(np.diff(rho[:, -1])).argmax()])
+    xs_ana = 1 / 6 + 1.0 / np.tan(np.pi / 3) + (10 / np.sin(np.pi / 3)) * sim.t
+    dmr_checks = dict(rho_max=float(rho.max()), shock_x=xs_num, shock_x_exact=xs_ana,
+                      pre_shock_rho=float(rho[-1, 0]))
+    print(f"  DMR at t = {sim.t:.6f}: {dmr_checks} (tests/test_double_mach.py: rho max > 12, "
+          f"|shock x - exact| < {4 * 4.0 / DMR_CHECK[0]}, pre-shock rho 1.4 to 1e-6)")
+    if not (np.isfinite(rho).all() and rho.max() > 12.0
+            and abs(xs_num - xs_ana) < 4 * 4.0 / DMR_CHECK[0]
+            and abs(rho[-1, 0] - 1.4) <= 1e-6 * 1.4):
+        fail("double Mach reflection fails the checks of tests/test_double_mach.py")
+    del sim
+    drive(f"F: 2D double Mach reflection {DMR_BIG[0]} x {DMR_BIG[1]} float32, {STEPS_DMR} "
+          f"steps", dmr_sim(DMR_BIG), TWO_D, max_step=STEPS_DMR, conserves_mass=False)
+    torch.cuda.empty_cache()
+    card_vs_cpu("2D double Mach reflection 64 x 16", lambda where: dmr_sim((64, 16), where),
+                per_try=TWO_D)
+    card_vs_cpu("2D acoustic pulse 64^2", lambda where: pulse_sim(64, where), per_try=TWO_D)
+
+    # the probes: each against its plain version, then the entry points
+    print("probes vs plain (scripts/prof_cmpflx.py setup at 128^3, float32):", flush=True)
+    px = prof_cmpflx.setup(n=120)
+    pargs = prof_cmpflx.cmpflx_args(px)
+    pref = P.probe_cmpflx_plain(*pargs)
+    for label, (tile, threads) in prof_cmpflx.tilings(px["qm"].shape[1:]).items():
+        check("probe_cmpflx", P.probe_cmpflx(*pargs, tile=tile, threads=threads), pref, label)
+    cref = P.probe_copy_plain(px["qm"], px["qp"], px["layout"])
+    for tile in ((8, None), P.BEST_TILE):
+        check("probe_copy", P.probe_copy(px["qm"], px["qp"], px["layout"], tile=tile), cref,
+              f"tile {tile}")
+    vx = torch.full((512, 512), 1.1, dtype=torch.float32, device=dev)
+    vx[0] = torch.linspace(0.3, 3.0, 512, device=dev)
+    for op in P.VPU_OPS:
+        got = P.probe_vpu(vx, op, VPU_CHECK_ITERS)
+        ref = P.probe_vpu_plain(vx, op, VPU_CHECK_ITERS)
+        err, rel, ok = compare(got, ref, VPU_RTOL[op])
+        errs["probe_vpu"] = [max(errs["probe_vpu"][0], err), max(errs["probe_vpu"][1], rel)]
+        print(f"  probe_vpu  {op}, {VPU_CHECK_ITERS} iterations{'':17s} max abs err {err:.3e} "
+              f"rel {rel:.3e} (tol {VPU_RTOL[op]:.3g}|plain|) {'ok' if ok else 'DISAGREES'}")
+        if not ok:
+            compare(got, ref, VPU_RTOL[op], report=True)
+            fail(f"probe_vpu {op} disagrees with its plain version")
+    print("probe entry points (python -m castro_tpu_torch.scripts.prof_cmpflx / prof_vpu):",
+          flush=True)
+    K.reset_launch_counts()
+    probe_ms = prof_cmpflx.run(px, out=lambda line: print("  " + line))
+    vpu_ps, vpu_bound_ps = prof_vpu.run(vx, out=lambda line: print("  " + line))
+    torch.cuda.synchronize()
+    path_launches["probe: the entry points"] = K.launch_counts()
+    print(f"  launches {path_launches['probe: the entry points']}", flush=True)
+    if any(path_launches["probe: the entry points"][k] == 0
+           for k in ("probe_cmpflx", "probe_copy", "probe_vpu")):
+        fail("a probe entry point launched no probe kernel")
+
     # -- 5. timing ---------------------------------------------------------------------
     results = {}
 
@@ -724,6 +916,14 @@ def main():
               profile=2)
     time_path(f"{N_2D}^2-cg", f"C: 2D Sedov {N_2D}^2 riemann_solver=1",
               lambda: sedov_sim(N_2D, dim=2, riemann_solver=1), 3)
+    time_path(f"{N_MAIN}-plm", f"D: Sedov {N_MAIN}^3 ppm_type=0",
+              lambda: sedov_sim(N_MAIN, ppm_type=0), STEPS_MAIN, profile=2)
+    time_path(f"{N_MAIN}-limiter", f"D: Sedov {N_MAIN}^3 limit_fluxes_on_small_dens=1",
+              lambda: sedov_sim(N_MAIN, limit_fluxes_on_small_dens=1), 5)
+    time_path(f"rz-{N_RZ}", f"E: 2D RZ Sedov {N_RZ} x {2 * N_RZ}",
+              lambda: curvilinear_sim("rz", N_RZ), 5, profile=2)
+    time_path(f"dmr-{DMR_BIG[0]}", f"F: 2D double Mach reflection {DMR_BIG[0]} x {DMR_BIG[1]}",
+              lambda: dmr_sim(DMR_BIG), STEPS_DMR, profile=2)
 
     sim = sedov_sim(N_MAIN)
     sim.init_data()
@@ -818,10 +1018,24 @@ def main():
         (lambda a=a: K.trans_cmpflx(*a, True, False),
          lambda a=a: K.trans_cmpflx_plain(*a, True, False),
          2 * L.NQ + 2 * L.NVAR + 8 + L.NVAR + L.NGDNV, S2) for a in y["finals"]]
+    del y
+    # the probes at the entry points' shapes: probe_cmpflx at its best shape
+    # (the other tilings are in the entry point's lines), probe_copy the 30
+    # components it must move, probe_vpu the fma body over 512^2
+    SP = px["qm"][0].numel()
+    calls["probe_cmpflx"] = [(lambda: P.probe_cmpflx(*pargs),
+                              lambda: P.probe_cmpflx_plain(*pargs),
+                              2 * L.NQ + 4 + L.NVAR + L.NGDNV, SP)]
+    calls["probe_copy"] = [(lambda: P.probe_copy(px["qm"], px["qp"], px["layout"]),
+                            lambda: P.probe_copy_plain(px["qm"], px["qp"], px["layout"]),
+                            3 * L.NVAR + L.NGDNV, SP)]
+    calls["probe_vpu"] = [(lambda: P.probe_vpu(vx, "fma", VPU_TIME_ITERS),
+                           lambda: P.probe_vpu_plain(vx, "fma", VPU_TIME_ITERS), 2, vx.numel())]
 
     entries, extra = [], {}
     print(f"kernel timing [{card}], float32, at Sedov {N_MAIN}^3 (grown {u.shape[1]}^3; "
-          f"cmpflx and trans_cmpflx at 2D Sedov {N_2D}^2, grown {sim2.u.shape[1]}^2), per "
+          f"cmpflx and trans_cmpflx at 2D Sedov {N_2D}^2, grown {sim2.u.shape[1]}^2; the "
+          f"probes at 128^3 and, probe_vpu, 512^2 x {VPU_TIME_ITERS} iterations), per "
           f"launch: the kernel's device time (torch.profiler), the wrapper's and the plain "
           f"version's time (CUDA events); bound = max(bytes / {HBM_BYTES_PER_S:g} B/s, "
           f"operations of the plain version / {FP32_OPS_PER_S:g} op/s):", flush=True)
@@ -852,7 +1066,8 @@ def main():
         by_path = {label.split(":")[0] + ":" + label.split(":")[1].split(",")[0]: c[name]
                    for label, c in path_launches.items() if c[name]}
         entries.append({
-            "name": name, "route": "cuda", "source": f"castro_tpu_torch/csrc/{name}.cu",
+            "name": name, "route": "cuda",
+            "source": f"castro_tpu_torch/csrc/{SOURCE.get(name, name + '.cu')}",
             "replaces": REPLACES[name], "launches": sum(by_path.values()),
             "launches_by_path": by_path,
             "max_abs_err": errs[name][0], "max_rel_err": errs[name][1], "ms": sums["ms"],
@@ -864,13 +1079,24 @@ def main():
         if e["name"] == "trace_ppm":  # the variant the unfused structure launches
             e.update({k + "_no_solve": extra["trace_ppm, no solve"][k]
                       for k in ("ms", "wrapper_ms", "plain_ms", "bound_ms")})
+        if e["name"] == "probe_cmpflx":
+            e["entry_point_ms_by_tiling"] = {k: v for k, v in probe_ms.items() if "cmpflx" in k}
+        if e["name"] == "probe_copy":
+            nbytes = prof_cmpflx.copy_bytes(px)
+            e["bytes_moved"] = nbytes
+            e["achieved_GB_s"] = nbytes / e["ms"] / 1e6
+        if e["name"] == "probe_vpu":
+            e["iterations"] = VPU_TIME_ITERS
+            e["ps_per_element_op"] = vpu_ps
+            e["bound_ps_per_element_op"] = vpu_bound_ps
     step_bound = sum(e["bound_ms"] * FUSED.get(e["name"], 0) for e in entries)
     print(f"summary [{card}]: " + json.dumps({
         "zones_per_s": {k: v["zones_per_s"] for k, v in results.items()},
         "step_ms": {k: v["step_ms"] for k, v in results.items()},
         "peak_gib": {k: v["peak_gib"] for k, v in results.items()},
         "step_bound_ms_128": step_bound, "sod_1d_ms_per_step": sod_ms, "sod_1d_l1": l1,
-        "shock_zones_flagged": flagged}))
+        "shock_zones_flagged": flagged, "rz_vs_spherical_l1": rz_l1,
+        "rz_vs_spherical_peak_cells": peak_shift, "dmr_checks": dmr_checks}))
     print(smi_line())
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -378,3 +378,65 @@ def test_sedov_step_card_vs_cpu(card, bc):
             sim.advance(2e-3)
         out[dev] = sim.interior().cpu()
     _close(out["cuda"], out["cpu"], torch.float64, "state after 3 steps")
+
+
+@DTYPES
+@pytest.mark.parametrize("dim,coord", [(1, 1), (1, 2), (2, 1)],
+                         ids=["1d-cylindrical", "1d-spherical", "2d-rz"])
+def test_cmpflx_and_trans_cmpflx_kernels_with_coord(card, dtype, dim, coord):
+    """coord 1 and 2 drop the pressure from the radial momentum flux, the
+    wall face on the axis included."""
+    lay, shape, qm, qp, aux, bm, bp = _face_inputs(dim, dtype, card, seed=11)
+    for d in range(dim):
+        mask = _bnd_masks(shape, dim, NG, (3,) * dim, (2,) * dim)[d]
+        args = (qm, qp, *aux, d, lay, coord, 0, SMALL["small_dens"], SMALL["small_pres"])
+        got = K.cmpflx(*args, bnd_mask=mask)
+        for g_, r_ in zip(got, K.cmpflx_plain(*args, bnd_mask=mask)):
+            _close(g_, r_, dtype, f"cmpflx d={d}")
+        args = (qm, qp, bm[0], bp[0], bm[1], bp[1], bm[2], bp[2], *aux, d, lay, coord, 0,
+                SMALL["small_dens"], SMALL["small_pres"], True, False)
+        got = K.trans_cmpflx(*args, bnd_mask=mask)
+        ref = K.trans_cmpflx_plain(*args, bnd_mask=mask)
+        ok = ref[1][lay.GDGAME] < 11.0
+        for g_, r_ in zip(got, ref):
+            _close(g_[:, ok], r_[:, ok], dtype, f"trans_cmpflx d={d}")
+
+
+@DTYPES
+def test_probe_cmpflx_and_copy_kernels(card, dtype):
+    """Every tiling of the Riemann probe and both copy tilings equal their
+    plain versions (float32 bit for bit, as chip_smoke.py holds them)."""
+    from castro_tpu_torch.ops import probes as P
+
+    _, shape, qm, qp, aux, _, _ = _face_inputs(3, dtype, card, seed=12)
+    ref = P.probe_cmpflx_plain(qm, qp, *aux, L, 0, SMALL["small_dens"], SMALL["small_pres"])
+    tiles = list(P.TPU_TILINGS.values()) + [P.BEST_TILE, (3, 5)]
+    for tile in tiles:
+        before = P.probe_cmpflx.launches
+        got = P.probe_cmpflx(qm, qp, *aux, L, 0, SMALL["small_dens"], SMALL["small_pres"],
+                             tile=tile)
+        assert P.probe_cmpflx.launches == before + 1
+        for g_, r_ in zip(got, ref):
+            _close(g_, r_, dtype, f"tile {tile}")
+    cref = P.probe_copy_plain(qm, qp, L)
+    for tile in ((8, None), P.BEST_TILE):
+        for g_, r_ in zip(P.probe_copy(qm, qp, L, tile=tile), cref):
+            assert torch.equal(g_, r_)
+
+
+@pytest.mark.parametrize("op", ["fma", "fma_rn", "div", "rsqrt", "recip_approx", "exp"])
+def test_probe_vpu_kernel(card, op):
+    """Each body against its plain version at 300 iterations; the rounding
+    budgets of chip_smoke.py:VPU_RTOL."""
+    from castro_tpu_torch.ops import probes as P
+
+    iters = 300
+    rtol = {"fma": 0.0, "div": 0.0, "fma_rn": iters * 2.0 ** -23,
+            "recip_approx": 2 * iters * 2.0 ** -23, "rsqrt": 8 * 2.0 ** -23,
+            "exp": 8 * 2.0 ** -23}[op]
+    x = torch.linspace(0.3, 3.0, 4096, device=card).reshape(64, 64)
+    got = P.probe_vpu(x, op, iters)
+    ref = P.probe_vpu_plain(x, op, iters)
+    torch.testing.assert_close(got, ref, rtol=rtol, atol=0.0)
+    with pytest.raises(TypeError):
+        P.probe_vpu(x.double(), op, 1)

@@ -149,23 +149,44 @@ def test_sod_1d_against_exact(riemann_solver):
 
 
 UNPORTED = {
-    "curvilinear": (2, dict(), dict(coord_sys=1)),
-    "plm": (2, dict(ppm_type=0), {}),
     "use_shock_var": (2, dict(use_shock_var=1), {}),
-    "flux-limiter": (2, dict(limit_fluxes_on_small_dens=1), {}),
-    "speed_limit": (1, dict(speed_limit=1.0e9), {}),
-    "transverse_use_eos": (2, dict(transverse_use_eos=1), {}),
-    "inflow": (1, dict(lo_bc=(1, 2, 2)), {}),
     "hybrid-momentum": (3, dict(hybrid_momentum=1), {}),
+    "nspec-2": (2, {}, dict(spec_names=("He4", "C12"))),
 }
 
 
 @pytest.mark.parametrize("name", list(UNPORTED))
 def test_unported_configurations_raise(name):
-    """What stays unported raises at construction and names its ROADMAP item."""
-    dim, castro, geometry = UNPORTED[name]
+    """What changes the kernels' state layout stays unported, raises at
+    construction and names its ROADMAP item (kernel layout generalization)."""
+    dim, castro, network = UNPORTED[name]
+    p = sedov.make_params(n=8, dim=dim).with_ns("castro", **castro)
+    if network:
+        p = p.with_ns("network", **network)
+    with pytest.raises(NotImplementedError, match=r"queue 1 item 6.*ROADMAP\.md"):
+        Simulation(p, problem_init=sedov.problem_init, device="cpu")
+
+
+FORMERLY_UNPORTED = {
+    "curvilinear": (2, dict(), dict(coord_sys=1)),
+    "plm": (2, dict(ppm_type=0), {}),
+    "flux-limiter": (2, dict(limit_fluxes_on_small_dens=1), {}),
+    "speed_limit": (1, dict(speed_limit=1.0e9), {}),
+    "transverse_use_eos": (2, dict(transverse_use_eos=1), {}),
+    "inflow": (1, dict(lo_bc=(1, 2, 2)), {}),
+}
+
+
+@pytest.mark.parametrize("name", list(FORMERLY_UNPORTED))
+def test_formerly_unported_configurations_step(name):
+    """The configurations this file once held raising now construct and
+    step (each is held against the JAX package in tests/test_torch_
+    {curvilinear,plm,limiters,inflow}.py)."""
+    dim, castro, geometry = FORMERLY_UNPORTED[name]
     p = sedov.make_params(n=8, dim=dim).with_ns("castro", **castro)
     if geometry:
         p = p.with_ns("geometry", **geometry)
-    with pytest.raises(NotImplementedError, match=r"queue 1 item 4.*ROADMAP\.md"):
-        Simulation(p, problem_init=sedov.problem_init, device="cpu")
+    sim = Simulation(p, problem_init=sedov.problem_init, device="cpu")
+    sim.init_data()
+    sim.advance(sim.estimate_dt())
+    assert bool(torch.isfinite(sim.interior()).all())
