@@ -47,10 +47,22 @@ __device__ __forceinline__ int clampi(int i, int n) {
   return i < 0 ? 0 : (i >= n ? n - 1 : i);
 }
 
-// A cell's position and its edge-clamped neighbours along one axis.
+// An axis fixed at compile time. It converts to its int, so one device
+// function takes either a runtime axis (an int) or a fixed one (Axis<A>);
+// with Axis<A> every index it forms into a thread's arrays is a constant,
+// and the arrays stay in registers.
+template <int A>
+struct Axis {
+  static constexpr int value = A;
+  __host__ __device__ constexpr operator int() const { return A; }
+};
+
+// A cell's position and its edge-clamped neighbours along one axis (an
+// int, or Axis<A>).
 struct Cell {
   int c[3];
-  __device__ __forceinline__ Cell shift(const Grid& g, int a, int off) const {
+  template <typename Dir>
+  __device__ __forceinline__ Cell shift(const Grid& g, Dir a, int off) const {
     Cell o = *this;
     o.c[a] = clampi(c[a] + off, g.n[a]);
     return o;

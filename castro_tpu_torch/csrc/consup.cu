@@ -44,8 +44,8 @@ __global__ void __launch_bounds__(256) consup_kernel(
     flo[c] = flux[c * S + t];
     fhi[c] = flux[c * S + ip];
   }
-  consup_flux<T, NPASS>(p, g, x, flo);
-  consup_flux<T, NPASS>(p, g, xp, fhi);
+  consup_flux<T, NPASS>(p, g, x, flo, p.d);
+  consup_flux<T, NPASS>(p, g, xp, fhi, p.d);
   consup_update<T, NPASS>(p, g, t, flo, fhi, pg[t], pg[ip], ug[t], ug[ip]);
 #pragma unroll
   for (int c = 0; c < NVAR; ++c) fout[c * S + t] = flo[c];

@@ -25,19 +25,20 @@ struct ConsupParams {
 };
 
 // Artificial viscosity and species normalization applied to flux[NVAR] of
-// face y (apply_av + normalize_species_fluxes).
-template <typename T, int NPASS>
+// face y (apply_av + normalize_species_fluxes) along d: p.d (consup.cu),
+// or Axis<D> (the face kernel, whose direction is a template parameter).
+template <typename T, int NPASS, typename Dir>
 __device__ __forceinline__ void consup_flux(const ConsupParams<T>& p, const Grid& g,
-                                            const Cell& y, T* flux) {
+                                            const Cell& y, T* flux, Dir d) {
   const long long S = g.S;
-  int o1 = trans1(p.d), o2 = trans2(p.d);
+  int o1 = trans1(d), o2 = trans2(d);
   // node divergence averaged over the face's nodes: {0,+1} along o1, then o2
   Cell y1 = y.shift(g, o1, 1), y2 = y.shift(g, o2, 1), y12 = y1.shift(g, o2, 1);
   T a1 = T(0.5) * (p.div[y.at(g)] + p.div[y1.at(g)]);
   T a2 = T(0.5) * (p.div[y2.at(g)] + p.div[y12.at(g)]);
   T div1 = T(0.5) * (a1 + a2);
   T coeff = p.difmag * vmin(div1, T(0)) * p.dxd;
-  long long iy = y.at(g), il = y.shift(g, p.d, -1).at(g);
+  long long iy = y.at(g), il = y.shift(g, d, -1).at(g);
 #pragma unroll
   for (int c = 0; c < UFS + NPASS; ++c) {
     if (c == UTEMP) continue;

@@ -16,19 +16,26 @@
 //                    last normal.
 // Same arithmetic as castro_tpu_torch/ops/kernels.py:ctu_face_plain.
 //
-// Bound: bytes. The corner pair reads qm, qp [NQ], qaux and two terms'
+// Bound: bytes. The corner pair reads qm, qp [NQ], qaux[2] and two terms'
 // flux [NVAR] + pg + ug and writes two flux [NVAR] + qe [6]: 68 components
 // a cell at NPASS=1; the final stage with consup 79.
-// Design: one thread per face. The m-state bundle is the p-state bundle of
-// the cell below along the normal (:640-642), so a thread evaluates the
-// bundle at both cells from clamped neighbour reads. With consup the flux
-// divergence needs the face above as well, so the thread also solves face
-// i+1 (twice the stage's arithmetic) instead of staging faces in shared
-// memory. The TPU's neighbour-tile BlockSpecs (:494-505, :550-577) and
-// VMEM sizing (:356-383) have no counterpart: a thread computes its own
-// clamped indices.
+// Design: one thread a cell, the normal D and the terms' directions
+// template parameters (the terms run along the other two axes in Castro
+// order; one corner term along either). The m-state bundle of face x+1 is
+// the p-state bundle of face x (:640-642): both are the bundle at cell x.
+// So a thread computes the bundle of its cell once and applies it twice,
+// to qp[x] (qp' of face x) and to qm[x+1] (qm' of face x+1), and hands
+// qm' to the thread above in shared memory, where each face is solved
+// once. A block is a FaceTile (face_tile.cuh): cells along D with one halo
+// cell below; with consup also one above, whose face is solved for the
+// cell below it: the cleaned flux, pg and u_D of every face are staged in
+// shared memory, and cell x reads faces x and x+1 from there (the top
+// cell of the grid reads its own face twice, the clamp of consup.cu). The
+// TPU's neighbour-tile BlockSpecs (:494-505, :550-577) and VMEM sizing
+// (:356-383) have no counterpart.
 #include "common.cuh"
 #include "consup.cuh"
+#include "face_tile.cuh"
 #include "riemann.cuh"
 #include "trans.cuh"
 
@@ -45,7 +52,7 @@ struct FaceParams {
   T* flux2;
   T* qe2;
   ConsupParams<T> cs;  // consup fold
-  int d, solver, mask_lo, mask_hi, reset_density, reset_rhoe;
+  int solver, mask_lo, mask_hi, reset_density, reset_rhoe;
   T small_dens, small_pres;
 };
 
@@ -55,91 +62,143 @@ struct FaceOut {
   T qe[NGDNV];
 };
 
-// Stage solve at face x from the interface states qm/qp of that face.
-template <typename T, int NPASS, int NT>
+// One stage of NT terms (along TA, then TB) over the tile: every thread in
+// the grid corrects its cell's two edge states, qmv (of face p+1) and qpv
+// (of face p), with its cell's bundle and hands qm' up through xq; each
+// thread that solves (tl.solves()) then solves face p into o. Without
+// terms, qmv is face p's own traced qm. Every thread of the block calls
+// it: it holds a barrier.
+template <typename T, int NPASS, int D, int NT, int TA, int TB, typename Tile>
 __device__ __forceinline__ void stage(const FaceParams<T>& p, const Term<T>* terms,
-                                      const Grid& g, const Cell& x, const T* qmv,
-                                      const T* qpv, FaceOut<T, NPASS>& o) {
+                                      const Grid& g, const Tile& tl, const T* qmv,
+                                      const T* qpv, T (*xq)[Tile::THREADS],
+                                      FaceOut<T, NPASS>& o) {
   constexpr int NQ = QFS + NPASS;
   const long long S = g.S;
-  Cell xm = x.shift(g, p.d, -1);
-  long long ix = x.at(g), im = xm.at(g);
-  T qmc[NQ], qpc[NQ];
-  if (NT > 0) {
-    Bundle<T, NPASS> bp = term_bundle<T, NPASS, NT>(terms, p.qaux, g, x);
-    Bundle<T, NPASS> bm = term_bundle<T, NPASS, NT>(terms, p.qaux, g, xm);
-    trans_apply<T, NPASS>(qmv, bm, p.small_pres, p.reset_density, p.reset_rhoe, qmc);
-    trans_apply<T, NPASS>(qpv, bp, p.small_pres, p.reset_density, p.reset_rhoe, qpc);
+  T qml[NQ], qpc[NQ];
+  if constexpr (NT > 0) {
+    if (tl.in) {
+      Bundle<T, NPASS> b = term_bundle<T, NPASS, NT, TA, TB>(terms, p.qaux, g, tl.x);
+      T qmc[NQ];
+      trans_apply<T, NPASS>(qmv, b, p.small_pres, p.reset_density, p.reset_rhoe, qmc);
+      trans_apply<T, NPASS>(qpv, b, p.small_pres, p.reset_density, p.reset_rhoe, qpc);
+#pragma unroll
+      for (int c = 0; c < NQ; ++c) xq[c][tl.slot] = qmc[c];
+    }
+    __syncthreads();
+    if (!tl.solves()) return;
+    const int b = tl.slot - Tile::STEP;  // the cell below
+#pragma unroll
+    for (int c = 0; c < NQ; ++c) qml[c] = xq[c][b];
   } else {
+    if (!tl.solves()) return;
 #pragma unroll
     for (int c = 0; c < NQ; ++c) {
-      qmc[c] = qmv[c];
+      qml[c] = qmv[c];
       qpc[c] = qpv[c];
     }
   }
-  int pos = x.c[p.d];
-  T mask = (pos == p.mask_lo || pos == p.mask_hi) ? T(0) : T(1);
-  riemann_flux<T, NPASS>(qmc, qpc, p.qaux[QGAMC * S + im], p.qaux[QGAMC * S + ix],
-                         p.qaux[QC * S + im], p.qaux[QC * S + ix], p.d, p.solver, mask,
+  const long long ix = tl.ix(), im = tl.at(g, tl.p - 1);
+  T mask = (tl.p == p.mask_lo || tl.p == p.mask_hi) ? T(0) : T(1);
+  riemann_flux<T, NPASS>(qml, qpc, p.qaux[QGAMC * S + im], p.qaux[QGAMC * S + ix],
+                         p.qaux[QC * S + im], p.qaux[QC * S + ix], Axis<D>(), p.solver, mask,
                          p.small_dens, p.small_pres, o.flux, o.qe);
 }
 
 template <typename T, int NPASS>
-__device__ __forceinline__ void load_states(const FaceParams<T>& p, const Grid& g,
-                                            long long ix, T* qmv, T* qpv) {
+__device__ __forceinline__ void store(const FaceOut<T, NPASS>& o, T* flux, T* qe,
+                                      long long S, long long ix) {
 #pragma unroll
-  for (int c = 0; c < QFS + NPASS; ++c) {
-    qmv[c] = p.qm[c * g.S + ix];
-    qpv[c] = p.qp[c * g.S + ix];
-  }
+  for (int c = 0; c < UFS + NPASS; ++c) flux[c * S + ix] = o.flux[c];
+#pragma unroll
+  for (int c = 0; c < NGDNV; ++c) qe[c * S + ix] = o.qe[c];
 }
 
-template <typename T, int NPASS, int NT1, int NT2, bool CONSUP>
-__global__ void __launch_bounds__(128) ctu_face_kernel(const __grid_constant__ FaceParams<T> p,
-                                                       Grid g) {
+// The block: 16 z columns of 16 cells along D = 0, 1; 64 cells along z
+// by 2 rows of y for D = 2. With consup the tile has a high halo too.
+template <int D, bool CONSUP>
+using FaceTileOf = FaceTile<D, CONSUP ? 1 : 0, D == 2 ? 64 : 16, D == 2 ? 2 : 16>;
+
+// TA is the direction of the first stage-1 term; the second stage-1 term
+// and the stage-2 term run along trans2(D).
+template <typename T, int NPASS, int D, int NT1, int NT2, bool CONSUP, int TA>
+__global__ void __launch_bounds__(FaceTileOf<D, CONSUP>::THREADS) ctu_face_kernel(
+    const __grid_constant__ FaceParams<T> p, Grid g) {
   constexpr int NQ = QFS + NPASS, NVAR = UFS + NPASS;
-  long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= g.S) return;
-  const long long S = g.S;
-  Cell x = cell_of(g, t);
-  T qmv[NQ], qpv[NQ];
-  load_states<T, NPASS>(p, g, t, qmv, qpv);
-  FaceOut<T, NPASS> o;
-  stage<T, NPASS, NT1>(p, p.terms, g, x, qmv, qpv, o);
-  if (NT2 > 0) {
-    FaceOut<T, NPASS> o2;
-    stage<T, NPASS, NT2>(p, p.terms + NT1, g, x, qmv, qpv, o2);
+  constexpr int T2 = trans2(D);
+  using Tile = FaceTileOf<D, CONSUP>;
+  // qm' of the face above each cell, one array a stage
+  __shared__ T xq[NT2 > 0 ? 2 : 1][NT1 > 0 ? NQ : 1][Tile::THREADS];
+  // the cleaned flux, pg and u_D of each face, for the cell below it
+  __shared__ T xf[CONSUP ? NVAR + 2 : 1][Tile::THREADS];
+  const Tile tl(g);
+  const long long S = g.S, ix = tl.ix();
+  T qmv[NQ], qpv[NQ];  // the cell's two edges: qm of face p+1 (p without terms), qp of p
+  if (tl.in) {
+    const long long iq = NT1 > 0 ? tl.at(g, tl.p + 1) : ix;
 #pragma unroll
-    for (int c = 0; c < NVAR; ++c) p.flux2[c * S + t] = o2.flux[c];
-#pragma unroll
-    for (int c = 0; c < NGDNV; ++c) p.qe2[c * S + t] = o2.qe[c];
-  }
-  if (CONSUP) {
-    consup_flux<T, NPASS>(p.cs, g, x, o.flux);
-    Cell xp = x.shift(g, p.d, 1);
-    FaceOut<T, NPASS> op;
-    if (xp.c[p.d] != x.c[p.d]) {
-      T qmp[NQ], qpp[NQ];
-      load_states<T, NPASS>(p, g, xp.at(g), qmp, qpp);
-      stage<T, NPASS, NT1>(p, p.terms, g, xp, qmp, qpp, op);
-      consup_flux<T, NPASS>(p.cs, g, xp, op.flux);
-    } else {
-      op = o;
+    for (int c = 0; c < NQ; ++c) {
+      qmv[c] = p.qm[c * S + iq];
+      qpv[c] = p.qp[c * S + ix];
     }
-    consup_update<T, NPASS>(p.cs, g, t, o.flux, op.flux, o.qe[GDPRES], op.qe[GDPRES],
-                            o.qe[GDU + p.d], op.qe[GDU + p.d]);
   }
+  FaceOut<T, NPASS> o;
+  stage<T, NPASS, D, NT1, TA, T2>(p, p.terms, g, tl, qmv, qpv, xq[0], o);
+  if (!CONSUP && tl.owns()) store(o, p.flux1, p.qe1, S, ix);
+  if constexpr (NT2 > 0) {
+    FaceOut<T, NPASS> o2;
+    stage<T, NPASS, D, NT2, T2, T2>(p, p.terms + NT1, g, tl, qmv, qpv, xq[1], o2);
+    if (tl.owns()) store(o2, p.flux2, p.qe2, S, ix);
+  }
+  if constexpr (CONSUP) {
+    if (tl.solves()) {
+      consup_flux<T, NPASS>(p.cs, g, tl.x, o.flux, Axis<D>());
 #pragma unroll
-  for (int c = 0; c < NVAR; ++c) p.flux1[c * S + t] = o.flux[c];
+      for (int c = 0; c < NVAR; ++c) xf[c][tl.slot] = o.flux[c];
+      xf[NVAR][tl.slot] = o.qe[GDPRES];
+      xf[NVAR + 1][tl.slot] = o.qe[GDU + D];
+    }
+    __syncthreads();
+    if (tl.owns()) {
+      // the face above; the grid's top cell takes its own face again
+      const int a = tl.p + 1 < g.n[D] ? tl.slot + Tile::STEP : tl.slot;
+      T fhi[NVAR];
 #pragma unroll
-  for (int c = 0; c < NGDNV; ++c) p.qe1[c * S + t] = o.qe[c];
+      for (int c = 0; c < NVAR; ++c) fhi[c] = xf[c][a];
+      consup_update<T, NPASS>(p.cs, g, ix, o.flux, fhi, o.qe[GDPRES], xf[NVAR][a],
+                              o.qe[GDU + D], xf[NVAR + 1][a]);
+      store(o, p.flux1, p.qe1, S, ix);
+    }
+  }
 }
 
-template <typename T, int NT1, int NT2, bool CONSUP>
+template <typename T, int D, int NT1, int NT2, bool CONSUP, int TA>
 int launch_variant(const FaceParams<T>& p, const Grid& g, cudaStream_t stream) {
-  const int threads = 128;
-  ctu_face_kernel<T, 1, NT1, NT2, CONSUP><<<blocks_for(g.S, threads), threads, 0, stream>>>(p, g);
+  using Tile = FaceTileOf<D, CONSUP>;
+  ctu_face_kernel<T, 1, D, NT1, NT2, CONSUP, TA>
+      <<<Tile::blocks(g), Tile::threads(), 0, stream>>>(p, g);
   return (int)cudaGetLastError();
+}
+
+// The variant of (nt1, nt2, consup) with normal D. The terms' directions
+// `tdir` must be the other two axes in Castro order (trans1, trans2); a
+// lone corner term may take either.
+template <typename T, int D>
+int launch_dir(const FaceParams<T>& p, const Grid& g, int nt1, int nt2, bool consup,
+               const int* tdir, cudaStream_t stream) {
+  constexpr int T1 = trans1(D), T2 = trans2(D);
+  const bool castro = tdir[0] == T1 && (nt1 + nt2 < 2 || tdir[1] == T2);
+  if (consup)
+    return nt1 == 2 && nt2 == 0 && castro ? launch_variant<T, D, 2, 0, true, T1>(p, g, stream)
+                                          : (int)cudaErrorInvalidValue;
+  if (nt1 == 0 && nt2 == 0) return launch_variant<T, D, 0, 0, false, T1>(p, g, stream);
+  if (nt1 == 1 && nt2 == 0 && tdir[0] == T2)
+    return launch_variant<T, D, 1, 0, false, T2>(p, g, stream);
+  if (!castro) return (int)cudaErrorInvalidValue;
+  if (nt1 == 1 && nt2 == 0) return launch_variant<T, D, 1, 0, false, T1>(p, g, stream);
+  if (nt1 == 1 && nt2 == 1) return launch_variant<T, D, 1, 1, false, T1>(p, g, stream);
+  if (nt1 == 2 && nt2 == 0) return launch_variant<T, D, 2, 0, false, T1>(p, g, stream);
+  return (int)cudaErrorInvalidValue;
 }
 
 template <typename T>
@@ -160,15 +219,13 @@ int launch_ctu_face(const void* qm, const void* qp, const void* qaux, const int*
   for (int k = 0; k < 3; ++k) {
     bool on = k < nt1 + nt2;
     p.terms[k] = Term<T>{on ? (const T*)F[k] : nullptr, on ? (const T*)pg[k] : nullptr,
-                         on ? (const T*)ug[k] : nullptr, on ? T(cdtdx[k]) : T(0),
-                         on ? tdir[k] : 0};
+                         on ? (const T*)ug[k] : nullptr, on ? T(cdtdx[k]) : T(0)};
   }
   p.flux1 = (T*)flux1;
   p.qe1 = (T*)qe1;
   p.flux2 = (T*)flux2;
   p.qe2 = (T*)qe2;
   p.cs = make_consup<T>(hsrc, div, u, hout, cons, with_fin, d);
-  p.d = d;
   p.solver = solver;
   p.mask_lo = mask_lo;
   p.mask_hi = mask_hi;
@@ -177,11 +234,9 @@ int launch_ctu_face(const void* qm, const void* qp, const void* qaux, const int*
   p.small_dens = T(small_dens);
   p.small_pres = T(small_pres);
   bool consup = hout != nullptr;
-  if (nt1 == 0 && nt2 == 0 && !consup) return launch_variant<T, 0, 0, false>(p, g, stream);
-  if (nt1 == 1 && nt2 == 0 && !consup) return launch_variant<T, 1, 0, false>(p, g, stream);
-  if (nt1 == 1 && nt2 == 1 && !consup) return launch_variant<T, 1, 1, false>(p, g, stream);
-  if (nt1 == 2 && nt2 == 0 && !consup) return launch_variant<T, 2, 0, false>(p, g, stream);
-  if (nt1 == 2 && nt2 == 0 && consup) return launch_variant<T, 2, 0, true>(p, g, stream);
+  if (d == 0) return launch_dir<T, 0>(p, g, nt1, nt2, consup, tdir, stream);
+  if (d == 1) return launch_dir<T, 1>(p, g, nt1, nt2, consup, tdir, stream);
+  if (d == 2) return launch_dir<T, 2>(p, g, nt1, nt2, consup, tdir, stream);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -24,12 +24,15 @@ struct Godunov {
 };
 
 // normal direction d: the transverse axes in Castro order (t1 < t2)
-__device__ __forceinline__ int trans1(int d) { return d == 0 ? 1 : 0; }
-__device__ __forceinline__ int trans2(int d) { return d == 2 ? 1 : 2; }
+__host__ __device__ constexpr int trans1(int d) { return d == 0 ? 1 : 0; }
+__host__ __device__ constexpr int trans2(int d) { return d == 2 ? 1 : 2; }
 
-template <typename T>
+// The normal direction `d` of riemann_inputs and riemann_flux is an int
+// (cmpflx, trans_cmpflx) or Axis<D> (the face kernels, whose direction is
+// a template parameter): one body, the same arithmetic.
+template <typename T, typename Dir>
 __device__ __forceinline__ RiemannIn<T> riemann_inputs(
-    const T* qm, const T* qp, T gl, T gr, T cl, T cr, int d, T small_dens) {
+    const T* qm, const T* qp, T gl, T gr, T cl, T cr, Dir d, T small_dens) {
   const T SMALL = T(1.0e-8);
   int t1 = trans1(d), t2 = trans2(d);
   RiemannIn<T> ri;
@@ -171,9 +174,9 @@ __device__ Godunov<T> riemann_hllc(const RiemannIn<T>& ri, T small_dens, T small
 // riemann.cpp:55-61) and 1 elsewhere. `mom_p` is false for the radial
 // direction of a curvilinear grid, whose momentum flux carries no pressure
 // (mom_flux_has_p; the update adds the pressure gradient instead).
-template <typename T, int NPASS>
+template <typename T, int NPASS, typename Dir>
 __device__ void riemann_flux(const T* qm, const T* qp, T gl, T gr, T cl, T cr,
-                             int d, int solver, T mask, T small_dens, T small_pres,
+                             Dir d, int solver, T mask, T small_dens, T small_pres,
                              T* flux, T* qe, bool mom_p = true) {
   RiemannIn<T> ri = riemann_inputs(qm, qp, gl, gr, cl, cr, d, small_dens);
   Godunov<T> gd = solver == 2 ? riemann_hllc(ri, small_dens, small_pres)

@@ -6,17 +6,22 @@
 // :1502) with fuse_riemann. Same arithmetic as castro_tpu_torch/ops/
 // trace_ppm.py:trace_ppm followed by ops/riemann.py:cmpflx.
 //
-// Bound: bytes. It reads q[NQ], qaux[4], flatn [and srcQ[NQ]] and writes
+// Bound: bytes. It reads q[NQ], qaux[2], flatn [and srcQ[NQ]] and writes
 // qm[NQ], qp[NQ], flux[NVAR] and qe[6]: 44 components a cell at NPASS=1
 // without srcQ.
-// Design: one thread per face i (interface i-1/2 along d). qp at face i is
-// cell i's left-edge state and qm is cell i-1's right-edge state
-// (trace_ppm.py face registration), so the thread traces both cells from
-// their own clamped +-2 stencils: about twice the arithmetic of a
-// per-cell trace, no shared memory and no pencil blocking (the TPU's
-// _pencil_spec, :1368-1412, was a VMEM budget). The Riemann solve then
-// reads gamc and c of cells i-1 and i.
+// Design: one thread a cell, the direction D a template parameter (every
+// index into a thread's arrays is then a constant, and they stay in
+// registers). A thread reconstructs each component of its cell once and
+// integrates that parabola toward both edges: the left-edge state is qp of
+// face i, the right-edge state qm of face i + 1 (trace_ppm.py face
+// registration). A block is a FaceTile (face_tile.cuh): cells along D with
+// one halo cell below, the right-edge states handed to the thread above in
+// shared memory, where face i solves with cell i-1's qm, gamc and c and
+// its own qp. qm is written by the thread that traced it, so the variant
+// without the solve needs no barrier. The TPU's pencil blocking
+// (_pencil_spec, :1368-1412) was a VMEM budget and has no counterpart.
 #include "common.cuh"
+#include "face_tile.cuh"
 #include "riemann.cuh"
 
 namespace ctt {
@@ -35,66 +40,85 @@ __device__ __forceinline__ T vanleer(T sm1, T s0, T sp1) {
   return dsl * dsr > T(0) ? sgn(dsc) * mag : T(0);
 }
 
-// PPM edge values (sm, sp) of component array `a` at cell x along d
-// (ppm.py:ppm_reconstruct); returns s itself.
+// The parabola of a component at the cell `a` points to, whose clamped
+// stencil along D lies at the offsets o5 (ppm.py:ppm_reconstruct): its
+// edge values sm, sp and s6.
 template <typename T>
-__device__ __forceinline__ T ppm_reconstruct(const T* a, const Grid& g, const Cell& x,
-                                             int d, T fl, T& sm_out, T& sp_out) {
-  T sm2 = a[x.shift(g, d, -2).at(g)], sm1 = a[x.shift(g, d, -1).at(g)];
-  T s = a[x.at(g)];
-  T sp1 = a[x.shift(g, d, 1).at(g)], sp2 = a[x.shift(g, d, 2).at(g)];
+__device__ __forceinline__ void parabola(const T* a, const int (&o5)[5], T fl, T& sm, T& sp,
+                                         T& s6) {
+  T sm2 = a[o5[0]], sm1 = a[o5[1]], s = a[o5[2]], sp1 = a[o5[3]], sp2 = a[o5[4]];
   const T SIXTH = T(1.0 / 6.0);
 
   T dsvl_l = vanleer(sm2, sm1, s);
   T dsvl_r = vanleer(sm1, s, sp1);
-  T sm = T(0.5) * (s + sm1) - SIXTH * (dsvl_r - dsvl_l);
-  sm = clip(sm, vmin(s, sm1), vmax(s, sm1));
+  T m = T(0.5) * (s + sm1) - SIXTH * (dsvl_r - dsvl_l);
+  m = clip(m, vmin(s, sm1), vmax(s, sm1));
   T dsvl_r2 = vanleer(s, sp1, sp2);
-  T sp = T(0.5) * (sp1 + s) - SIXTH * (dsvl_r2 - dsvl_r);
-  sp = clip(sp, vmin(sp1, s), vmax(sp1, s));
+  T p = T(0.5) * (sp1 + s) - SIXTH * (dsvl_r2 - dsvl_r);
+  p = clip(p, vmin(sp1, s), vmax(sp1, s));
 
-  sm = fl * sm + (T(1) - fl) * s;
-  sp = fl * sp + (T(1) - fl) * s;
+  m = fl * m + (T(1) - fl) * s;
+  p = fl * p + (T(1) - fl) * s;
 
-  bool extremum = (sp - s) * (s - sm) <= T(0);
-  bool big_p = vabs(sp - s) >= T(2) * vabs(sm - s);
-  bool big_m = vabs(sm - s) >= T(2) * vabs(sp - s);
-  sp_out = extremum ? s : (big_p ? T(3) * s - T(2) * sm : sp);
-  sm_out = extremum ? s : ((!big_p && big_m) ? T(3) * s - T(2) * sp : sm);
-  return s;
+  bool extremum = (p - s) * (s - m) <= T(0);
+  bool big_p = vabs(p - s) >= T(2) * vabs(m - s);
+  bool big_m = vabs(m - s) >= T(2) * vabs(p - s);
+  sp = extremum ? s : (big_p ? T(3) * s - T(2) * m : p);
+  sm = extremum ? s : ((!big_p && big_m) ? T(3) * s - T(2) * p : m);
+  s6 = T(6) * s - T(3) * (sm + sp);
 }
 
-// Integral under the parabola toward the traced edge for one wave speed
-// (ppm.py:_integrate): the left edge (Im) for the plus state, the right
-// edge (Ip) for the minus state.
-template <typename T, bool PLUS>
-__device__ __forceinline__ T integrate(T sm, T sp, T s6, T speed, T dtdx) {
+// Integrals under the parabola for one wave speed (ppm.py:_integrate):
+// toward the left edge (im, the plus state's) and the right edge (ip).
+template <typename T>
+__device__ __forceinline__ void integrate(T sm, T sp, T s6, T speed, T dtdx, T& im, T& ip) {
   T sigma = vabs(speed) * dtdx;
   bool go_left = speed <= T(0);
   T x = T(1) - T(2.0 / 3.0) * sigma;
-  if (PLUS) return go_left ? sm + T(0.5) * sigma * (sp - sm + x * s6) : sm;
-  return go_left ? sp : sp - T(0.5) * sigma * (sp - sm - x * s6);
+  im = go_left ? sm + T(0.5) * sigma * (sp - sm + x * s6) : sm;
+  ip = go_left ? sp : sp - T(0.5) * sigma * (sp - sm - x * s6);
 }
 
-template <typename T, bool PLUS>
-__device__ __forceinline__ void ppm3(const T* a, const Grid& g, const Cell& x, int d,
-                                     T fl, T un, T cc, T dtdx, T I[3]) {
-  T sm, sp;
-  T s = ppm_reconstruct(a, g, x, d, fl, sm, sp);
-  T s6 = T(6) * s - T(3) * (sm + sp);
-  I[0] = integrate<T, PLUS>(sm, sp, s6, un - cc, dtdx);
-  I[1] = integrate<T, PLUS>(sm, sp, s6, un, dtdx);
-  I[2] = integrate<T, PLUS>(sm, sp, s6, un + cc, dtdx);
+// A component's integrals for the waves u-c, u, u+c, toward each edge.
+template <typename T>
+struct Waves {
+  T im[3], ip[3];
+};
+// A component's integrals for the contact u alone.
+template <typename T>
+struct Wave1 {
+  T im, ip;
+};
+
+template <typename T>
+__device__ __forceinline__ Waves<T> waves(const T* a, const int (&o5)[5], T fl, T un, T cc,
+                                          T dtdx) {
+  T sm, sp, s6;
+  parabola(a, o5, fl, sm, sp, s6);
+  Waves<T> w;
+  integrate(sm, sp, s6, un - cc, dtdx, w.im[0], w.ip[0]);
+  integrate(sm, sp, s6, un, dtdx, w.im[1], w.ip[1]);
+  integrate(sm, sp, s6, un + cc, dtdx, w.im[2], w.ip[2]);
+  return w;
 }
 
-template <typename T, bool PLUS>
-__device__ __forceinline__ T ppm1(const T* a, const Grid& g, const Cell& x, int d,
-                                  T fl, T un, T dtdx) {
-  T sm, sp;
-  T s = ppm_reconstruct(a, g, x, d, fl, sm, sp);
-  T s6 = T(6) * s - T(3) * (sm + sp);
-  return integrate<T, PLUS>(sm, sp, s6, un, dtdx);
+template <typename T>
+__device__ __forceinline__ Wave1<T> wave1(const T* a, const int (&o5)[5], T fl, T un,
+                                          T dtdx) {
+  T sm, sp, s6;
+  parabola(a, o5, fl, sm, sp, s6);
+  Wave1<T> w;
+  integrate(sm, sp, s6, un, dtdx, w.im, w.ip);
+  return w;
 }
+
+// Every integral a cell's two traced states read: of q (rho, u_n, p, rho e),
+// gamc and the transverse velocities, and of srcQ (zero without it).
+template <typename T>
+struct CellWaves {
+  Waves<T> rho, un, p, re, gc, s_rho, s_un, s_p, s_re;
+  Wave1<T> ut, utt, s_ut, s_utt;
+};
 
 // Wave-side weight: a stationary wave gets half weight on each side.
 template <typename T, bool PLUS>
@@ -103,39 +127,33 @@ __device__ __forceinline__ T wside(T speed) {
   return PLUS ? w_minus : T(1) - w_minus;
 }
 
-// The traced state of cell x toward its left edge (PLUS) or right edge.
-template <typename T, int NPASS, bool PLUS>
-__device__ void trace_side(const T* q, const T* qaux, const T* flatn, const T* src,
-                           const Grid& g, const Cell& x, int d,
-                           const TraceConst<T>& k, T* out) {
-  const long long S = g.S;
-  long long ix = x.at(g);
-  int qun = QU + d, qut = QU + (d + 1) % 3, qutt = QU + (d + 2) % 3;
-  T fl = flatn[ix];
-  T un = q[qun * S + ix];
-  T cc = qaux[QC * S + ix];
-  T dtdx = k.dtdx, hdt = k.hdt;
+template <bool PLUS, typename T>
+__device__ __forceinline__ const T (&edge(const Waves<T>& w))[3] {
+  if constexpr (PLUS) return w.im;
+  else return w.ip;
+}
+template <bool PLUS, typename T>
+__device__ __forceinline__ T edge(const Wave1<T>& w) {
+  if constexpr (PLUS) return w.im;
+  else return w.ip;
+}
 
-  T I_rho[3], I_un[3], I_p[3], I_re[3], I_gc[3];
-  ppm3<T, PLUS>(q + QRHO * S, g, x, d, fl, un, cc, dtdx, I_rho);
-  ppm3<T, PLUS>(q + qun * S, g, x, d, fl, un, cc, dtdx, I_un);
-  ppm3<T, PLUS>(q + QPRES * S, g, x, d, fl, un, cc, dtdx, I_p);
-  ppm3<T, PLUS>(q + QREINT * S, g, x, d, fl, un, cc, dtdx, I_re);
-  ppm3<T, PLUS>(qaux + QGAMC * S, g, x, d, fl, un, cc, dtdx, I_gc);
-  T I_ut = ppm1<T, PLUS>(q + qut * S, g, x, d, fl, un, dtdx);
-  T I_utt = ppm1<T, PLUS>(q + qutt * S, g, x, d, fl, un, dtdx);
-
-  T S_rho[3] = {T(0), T(0), T(0)}, S_un[3] = {T(0), T(0), T(0)};
-  T S_p[3] = {T(0), T(0), T(0)}, S_re[3] = {T(0), T(0), T(0)};
-  T S_ut = T(0), S_utt = T(0);
-  if (src != nullptr) {
-    ppm3<T, PLUS>(src + QRHO * S, g, x, d, fl, un, cc, dtdx, S_rho);
-    ppm3<T, PLUS>(src + qun * S, g, x, d, fl, un, cc, dtdx, S_un);
-    ppm3<T, PLUS>(src + QPRES * S, g, x, d, fl, un, cc, dtdx, S_p);
-    ppm3<T, PLUS>(src + QREINT * S, g, x, d, fl, un, cc, dtdx, S_re);
-    S_ut = ppm1<T, PLUS>(src + qut * S, g, x, d, fl, un, dtdx);
-    S_utt = ppm1<T, PLUS>(src + qutt * S, g, x, d, fl, un, dtdx);
-  }
+// The traced state of the cell toward its left edge (PLUS) or right edge,
+// but the passives; `q` is the cell's own state.
+template <typename T, int NPASS, int D, bool PLUS>
+__device__ __forceinline__ void edge_state(const CellWaves<T>& w, const T* q, T un, T cc,
+                                           const TraceConst<T>& k, T* out) {
+  constexpr int QUN = QU + D, QUT = QU + (D + 1) % 3, QUTT = QU + (D + 2) % 3;
+  const T hdt = k.hdt;
+  const T(&I_rho)[3] = edge<PLUS>(w.rho);
+  const T(&I_un)[3] = edge<PLUS>(w.un);
+  const T(&I_p)[3] = edge<PLUS>(w.p);
+  const T(&I_re)[3] = edge<PLUS>(w.re);
+  const T(&I_gc)[3] = edge<PLUS>(w.gc);
+  const T(&S_rho)[3] = edge<PLUS>(w.s_rho);
+  const T(&S_un)[3] = edge<PLUS>(w.s_un);
+  const T(&S_p)[3] = edge<PLUS>(w.s_p);
+  const T(&S_re)[3] = edge<PLUS>(w.s_re);
 
   const int r = PLUS ? 0 : 2;
   T rho_ref = vmax(I_rho[r] + hdt * S_rho[r], k.small_dens);
@@ -170,51 +188,158 @@ __device__ void trace_side(const T* q, const T* qaux, const T* flatn, const T* s
   alpha0e = -alpha0e * w0;
 
 #pragma unroll
-  for (int c = 0; c < QFS + NPASS; ++c) out[c] = q[c * S + ix];
+  for (int c = 0; c < QFS + NPASS; ++c) out[c] = q[c];
   out[QRHO] = vmax(k.small_dens, rho_ref + alphap + alpham + alpha0r);
-  out[qun] = un_ref + (alphap - alpham) * cc_ref * rho_ref_inv;
+  out[QUN] = un_ref + (alphap - alpham) * cc_ref * rho_ref_inv;
   out[QREINT] = vmax(k.small_rhoe, rhoe_ref + (alphap + alpham) * h_ref + alpha0e);
   out[QPRES] = vmax(k.small_pres, p_ref + (alphap + alpham) * csq_ref);
-  out[qut] = I_ut + hdt * S_ut;
-  out[qutt] = I_utt + hdt * S_utt;
-  // passives ride the contact only
-#pragma unroll
-  for (int j = 0; j < NPASS; ++j)
-    out[QFS + j] = ppm1<T, PLUS>(q + (QFS + j) * S, g, x, d, fl, un, dtdx);
+  out[QUT] = edge<PLUS>(w.ut) + hdt * edge<PLUS>(w.s_ut);
+  out[QUTT] = edge<PLUS>(w.utt) + hdt * edge<PLUS>(w.s_utt);
 }
 
-template <typename T, int NPASS>
-__global__ void __launch_bounds__(128) trace_ppm_kernel(
+// Both traced states of one cell: toward its left edge (qp) and its right
+// edge (qm), from one reconstruction of each component. q, qaux, flatn and
+// src point to the cell; o5 are its stencil's offsets along D.
+template <typename T, int NPASS, int D, bool SRC>
+__device__ __forceinline__ void trace_cell(const T* q, const T* qaux, const T* flatn,
+                                           const T* src, long long S, const int (&o5)[5],
+                                           const TraceConst<T>& k, T* qp, T* qm) {
+  constexpr int NQ = QFS + NPASS;
+  constexpr int QUN = QU + D, QUT = QU + (D + 1) % 3, QUTT = QU + (D + 2) % 3;
+  T fl = *flatn;
+  T un = q[QUN * S];
+  T cc = qaux[QC * S];
+  T dtdx = k.dtdx;
+
+  CellWaves<T> w;
+  w.rho = waves(q + QRHO * S, o5, fl, un, cc, dtdx);
+  w.un = waves(q + QUN * S, o5, fl, un, cc, dtdx);
+  w.p = waves(q + QPRES * S, o5, fl, un, cc, dtdx);
+  w.re = waves(q + QREINT * S, o5, fl, un, cc, dtdx);
+  w.gc = waves(qaux + QGAMC * S, o5, fl, un, cc, dtdx);
+  w.ut = wave1(q + QUT * S, o5, fl, un, dtdx);
+  w.utt = wave1(q + QUTT * S, o5, fl, un, dtdx);
+  if constexpr (SRC) {
+    w.s_rho = waves(src + QRHO * S, o5, fl, un, cc, dtdx);
+    w.s_un = waves(src + QUN * S, o5, fl, un, cc, dtdx);
+    w.s_p = waves(src + QPRES * S, o5, fl, un, cc, dtdx);
+    w.s_re = waves(src + QREINT * S, o5, fl, un, cc, dtdx);
+    w.s_ut = wave1(src + QUT * S, o5, fl, un, dtdx);
+    w.s_utt = wave1(src + QUTT * S, o5, fl, un, dtdx);
+  } else {
+    Waves<T> z3 = {{T(0), T(0), T(0)}, {T(0), T(0), T(0)}};
+    Wave1<T> z1 = {T(0), T(0)};
+    w.s_rho = w.s_un = w.s_p = w.s_re = z3;
+    w.s_ut = w.s_utt = z1;
+  }
+  T qc[NQ];
+#pragma unroll
+  for (int c = 0; c < NQ; ++c) qc[c] = q[c * S];
+  edge_state<T, NPASS, D, true>(w, qc, un, cc, k, qp);
+  edge_state<T, NPASS, D, false>(w, qc, un, cc, k, qm);
+  // passives ride the contact only
+#pragma unroll
+  for (int j = 0; j < NPASS; ++j) {
+    Wave1<T> wp = wave1(q + (QFS + j) * S, o5, fl, un, dtdx);
+    qp[QFS + j] = wp.im;
+    qm[QFS + j] = wp.ip;
+  }
+}
+
+// The block: 8 z columns of 32 cells along D = 0, 1; 32 cells along z
+// by 8 rows of y for D = 2.
+template <int D>
+using TraceTile = FaceTile<D, 0, D == 2 ? 32 : 8, D == 2 ? 8 : 32>;
+
+template <typename T, int NPASS, int D, bool SRC, bool FUSE>
+__global__ void __launch_bounds__(TraceTile<D>::THREADS) trace_ppm_kernel(
     const T* __restrict__ q, const T* __restrict__ qaux, const T* __restrict__ flatn,
     const T* __restrict__ src, T* __restrict__ qm_out, T* __restrict__ qp_out,
-    T* __restrict__ flux, T* __restrict__ qe, Grid g, int d, TraceConst<T> k,
-    int solver, int mask_lo, int mask_hi) {
+    T* __restrict__ flux, T* __restrict__ qe, Grid g, TraceConst<T> k, int solver,
+    int mask_lo, int mask_hi) {
+  using Tile = TraceTile<D>;
   constexpr int NQ = QFS + NPASS, NVAR = UFS + NPASS;
-  long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= g.S) return;
+  // the right-edge state, gamc and c of each cell, for the face above it
+  __shared__ T xs[FUSE ? NQ + 2 : 1][Tile::THREADS];
+  const Tile tl(g);
   const long long S = g.S;
-  Cell x = cell_of(g, t);
-  Cell xm = x.shift(g, d, -1);
+  const long long ix = tl.ix();
   T qp[NQ], qm[NQ];
-  trace_side<T, NPASS, true>(q, qaux, flatn, src, g, x, d, k, qp);
-  trace_side<T, NPASS, false>(q, qaux, flatn, src, g, xm, d, k, qm);
+  if (tl.in) {
+    const int c0 = tl.x.c[D], sd = (int)tl.sd;
+    int o5[5];
 #pragma unroll
-  for (int c = 0; c < NQ; ++c) {
-    qm_out[c * S + t] = qm[c];
-    qp_out[c * S + t] = qp[c];
+    for (int j = 0; j < 5; ++j) o5[j] = (clampi(c0 + j - 2, g.n[D]) - c0) * sd;
+    trace_cell<T, NPASS, D, SRC>(q + ix, qaux + ix, flatn + ix, SRC ? src + ix : src, S, o5,
+                                 k, qp, qm);
+    if (tl.owns()) {
+#pragma unroll
+      for (int c = 0; c < NQ; ++c) qp_out[c * S + ix] = qp[c];
+    }
+    if (tl.r < Tile::OWN && tl.p + 1 < g.n[D]) {  // face p + 1 is this tile's
+      const long long iu = tl.at(g, tl.p + 1);
+#pragma unroll
+      for (int c = 0; c < NQ; ++c) qm_out[c * S + iu] = qm[c];
+    }
   }
-  if (flux == nullptr) return;
-  long long im = xm.at(g);
-  int pos = x.c[d];
-  T mask = (pos == mask_lo || pos == mask_hi) ? T(0) : T(1);
-  T f[NVAR], e[NGDNV];
-  riemann_flux<T, NPASS>(qm, qp, qaux[QGAMC * S + im], qaux[QGAMC * S + t],
-                         qaux[QC * S + im], qaux[QC * S + t], d, solver, mask,
-                         k.small_dens, k.small_pres, f, e);
+  if constexpr (FUSE) {
+    if (tl.in) {
 #pragma unroll
-  for (int c = 0; c < NVAR; ++c) flux[c * S + t] = f[c];
+      for (int c = 0; c < NQ; ++c) xs[c][tl.slot] = qm[c];
+      xs[NQ][tl.slot] = qaux[QGAMC * S + ix];
+      xs[NQ + 1][tl.slot] = qaux[QC * S + ix];
+    }
+    __syncthreads();
+    if (tl.owns()) {
+      const int b = tl.slot - Tile::STEP;  // the cell below
+      T ql[NQ];
 #pragma unroll
-  for (int c = 0; c < NGDNV; ++c) qe[c * S + t] = e[c];
+      for (int c = 0; c < NQ; ++c) ql[c] = xs[c][b];
+      T mask = (tl.p == mask_lo || tl.p == mask_hi) ? T(0) : T(1);
+      T f[NVAR], e[NGDNV];
+      riemann_flux<T, NPASS>(ql, qp, xs[NQ][b], qaux[QGAMC * S + ix], xs[NQ + 1][b],
+                             qaux[QC * S + ix], Axis<D>(), solver, mask, k.small_dens,
+                             k.small_pres, f, e);
+#pragma unroll
+      for (int c = 0; c < NVAR; ++c) flux[c * S + ix] = f[c];
+#pragma unroll
+      for (int c = 0; c < NGDNV; ++c) qe[c * S + ix] = e[c];
+    }
+  }
+}
+
+// The kernel's arrays, as the launcher receives them.
+template <typename T>
+struct TraceArrays {
+  const T* q;
+  const T* qaux;
+  const T* flatn;
+  const T* src;
+  T* qm;
+  T* qp;
+  T* flux;
+  T* qe;
+};
+
+template <typename T, int D, bool SRC, bool FUSE>
+int launch_variant(const TraceArrays<T>& a, const Grid& g, const TraceConst<T>& k,
+                   int solver, int mask_lo, int mask_hi, cudaStream_t stream) {
+  using Tile = TraceTile<D>;
+  trace_ppm_kernel<T, 1, D, SRC, FUSE><<<Tile::blocks(g), Tile::threads(), 0, stream>>>(
+      a.q, a.qaux, a.flatn, a.src, a.qm, a.qp, a.flux, a.qe, g, k, solver, mask_lo, mask_hi);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, int D>
+int launch_dir(const TraceArrays<T>& a, const Grid& g, const TraceConst<T>& k, int solver,
+               int mask_lo, int mask_hi, cudaStream_t stream) {
+  if (a.src != nullptr)
+    return a.flux != nullptr
+               ? launch_variant<T, D, true, true>(a, g, k, solver, mask_lo, mask_hi, stream)
+               : launch_variant<T, D, true, false>(a, g, k, solver, mask_lo, mask_hi, stream);
+  return a.flux != nullptr
+             ? launch_variant<T, D, false, true>(a, g, k, solver, mask_lo, mask_hi, stream)
+             : launch_variant<T, D, false, false>(a, g, k, solver, mask_lo, mask_hi, stream);
 }
 
 template <typename T>
@@ -224,12 +349,13 @@ int launch_trace_ppm(const void* q, const void* qaux, const void* flatn, const v
                      cudaStream_t stream) {
   Grid g{{n[0], n[1], n[2]}, (long long)n[0] * n[1] * n[2]};
   TraceConst<T> k{T(consts[0]), T(consts[1]), T(consts[2]), T(consts[3]), T(consts[4])};
+  TraceArrays<T> a{(const T*)q, (const T*)qaux, (const T*)flatn, (const T*)src,
+                   (T*)qm,      (T*)qp,         (T*)flux,        (T*)qe};
   if (npass != 1) return (int)cudaErrorInvalidValue;
-  const int threads = 128;
-  trace_ppm_kernel<T, 1><<<blocks_for(g.S, threads), threads, 0, stream>>>(
-      (const T*)q, (const T*)qaux, (const T*)flatn, (const T*)src, (T*)qm, (T*)qp,
-      (T*)flux, (T*)qe, g, d, k, solver, mask_lo, mask_hi);
-  return (int)cudaGetLastError();
+  if (d == 0) return launch_dir<T, 0>(a, g, k, solver, mask_lo, mask_hi, stream);
+  if (d == 1) return launch_dir<T, 1>(a, g, k, solver, mask_lo, mask_hi, stream);
+  if (d == 2) return launch_dir<T, 2>(a, g, k, solver, mask_lo, mask_hi, stream);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace ctt

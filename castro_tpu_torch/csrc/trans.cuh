@@ -13,13 +13,13 @@ namespace ctt {
 
 // One transverse term: the face-registered flux F[NVAR] and Godunov state
 // (pressure pg and the t-velocity ug) of the stage that solved along t.
+// Its direction t is the caller's template parameter.
 template <typename T>
 struct Term {
   const T* F;
   const T* pg;
   const T* ug;
   T cdtdx;
-  int t;
 };
 
 // Summed transverse bundle registered at cell x: df[NVAR] (only the
@@ -30,7 +30,31 @@ struct Bundle {
   T dre, dp;
 };
 
-template <typename T, int NPASS, int NT>
+// One term's share of the bundle at cell x (linear index ix): differences
+// between x and its edge-clamped neighbour x + 1 along the axis t (an int,
+// or Axis<A>).
+template <typename T, int NPASS, typename Dir>
+__device__ __forceinline__ void add_term(Bundle<T, NPASS>& b, const Term<T>& tm, Dir t,
+                                         T gamc, const Grid& g, const Cell& x,
+                                         long long ix) {
+  long long ih = x.shift(g, t, 1).at(g);
+#pragma unroll
+  for (int c = 0; c < UFS + NPASS; ++c) {
+    if (c == UTEMP) continue;
+    b.df[c] = b.df[c] + tm.cdtdx * (tm.F[c * g.S + ih] - tm.F[c * g.S + ix]);
+  }
+  T pgm = tm.pg[ix], pgp = tm.pg[ih];
+  T ugm = tm.ug[ix], ugp = tm.ug[ih];
+  T du = ugp - ugm;
+  T dup = pgp * ugp - pgm * ugm;
+  T pav = T(0.5) * (pgp + pgm);
+  b.dre = b.dre + tm.cdtdx * pav * du;
+  b.dp = b.dp + tm.cdtdx * (dup + pav * du * (gamc - T(1)));
+}
+
+// The bundle of NT (0-2) terms at cell x, the first along TA and the
+// second along TB, summed in that order.
+template <typename T, int NPASS, int NT, int TA, int TB>
 __device__ __forceinline__ Bundle<T, NPASS> term_bundle(
     const Term<T>* terms, const T* qaux, const Grid& g, const Cell& x) {
   Bundle<T, NPASS> b;
@@ -40,23 +64,8 @@ __device__ __forceinline__ Bundle<T, NPASS> term_bundle(
   b.dp = T(0);
   long long ix = x.at(g);
   T gamc = qaux[QGAMC * g.S + ix];
-#pragma unroll
-  for (int k = 0; k < NT; ++k) {
-    const Term<T>& tm = terms[k];
-    long long ih = x.shift(g, tm.t, 1).at(g);
-#pragma unroll
-    for (int c = 0; c < UFS + NPASS; ++c) {
-      if (c == UTEMP) continue;
-      b.df[c] = b.df[c] + tm.cdtdx * (tm.F[c * g.S + ih] - tm.F[c * g.S + ix]);
-    }
-    T pgm = tm.pg[ix], pgp = tm.pg[ih];
-    T ugm = tm.ug[ix], ugp = tm.ug[ih];
-    T du = ugp - ugm;
-    T dup = pgp * ugp - pgm * ugm;
-    T pav = T(0.5) * (pgp + pgm);
-    b.dre = b.dre + tm.cdtdx * pav * du;
-    b.dp = b.dp + tm.cdtdx * (dup + pav * du * (gamc - T(1)));
-  }
+  if (NT > 0) add_term(b, terms[0], Axis<TA>(), gamc, g, x, ix);
+  if (NT > 1) add_term(b, terms[1], Axis<TB>(), gamc, g, x, ix);
   return b;
 }
 

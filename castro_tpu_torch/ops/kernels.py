@@ -511,6 +511,13 @@ def ctu_face(qm, qp, qaux, d, terms, layout, coord, riemann_solver, small_dens,
     variants = {(0, 0, False), (1, 0, False), (1, 1, False), (2, 0, False), (2, 0, True)}
     if (nt1, nt2, consup is not None) not in variants:
         raise ValueError(f"no ctu_face variant with {nt1}+{nt2} terms, consup={consup is not None}")
+    # the kernel fixes the terms' directions with the normal's: the other two
+    # axes in Castro order, or either of them for a lone corner term
+    t1, t2 = [t for t in range(3) if t != d]
+    dirs = tuple(int(t["t_dir"]) for t in all_terms)
+    if dirs != (t1, t2)[:len(dirs)] and dirs != (t2,):
+        raise ValueError(f"ctu_face with normal {d} takes terms along {t1} then {t2}, "
+                         f"not {list(dirs)}")
     S = int(np.prod(g))
     isz = qm.element_size()
     F, pg, ug, cdt, tdir = [], [], [], [], []

@@ -7,16 +7,19 @@ From the root of a checkout, on a machine with one card and the CUDA
 toolkit. In order:
   1. print the card (nvidia-smi name and power limit, torch's name, count);
   2. build the twelve CUDA kernels (the nine of the step and the three
-     profiling probes) from castro_tpu_torch/csrc and print each kernel's
-     registers, stack, shared memory and spills (ptxas -v);
+     profiling probes) from castro_tpu_torch/csrc and print each compiled
+     kernel's registers, stack, shared memory and spills (ptxas -v), every
+     direction and variant of trace_ppm and ctu_face among them;
   3. hold each kernel against its plain PyTorch version on the card, at the
      main paths' shapes (3D Sedov 128^3 interior, 136^3 grown; 2D Sedov
      4096^2, 4104^2 grown; 1D Sod 4096; float32), and on the branches the
-     main paths do not take at 32^3 and 64^2 (HLLC, srcQ, the face stages
-     terms=[], one corner and final without consup, wall masks,
+     main paths do not take (at 136^3 too for the face kernels' srcQ, the
+     trace without the solve, ctu_face's terms=[], one corner along either
+     axis and final without consup), at 32^3 and 64^2 (HLLC, wall masks,
      symmetry/periodic/no-slip fills, prim_aux without div u, both reset
-     flags of trans_apply), and cmpflx and trans_cmpflx with coord 1 and 2
-     at the RZ and spherical paths' shapes;
+     flags of trans_apply), at a grid of prime extents that cuts the face
+     kernels' tiles raggedly (RAGGED, with wall faces), and cmpflx and
+     trans_cmpflx with coord 1 and 2 at the RZ and spherical paths' shapes;
   4. drive the main paths through Simulation(...).run() on the card, each
      with every launch count zeroed just before and read just after and
      checked against the step's structure, with mass conservation and a
@@ -45,7 +48,8 @@ toolkit. In order:
   5. time the main paths (zones/s, ms/step, peak memory, device time by
      kernel under torch.profiler) and each kernel (its device time under
      torch.profiler) beside its bound and its plain version's time (CUDA
-     events).
+     events); trace_ppm and ctu_face variant by variant
+     (castro_tpu_torch/scripts/prof_faces.py).
 Any failure exits non-zero. The last two lines are the kernels' JSON and
 the {"ok": true, ...} line. Without a card, or without the package beside
 this file, it exits 2 and prints no result.
@@ -53,6 +57,8 @@ this file, it exits 2 and prints no result.
 
 import json
 import os
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -81,6 +87,7 @@ FP32_OPS_PER_S = 67e12
 N_MAIN, STEPS_MAIN = 128, 10
 N_BIG, STEPS_BIG = 256, 4
 N_SMALL = 32
+RAGGED = (29, 21, 37)             # interior cells; 37 x 29 x 45 grown, all prime
 N_HYBRID, STEPS_HYBRID = 64, 20   # path B with hybrid_riemann
 N_2D, STEPS_2D = 4096, 10         # path C
 N_2D_SMALL = 64
@@ -146,6 +153,53 @@ def smi_line():
     if out.returncode != 0:
         fail(f"nvidia-smi failed: {out.stderr}")
     return out.stdout.strip().splitlines()[0]
+
+
+def ptxas_table(log, lib=None):
+    """[{kernel, registers, stack, spill_stores, spill_loads, smem, sass}] of
+    every compiled kernel in an `nvcc -Xptxas -v` log, names demangled
+    (cu++filt) and cut to the kernel and its template arguments; `sass` is
+    the kernel's count of SASS instructions in the library `lib`
+    (cuobjdump), the instructions one thread issues at most where the code
+    has no loops."""
+    rows, cur = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            cur = {"kernel": m.group(1)}
+            rows.append(cur)
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and cur is not None:
+            cur.update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                       spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and cur is not None:
+            smem = re.search(r"(\d+) bytes smem", line)
+            cur.update(registers=int(m.group(1)), smem=int(smem.group(1)) if smem else 0)
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if lib is not None and os.path.exists(tool):
+        sass, fn = {}, None
+        dump = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True,
+                              timeout=300).stdout
+        for line in dump.splitlines():
+            m = re.search(r"Function : (\S+)", line)
+            if m:
+                fn = m.group(1)
+            elif fn and re.match(r"\s+/\*[0-9a-f]{4,}\*/\s+\S", line):
+                sass[fn] = sass.get(fn, 0) + 1
+        for r in rows:
+            r["sass"] = sass.get(r["kernel"], -1)
+    filt = shutil.which("cu++filt") or "/usr/local/cuda/bin/cu++filt"
+    if rows and os.path.exists(filt):
+        out = subprocess.run([filt], input="\n".join(r["kernel"] for r in rows),
+                             capture_output=True, text=True, timeout=60).stdout.splitlines()
+        if len(out) == len(rows):
+            for r, name in zip(rows, out):
+                name = re.sub(r"^void ctt::", "", name).split(">(")[0] + ">"
+                r["kernel"] = re.sub(r"\((int|bool)\)", "", name)
+    return rows
 
 
 def compare(got, ref, rtol, floor=(), report=False):
@@ -333,7 +387,7 @@ def main():
         from castro_tpu_torch.ops.trace_ppm import trace_ppm as trace_ppm_ops
         from castro_tpu_torch.ops.trans import term_bundle
         from castro_tpu_torch.problems import acoustic_pulse, double_mach, sedov, sod
-        from castro_tpu_torch.scripts import prof_cmpflx, prof_vpu
+        from castro_tpu_torch.scripts import prof_cmpflx, prof_faces, prof_vpu
         from castro_tpu_torch.utils.exact_riemann import solution as exact_solution
     except ImportError as e:
         print(f"castro_tpu_torch not found beside chip_smoke.py: {e}", file=sys.stderr)
@@ -353,15 +407,21 @@ def main():
     t0 = time.perf_counter()
     K.library()
     print(f"build: {time.perf_counter() - t0:.1f} s (nvcc, one process per source)")
-    for line in K.build_log().splitlines():
-        if line.startswith("== ") or "Compiling entry" in line or "registers" in line \
-                or "spill" in line:
-            print("  " + line.replace("ptxas info    : ", "").strip())
+    ptxas = ptxas_table(K.build_log(), K._LIB.path)
+    print(f"ptxas -v, {len(ptxas)} kernels (registers, stack bytes, spill stores / loads "
+          f"bytes, static shared memory bytes, SASS instructions; trace_ppm_kernel<T, NPASS, "
+          f"D, SRC, FUSE>, ctu_face_kernel<T, NPASS, D, NT1, NT2, CONSUP, TA>):")
+    for r in ptxas:
+        print(f"  {r['kernel']:50s} {r.get('registers', -1):4d} regs  stack {r.get('stack', -1):4d}"
+              f"  spills {r.get('spill_stores', -1)} / {r.get('spill_loads', -1)}"
+              f"  smem {r.get('smem', -1):6d}  sass {r.get('sass', -1)}")
 
-    def sedov_sim(n, dtype="float32", bc=2, device="cuda", dim=3, **castro):
+    def sedov_sim(n, dtype="float32", bc=2, device="cuda", dim=3, n_cell=None, **castro):
         p = sedov.make_params(n=n, dim=dim, stop_time=1.0, r_init=0.1, exp_energy=0.5,
                               dtype=dtype)
         p = p.with_ns("castro", lo_bc=(bc,) * 3, hi_bc=(bc,) * 3, **castro)
+        if n_cell is not None:
+            p = p.with_ns("amr", n_cell=n_cell)
         return Simulation(p, problem_init=sedov.problem_init, device=device)
 
     def sod_sim(n, device="cuda"):
@@ -434,6 +494,15 @@ def main():
             ref = K.trace_ppm_plain(*a, fuse_riemann=fr)
             check("trace_ppm", got, ref, f"{label}, d={d}")
             tr.append(ref)
+            if off_path:  # with srcQ, with and without the solve
+                g = torch.Generator(dev).manual_seed(d)
+                s_ = src if src is not None else \
+                    1e-3 * x["q"].abs() * torch.randn(x["q"].shape, device=dev, generator=g)
+                a = (x["q"], x["qaux"], s_, *a[3:])
+                check("trace_ppm", K.trace_ppm(*a, fuse_riemann=fr),
+                      K.trace_ppm_plain(*a, fuse_riemann=fr), f"{label}, srcQ d={d}")
+                check("trace_ppm", K.trace_ppm(*a), K.trace_ppm_plain(*a),
+                      f"{label}, srcQ, no solve d={d}")
         hsrc = torch.zeros_like(u)
         for d in range(3):
             t1, t2 = [t for t in range(3) if t != d]
@@ -455,7 +524,8 @@ def main():
             check("ctu_face", got, ref, f"{label}, final+consup d={d}")
             hsrc = ref[1]
             if off_path:  # the variants the main path does not launch
-                for terms, kind in (([], "terms=[]"), ([term(t1, 1 / 3)], "one corner"),
+                for terms, kind in (([], "terms=[]"), ([term(t1, 1 / 3)], "one corner t1"),
+                                    ([term(t2, 1 / 3)], "one corner t2"),
                                     (fin, "final, no consup")):
                     check("ctu_face", K.ctu_face(*fa, terms, *fb, **kw),
                           K.ctu_face_plain(*fa, terms, *fb, **kw), f"{label}, {kind} d={d}")
@@ -471,7 +541,7 @@ def main():
     dt = sim.estimate_dt()
     compare_step(inputs(sim, sim.u, dt), "Sedov init")
     sim.advance(dt)
-    compare_step(inputs(sim, sim.u, dt), "after 1 step")
+    compare_step(inputs(sim, sim.u, dt), "after 1 step", off_path=True)
     del sim
     print(f"kernel vs plain, {N_SMALL}^3, branches off the main path:", flush=True)
     for bc, solver, label in ((3, 2, "symmetry walls, HLLC"), (0, 0, "periodic"),
@@ -585,6 +655,17 @@ def main():
     dts = s.estimate_dt()
     s.advance(dts)
     compare_unfused_3d(inputs(s, s.u, dts), f"{N_SMALL}^3 symmetry walls")
+    grown = " x ".join(str(n + 8) for n in RAGGED)
+    print(f"kernel vs plain, Sedov {grown} grown (prime extents), symmetry walls:", flush=True)
+    s = sedov_sim(N_SMALL, bc=3, n_cell=RAGGED)
+    s.init_data()
+    dts = s.estimate_dt()
+    s.advance(dts)
+    x = inputs(s, s.u, dts)
+    compare_step(x, "ragged", off_path=True)
+    compare_step(x, "ragged, HLLC", solver=2)
+    compare_unfused_3d(x, "ragged")
+    del s, x
     torch.cuda.empty_cache()
     print(f"kernel vs plain, 2D Sedov {N_2D}^2 and 1D Sod {N_1D} float32 (path C's shapes):",
           flush=True)
@@ -940,54 +1021,33 @@ def main():
     def term(t, f):
         return {"flux": tr[t][2], "qe": tr[t][3], "t_dir": t, "cdtdx": f * dt / dx[t]}
 
-    fb = (L, 0, 0, cfg.small_dens, cfg.small_pres, True, False)
     hsrc = torch.zeros_like(u)
-    calls = {}  # name -> list of (kernel call, plain call, components moved[, elements])
+    # name -> list of (kernel call, plain call, components moved[, elements[, variant]])
+    calls = {}
     a = (u, L, x["eos"], cfg.small_dens, sim.small_temp, dx)
     calls["prim_aux"] = [(lambda: K.prim_aux(*a, courant_dt=dt),
                           lambda: K.prim_aux_plain(*a, courant_dt=dt),
                           L.NVAR + L.NQ + L.NQAUX + 1)]
     calls["flatten"] = [(lambda: K.flatten(x["q"], L), lambda: K.flatten_plain(x["q"], L), 5)]
-    calls["trace_ppm"] = []
-    calls["ctu_face"] = []
-    for d in range(3):
-        ta = (x["q"], x["qaux"], None, x["flatn"], d, dt, dx[d], L, cfg.small_dens,
-              cfg.small_pres, cfg.small_ener)
-        fr = dict(coord=0, riemann_solver=0, bnd_mask=None)
-        calls["trace_ppm"].append((lambda ta=ta, fr=fr: K.trace_ppm(*ta, fuse_riemann=fr),
-                                   lambda ta=ta, fr=fr: K.trace_ppm_plain(*ta, fuse_riemann=fr),
-                                   L.NQ + 2 + 1 + 2 * L.NQ + L.NVAR + L.NGDNV))
-    for d in range(3):
-        t1, t2 = [t for t in range(3) if t != d]
-        fa = (tr[d][0], tr[d][1], x["qaux"], d)
-        p1, p2 = [term(t1, 1 / 3)], [term(t2, 1 / 3)]
-        calls["ctu_face"].append((
-            lambda fa=fa, p1=p1, p2=p2: K.ctu_face(*fa, p1, *fb, terms2=p2),
-            lambda fa=fa, p1=p1, p2=p2: K.ctu_face_plain(*fa, p1, *fb, terms2=p2),
-            2 * L.NQ + 2 + 2 * (L.NVAR + 2) + 2 * (L.NVAR + L.NGDNV)))
-    for d in range(3):
-        t1, t2 = [t for t in range(3) if t != d]
-        fa = (tr[d][0], tr[d][1], x["qaux"], d)
-        fin = [term(t1, 0.5), term(t2, 0.5)]
-        cs = dict(hsrc=hsrc, div_node=x["div"], u=u, difmag=cfg.difmag, dx=dx,
-                  finalize_dt=dt if d == 2 else None)
-        calls["ctu_face"].append((
-            lambda fa=fa, fin=fin, cs=cs: K.ctu_face(*fa, fin, *fb, consup=cs),
-            lambda fa=fa, fin=fin, cs=cs: K.ctu_face_plain(*fa, fin, *fb, consup=cs),
-            2 * L.NQ + 2 + 2 * (L.NVAR + 2) + 2 * L.NVAR + 1 + L.NVAR + L.NVAR + L.NGDNV))
+    # the face kernels variant by variant (scripts/prof_faces.py): trace_ppm
+    # with the solve (A) and without (B); ctu_face's pair and final + consup
+    # (A), terms=[] (D, PLM) and the final alone (D, limited)
+    fx = prof_faces.setup(N_MAIN)
+    face_calls = {("trace_ppm", "with the solve"): "trace_ppm",
+                  ("trace_ppm", "without the solve"): "trace_ppm, no solve",
+                  ("ctu_face", "corner pair"): "ctu_face",
+                  ("ctu_face", "final + consup"): "ctu_face",
+                  ("ctu_face", "terms=[]"): "ctu_face, terms=[]",
+                  ("ctu_face", "final alone"): "ctu_face, final alone"}
+    for name, variant, d, kern, plain, comps in prof_faces.variants(fx):
+        calls.setdefault(face_calls[(name, variant)], []).append(
+            (kern, plain, comps, u[0].numel(), variant))
     ca = (u, L, x["eos"], cfg.lo_bc, cfg.hi_bc, sim.ng, cfg.small_dens, sim.small_temp,
           x["eta2"], True)
     calls["clean_fill"] = [(lambda: K.clean_fill(*ca, with_status=True),
                             lambda: K.clean_fill_plain(*ca, with_status=True), 2 * L.NVAR)]
-    # the unfused structure's kernels at 136^3: the trace without the solve,
-    # trans_apply on a corner and on a final bundle, consup per direction
-    calls["trace_ppm, no solve"] = []
-    for d in range(3):
-        ta = (x["q"], x["qaux"], None, x["flatn"], d, dt, dx[d], L, cfg.small_dens,
-              cfg.small_pres, cfg.small_ener)
-        calls["trace_ppm, no solve"].append((lambda ta=ta: K.trace_ppm(*ta),
-                                             lambda ta=ta: K.trace_ppm_plain(*ta),
-                                             L.NQ + 2 + 1 + 2 * L.NQ))
+    # the unfused structure's kernels at 136^3: trans_apply on a corner and
+    # on a final bundle, consup per direction
     calls["trans_apply"] = []
     for n_, terms, q_face, shift in ((0, [term(1, 1 / 3)], tr[0][1], 0),
                                      (1, [term(2, 1 / 3)], tr[1][0], -1),
@@ -1039,11 +1099,12 @@ def main():
           f"launch: the kernel's device time (torch.profiler), the wrapper's and the plain "
           f"version's time (CUDA events); bound = max(bytes / {HBM_BYTES_PER_S:g} B/s, "
           f"operations of the plain version / {FP32_OPS_PER_S:g} op/s):", flush=True)
+    by_variant = {}  # ctu_face's variants: the mean over the three directions
     for name, variants in calls.items():
         sums = dict(ms=0.0, wrapper_ms=0.0, plain_ms=0.0, bound_ms=0.0, bytes_ms=0.0,
                     ops_ms=0.0)
-        for kern, plain, comps, *elements in variants:
-            S = elements[0] if elements else u[0].numel()
+        for kern, plain, comps, *more in variants:
+            S = more[0] if more else u[0].numel()
             w_ms = time_ms(kern, reps=20)
             k_ms = kernel_device_ms(kern, reps=20)
             if k_ms is None:
@@ -1060,6 +1121,9 @@ def main():
                            ("bound_ms", max(b_bytes, b_ops)), ("bytes_ms", b_bytes),
                            ("ops_ms", b_ops)):
                 sums[key] += v / len(variants)
+                if name.startswith("ctu_face") and key in ("ms", "plain_ms", "bound_ms"):
+                    by_variant.setdefault(more[1], {}).setdefault(key, 0.0)
+                    by_variant[more[1]][key] += v / 3
         if name not in REPLACES:  # a second variant of a kernel: printed, kept with its kernel
             extra[name] = sums
             continue
@@ -1079,6 +1143,10 @@ def main():
         if e["name"] == "trace_ppm":  # the variant the unfused structure launches
             e.update({k + "_no_solve": extra["trace_ppm, no solve"][k]
                       for k in ("ms", "wrapper_ms", "plain_ms", "bound_ms")})
+        if e["name"] == "ctu_face":
+            e["ms_by_variant"] = by_variant
+        if e["name"] in ("trace_ppm", "ctu_face"):  # float32, every direction
+            e["ptxas"] = [r for r in ptxas if r["kernel"].startswith(e["name"] + "_kernel<float")]
         if e["name"] == "probe_cmpflx":
             e["entry_point_ms_by_tiling"] = {k: v for k, v in probe_ms.items() if "cmpflx" in k}
         if e["name"] == "probe_copy":

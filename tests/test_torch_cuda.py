@@ -9,7 +9,11 @@ Inputs are random states from a seed on a grown grid that is not a cube
 grids), compared in float64 with rtol = atol =
 1e-9 (the kernel repeats the plain arithmetic without FMA contraction;
 what differs is round-off) and in float32 with rtol = atol = 2e-5 (the
-budget of tests/test_pallas.py:41).
+budget of tests/test_pallas.py:41). The two tiled face kernels, trace_ppm
+and ctu_face, do their plain versions' operations in the same order and
+are held bit for bit, in every direction, on grids whose extents cut
+their tiles raggedly: prime extents, and an axis of one interior cell
+between its ghosts.
 """
 
 import numpy as np
@@ -30,6 +34,10 @@ pytestmark = pytest.mark.cuda
 
 NG = 4
 SHAPE = (20, 24, 28)  # grown extents
+# grown extents for the tiled face kernels: SHAPE, prime extents, and one
+# interior cell along z
+FACE_SHAPES = pytest.mark.parametrize("shape", [SHAPE, (37, 29, 45), (28, 20, 2 * NG + 1)],
+                                      ids=["20x24x28", "37x29x45", "28x20x9"])
 DX = (1.0 / 12, 1.0 / 16, 1.0 / 20)
 DT = 2e-3
 SMALL = dict(small_dens=1e-12, small_temp=1e-12, small_pres=1e-20, small_ener=1e-200)
@@ -45,12 +53,12 @@ def card():
     return torch.device("cuda")
 
 
-def _state(seed, dtype, device, bad_cells=False):
+def _state(seed, dtype, device, bad_cells=False, shape=SHAPE):
     rng = np.random.default_rng(seed)
-    rho = rng.uniform(0.5, 1.5, SHAPE)
-    vel = rng.uniform(-0.4, 0.4, (3,) + SHAPE)
-    rhoe = rng.uniform(0.3, 2.0, SHAPE) / 0.4
-    u = np.zeros((L.NVAR,) + SHAPE)
+    rho = rng.uniform(0.5, 1.5, shape)
+    vel = rng.uniform(-0.4, 0.4, (3,) + shape)
+    rhoe = rng.uniform(0.3, 2.0, shape) / 0.4
+    u = np.zeros((L.NVAR,) + shape)
     u[L.URHO] = rho
     u[L.UMX:L.UMZ + 1] = rho * vel
     u[L.UEINT] = rhoe
@@ -69,8 +77,15 @@ def _close(got, ref, dtype, what=""):
     torch.testing.assert_close(got, ref, rtol=tol, atol=tol, msg=what)
 
 
-def _masks(bc):
-    return _bnd_masks(SHAPE, 3, NG, (bc,) * 3, (bc,) * 3)
+def _exact(got, ref, what=""):
+    """Bit for bit, NaN where both are NaN."""
+    for i, (g_, r_) in enumerate(zip(got, ref)):
+        same = (g_ == r_) | (torch.isnan(g_) & torch.isnan(r_))
+        assert bool(same.all()), f"{what} output {i}: {int((~same).sum())} elements differ"
+
+
+def _masks(bc, shape=SHAPE):
+    return _bnd_masks(shape, 3, NG, (bc,) * 3, (bc,) * 3)
 
 
 DTYPES = pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
@@ -92,28 +107,34 @@ def test_prim_aux_and_flatten_kernels(card, dtype):
 
 
 @DTYPES
+@FACE_SHAPES
 @pytest.mark.parametrize("solver,with_src,bc", [(0, False, 2), (2, True, 3)],
                          ids=["cgf", "hllc-src-wall"])
-def test_trace_ppm_kernel(card, dtype, solver, with_src, bc):
-    u = _state(1, dtype, card)
+def test_trace_ppm_kernel(card, dtype, shape, solver, with_src, bc):
+    """The trace with the fused solve; bc 3 puts wall faces at both ends of
+    every axis."""
+    u = _state(1, dtype, card, shape=shape)
     q, qaux = ctoprim(u, L, EOS, SMALL["small_dens"], SMALL["small_temp"])
     flatn = uflatten(q, L)
     src = 0.05 * torch.randn(q.shape, dtype=dtype, device=card,
                              generator=torch.Generator(card).manual_seed(1)) if with_src else None
     for d in range(3):
-        fr = dict(coord=0, riemann_solver=solver, bnd_mask=_masks(bc)[d])
+        fr = dict(coord=0, riemann_solver=solver, bnd_mask=_masks(bc, shape)[d])
         args = (q, qaux, src, flatn, d, DT, DX[d], L, SMALL["small_dens"],
                 SMALL["small_pres"], SMALL["small_ener"])
+        before = K.trace_ppm.launches
         got = K.trace_ppm(*args, fuse_riemann=fr)
-        ref = K.trace_ppm_plain(*args, fuse_riemann=fr)
-        for name, g_, r_ in zip(("qm", "qp", "flux", "qe"), got, ref):
-            _close(g_, r_, dtype, f"d={d} {name}")
+        assert K.trace_ppm.launches == before + 1
+        _exact(got, K.trace_ppm_plain(*args, fuse_riemann=fr), f"d={d} (qm, qp, flux, qe)")
 
 
 @DTYPES
+@FACE_SHAPES
 @pytest.mark.parametrize("case", ["no-terms", "corner", "pair", "final", "final-consup-fin"])
-def test_ctu_face_kernel(card, dtype, case):
-    u = _state(2, dtype, card)
+def test_ctu_face_kernel(card, dtype, shape, case):
+    """Every variant in every direction (one corner term along either
+    transverse axis), without wall faces and with them at both ends."""
+    u = _state(2, dtype, card, shape=shape)
     q, qaux = ctoprim(u, L, EOS, SMALL["small_dens"], SMALL["small_temp"])
     flatn = uflatten(q, L)
     tr = [K.trace_ppm_plain(q, qaux, None, flatn, d, DT, DX[d], L, SMALL["small_dens"],
@@ -121,31 +142,32 @@ def test_ctu_face_kernel(card, dtype, case):
                             fuse_riemann=dict(coord=0, riemann_solver=0))
           for d in range(3)]
     div = K.prim_aux_plain(u, L, EOS, SMALL["small_dens"], SMALL["small_temp"], DX)[2]
-    bc = 3 if case in ("pair", "final-consup-fin") else 2
-    for d in range(3):
+    flat = lambda o: [o] if isinstance(o, torch.Tensor) else [x for i in o for x in flat(i)]
+    for bc, d in [(bc, d) for bc in (2, 3) for d in range(3)]:
         t1, t2 = [t for t in range(3) if t != d]
 
         def term(t, f):
             return {"flux": tr[t][2], "qe": tr[t][3], "t_dir": t, "cdtdx": f * DT / DX[t]}
 
-        kw = dict(bnd_mask=_masks(bc)[d])
-        terms = []
+        kw = dict(bnd_mask=_masks(bc, shape)[d])
+        stages = [[]]
         if case == "corner":
-            terms = [term(t1, 1 / 3)]
+            stages = [[term(t1, 1 / 3)], [term(t2, 1 / 3)]]
         elif case == "pair":
-            terms, kw["terms2"] = [term(t1, 1 / 3)], [term(t2, 1 / 3)]
+            stages, kw["terms2"] = [[term(t1, 1 / 3)]], [term(t2, 1 / 3)]
         elif case.startswith("final"):
-            terms = [term(t1, 0.5), term(t2, 0.5)]
+            stages = [[term(t1, 0.5), term(t2, 0.5)]]
         if "consup" in case:
             kw["consup"] = dict(hsrc=0.1 * u, div_node=div, u=u, difmag=0.1, dx=DX,
                                 finalize_dt=DT if d == 2 else None)
-        args = (tr[d][0], tr[d][1], qaux, d, terms, L, 0, 0, SMALL["small_dens"],
-                SMALL["small_pres"], True, False)
-        got = K.ctu_face(*args, **kw)
-        ref = K.ctu_face_plain(*args, **kw)
-        flat = lambda o: [o] if isinstance(o, torch.Tensor) else [x for i in o for x in flat(i)]
-        for i, (g_, r_) in enumerate(zip(flat(got), flat(ref))):
-            _close(g_, r_, dtype, f"d={d} output {i}")
+        for terms in stages:
+            args = (tr[d][0], tr[d][1], qaux, d, terms, L, 0, 0, SMALL["small_dens"],
+                    SMALL["small_pres"], True, False)
+            before = K.ctu_face.launches
+            got = K.ctu_face(*args, **kw)
+            assert K.ctu_face.launches == before + 1
+            _exact(flat(got), flat(K.ctu_face_plain(*args, **kw)),
+                   f"bc={bc} d={d} terms along {[t['t_dir'] for t in terms]}")
 
 
 @DTYPES
@@ -165,18 +187,21 @@ def test_clean_fill_kernel(card, dtype, lo, hi):
 
 
 @DTYPES
-def test_trace_ppm_kernel_without_riemann(card, dtype):
+@FACE_SHAPES
+@pytest.mark.parametrize("with_src", [False, True], ids=["no-src", "src"])
+def test_trace_ppm_kernel_without_riemann(card, dtype, shape, with_src):
     """The variant the unfused 3D path launches: the trace alone."""
-    u = _state(1, dtype, card)
+    u = _state(1, dtype, card, shape=shape)
     q, qaux = ctoprim(u, L, EOS, SMALL["small_dens"], SMALL["small_temp"])
     flatn = uflatten(q, L)
+    src = 0.05 * torch.randn(q.shape, dtype=dtype, device=card,
+                             generator=torch.Generator(card).manual_seed(2)) if with_src else None
     for d in range(3):
-        args = (q, qaux, None, flatn, d, DT, DX[d], L, SMALL["small_dens"],
+        args = (q, qaux, src, flatn, d, DT, DX[d], L, SMALL["small_dens"],
                 SMALL["small_pres"], SMALL["small_ener"])
         got, ref = K.trace_ppm(*args), K.trace_ppm_plain(*args)
         assert len(got) == len(ref) == 2
-        for name, g_, r_ in zip(("qm", "qp"), got, ref):
-            _close(g_, r_, dtype, f"d={d} {name}")
+        _exact(got, ref, f"d={d} (qm, qp)")
 
 
 def _face_inputs(dim, dtype, device, seed=5):
@@ -339,6 +364,12 @@ def test_wrappers_refuse_bad_inputs(card):
         K.cmpflx(q2, q2, q2[0], q2[0], q2[0], q2[0], 0, lay2, 0, 1, 1e-12, 1e-20)
     with pytest.raises(ValueError, match="dflux"):
         K.trans_apply(q2, z2[:, :4], q2[0], q2[0], lay2, 1e-20, True, False)
+    # the face kernel fixes the terms' directions with the normal's
+    q3 = torch.ones((L.NQ,) + SHAPE, device=card)
+    term = {"flux": u, "qe": torch.ones((L.NGDNV,) + SHAPE, device=card), "cdtdx": 0.1}
+    with pytest.raises(ValueError, match="takes terms along 1 then 2"):
+        K.ctu_face(q3, q3, q3[:L.NQAUX], 0, [dict(term, t_dir=2), dict(term, t_dir=1)], L, 0,
+                   0, 1e-12, 1e-20, True, False)
 
 
 @pytest.mark.parametrize("dim,castro", [

@@ -17,7 +17,9 @@ without the TPU-only compiler parameters. Nothing under `scripts/` changes.
   direction 0 at dt = 1e-4, gamc and c rolled along x) against the JAX
   script's, at n = 8;
 - both entry points run on the CPU with device=cpu and label their numbers
-  as the CPU's.
+  as the CPU's; so does `castro_tpu_torch/scripts/prof_faces.py`, the
+  port's profile of the face kernels (no JAX counterpart), every variant
+  in every direction.
 
 Tolerances: float32 rtol = atol = 2e-5 (tests/test_pallas.py:41) for the
 Riemann body and the setup; the copy is exact; a vpu body iterated k times
@@ -42,7 +44,7 @@ from castro_tpu.problems import sedov as jsedov
 from castro_tpu.state import StateLayout as JLayout
 
 from castro_tpu_torch.ops import probes as P
-from castro_tpu_torch.scripts import prof_cmpflx, prof_vpu
+from castro_tpu_torch.scripts import prof_cmpflx, prof_faces, prof_vpu
 from castro_tpu_torch.state import StateLayout
 
 from test_torch_hydro_paths import _few_threads  # noqa: F401
@@ -199,3 +201,25 @@ def test_entry_points_run_on_the_cpu():
     assert len(lines) == 15
     assert all("[CPU, plain versions; not a device measurement]" in ln for ln in lines)
     assert prof_vpu.main(["device=cpu", "n=4", "lo=1", "hi=2"]) == 0
+
+
+def test_face_profile_runs_on_the_cpu():
+    """scripts/prof_faces.py: every variant of the two face kernels in every
+    direction, each call the same function as its plain version."""
+    x = prof_faces.setup(n=8, device="cpu")
+    calls = prof_faces.variants(x)
+    assert sorted({(k, v) for k, v, *_ in calls}) == sorted(
+        [("trace_ppm", "with the solve"), ("trace_ppm", "without the solve"),
+         ("ctu_face", "corner pair"), ("ctu_face", "final + consup"),
+         ("ctu_face", "terms=[]"), ("ctu_face", "final alone")])
+    assert sorted(d for *_, d, _, _, _ in calls) == [0] * 6 + [1] * 6 + [2] * 6
+    flat = lambda o: [o] if isinstance(o, torch.Tensor) else [t for i in o for t in flat(i)]
+    for name, variant, d, kern, plain, comps in calls:
+        got, ref = flat(kern()), flat(plain())
+        assert len(got) == len(ref) > 0
+        for g_, r_ in zip(got, ref):
+            assert torch.equal(g_, r_), (name, variant, d)
+    lines = []
+    res = prof_faces.run(x, reps=1, out=lines.append)
+    assert len(res) == 18 and all(v > 0 for v in res.values())
+    assert all("[CPU, plain versions; not a device measurement]" in ln for ln in lines)
