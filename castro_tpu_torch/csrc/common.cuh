@@ -81,6 +81,21 @@ __device__ __forceinline__ Cell cell_of(const Grid& g, long long t) {
   return c;
 }
 
+// Component c of the cell that `a` points at, where components lie S
+// elements apart (S < 2^31; the product is taken in 64 bits).
+template <typename P>
+__device__ __forceinline__ P& comp(P* a, int c, int S) {
+  return a[(long long)c * S];
+}
+
+// Element `off` of a, for an offset known to be non-negative: as unsigned
+// it is zero-extended to 64 bits, in fewer instructions than a signed
+// int's sign extension.
+template <typename P>
+__device__ __forceinline__ P& at(P* a, int off) {
+  return a[(unsigned)off];
+}
+
 // jnp.sign: 0 at 0, so a stationary wave gets half weight on each side
 template <typename T>
 __device__ __forceinline__ T sgn(T x) {
@@ -113,10 +128,16 @@ struct EosGL {
   T num[MAXSPEC];
   T aion[MAXSPEC];
 
-  __device__ __forceinline__ T cv(const T* xn) const {
+  // The loop is bounded by the mass fractions' count N (the kernel's
+  // NPASS >= nspec), so every index into num[], aion[] and xn[] is a
+  // constant and neither this struct (a kernel parameter) nor xn[] is
+  // copied to local memory; the sum keeps species order.
+  template <int N>
+  __device__ __forceinline__ T cv(const T (&xn)[N]) const {
     T inv_mu = neutral ? xn[0] / aion[0] : xn[0] * num[0] / aion[0];
-    for (int s = 1; s < nspec; ++s)
-      inv_mu = inv_mu + (neutral ? xn[s] / aion[s] : xn[s] * num[s] / aion[s]);
+#pragma unroll
+    for (int s = 1; s < N; ++s)
+      if (s < nspec) inv_mu = inv_mu + (neutral ? xn[s] / aion[s] : xn[s] * num[s] / aion[s]);
     T mu = T(1) / inv_mu;
     return kb_over_mu / (mu * gm1);
   }
@@ -138,17 +159,19 @@ EosGL<T> make_eos(double gamma, double kb_over_mu, int nspec, int neutral,
   return e;
 }
 
-// Block-wide reductions over blockDim.x <= 1024 threads (a multiple of 32,
-// every thread taking part); the result is valid in thread 0.
+// Block-wide reductions over a block of at most 1024 threads in one or two
+// dimensions (blockDim.x * blockDim.y a multiple of 32, every thread
+// taking part); the result is valid in thread (0, 0).
 template <typename T, typename Op>
 __device__ T block_reduce(T v, Op op) {
   __shared__ T part[32];
   for (int o = 16; o > 0; o >>= 1) v = op(v, __shfl_down_sync(0xffffffffu, v, o));
-  int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  int t = threadIdx.y * blockDim.x + threadIdx.x;  // warps are cut in this order
+  int lane = t & 31, w = t >> 5;
   __syncthreads();  // part[] may still be read by a previous reduction
   if (lane == 0) part[w] = v;
   __syncthreads();
-  int nw = (blockDim.x + 31) >> 5;
+  int nw = (blockDim.x * blockDim.y + 31) >> 5;
   if (w == 0) {
     v = lane < nw ? part[lane] : part[0];
     for (int o = 16; o > 0; o >>= 1) v = op(v, __shfl_down_sync(0xffffffffu, v, o));

@@ -70,3 +70,25 @@ def mean_ms(fn, device, reps, warm=1):
     for _ in range(reps):
         fn()
     return 1e3 * (time.perf_counter() - t0) / reps
+
+
+def kernel_ms(fn, reps):
+    """Device time of one launch of the CUDA kernel that `fn` launches (the
+    median over `reps` calls of what torch.profiler records for the ctt::
+    kernel alone, without the wrapper's allocations); None off the card or
+    when the profiler records no such launch."""
+    import statistics
+
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = [getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0.0)
+          for e in prof.events()
+          if e.device_type == torch.autograd.DeviceType.CUDA and "ctt::" in e.name]
+    us = [t for t in us if t > 0]
+    return statistics.median(us) / 1e3 if us else None

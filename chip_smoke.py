@@ -9,7 +9,9 @@ toolkit. In order:
   2. build the twelve CUDA kernels (the nine of the step and the three
      profiling probes) from castro_tpu_torch/csrc and print each compiled
      kernel's registers, stack, shared memory and spills (ptxas -v), every
-     direction and variant of trace_ppm and ctu_face among them;
+     direction and variant of trace_ppm and ctu_face among them, and
+     fail unless prim_aux, flatten and clean_fill have no stack and no
+     spills;
   3. hold each kernel against its plain PyTorch version on the card, at the
      main paths' shapes (3D Sedov 128^3 interior, 136^3 grown; 2D Sedov
      4096^2, 4104^2 grown; 1D Sod 4096; float32), and on the branches the
@@ -79,6 +81,8 @@ import time
 EXACT = ("flatten", "trace_ppm", "ctu_face", "cmpflx", "trans_apply", "trans_cmpflx",
          "consup", "probe_cmpflx", "probe_copy")
 RTOL = 2e-5
+# kernels whose ptxas rows must show no stack and no spills
+NO_STACK = ("prim_aux_kernel", "flatten_kernel", "clean_fill_kernel")
 MASS_RTOL = 1e-6
 # H100 SXM, published peaks (NVIDIA's data sheet): HBM bytes/s and float32
 # operations/s outside the tensor cores
@@ -415,6 +419,14 @@ def main():
         print(f"  {r['kernel']:50s} {r.get('registers', -1):4d} regs  stack {r.get('stack', -1):4d}"
               f"  spills {r.get('spill_stores', -1)} / {r.get('spill_loads', -1)}"
               f"  smem {r.get('smem', -1):6d}  sass {r.get('sass', -1)}")
+    # the cell kernels keep everything in registers and shared memory: no
+    # local-memory stack (EosGL indexed at run time put 88 B there) and no
+    # spills, in float32 and float64
+    cells = [r for r in ptxas if r["kernel"].startswith(NO_STACK)]
+    if len(cells) != 2 * len(NO_STACK) or any(
+            r.get("stack", -1) != 0 or r.get("spill_stores", -1) != 0 for r in cells):
+        fail(f"ptxas: {NO_STACK} must build for float32 and float64 with no stack and no "
+             f"spills: {cells}")
 
     def sedov_sim(n, dtype="float32", bc=2, device="cuda", dim=3, n_cell=None, **castro):
         p = sedov.make_params(n=n, dim=dim, stop_time=1.0, r_init=0.1, exp_energy=0.5,
@@ -1025,9 +1037,11 @@ def main():
     # name -> list of (kernel call, plain call, components moved[, elements[, variant]])
     calls = {}
     a = (u, L, x["eos"], cfg.small_dens, sim.small_temp, dx)
+    # prim_aux reads six of u's components: not the total energy or the
+    # temperature
     calls["prim_aux"] = [(lambda: K.prim_aux(*a, courant_dt=dt),
                           lambda: K.prim_aux_plain(*a, courant_dt=dt),
-                          L.NVAR + L.NQ + L.NQAUX + 1)]
+                          L.NVAR - 2 + L.NQ + L.NQAUX + 1)]
     calls["flatten"] = [(lambda: K.flatten(x["q"], L), lambda: K.flatten_plain(x["q"], L), 5)]
     # the face kernels variant by variant (scripts/prof_faces.py): trace_ppm
     # with the solve (A) and without (B); ctu_face's pair and final + consup
@@ -1145,7 +1159,8 @@ def main():
                       for k in ("ms", "wrapper_ms", "plain_ms", "bound_ms")})
         if e["name"] == "ctu_face":
             e["ms_by_variant"] = by_variant
-        if e["name"] in ("trace_ppm", "ctu_face"):  # float32, every direction
+        if e["name"] in ("trace_ppm", "ctu_face", "prim_aux", "flatten", "clean_fill"):
+            # float32, every direction and variant
             e["ptxas"] = [r for r in ptxas if r["kernel"].startswith(e["name"] + "_kernel<float")]
         if e["name"] == "probe_cmpflx":
             e["entry_point_ms_by_tiling"] = {k: v for k, v in probe_ms.items() if "cmpflx" in k}

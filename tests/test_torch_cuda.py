@@ -9,11 +9,12 @@ Inputs are random states from a seed on a grown grid that is not a cube
 grids), compared in float64 with rtol = atol =
 1e-9 (the kernel repeats the plain arithmetic without FMA contraction;
 what differs is round-off) and in float32 with rtol = atol = 2e-5 (the
-budget of tests/test_pallas.py:41). The two tiled face kernels, trace_ppm
-and ctu_face, do their plain versions' operations in the same order and
+budget of tests/test_pallas.py:41). The tiled kernels trace_ppm, ctu_face
+and flatten do their plain versions' operations in the same order and
 are held bit for bit, in every direction, on grids whose extents cut
-their tiles raggedly: prime extents, and an axis of one interior cell
-between its ghosts.
+their tiles raggedly: prime extents, an axis of one interior cell
+between its ghosts, and (prim_aux and flatten) a grid thinner than a
+tile along every axis.
 """
 
 import numpy as np
@@ -92,18 +93,62 @@ DTYPES = pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
                                  ids=["f32", "f64"])
 
 
+def _edge_shock_state(seed, dtype, device, shape, at):
+    """_state with a sharp shock at the low edge of every axis: the cells at
+    index `at` along axis a keep 1/50 of their internal energy and move
+    along a at 0.8, into the grid from index 0 or toward the wall from the
+    first interior cell, so that flattening is full at cells whose upwind
+    neighbour along a lies beyond the grid's edge or across the wall."""
+    u = _state(seed, dtype, device, shape=shape)
+    rho = u[L.URHO]
+    for a in range(3):
+        cut = tuple(slice(at, at + 1) if b == a else slice(None) for b in range(3))
+        u[L.UEINT][cut] *= 0.02
+        u[L.UMX + a][cut] = (-0.8 if at > 0 else 0.8) * rho[cut]
+        mom = u[L.UMX:L.UMZ + 1][(slice(None),) + cut]
+        u[L.UEDEN][cut] = u[L.UEINT][cut] + 0.5 * (mom ** 2).sum(0) / rho[cut]
+    return u
+
+
+# the cell kernels' 2.5D tiles: the face kernels' grids, with and without
+# walls, and a grid thinner than a tile and a chunk of planes along every
+# axis (too thin for ghost cells)
+CELL_CASES = pytest.mark.parametrize(
+    "shape,walls",
+    [(SHAPE, False), (SHAPE, True), ((37, 29, 45), False), ((37, 29, 45), True),
+     ((28, 20, 2 * NG + 1), False), ((28, 20, 2 * NG + 1), True), ((9, 5, 3), False)],
+    ids=["20x24x28", "20x24x28-walls", "37x29x45", "37x29x45-walls", "28x20x9",
+         "28x20x9-walls", "9x5x3"])
+
+
 @DTYPES
-def test_prim_aux_and_flatten_kernels(card, dtype):
-    u = _state(0, dtype, card)
-    before = K.prim_aux.launches
-    got = K.prim_aux(u, L, EOS, SMALL["small_dens"], SMALL["small_temp"], DX,
-                     courant_dt=DT)
-    ref = K.prim_aux_plain(u, L, EOS, SMALL["small_dens"], SMALL["small_temp"], DX,
-                           courant_dt=DT)
-    assert K.prim_aux.launches == before + 1
-    for name, g_, r_ in zip(("q", "qaux", "div", "courant"), got, ref):
-        _close(g_, r_, dtype, name)
-    _close(K.flatten(got[0], L), uflatten(got[0], L), dtype, "flatn")
+@CELL_CASES
+def test_prim_aux_and_flatten_kernels(card, dtype, shape, walls):
+    """prim_aux in its four variants (div u and the Courant maximum each on
+    or off) and flatten (bit for bit) on a state shocked at the low edges;
+    with walls, the shock sits in the first interior cells and the ghost
+    cells are filled as symmetry walls (lo_bc = hi_bc = 3)."""
+    u = _edge_shock_state(0, dtype, card, shape, NG if walls else 0)
+    if walls:
+        u = K.clean_fill_plain(u, L, EOS, (3,) * 3, (3,) * 3, NG, SMALL["small_dens"],
+                               SMALL["small_temp"], 1e-4, True)
+    args = (u, L, EOS, SMALL["small_dens"], SMALL["small_temp"], DX)
+    for with_divu, courant_dt in ((True, DT), (False, DT), (True, None), (False, None)):
+        before = K.prim_aux.launches
+        got = K.prim_aux(*args, with_divu=with_divu, courant_dt=courant_dt)
+        ref = K.prim_aux_plain(*args, with_divu=with_divu, courant_dt=courant_dt)
+        assert K.prim_aux.launches == before + 1
+        assert len(got) == len(ref) == 2 + with_divu + (courant_dt is not None)
+        for name, g_, r_ in zip(("q", "qaux", "div" if with_divu else "courant", "courant"),
+                                got, ref):
+            _close(g_, r_, dtype, f"{name} (divu {with_divu}, courant {courant_dt})")
+    q = ref[0]
+    flatn = uflatten(q, L)
+    edge = NG if walls else 0
+    assert all(bool((flatn.narrow(a, edge, 1) == 0).any()) for a in range(3))
+    before = K.flatten.launches
+    _exact([K.flatten(q, L)], [flatn], "flatn")
+    assert K.flatten.launches == before + 1
 
 
 @DTYPES

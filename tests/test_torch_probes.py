@@ -17,9 +17,10 @@ without the TPU-only compiler parameters. Nothing under `scripts/` changes.
   direction 0 at dt = 1e-4, gamc and c rolled along x) against the JAX
   script's, at n = 8;
 - both entry points run on the CPU with device=cpu and label their numbers
-  as the CPU's; so does `castro_tpu_torch/scripts/prof_faces.py`, the
+  as the CPU's; so do `castro_tpu_torch/scripts/prof_faces.py`, the
   port's profile of the face kernels (no JAX counterpart), every variant
-  in every direction.
+  in every direction, and `scripts/prof_cells.py`, that of prim_aux and
+  flatten, whose saved outputs read back equal to themselves.
 
 Tolerances: float32 rtol = atol = 2e-5 (tests/test_pallas.py:41) for the
 Riemann body and the setup; the copy is exact; a vpu body iterated k times
@@ -44,7 +45,7 @@ from castro_tpu.problems import sedov as jsedov
 from castro_tpu.state import StateLayout as JLayout
 
 from castro_tpu_torch.ops import probes as P
-from castro_tpu_torch.scripts import prof_cmpflx, prof_faces, prof_vpu
+from castro_tpu_torch.scripts import prof_cells, prof_cmpflx, prof_faces, prof_vpu
 from castro_tpu_torch.state import StateLayout
 
 from test_torch_hydro_paths import _few_threads  # noqa: F401
@@ -223,3 +224,31 @@ def test_face_profile_runs_on_the_cpu():
     res = prof_faces.run(x, reps=1, out=lines.append)
     assert len(res) == 18 and all(v > 0 for v in res.values())
     assert all("[CPU, plain versions; not a device measurement]" in ln for ln in lines)
+
+
+def test_cell_profile_runs_on_the_cpu(tmp_path):
+    """scripts/prof_cells.py: prim_aux and flatten, each call the same
+    function as its plain version; the outputs it saves on its two states
+    compare equal bit for bit when this build reads them back."""
+    x = prof_cells.setup(n=8, device="cpu")
+    calls = prof_cells.calls(x)
+    assert [c[0] for c in calls] == ["prim_aux", "flatten"]
+    flat = lambda o: [o] if isinstance(o, torch.Tensor) else [t for i in o for t in flat(i)]
+    for name, kern, plain, comps in calls:
+        got, ref = flat(kern()), flat(plain())
+        assert len(got) == len(ref) > 0
+        for g_, r_ in zip(got, ref):
+            assert torch.equal(g_, r_), name
+    lines = []
+    res = prof_cells.run(x, reps=1, out=lines.append)
+    assert set(res) == {"prim_aux", "flatten"} and all(v > 0 for v in res.values())
+    assert all("[CPU, plain versions; not a device measurement]" in ln for ln in lines)
+    ms, zps = prof_cells.time_path(8, 1, "cpu", out=lines.append)
+    assert ms > 0 and zps > 0 and "CPU" in lines[-1]
+    path = tmp_path / "cells.pt"
+    rec = prof_cells.save(path, 8, "cpu")
+    assert sorted(rec) == ["ragged, walls", "sedov 8^3"]
+    assert rec["ragged, walls"]["inputs"]["u"].shape[1:] == (37, 29, 45)
+    lines = []
+    assert prof_cells.against(path, "cpu", out=lines.append) == 0
+    assert len(lines) == 10 and all("bit for bit" in ln for ln in lines)
