@@ -2,9 +2,16 @@
 [ns.key=value ...] [device=cpu]`, the counterpart of `python -m castro_tpu`
 (reference `Source/driver/main.cpp:33`): parse inputs, run the
 coarse-timestep loop on the card, print the STEP lines and the FOM.
-problem= one of sedov, sod, acoustic_pulse (double Mach reflection, which
-needs its fill hook, is built with `problems.double_mach.build`, and is
-not on the command line, as in the JAX package)."""
+problem= one of sedov, sod, acoustic_pulse or double_mach. double_mach is
+built by `problems.double_mach.build` with its inflow hook, at its own
+size, and ignores overrides, as in the JAX package. With amr.max_level > 0
+the run is an `AmrSimulation` (regrids every amr.regrid_int steps, tags
+from amr.refinement_indicators), e.g.
+
+    python -m castro_tpu_torch problem=sedov amr.n_cell="128 128 128" \
+        amr.max_level=1 amr.refinement_indicators=denerr \
+        amr.denerr.field=pressure amr.denerr.relative_gradient=0.1 \
+        amr.max_step=10 tpu.dtype=float32"""
 
 from __future__ import annotations
 
@@ -14,12 +21,15 @@ from castro_tpu_torch.config import load_inputs, parse_inputs_text
 
 
 def main(argv=None):
+    from castro_tpu_torch.driver.amr import AmrSimulation
     from castro_tpu_torch.driver.sim import Simulation
-    from castro_tpu_torch.problems import acoustic_pulse, sedov, sod
+    from castro_tpu_torch.problems import acoustic_pulse, double_mach, sedov, sod
 
     problems = {"sedov": (sedov.make_params, sedov.problem_init),
                 "sod": (sod.make_params, sod.problem_init),
-                "acoustic_pulse": (acoustic_pulse.make_params, acoustic_pulse.problem_init)}
+                "acoustic_pulse": (acoustic_pulse.make_params, acoustic_pulse.problem_init),
+                # custom construction (the inflow fill closure)
+                "double_mach": ("build", double_mach.build)}
     argv = list(sys.argv[1:] if argv is None else argv)
     if not argv:
         print(__doc__)
@@ -41,12 +51,22 @@ def main(argv=None):
         print(f"unknown problem {problem!r} (have: {sorted(problems)})")
         return 1
     make_params, init = problems[problem]
+    if make_params == "build":
+        for ov in overrides:
+            print(f"note: override {ov.split(' = ')[0]} ignored: {problem} sets its own inputs")
+        sim = init(device=device)
+        sim.init_data()
+        sim.run(verbose=True)
+        return 0
     params = make_params()
     if inputs_path:
         params = load_inputs(inputs_path, base=params)
     if overrides:
         params = parse_inputs_text("\n".join(overrides), base=params)
-    sim = Simulation(params, problem_init=init, device=device)
+    if params.amr.max_level > 0:
+        sim = AmrSimulation(params, problem_init=init, device=device)
+    else:
+        sim = Simulation(params, problem_init=init, device=device)
     sim.run(verbose=True)
     return 0
 

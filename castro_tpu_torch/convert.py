@@ -1,7 +1,8 @@
 """Carry state across from the JAX package: a conserved state given as a
 numpy array, the same `Params` from the same inputs text, and a restart from
 the checkpoint directory `castro_tpu/driver/io.py:write_checkpoint` writes
-(`state.npz` + `meta.json`). Castro has no weights: the conserved state and
+(`state.npz` + `meta.json`), and an AMR hierarchy (levels, windows, masks
+and extra windows) as numpy. Castro has no weights: the conserved state and
 the parameters are what must agree. The native `.cio` blob form waits for
 the port of `utils/native.py` (ROADMAP.md)."""
 
@@ -57,3 +58,57 @@ def restart_from_jax_checkpoint(sim, path: str):
     sim.dt = meta["dt"]
     sim.num_zones_advanced = meta.get("num_zones_advanced", 0)
     return sim
+
+
+def hierarchy_to_numpy(amr) -> dict:
+    """An AMR hierarchy's state as numpy: per level `u`, `u_old` (None
+    where a level has not stepped yet), `window` ((ilo, shape); level 0
+    the whole domain), `masks` and `extra` (per level, a list of {ilo,
+    shape, u, mask}), and `t`, `step_count`, `dt`. The JAX package's
+    `AmrSimulation` has the same attributes, so the same reading of it
+    gives the form `restore_hierarchy` takes."""
+    def arr(a):
+        if a is None:
+            return None
+        return a.detach().cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+
+    return {
+        "u": [arr(a) for a in amr.u], "u_old": [arr(a) for a in amr.u_old],
+        "masks": [arr(m) for m in amr.masks],
+        "window": [None if w is None else (np.asarray(w[0], int).copy(), tuple(w[1]))
+                   for w in amr.window],
+        "extra": [[{"ilo": np.asarray(e["ilo"], int).copy(), "shape": tuple(e["shape"]),
+                    "u": arr(e["u"]), "mask": arr(e["mask"])} for e in lvl]
+                  for lvl in amr.extra],
+        "t": float(amr.t), "step_count": int(amr.step_count),
+        "dt": None if amr.dt is None else float(amr.dt)}
+
+
+def restore_hierarchy(amr, state: dict):
+    """Set the port's `AmrSimulation` to a hierarchy given as numpy (the
+    form of `hierarchy_to_numpy`, from either package): levels, windows,
+    masks, extra windows, time and step count, on the hierarchy's device
+    and in its dtype. The windows must fit the hierarchy's levels."""
+    if len(state["u"]) != amr.max_level + 1:
+        raise ValueError(f"hierarchy of {len(state['u'])} levels, expected {amr.max_level + 1}")
+    L, dev, dt = amr.sim0.layout, amr.device, amr.dtype
+
+    def tens(a):
+        return None if a is None else state_from_numpy(a, L, dev, dt)
+
+    def mask(m):
+        return None if m is None else torch.tensor(np.asarray(m, bool), device=dev)
+
+    amr.u = [tens(a) for a in state["u"]]
+    amr.u_old = [tens(a) for a in state.get("u_old", [None] * len(state["u"]))]
+    amr.masks = [mask(m) for m in state["masks"]]
+    amr.window = [None if w is None else (np.asarray(w[0], int).copy(), tuple(int(s) for s in w[1]))
+                  for w in state["window"]]
+    amr.extra = [[{"ilo": np.asarray(e["ilo"], int).copy(),
+                   "shape": tuple(int(s) for s in e["shape"]), "u": tens(e["u"]),
+                   "mask": mask(e["mask"])} for e in lvl] for lvl in state["extra"]]
+    amr.sim0.u = amr.u[0]
+    amr.t = float(state["t"])
+    amr.step_count = int(state["step_count"])
+    amr.dt = state.get("dt")
+    return amr

@@ -1,0 +1,760 @@
+"""Block-structured AMR driver: a subcycled level hierarchy with fillpatch,
+refluxing and averaging down.
+
+Counterpart of `castro_tpu/driver/amr.py`, its hydro path (reference
+semantics: AMReX `Amr::coarseTimeStep` recursion and Castro's subcycling,
+`Castro_advance_ctu.cpp:504`; FillPatch space-time interpolation at
+coarse-fine boundaries; `FluxRegister` refluxing,
+`Source/driver/Castro.cpp:2549-2700`; `avgDown`; `errorEst` tagging; the
+retry of `retry_advance_ctu` lifted to the hierarchy).
+
+Each fine level is a dense window, the bucketed bounding box (multiples of
+16 fine cells) of its tagged region plus a margin, at the level's
+resolution, with a boolean refinement mask inside. Disjoint tag clusters
+get windows of their own (`extra`). The unmasked ring of a window carries
+time-interpolated coarse data, which is also the coarse-fine ghost region
+of its stencil. Level 0 steps on the default context (the clean_fill
+kernel in 3D); a window steps through a `StepCtx` with its position-correct
+geometry, whose step ends in the torch-op clean + fill, as the JAX package
+routes it (`castro_tpu/driver/sim.py:382`, `:578`). The clean + fill of
+`_avg_down` and of a new window's state take the default route. Every
+update of a level array is functional (a new tensor), so the pre-step
+snapshot of `advance` and the old states of the time interpolation are
+never written through.
+
+Cartesian hydro only. What the JAX driver does beyond it raises, naming
+its ROADMAP.md item: gravity (8), radiation (9), MHD (11), SDC (12), a
+device mesh or `amr.distribute_fine` (13), plotfiles and checkpoints (14),
+and a curvilinear grid (5, the Cartesian slice).
+Refinement ratio 2 on every level.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from castro_tpu_torch.config import Params
+from castro_tpu_torch.driver.sim import Simulation, StepCtx, check_io_cadence
+from castro_tpu_torch.driver.tagging import tag_cells
+from castro_tpu_torch.geometry import CoordSys, geometry_from_params
+from castro_tpu_torch.ops.interlevel import (coarsen_flux, prolong, prolong_mask, restrict,
+                                             restrict_mask)
+from castro_tpu_torch.ops.stencil import interior_slice
+
+BUCKET = 16   # window extents rounded up to multiples of this (fine cells)
+MARGIN = 8    # unmasked fine-cell ring kept around tags (>= ng + stencil)
+MAX_WINDOWS = 8  # disjoint windows a level may have before the hull is taken
+
+
+def _cluster_tags(t, merge_gap: int) -> List[tuple]:
+    """Connected components of a boolean tag array (face neighbours;
+    components whose bounding boxes come within `merge_gap` cells merge),
+    as (lo, hi) index-bound pairs of numpy arrays, ordered as the JAX
+    package orders them (`castro_tpu/driver/amr.py:_cluster_tags`): by each
+    component's first cell in C order.
+
+    `t` is a numpy array or a tensor, labelled where it lies, within the
+    bounding box of its tags (C order within the box is C order within the
+    array). Each tagged cell starts labelled by its own index; a pass takes
+    the minimum of a cell's and its tagged neighbours' labels, then follows
+    each label to the label of the cell it names (pointer jumping, which
+    keeps every label inside its component), until nothing changes. Every
+    component ends labelled by its first cell, in O(log diameter) passes
+    where the JAX package's numpy propagation takes O(diameter)."""
+    t = torch.as_tensor(t, dtype=torch.bool)
+    if not bool(t.any()):
+        return []
+    dim = t.dim()
+    nz = torch.nonzero(t)
+    off = nz.min(0).values
+    ext = nz.max(0).values - off + 1
+    t = t[tuple(slice(int(o), int(o + e)) for o, e in zip(off.tolist(), ext.tolist()))]
+    big = t.numel()
+    idx = torch.arange(big, device=t.device).reshape(t.shape)
+    lab = idx
+    while True:
+        nb = torch.where(t, lab, big)
+        new = nb
+        for d in range(dim):
+            n = t.shape[d]
+            if n == 1:
+                continue
+            pad = torch.full_like(nb.narrow(d, 0, 1), big)
+            up = torch.cat([nb.narrow(d, 1, n - 1), pad], dim=d)    # neighbour at +1
+            down = torch.cat([pad, nb.narrow(d, 0, n - 1)], dim=d)  # neighbour at -1
+            new = torch.minimum(new, torch.minimum(up, down))
+        new = torch.where(t, new, idx)
+        flat = new.reshape(-1)
+        new = flat[flat].reshape(t.shape)  # jump: a label names a cell of its component
+        if torch.equal(new, lab):
+            break
+        lab = new
+    roots, inv = torch.unique(lab[t], sorted=True, return_inverse=True)
+    coords = torch.nonzero(t)  # C order, as lab[t]
+    lo = torch.full((len(roots), dim), big, dtype=torch.int64, device=t.device)
+    hi = torch.full((len(roots), dim), -1, dtype=torch.int64, device=t.device)
+    index = inv[:, None].expand(-1, dim)
+    lo = lo.scatter_reduce(0, index, coords, reduce="amin") + off
+    hi = hi.scatter_reduce(0, index, coords, reduce="amax") + off
+    boxes = list(zip(lo.cpu().numpy(), hi.cpu().numpy()))
+    # merge boxes whose margin-padded extents overlap
+    changed = True
+    while changed:
+        changed = False
+        out = []
+        for lo, hi in boxes:
+            for k, (lo2, hi2) in enumerate(out):
+                if np.all(lo <= hi2 + merge_gap) and np.all(lo2 <= hi + merge_gap):
+                    out[k] = (np.minimum(lo, lo2), np.maximum(hi, hi2))
+                    changed = True
+                    break
+            else:
+                out.append((lo, hi))
+        boxes = out
+    return boxes
+
+
+def _level_params(params: Params, level: int, n_cell: Optional[tuple] = None) -> Params:
+    r = 2 ** level
+    nc = n_cell if n_cell is not None else tuple(n * r for n in params.amr.n_cell)
+    return params.with_ns("amr", n_cell=nc)
+
+
+def _set(a, idx, value):
+    """A copy of `a` with a[idx] = value (the JAX package's a.at[idx].set)."""
+    out = a.clone()
+    out[idx] = value
+    return out
+
+
+def _pad_false(m, d, lo, hi):
+    """Pad a boolean mask with `lo` and `hi` False planes along axis d."""
+    parts = []
+    for k in (lo, hi):
+        shape = list(m.shape)
+        shape[d] = k
+        parts.append(torch.zeros(shape, dtype=torch.bool, device=m.device))
+    return torch.cat([parts[0], m, parts[1]], dim=d)
+
+
+class _GeomShim:
+    """A sim seen through a position-correct window geometry, for the
+    problem_init and problem_tagging hooks on fine windows."""
+
+    def __init__(self, sim, geom):
+        self._sim = sim
+        self.geom = geom
+
+    def __getattr__(self, name):
+        return getattr(self._sim, name)
+
+
+class _Level:
+    """One fine level's Simulation for one window shape, and its step; the
+    window's origin arrives with each step."""
+
+    def __init__(self, params, level, shape_f, geom_full, **sim_kw):
+        self.shape = tuple(shape_f)
+        dim = geom_full.dim
+        # dx-correct window geometry (origin 0 here; the true origin comes
+        # with each step)
+        geom_win = geom_full.local_view(self.shape, (0,) * dim)
+        self.sim = Simulation(_level_params(params, level, self.shape), geom=geom_win,
+                              **sim_kw)
+        self.sim.keep_fluxes = True
+        self.geom_full = geom_full
+
+    def step(self, u, dt, t, ilo):
+        sim = self.sim
+        geom = self.geom_full.local_view(self.shape, tuple(int(v) for v in ilo))
+        ctx = StepCtx(fill=sim._fill, pmin=torch.min, pany=lambda b: b, geom=geom)
+        return sim._step_impl(u, dt, t, ctx=ctx)
+
+
+def _unported_amr(params, sim0, mesh):
+    """The ROADMAP.md item of the first AMR feature of the JAX driver that
+    this configuration needs and the port does not have yet."""
+    checks = [
+        (bool(params.castro.do_grav), "gravity on AMR: level solves and the delta-phi sync "
+         "(queue 1 item 8)"),
+        (mesh is not None or bool(params.amr.distribute_fine),
+         "a device mesh or amr.distribute_fine (queue 1 item 13)"),
+        (sim0.geom.coord != CoordSys.CARTESIAN,
+         "AMR on a curvilinear grid (queue 1 item 5, its Cartesian slice)"),
+    ]
+    return next((item for bad, item in checks if bad), None)
+
+
+class AmrSimulation:
+    """The level hierarchy: level 0 is a whole-domain Simulation, finer
+    levels are dense windows with a Simulation per window shape."""
+
+    def __init__(self, params: Params, problem_init: Optional[Callable] = None,
+                 problem_tagging: Optional[Callable] = None, mesh=None, device=None,
+                 **sim_kw):
+        """device: None = "cuda"; the tests pass "cpu". `problem_tagging(sim,
+        u_int, level)` adds tags. `mesh` (distributed AMR) raises: not
+        ported yet."""
+        self.params = params
+        self.max_level = params.amr.max_level
+        self.ref_ratio = 2
+        self.problem_init = problem_init
+        self.problem_tagging = problem_tagging
+        self.indicators = self._parse_indicators(params)
+        self._sim_kw = dict(sim_kw, device=device)
+
+        # radiation, MHD, SDC, reactions and the sources raise in here
+        self.sim0 = Simulation(_level_params(params, 0), problem_init=problem_init,
+                               **self._sim_kw)
+        item = _unported_amr(params, self.sim0, mesh)
+        if item is not None:
+            raise NotImplementedError(f"not ported yet: {item}, see ROADMAP.md")
+        self.sim0.keep_fluxes = self.max_level > 0
+        self.device = self.sim0.device
+        self.dim = self.sim0.layout.dim
+        self.ng = self.sim0.ng
+        self.dtype = self.sim0.dtype
+
+        # full-domain geometry per level (window views hang off these)
+        self.geom_full = [geometry_from_params(_level_params(params, l), self.dtype,
+                                               self.device)
+                          for l in range(self.max_level + 1)]
+
+        # per-level window (ilo_f ndarray[dim], shape_f tuple) in level-l
+        # cells; level 0 is the whole domain
+        n0 = tuple(params.amr.n_cell[: self.dim])
+        self.window: List = [(np.zeros(self.dim, int), n0)] + [None] * self.max_level
+        self._levels: List[Dict] = [dict() for _ in range(self.max_level + 1)]
+
+        self.u: List = [None] * (self.max_level + 1)
+        self.u_old: List = [None] * (self.max_level + 1)
+        self.masks: List = [None] * (self.max_level + 1)
+        self.t = 0.0
+        self.step_count = 0
+        self.dt = None
+        self.num_zones_advanced = 0
+        # windows of disjoint tag clusters beyond the primary, per level:
+        # {ilo, shape, u, mask}
+        self.extra: List[List[dict]] = [[] for _ in range(self.max_level + 1)]
+
+    # ------------------------------------------------------------------ setup
+    @staticmethod
+    def _parse_indicators(params) -> List[Dict]:
+        """`amr.refinement_indicators` names with their `amr.<name>.*` keys
+        from params.extra (reference runtime tagging syntax,
+        Castro.cpp:560-615)."""
+        inds = []
+        for name in params.amr.refinement_indicators:
+            spec = {}
+            base = f"amr.{name}."
+            for k, v in params.extra.items():
+                if k.startswith(base):
+                    spec[k[len(base):]] = v
+            ind = {"field": spec.get("field", "density"), "max_level": spec.get("max_level")}
+            for test in ("value_greater", "value_less", "gradient", "relative_gradient"):
+                if test in spec:
+                    ind["test"] = test
+                    ind["value"] = spec[test]
+            if "test" in ind:
+                inds.append(ind)
+        return inds
+
+    def _get_level(self, l, shape_f) -> _Level:
+        """The level-l Simulation of a window shape, cached by shape."""
+        key = tuple(shape_f)
+        cache = self._levels[l]
+        if key not in cache:
+            cache[key] = _Level(self.params, l, key, self.geom_full[l], **self._sim_kw)
+        return cache[key]
+
+    def _sims_at(self, l) -> Simulation:
+        if l == 0:
+            return self.sim0
+        return self._get_level(l, self.window[l][1]).sim
+
+    @property
+    def sims(self):
+        """Per-level Simulation list (the window sims for fine levels)."""
+        return [self._sims_at(l) for l in range(self.max_level + 1)]
+
+    # ------------------------------------------------------------------ window
+    def _nest_bounds(self, l_fine):
+        """The fine-cell bounds [blo, bhi) a level-l_fine window must lie in:
+        the parent's primary window's footprint for l_fine >= 2 (proper
+        nesting), else the whole level."""
+        if l_fine - 1 > 0 and self.window[l_fine - 1] is not None:
+            p_ilo, p_shape = self.window[l_fine - 1]
+            return (tuple(2 * int(p_ilo[k]) for k in range(self.dim)),
+                    tuple(2 * (int(p_ilo[k]) + p_shape[k]) for k in range(self.dim)))
+        return ((0,) * self.dim,
+                tuple(self.params.amr.n_cell[k] * 2 ** l_fine for k in range(self.dim)))
+
+    def _compute_window(self, l_fine, tags_global_c):
+        """Bucketed bounding box (+ margin) of the tagged level-(l_fine - 1)
+        cells, as a level-l_fine window (ilo_f, shape_f). tags_global_c is
+        a numpy bool array over the coarse level's full grid."""
+        blo, bhi = self._nest_bounds(l_fine)
+        t = np.asarray(tags_global_c)
+        if not t.any():
+            # minimal window (keeps shapes static when nothing is tagged)
+            shape = tuple(min(BUCKET, bhi[k] - blo[k]) for k in range(self.dim))
+            return np.asarray(blo, int), shape
+        box_lo, box_hi = [], []
+        for k in range(self.dim):
+            axes = tuple(a for a in range(self.dim) if a != k)
+            proj = t.any(axis=axes) if self.dim > 1 else t
+            idx = np.nonzero(proj)[0]
+            box_lo.append(idx[0])
+            box_hi.append(idx[-1])
+        return self._box_to_window(np.asarray(box_lo), np.asarray(box_hi), blo, bhi)
+
+    def _box_to_window(self, box_lo, box_hi, blo, bhi):
+        """Coarse-cell tag bbox -> bucketed fine window (ilo, shape),
+        clamped to the [blo, bhi) fine-cell bounds."""
+        ilo, shape = [], []
+        for k in range(self.dim):
+            lo_f = max(blo[k], 2 * int(box_lo[k]) - MARGIN)
+            hi_f = min(bhi[k], 2 * (int(box_hi[k]) + 1) + MARGIN)
+            ext = int(np.ceil((hi_f - lo_f) / BUCKET)) * BUCKET
+            ext = min(ext, bhi[k] - blo[k])
+            lo_f = max(blo[k], min(lo_f - (ext - (hi_f - lo_f)) // 2, bhi[k] - ext))
+            lo_f -= lo_f % 2  # even alignment for restriction
+            lo_f = max(blo[k], lo_f)
+            ilo.append(int(lo_f))
+            shape.append(int(ext))
+        return np.asarray(ilo, int), tuple(shape)
+
+    def _compute_extra_windows(self, l_fine, tags_global_c):
+        """The primary window and the windows of disjoint tag clusters
+        beyond it, proper-nested inside the parent's primary window (extras
+        spawn no children). Returns (primary, extras), the primary the
+        largest; if any two overlap after bucketing, the hull alone.
+        tags_global_c: a bool tensor over the coarse level's full grid."""
+        t = tags_global_c.cpu().numpy()
+        if not t.any():
+            return self._compute_window(l_fine, t), []
+        boxes = _cluster_tags(tags_global_c, merge_gap=MARGIN)
+        if len(boxes) <= 1 or len(boxes) > MAX_WINDOWS:
+            return self._compute_window(l_fine, t), []
+        blo, bhi = self._nest_bounds(l_fine)
+        wins = [self._box_to_window(lo, hi, blo, bhi) for lo, hi in boxes]
+        wins.sort(key=lambda w: -int(np.prod(w[1])))
+        for a in range(len(wins)):
+            for b in range(a + 1, len(wins)):
+                la, sa = wins[a]
+                lb, sb = wins[b]
+                if np.all(la < lb + np.asarray(sb)) and np.all(lb < la + np.asarray(sa)):
+                    return self._compute_window(l_fine, t), []
+        return wins[0], wins[1:]
+
+    def _win_geom(self, l, win=None):
+        ilo, shape = win if win is not None else self.window[l]
+        return self.geom_full[l].local_view(shape, tuple(int(v) for v in ilo))
+
+    def _coarse_slice(self, l, grow=0, win=None):
+        """Slice of the level-(l-1) full interior covered by level l's
+        window (coarse cells), optionally grown (clamped)."""
+        ilo, shape = win if win is not None else self.window[l]
+        sl = []
+        for k in range(self.dim):
+            lo = int(ilo[k]) // 2 - grow
+            hi = (int(ilo[k]) + shape[k]) // 2 + grow
+            sl.append(slice(max(0, lo), hi))
+        return tuple(sl)
+
+    # ------------------------------------------------------------------ init
+    def init_data(self):
+        """Initial hierarchy (reference Amr::init loop: init level 0, tag,
+        create level 1 from problem data, repeat)."""
+        self.sim0.init_data()
+        self.u[0] = self.sim0.u
+        self.masks[0] = torch.ones(self.sim0.geom.n_cell, dtype=torch.bool,
+                                   device=self.device)
+        for l in range(1, self.max_level + 1):
+            tags = self._tags_for(l - 1)
+            (ilo, shape), extras = self._compute_extra_windows(l, tags)
+            self.window[l] = (ilo, shape)
+            self.u[l] = self._make_window_state(l, (ilo, shape))
+            self.masks[l] = self._window_mask(l, tags)
+            self.extra[l] = [{"ilo": e[0], "shape": e[1], "u": self._make_window_state(l, e),
+                              "mask": self._window_mask(l, tags, win=e)}
+                             for e in extras]
+        return self
+
+    def _make_window_state(self, l, win):
+        """Problem data on one window (position-correct shim) + clean."""
+        ilo, shape = win
+        lev = self._get_level(l, shape)
+        u = torch.zeros((self.sim0.layout.NVAR,) + tuple(s + 2 * self.ng for s in shape),
+                        dtype=self.dtype, device=self.device)
+        if self.problem_init is not None:
+            u = self.problem_init(_GeomShim(lev.sim, self._win_geom(l, win=win)), u)
+        return lev.sim._clean_fill_impl(u.to(self.dtype))
+
+    def _tags_for(self, l):
+        """Dense tags over level l's full grid (window tags scattered)."""
+        sim = self._sims_at(l)
+        u_int = self.u[l][interior_slice(self.ng, self.dim)]
+        shim = _GeomShim(sim, self._win_geom(l) if l > 0 else sim.geom)
+        tags_win = tag_cells(shim, u_int, self.indicators, l, self.params.amr.n_error_buf,
+                             self.problem_tagging)
+        tags_win = tags_win & self.masks[l]  # proper nesting
+        if l == 0:
+            return tags_win
+        full = torch.zeros(self.geom_full[l].n_cell, dtype=torch.bool, device=self.device)
+        ilo, shape = self.window[l]
+        full[tuple(slice(int(ilo[k]), int(ilo[k]) + shape[k]) for k in range(self.dim))] = \
+            tags_win
+        return full
+
+    def _window_mask(self, l, tags_global_c, win=None):
+        """Level-l window mask from the coarse level's tags."""
+        return prolong_mask(tags_global_c[self._coarse_slice(l, win=win)], self.dim)
+
+    # ------------------------------------------------------------------ regrid
+    def _migrate_window(self, l, win, old_wins, fill_new=True):
+        """A (new) level-l window's state: prolonged coarse data everywhere,
+        then the old windows' valid (masked) fine data where they overlap.
+        Returns the grown, cleaned state."""
+        new_ilo, new_shape = win
+        lev = self._get_level(l, new_shape)
+        c_int = self.u[l - 1][interior_slice(self.ng, self.dim)]
+        csl = self._parent_rel_slice(l, win=win)
+        new_int = prolong(c_int[(slice(None),) + csl], self.dim)
+        if fill_new:
+            for old_ilo, old_shape, old_u, old_mask in old_wins:
+                old_int = old_u[interior_slice(self.ng, self.dim)]
+                lo = np.maximum(np.asarray(new_ilo), np.asarray(old_ilo))
+                hi = np.minimum(np.asarray(new_ilo) + np.asarray(new_shape),
+                                np.asarray(old_ilo) + np.asarray(old_shape))
+                if np.all(hi > lo):
+                    src = (slice(None),) + tuple(
+                        slice(int(lo[k] - old_ilo[k]), int(hi[k] - old_ilo[k]))
+                        for k in range(self.dim))
+                    dst = (slice(None),) + tuple(
+                        slice(int(lo[k] - new_ilo[k]), int(hi[k] - new_ilo[k]))
+                        for k in range(self.dim))
+                    m_src = old_mask[src[1:]]
+                    new_int = _set(new_int, dst,
+                                   torch.where(m_src[None], old_int[src], new_int[dst]))
+        pads = []
+        for _ in range(self.dim):
+            pads += [self.ng, self.ng]
+        return lev.sim._clean_fill_impl(torch.nn.functional.pad(new_int, pads))
+
+    def regrid(self, fill_new=True):
+        """Re-tag every level; move or resize the windows (the extras too),
+        migrating their data (reference Amr regrid + FillCoarsePatch for
+        new regions)."""
+        for l in range(self.max_level):
+            tags = self._tags_for(l)
+            (new_ilo, new_shape), new_extras = self._compute_extra_windows(l + 1, tags)
+            old_wins = []
+            if self.u[l + 1] is not None:
+                old_wins.append((self.window[l + 1][0], self.window[l + 1][1],
+                                 self.u[l + 1], self.masks[l + 1]))
+                old_wins += [(e["ilo"], e["shape"], e["u"], e["mask"])
+                             for e in self.extra[l + 1]]
+            # the primary first (its _parent_rel_slice reads window[l + 1]
+            # only through the explicit win argument)
+            u_new = self._migrate_window(l + 1, (new_ilo, new_shape), old_wins, fill_new)
+            new_extra_state = [
+                {"ilo": e[0], "shape": e[1],
+                 "u": self._migrate_window(l + 1, e, old_wins, fill_new),
+                 "mask": self._window_mask(l + 1, tags, win=e)}
+                for e in new_extras]
+            self.window[l + 1] = (new_ilo, new_shape)
+            self.u[l + 1] = u_new
+            self.masks[l + 1] = self._window_mask(l + 1, tags)
+            self.extra[l + 1] = new_extra_state
+
+    # ------------------------------------------------------------------ dt
+    def estimate_dt(self) -> float:
+        """Level-0 dt respecting all levels (reference computeNewDt with
+        subcycling: dt_0 = min_l dt_l * prod(ref_ratio))."""
+        c = self.params.castro
+        dt = float(self.sim0._estdt_impl(self.u[0]))
+        for l in range(1, self.max_level + 1):
+            lev = self._get_level(l, self.window[l][1])
+            dt = min(dt, float(lev.sim._estdt_impl(self.u[l])) * self.ref_ratio ** l)
+            for e in self.extra[l]:
+                lev_e = self._get_level(l, e["shape"])
+                dt = min(dt, float(lev_e.sim._estdt_impl(e["u"])) * self.ref_ratio ** l)
+        if self.step_count == 0:
+            dt *= c.init_shrink
+        elif self.dt is not None:
+            dt = min(dt, c.change_max * self.dt)
+        return min(dt, c.max_dt)
+
+    # ------------------------------------------------------------------ advance
+    def _ring_fill(self, l, frac, win, u_w, mask_w):
+        """One window's unmasked cells := prolonged coarse data, time-
+        interpolated between the coarse old and new states (FillPatch)."""
+        c_interp = (1.0 - frac) * self.u_old[l - 1] + frac * self.u[l - 1]
+        c_int = c_interp[interior_slice(self.ng, self.dim)]
+        csl = self._parent_rel_slice(l, win=win)
+        fine = prolong(c_int[(slice(None),) + csl], self.dim)
+        idx = interior_slice(self.ng, self.dim)
+        return _set(u_w, idx, torch.where(mask_w[None], u_w[idx], fine))
+
+    def _set_unmasked_from_coarse(self, l, frac):
+        self.u[l] = self._ring_fill(l, frac, self.window[l], self.u[l], self.masks[l])
+
+    def _parent_rel_slice(self, l, win=None):
+        """Level-l window's footprint inside the parent's stored interior
+        (parent window coordinates for l-1 > 0, global for l-1 == 0)."""
+        ilo, shape = win if win is not None else self.window[l]
+        if l - 1 == 0:
+            base = np.zeros(self.dim, int)
+        else:
+            base = 2 * np.asarray(self.window[l - 1][0], int)
+        return tuple(slice((int(ilo[k]) - int(base[k])) // 2,
+                           (int(ilo[k]) - int(base[k]) + shape[k]) // 2)
+                     for k in range(self.dim))
+
+    @staticmethod
+    def _check(out, what):
+        """Raise RuntimeError if a level step failed: one host sync for the
+        min density and the flag together."""
+        mr, bad = torch.stack([out[1].to(torch.float64), out[2].to(torch.float64)]).tolist()
+        if bad or mr <= 0.0:
+            raise RuntimeError(f"AMR advance failed {what} (min_rho={mr})")
+
+    def _keep_masked(self, u_old_w, u_new_w, mask):
+        """The window's state with the step's result in its masked cells."""
+        idx = interior_slice(self.ng, self.dim)
+        return _set(u_old_w, idx, torch.where(mask[None], u_new_w[idx], u_old_w[idx]))
+
+    def _advance_level(self, l, dt, t_level):
+        """Advance level l by dt; recursively subcycle the finer levels
+        (reference Amr::timeStep recursion). Returns level l's interior
+        face fluxes (None without a finer level at level 0)."""
+        self.u_old[l] = self.u[l]
+        if l == 0:
+            sim = self.sim0
+            out = sim._step_impl(self.u[0], dt, t_level)
+        else:
+            lev = self._get_level(l, self.window[l][1])
+            sim = lev.sim
+            out = lev.step(self.u[l], dt, t_level, self.window[l][0])
+        fluxes = out[3] if sim.keep_fluxes else None
+        self._check(out, f"at level {l}, t={t_level}")
+        if l == 0:
+            self.u[0] = out[0]
+        else:
+            self.u[l] = self._keep_masked(self.u[l], out[0], self.masks[l])
+        del out
+        self._advance_finer(l, dt, t_level, fluxes)
+        return fluxes
+
+    def _advance_finer(self, l, dt, t_level, fluxes):
+        """Subcycle level l+1 (if any), then reflux and average down."""
+        if l >= self.max_level:
+            return
+        # flux register: the coarse side (CrseInit)
+        f_coarse = [f * dt for f in fluxes]
+        fine_acc = None
+        extras = self.extra[l + 1]
+        fine_acc_extra = [None] * len(extras)
+        r = self.ref_ratio
+        for i in range(r):
+            frac0 = i / r
+            self._set_unmasked_from_coarse(l + 1, frac0 + 0.0)
+            fine_fluxes = self._advance_level(l + 1, dt / r, t_level + i * dt / r)
+            if fine_acc is None:
+                fine_acc = [torch.zeros_like(coarsen_flux(fine_fluxes[d], d, self.dim))
+                            for d in range(self.dim)]
+            for d in range(self.dim):
+                fine_acc[d] = fine_acc[d] + coarsen_flux(fine_fluxes[d], d, self.dim) * (dt / r)
+            del fine_fluxes
+            # the extra windows: ring fill, advance, accumulate, one by one (the
+            # JAX package's _advance_extras_batch steps equal shapes as one batch)
+            for e in extras:
+                e["u"] = self._ring_fill(l + 1, frac0, (e["ilo"], e["shape"]), e["u"],
+                                         e["mask"])
+            for kx, e in enumerate(extras):
+                fl_e = self._advance_extra(l + 1, e, dt / r, t_level + i * dt / r)
+                fc = [coarsen_flux(fl_e[d], d, self.dim) * (dt / r) for d in range(self.dim)]
+                fine_acc_extra[kx] = (fc if fine_acc_extra[kx] is None
+                                      else [a + b for a, b in zip(fine_acc_extra[kx], fc)])
+        self._set_unmasked_from_coarse(l + 1, 1.0)
+        for e in extras:
+            e["u"] = self._ring_fill(l + 1, 1.0, (e["ilo"], e["shape"]), e["u"], e["mask"])
+        # reflux (FluxRegister::Reflux): correct the unrefined coarse cells
+        # beside the window with (sum of fine flux dt) - (coarse flux dt)
+        self._reflux(l, f_coarse, fine_acc)
+        # avgDown: covered coarse cells from the fine average
+        self._avg_down(l)
+        for kx, e in enumerate(extras):
+            self._reflux(l, f_coarse, fine_acc_extra[kx], fwin=(e["ilo"], e["shape"]),
+                         fmask=e["mask"])
+            self._avg_down(l, fwin=(e["ilo"], e["shape"]), fmask=e["mask"], fu=e["u"])
+
+    def _advance_extra(self, l, e, dt, t_level):
+        """Advance one extra window by dt (the same per-shape Simulation
+        cache as the primary). Returns its interior face fluxes."""
+        lev = self._get_level(l, e["shape"])
+        out = lev.step(e["u"], dt, t_level, e["ilo"])
+        self._check(out, f"(extra window) at level {l}, t={t_level}")
+        e["u"] = self._keep_masked(e["u"], out[0], e["mask"])
+        return out[3]
+
+    def _reflux(self, l, f_coarse, fine_acc, fwin=None, fmask=None):
+        """fine_acc: the window-coarsened sums of fine flux dt (over the
+        level-(l+1) window's coarse footprint); f_coarse: the coarse level's
+        flux dt. The corrections lie inside the window's footprint; the
+        directions are applied in order 0, 1, 2."""
+        sim = self._sims_at(l)
+        dim = self.dim
+        csl = self._parent_rel_slice(l + 1, win=fwin)
+        cmask = restrict_mask(fmask if fmask is not None else self.masks[l + 1], dim)
+        idx = interior_slice(self.ng, dim)
+        u_int = self.u[l][idx]
+        win = u_int[(slice(None),) + csl]
+        for d in range(dim):
+            # coarse flux faces over the window footprint (n_win+1 along d)
+            fsl = [slice(None)]
+            for k in range(dim):
+                s = csl[k]
+                fsl.append(slice(s.start, s.stop + 1) if k == d else s)
+            delta = fine_acc[d] - f_coarse[d][tuple(fsl)]
+            m_left = _pad_false(cmask, d, 1, 0)
+            m_right = _pad_false(cmask, d, 0, 1)
+            inv_dx = 1.0 / sim.geom.dx[d]
+            zero = torch.zeros((), dtype=delta.dtype, device=delta.device)
+            gain_r = torch.where((m_left & ~m_right)[None], delta, zero)
+            lose_l = torch.where((~m_left & m_right)[None], delta, zero)
+            sl_hi = [slice(None)] * delta.dim()
+            sl_hi[1 + d] = slice(1, None)
+            sl_lo = [slice(None)] * delta.dim()
+            sl_lo[1 + d] = slice(0, -1)
+            win = win + inv_dx * gain_r[tuple(sl_lo)]
+            win = win - inv_dx * lose_l[tuple(sl_hi)]
+        u_int = _set(u_int, (slice(None),) + csl, win)
+        self.u[l] = _set(self.u[l], idx, u_int)
+
+    def _avg_down(self, l, fwin=None, fmask=None, fu=None):
+        """Covered level-l cells := the average of their level-(l+1)
+        children, then level l's clean + fill (the default route)."""
+        dim = self.dim
+        csl = self._parent_rel_slice(l + 1, win=fwin)
+        cmask = restrict_mask(fmask if fmask is not None else self.masks[l + 1], dim)
+        f_int = (fu if fu is not None else self.u[l + 1])[interior_slice(self.ng, dim)]
+        c_from_f = restrict(f_int, dim)
+        idx = interior_slice(self.ng, dim)
+        u_int = self.u[l][idx]
+        blk = torch.where(cmask[None], c_from_f, u_int[(slice(None),) + csl])
+        u_int = _set(u_int, (slice(None),) + csl, blk)
+        u = _set(self.u[l], idx, u_int)
+        if l == 0:
+            self.u[l] = self.sim0._clean_fill_impl(u)
+        else:
+            self.u[l] = self._get_level(l, self.window[l][1]).sim._clean_fill_impl(u)
+
+    def advance(self, dt):
+        """Advance the whole hierarchy by dt with retry (reference
+        retry_advance_ctu lifted to the hierarchy: on any level's failure,
+        restore the pre-step hierarchy and re-run it subcycled)."""
+        c = self.params.castro
+        # the level arrays are never written in place, so references are a
+        # snapshot
+        snap_u = list(self.u)
+        snap_masks = list(self.masks)
+        snap_extra = [[dict(e) for e in lvl] for lvl in self.extra]
+
+        def restore():
+            self.u = list(snap_u)
+            self.masks = list(snap_masks)
+            self.extra = [[dict(e) for e in lvl] for lvl in snap_extra]
+
+        try:
+            self._advance_level(0, dt, self.t)
+            self.t += dt
+            self._count_zones(1)
+            return dt
+        except RuntimeError:
+            if not c.use_retry:
+                raise
+
+        dt_sub = dt * c.retry_subcycle_factor
+        for _ in range(c.max_subcycles):
+            restore()
+            t_adv = 0.0
+            nsub = 0
+            try:
+                while t_adv < dt * (1 - 1e-12):
+                    step = min(dt_sub, dt - t_adv)
+                    self._advance_level(0, step, self.t + t_adv)
+                    t_adv += step
+                    nsub += 1
+                self.t += dt
+                self._count_zones(nsub)
+                return dt
+            except RuntimeError:
+                dt_sub *= c.retry_subcycle_factor
+                if dt_sub < c.dt_cutoff:
+                    break
+        restore()
+        raise RuntimeError(f"AMR advance failed at t={self.t}: dt_sub={dt_sub} below cutoff")
+
+    def _count_zones(self, nsub):
+        """Zones a coarse step advances: level 0 and every window, each
+        window ref_ratio^l times (subcycling)."""
+        zones = int(np.prod(self.sim0.geom.n_cell))
+        for l in range(1, self.max_level + 1):
+            zones += int(np.prod(self.window[l][1])) * self.ref_ratio ** l
+            for e in self.extra[l]:
+                zones += int(np.prod(e["shape"])) * self.ref_ratio ** l
+        self.num_zones_advanced += zones * nsub
+        return zones
+
+    # ------------------------------------------------------------------ loop
+    def run(self, max_step=None, stop_time=None, verbose=None):
+        """The coarse-timestep loop with regrids every amr.regrid_int steps;
+        prints STEP lines with `verbose`. Output raises (`check_io_cadence`)."""
+        a = self.params.amr
+        max_step = max_step if max_step is not None else (
+            a.max_step if a.max_step >= 0 else 10 ** 9)
+        stop_time = stop_time if stop_time is not None else (
+            a.stop_time if a.stop_time >= 0 else np.inf)
+        verbose = self.params.castro.v if verbose is None else verbose
+        check_io_cadence(self.params)
+        if self.u[0] is None:
+            self.init_data()
+        while self.step_count < max_step and self.t < stop_time * (1 - 1e-12):
+            if (a.regrid_int > 0 and self.step_count > 0
+                    and self.step_count % a.regrid_int == 0):
+                self.regrid()
+            dt = self.estimate_dt()
+            if self.t + dt > stop_time:
+                dt = stop_time - self.t
+            self.advance(dt)
+            self.dt = dt
+            self.step_count += 1
+            if verbose:
+                nref = int(self.masks[1].sum()) if self.max_level > 0 else 0
+                win = self.window[1][1] if self.max_level > 0 else ()
+                print(f"STEP {self.step_count} t={self.t:.6e} dt={dt:.6e} "
+                      f"refined_cells_l1={nref} window_l1={win}")
+        return self
+
+    # ------------------------------------------------------------------ views
+    def interior(self, l=0):
+        return self.u[l][interior_slice(self.ng, self.dim)]
+
+    def composite_interior(self):
+        """The finest data available, represented on the finest grid."""
+        out = self.interior(0)
+        for l in range(1, self.max_level + 1):
+            out = prolong(out, self.dim, conservative=False)
+            wins = [(self.window[l], self.u[l], self.masks[l])] + [
+                ((e["ilo"], e["shape"]), e["u"], e["mask"]) for e in self.extra[l]]
+            for (ilo, shape), u_w, m_w in wins:
+                fine = u_w[interior_slice(self.ng, self.dim)]
+                blk_sl = (slice(None),) + tuple(
+                    slice(int(ilo[k]), int(ilo[k]) + shape[k]) for k in range(self.dim))
+                out = _set(out, blk_sl, torch.where(m_w[None], fine, out[blk_sl]))
+        return out

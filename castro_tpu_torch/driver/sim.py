@@ -22,9 +22,14 @@ the JAX package's own route for that option (its EOS re-evaluation rides
 the XLA transverse path). On the card (`device="cuda"`, the default) each
 kernel is a CUDA kernel; on the CPU it runs its plain PyTorch version.
 The 2D RZ geometric source runs through the source path of the step
-(old-time sources traced into the states, the time-centred corrector).
-Other sources, reactions, radiation, MHD, SDC, AMR and I/O are not ported
-(ROADMAP.md); a configuration that needs them raises.
+(old-time sources traced into the states, the time-centred corrector, the
+lagged predictor of `source_term_predictor=1`), and
+`point_mass_fix_solution` resets the box around the centre after a step.
+`StepCtx` carries how a step fills ghosts and reduces, and its geometry:
+the AMR driver (`driver/amr.py`) steps its windows through it, with the
+head fill and the status reductions of an explicit context. Other sources,
+reactions, radiation, MHD, SDC and I/O are not ported (ROADMAP.md); a
+configuration that needs them raises.
 """
 
 from __future__ import annotations
@@ -37,7 +42,7 @@ import numpy as np
 import torch
 
 from castro_tpu_torch.config import Params
-from castro_tpu_torch.driver.clean import clean_and_fill
+from castro_tpu_torch.driver.clean import clean_state
 from castro_tpu_torch.driver.timestep import estdt_cfl
 from castro_tpu_torch.eos import make_eos
 from castro_tpu_torch.geometry import geometry_from_params, resolve_device, torch_dtype
@@ -49,6 +54,21 @@ from castro_tpu_torch.ops.fill import fill_ghosts
 from castro_tpu_torch.ops.stencil import interior_slice
 from castro_tpu_torch.sources import build_sources
 from castro_tpu_torch.state import layout_from_params
+
+
+class StepCtx:
+    """How one step fills ghosts (`fill(u, t)`), reduces (`pmin`, `pany`)
+    and where it lies (`geom`). The default context is the whole domain on
+    one device; an AMR window passes its own, with its position-correct
+    geometry (counterpart of `castro_tpu/driver/sim.py:StepCtx`)."""
+
+    __slots__ = ("fill", "pmin", "pany", "geom")
+
+    def __init__(self, fill, pmin, pany, geom):
+        self.fill = fill
+        self.pmin = pmin
+        self.pany = pany
+        self.geom = geom
 
 
 @dataclass
@@ -75,9 +95,25 @@ def _unported(params):
          "reactions and SDC (queue 1 items 7, 12)"),
         (bool(c.do_radiation), "radiation (queue 1 item 9)"),
         (bool(c.do_mhd), "MHD (queue 1 item 11)"),
-        (params.amr.max_level > 0, "AMR (queue 1 item 5)"),
+        (bool(c.do_scf_initial_model),
+         "castro.do_scf_initial_model, the SCF initial model (queue 1 item 10)"),
     ]
     return next((item for bad, item in checks if bad), None)
+
+
+def check_io_cadence(params):
+    """Raise if a configuration asks `run` for output: plotfiles,
+    checkpoints, integral sums, data logs and the phase profiler are not
+    ported (queue 1 item 14)."""
+    a, c = params.amr, params.castro
+    asked = [name for name, on in (
+        ("amr.plot_int", a.plot_int > 0), ("amr.check_int", a.check_int > 0),
+        ("castro.sum_interval", c.sum_interval > 0), ("amr.data_log", bool(a.data_log)),
+        ("tpu.profile", bool(params.tpu.profile))) if on]
+    if asked:
+        raise NotImplementedError(
+            f"not ported yet: {', '.join(asked)}, the I/O cadence of run (queue 1 item 14), "
+            "see ROADMAP.md")
 
 
 class Simulation:
@@ -85,10 +121,12 @@ class Simulation:
     the step on one device."""
 
     def __init__(self, params: Params, problem_init: Optional[Callable] = None,
-                 device=None, problem_fill: Optional[Callable] = None):
+                 device=None, problem_fill: Optional[Callable] = None, geom=None):
         """device: None = "cuda"; the tests pass "cpu". `problem_fill(u, t)`
         sets the ghosts of inflow faces after every fill (reference
-        problem_bc_fill)."""
+        problem_bc_fill). `geom` overrides the geometry of `params`: an AMR
+        window passes a `local_view` of its level, so that dx is the
+        level's."""
         item = _unported(params)
         if item is not None:
             raise NotImplementedError(f"not ported yet: {item}, see ROADMAP.md")
@@ -100,7 +138,8 @@ class Simulation:
         self.params = params
         self.layout = layout_from_params(params)
         self.dtype = torch_dtype(params.tpu.dtype)
-        self.geom = geometry_from_params(params, self.dtype, self.device)
+        self.geom = geom if geom is not None else \
+            geometry_from_params(params, self.dtype, self.device)
         self.eos = make_eos(params, self.network)
         self.problem_init = problem_init
         self.problem_fill = problem_fill
@@ -148,6 +187,16 @@ class Simulation:
         self.dt = None
         self.u = None
         self.num_zones_advanced = 0  # FOM accounting (main.cpp:169-214)
+        self.keep_fluxes = False  # AMR refluxing needs the face fluxes
+        # lagged momentum dS/dt of source_term_predictor=1 (none before the
+        # first step, like the reference's source corrector)
+        self._src_pred = None
+        # the point mass, which accretes with point_mass_fix_solution
+        # (Castro_pointmass.cpp:155)
+        self.point_mass = float(c.point_mass)
+        self._pm_fix = bool(c.use_point_mass and c.point_mass_fix_solution)
+        self._default_ctx = StepCtx(fill=self._fill, pmin=torch.min, pany=lambda b: b,
+                                    geom=self.geom)
 
     # -- allocation & init -------------------------------------------------
     def grown_shape(self):
@@ -171,18 +220,34 @@ class Simulation:
         self.u = self._clean_fill_impl(u)
         return self.u
 
-    def _clean_fill_impl(self, u, with_status=False, t=0.0):
+    def _clean_fill_impl(self, u, with_status=False, t=0.0, ctx=None):
         """clean_state + ghost fill (+ the problem's inflow fill at time t);
         with_status also the pre-clean interior min density and non-finite
-        flag. One kernel in 3D, else torch ops."""
+        flag. One kernel in 3D on the default context, as the JAX package
+        takes its fused kernel there only (`castro_tpu/driver/sim.py:382`);
+        else torch ops and the context's fill."""
         c = self.params.castro
-        args = (u, self.layout, self.eos, self.cfg.lo_bc, self.cfg.hi_bc, self.ng,
-                self.cfg.small_dens, self.small_temp, c.dual_energy_eta2,
-                bool(c.normalize_species))
-        if self._kernel_clean_fill:
-            return K.clean_fill(*args, with_status=with_status)
-        return clean_and_fill(*args, with_status=with_status, speed_limit=c.speed_limit,
-                              problem_fill=self.problem_fill, t=t)
+        if self._kernel_clean_fill and (ctx is None or ctx is self._default_ctx):
+            return K.clean_fill(u, self.layout, self.eos, self.cfg.lo_bc, self.cfg.hi_bc,
+                                self.ng, self.cfg.small_dens, self.small_temp,
+                                c.dual_energy_eta2, bool(c.normalize_species),
+                                with_status=with_status)
+        ctx = ctx or self._default_ctx
+        status = ()
+        if with_status:
+            inner = u[interior_slice(self.ng, self.layout.dim)]
+            status = (ctx.pmin(inner[self.layout.URHO]),
+                      ctx.pany(~torch.isfinite(torch.sum(inner))))
+        u = clean_state(u, self.layout, self.eos, small_dens=self.cfg.small_dens,
+                        small_temp=self.small_temp, dual_energy_eta2=c.dual_energy_eta2,
+                        do_normalize_species=bool(c.normalize_species),
+                        speed_limit=c.speed_limit)
+        u = ctx.fill(u, t)
+        return (u,) + status if with_status else u
+
+    def _fill(self, u, t=0.0):
+        return fill_ghosts(u, self.layout, self.cfg.lo_bc, self.cfg.hi_bc, self.ng,
+                           problem_fill=self.problem_fill, t=t)
 
     # -- dt ------------------------------------------------------------------
     def _estdt_impl(self, u):
@@ -201,23 +266,31 @@ class Simulation:
         return min(dt, c.max_dt)
 
     # -- the step --------------------------------------------------------------
-    def _step_impl(self, u, dt, t=0.0):
+    def _step_impl(self, u, dt, t=0.0, ctx: Optional[StepCtx] = None, src_pred=None):
         """One CTU step of single-level hydro (reference do_advance_ctu,
         Castro_advance_ctu.cpp:16, and the source path of do_old_sources /
-        do_new_sources, Castro_sources.cpp:123,185). `u` is ghost-filled on
-        entry (filled again at t with a fill hook). Returns (u_new, min_rho,
+        do_new_sources, Castro_sources.cpp:123,185). Returns (u_new, min_rho,
         nan_flag) with the two checks as 0-d tensors: the pre-clean interior
         min density, and a flag for a non-finite state or a Courant number
-        above 1 (Castro_hydro.cpp:234)."""
+        above 1 (Castro_hydro.cpp:234). With `keep_fluxes` the interior face
+        fluxes follow (per direction d, n+1 faces along d and the interior
+        across it), and with `source_term_predictor=1` the lagged dS/dt for
+        the next step comes last.
+
+        On the default context `u` is ghost-filled on entry, and the step
+        fills again only with a fill hook; an explicit context (an AMR
+        window) always fills first. `src_pred` (source_term_predictor=1):
+        the previous step's dS/dt; the old-time source becomes S^n + dt/2
+        dS/dt (create_source_corrector, Castro.cpp:3780-3836)."""
+        skip_head_fill = ctx is None and self.problem_fill is None
+        ctx = ctx or self._default_ctx
         L = self.layout
         c = self.params.castro
         cfg = self.cfg
         dtw = K.wt(dt, self.dtype)
         check_cfl = bool(c.check_cfl_violation)
-        if self.problem_fill is not None:
-            # the inflow ghosts may depend on t (castro_tpu/driver/sim.py:497)
-            u = fill_ghosts(u, L, cfg.lo_bc, cfg.hi_bc, self.ng,
-                            problem_fill=self.problem_fill, t=t)
+        if not skip_head_fill:
+            u = ctx.fill(u, t)
         courant = None
         div_node = None
         if self._kernel_prim:
@@ -225,7 +298,7 @@ class Simulation:
             # which needs ghosts that are images of the interior (no hook)
             fold = check_cfl and self.problem_fill is None
             res = K.prim_aux(u, L, self.eos, cfg.small_dens, self.small_temp,
-                             self.geom.dx, courant_dt=dtw if fold else None)
+                             ctx.geom.dx, courant_dt=dtw if fold else None)
             q, qaux, div_node = res[0], res[1], res[2]
             if fold:
                 courant = res[3]
@@ -238,43 +311,104 @@ class Simulation:
             src_old = torch.zeros_like(u)
             for fn in self.source_fns:
                 src_old = src_old + fn(self, u, q, qaux, t, dtw)
-        srcQ = None if src_old is None else au.src_to_prim(q, qaux, src_old, L)
+        src_eff = src_old
+        if src_pred is not None and c.source_term_predictor == 1 and src_old is not None:
+            # S^{n+1/2} = S^n + dt/2 dS/dt (the momentum rows; src_pred is
+            # zero elsewhere)
+            src_eff = src_old + 0.5 * dtw * src_pred
+        srcQ = None if src_eff is None else au.src_to_prim(q, qaux, src_eff, L)
 
-        u_new = ctu_hydro(u, q, qaux, srcQ, dtw, self.geom, L, cfg, div_node=div_node,
-                          fold_update_dt=dtw,
-                          trans_eos=self.eos if c.transverse_use_eos else None)[0]
+        u_new, fluxes = ctu_hydro(u, q, qaux, srcQ, dtw, ctx.geom, L, cfg, div_node=div_node,
+                                  fold_update_dt=dtw,
+                                  trans_eos=self.eos if c.transverse_use_eos else None)[:2]
         del div_node, srcQ
-        if src_old is not None:
-            u_new = u_new + dtw * src_old
-        u_new, min_rho, nan_flag = self._clean_fill_impl(u_new, with_status=True, t=t + dt)
+        if src_eff is not None:
+            u_new = u_new + dtw * src_eff
+        u_new, min_rho, nan_flag = self._clean_fill_impl(u_new, with_status=True, t=t + dt,
+                                                         ctx=ctx)
         if check_cfl:
             if courant is None:
-                courant = au.max_courant(q, qaux, dtw, self.geom, L, self.ng,
+                courant = au.max_courant(q, qaux, dtw, ctx.geom, L, self.ng,
                                          whole_grid=self.problem_fill is None)
-            nan_flag = nan_flag | (courant > 1.0)
+            nan_flag = nan_flag | ctx.pany(courant > 1.0)
         del q, qaux
 
+        pred_out = None
         if self.source_fns:
             # the time-centred corrector 0.5 dt (S_new - S_old)
             if self._kernel_prim:
                 q2, qaux2 = K.prim_aux(u_new, L, self.eos, cfg.small_dens, self.small_temp,
-                                       self.geom.dx, with_divu=False)
+                                       ctx.geom.dx, with_divu=False)
             else:
                 q2, qaux2 = au.ctoprim(u_new, L, self.eos, cfg.small_dens, self.small_temp)
             src_new = torch.zeros_like(u)
             for fn in self.source_fns:
                 src_new = src_new + fn(self, u_new, q2, qaux2, t + dt, dtw)
             u_new = u_new + 0.5 * dtw * (src_new - src_old)
-            u_new = self._clean_fill_impl(u_new, t=t + dt)
-        return u_new, min_rho, nan_flag
+            if c.source_term_predictor == 1:
+                # 2/dt x the new-time source term, momentum rows only
+                # (Castro.cpp:3815-3818)
+                newtime = 0.5 * (src_new - src_old)
+                pred_out = torch.zeros_like(u)
+                for comp in (L.UMX, L.UMY, L.UMZ):
+                    pred_out[comp] = 2.0 * newtime[comp] / dtw
+            u_new = self._clean_fill_impl(u_new, t=t + dt, ctx=ctx)
+
+        out = (u_new, min_rho, nan_flag)
+        if self.keep_fluxes:
+            ng, dim = self.ng, L.dim
+            fint = []
+            for d in range(dim):
+                idx = [slice(None)] + [slice(ng, -ng)] * dim
+                idx[1 + d] = slice(ng, u.shape[1 + d] - ng + 1)
+                fint.append(fluxes[d][tuple(idx)])
+            out = out + (fint,)
+        del fluxes
+        if c.source_term_predictor == 1:
+            out = out + (pred_out if pred_out is not None else torch.zeros_like(u),)
+        return out
+
+    def _pointmass_fix_impl(self, u_old, u_new, point_mass):
+        """point_mass_fix_solution=1 (Castro_pointmass.cpp:155): where the
+        box of 2 cells about the problem centre gained mass, reset the box to
+        the pre-step state and accrete the gain onto the point mass.
+        Returns (u, point_mass), the mass as a 0-d tensor."""
+        L, g, c = self.layout, self.geom, self.params.castro
+        ng = self.ng
+        box = []
+        for d in range(L.dim):
+            lo_sym = c.lo_bc[d] in (3, 4, 5)
+            cen = g.prob_lo[d] if lo_sym else 0.5 * (g.prob_lo[d] + g.prob_hi[d])
+            icen = int(np.floor((cen - g.prob_lo[d]) / g.dx[d] + 1e-8))
+            box.append(slice(ng + max(icen - 2, 0), ng + min(icen + 2, g.n_cell[d])))
+        box = tuple(box)
+        vol = g.volume(ng).expand(u_new.shape[1:])[box]
+        dmass = torch.sum((u_new[(L.URHO,) + box] - u_old[(L.URHO,) + box]) * vol)
+        gain = dmass > 0.0
+        fixed = u_new.clone()
+        fixed[(slice(None),) + box] = u_old[(slice(None),) + box]
+        u = torch.where(gain, fixed, u_new)
+        return u, point_mass + torch.where(gain, dmass, torch.zeros_like(dmass))
 
     def try_step(self, dt: float, t: Optional[float] = None):
-        """One trial step from time t (default self.t)."""
+        """One trial step from time t (default self.t). On success it keeps
+        the step's dS/dt for the next (source_term_predictor=1) and applies
+        the point-mass fix (point_mass_fix_solution=1)."""
         t = self.t if t is None else t
-        u_new, min_rho, nan_flag = self._step_impl(self.u, dt, t)
+        stp = self.params.castro.source_term_predictor == 1
+        out = self._step_impl(self.u, dt, t, src_pred=self._src_pred if stp else None)
+        u_new, min_rho, nan_flag = out[:3]
         # one host sync for both checks
         mr, nf = torch.stack([min_rho.to(torch.float64), nan_flag.to(torch.float64)]).tolist()
-        return u_new, StepStatus(min_rho=mr, has_nan=bool(nf))
+        status = StepStatus(min_rho=mr, has_nan=bool(nf))
+        if status.success:
+            if stp:
+                self._src_pred = out[-1]
+            if self._pm_fix:
+                pm = torch.tensor(self.point_mass, dtype=self.dtype, device=self.device)
+                u_new, pm = self._pointmass_fix_impl(self.u, u_new, pm)
+                self.point_mass = float(pm)
+        return u_new, status
 
     def advance(self, dt: float) -> float:
         """Advance by dt with retry/subcycling on failure (reference
@@ -321,13 +455,14 @@ class Simulation:
     # -- main loop -----------------------------------------------------------
     def run(self, max_step: Optional[int] = None, stop_time: Optional[float] = None,
             verbose: Optional[bool] = None, callbacks: Optional[List[Callable]] = None):
-        """The coarse-timestep loop (main.cpp:118-214) without plotfile or
-        checkpoint output; prints STEP lines and the zones-per-microsecond
-        figure of merit with `verbose`."""
+        """The coarse-timestep loop (main.cpp:118-214); prints STEP lines and
+        the zones-per-microsecond figure of merit with `verbose`. Output
+        (plotfiles, checkpoints, sums, logs) raises: `check_io_cadence`."""
         a = self.params.amr
         max_step = max_step if max_step is not None else (a.max_step if a.max_step >= 0 else 10 ** 9)
         stop_time = stop_time if stop_time is not None else (a.stop_time if a.stop_time >= 0 else np.inf)
         verbose = self.params.castro.v if verbose is None else verbose
+        check_io_cadence(self.params)
         if self.u is None:
             self.init_data()
         zones0 = self.num_zones_advanced

@@ -29,7 +29,13 @@ class CoordSys(enum.IntEnum):
 
 @dataclass(frozen=True)
 class Geometry:
-    """Uniform-grid geometry for one level."""
+    """Uniform-grid geometry for one level.
+
+    A local view (`local_view`) describes a part of the level, an AMR
+    window: `n_cell` is its own cell count, `n_global` the level's, and
+    `ilo[d]` the level index of its cell 0 along d. Coordinates and metric
+    arrays are then correct for its position, and `dx` stays the level's.
+    """
 
     dim: int
     coord: CoordSys
@@ -38,11 +44,25 @@ class Geometry:
     n_cell: Tuple[int, ...]
     dtype: torch.dtype = torch.float32
     device: torch.device = torch.device("cpu")
+    n_global: Tuple[int, ...] = None
+    ilo: Tuple[int, ...] = None
 
     @property
     def dx(self) -> Tuple[float, ...]:
-        return tuple((self.prob_hi[d] - self.prob_lo[d]) / self.n_cell[d]
-                     for d in range(self.dim))
+        n = self.n_global if self.n_global is not None else self.n_cell
+        return tuple((self.prob_hi[d] - self.prob_lo[d]) / n[d] for d in range(self.dim))
+
+    def local_view(self, n_local: Tuple[int, ...], ilo: Tuple[int, ...]) -> "Geometry":
+        """The geometry of n_local cells starting at level index ilo."""
+        base = self.n_global if self.n_global is not None else self.n_cell
+        return Geometry(self.dim, self.coord, self.prob_lo, self.prob_hi, tuple(n_local),
+                        self.dtype, self.device, n_global=tuple(base),
+                        ilo=tuple(int(i) for i in ilo))
+
+    def _index(self, d: int, lo: int, hi: int) -> np.ndarray:
+        """Level indices lo..hi-1 of this view along d, as float64."""
+        off = 0 if self.ilo is None else self.ilo[d]
+        return np.arange(lo, hi, dtype=np.float64) + off
 
     def refined(self, ratio: int) -> "Geometry":
         return Geometry(self.dim, self.coord, self.prob_lo, self.prob_hi,
@@ -56,12 +76,12 @@ class Geometry:
     # -- coordinates ------------------------------------------------------
     def cell_centers_1d(self, d: int, ng: int = 0) -> torch.Tensor:
         """Cell-center coordinates along axis d, with ng ghosts."""
-        i = np.arange(-ng, self.n_cell[d] + ng)
+        i = self._index(d, -ng, self.n_cell[d] + ng)
         return self._tensor(self.prob_lo[d] + (i + 0.5) * self.dx[d])
 
     def faces_1d(self, d: int, ng: int = 0) -> torch.Tensor:
         """Face coordinates along axis d (n+1 faces), with ng ghosts."""
-        i = np.arange(-ng, self.n_cell[d] + ng + 1)
+        i = self._index(d, -ng, self.n_cell[d] + ng + 1)
         return self._tensor(self.prob_lo[d] + i * self.dx[d])
 
     def bshape(self, arr: torch.Tensor, axis: int) -> torch.Tensor:

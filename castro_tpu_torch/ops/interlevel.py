@@ -1,0 +1,104 @@
+"""Inter-level operators of the AMR hierarchy, ratio 2: conservative
+prolongation (FillPatch / FillCoarsePatch), restriction (avgDown), the
+masks' coarsening and refinement, and the face-flux coarsening of the flux
+registers.
+
+Counterpart of `castro_tpu/ops/interlevel.py` (reference: AMReX
+CellConservativeLinear, `average_down`, `FluxRegister::CrseInit/FineAdd/
+Reflux`, `Source/driver/Castro.cpp:2549-2700`). Dense whole-array torch
+ops, as the JAX package leaves them to XLA. The face operators of MHD
+(`prolong_face`, `restrict_face`, `restrict_edge`) come with MHD (ROADMAP.md,
+queue 1 item 11).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from castro_tpu_torch.ops.stencil import shifted
+
+
+def _mc_slope(c, ax):
+    """Monotonized-central limited slope (per coarse cell) along axis ax."""
+    dl = c - shifted(c, -1, ax)
+    dr = shifted(c, 1, ax) - c
+    dc = 0.5 * (dl + dr)
+    s = torch.sign(dc)
+    mag = torch.minimum(dc.abs(), 2.0 * torch.minimum(dl.abs(), dr.abs()))
+    return torch.where(dl * dr > 0.0, s * mag, torch.zeros_like(dc))
+
+
+def _interleave(lo, hi, ax):
+    """[.., n, ..] pairs -> [.., 2n, ..] with lo at even and hi at odd indices."""
+    st = torch.stack([lo, hi], dim=ax + 1)
+    return st.reshape(st.shape[:ax] + (2 * lo.shape[ax],) + st.shape[ax + 2:])
+
+
+def prolong(c, dim, comp_axes=1, conservative=True):
+    """Coarse -> fine (ratio 2), limited-linear and mean-preserving.
+
+    c: [..., n1, n2, ...] with `comp_axes` leading non-spatial axes. A fine
+    child is c + sum_d (+-1/4) slope_d, every slope MC-limited on the
+    coarse field (AMReX CellConservativeLinear), which keeps the operator
+    symmetric under an exchange of axes. With conservative=False each
+    child takes its parent's value."""
+    slopes = [_mc_slope(c, comp_axes + d) for d in range(dim)] if conservative else None
+    out = c
+    for d in range(dim):
+        ax = comp_axes + d
+        if conservative:
+            lo = out - 0.25 * slopes[d]
+            hi = out + 0.25 * slopes[d]
+        else:
+            lo = hi = out
+        out = _interleave(lo, hi, ax)
+        if conservative:
+            # the slopes not yet applied, upsampled along this axis
+            for k in range(d + 1, dim):
+                slopes[k] = torch.repeat_interleave(slopes[k], 2, dim=ax)
+    return out
+
+
+def restrict(f, dim, comp_axes=1):
+    """Fine -> coarse volume average (reference avgDown; Cartesian)."""
+    out = f
+    for d in range(dim):
+        ax = comp_axes + d
+        n = out.shape[ax]
+        out = out.reshape(out.shape[:ax] + (n // 2, 2) + out.shape[ax + 1:]).mean(dim=ax + 1)
+    return out
+
+
+def restrict_mask(m, dim):
+    """Coarsen a boolean mask: a coarse cell is covered iff all its
+    children are."""
+    out = m
+    for d in range(dim):
+        n = out.shape[d]
+        out = out.reshape(out.shape[:d] + (n // 2, 2) + out.shape[d + 1:]).all(dim=d + 1)
+    return out
+
+
+def prolong_mask(m, dim):
+    """Refine a boolean mask: each coarse cell's value to its children."""
+    out = m
+    for d in range(dim):
+        out = torch.repeat_interleave(out, 2, dim=d)
+    return out
+
+
+def coarsen_flux(F, d, dim, comp_axes=1):
+    """Coarsen a face-registered flux density along direction d: coarse
+    face i is fine face 2i, and across d the fine faces are averaged in
+    pairs (flux densities; Cartesian areas are uniform)."""
+    ax_d = comp_axes + d
+    idx = [slice(None)] * F.dim()
+    idx[ax_d] = slice(0, None, 2)
+    out = F[tuple(idx)]
+    for k in range(dim):
+        if k == d:
+            continue
+        ax = comp_axes + k
+        n = out.shape[ax]
+        out = out.reshape(out.shape[:ax] + (n // 2, 2) + out.shape[ax + 1:]).mean(dim=ax + 1)
+    return out

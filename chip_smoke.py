@@ -43,12 +43,20 @@ toolkit. In order:
           0.9): 128 x 32 to t=0.05 with the checks of
           tests/test_double_mach.py, 2048 x 512 timed; the 2D acoustic pulse
           card vs CPU;
+       G  two-level AMR (AmrSimulation.run: windows, subcycling, refluxing,
+          avgDown, regrids every 2 steps): 3D Sedov 128^3 + 1 level for 10
+          coarse steps, 2D Sedov 1024^2 + 1 level for 5, 1D Sod n=1024 + 1
+          level to t=0.2 against the exact solution; launch counts against
+          the hierarchy's structure (tried level steps, avgDowns, windows
+          made), the kernels held on the level-1 window's state, and a
+          32^3 / 64^2 / 256 run on the card against the CPU with equal
+          windows and masks;
      then the probe entry points (castro_tpu_torch/scripts/prof_cmpflx.py
      at 128^3 and prof_vpu.py), each probe first held against its plain
      version (probe_cmpflx at every tiling and probe_copy bit for bit,
      the vpu bodies as stated at VPU_CHECK_ITERS);
   5. time the main paths (zones/s, ms/step, peak memory, device time by
-     kernel under torch.profiler) and each kernel (its device time under
+     kernel under torch.profiler; G3D's window and refined fraction) and each kernel (its device time under
      torch.profiler) beside its bound and its plain version's time (CUDA
      events); trace_ppm and ctu_face variant by variant
      (castro_tpu_torch/scripts/prof_faces.py).
@@ -101,6 +109,9 @@ N_RZ, STEPS_RZ = 2048, 10         # path E: RZ N x 2N, timed
 N_SPH = 1024                      # path E: RZ N x 2N and 1D spherical N to t=0.01
 RZ_L1_BOUND, RZ_PEAK_CELLS = 0.05, 2   # tests/test_sedov_analytic.py
 DMR_CHECK, DMR_BIG, STEPS_DMR = (128, 32), (2048, 512), 10   # path F
+N_AMR, STEPS_AMR = 128, 10        # path G: 3D Sedov with one refined level (256^3 effective)
+N_AMR_2D, STEPS_AMR_2D = 1024, 5  # path G: 2D Sedov
+N_AMR_1D = 1024                   # path G: 1D Sod to t=0.2
 # the vpu bodies held to their plain versions: fma and div bit for bit;
 # fma_rn (one rounding an iteration against two) to iterations x 2^-23;
 # recip_approx (rcp.approx, at most one ulp from 1/x; the body's map has
@@ -382,6 +393,7 @@ def main():
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     try:
+        from castro_tpu_torch.driver.amr import AmrSimulation
         from castro_tpu_torch.driver.sim import Simulation
         from castro_tpu_torch.ops import kernels as K
         from castro_tpu_torch.ops import advection_util as au
@@ -929,6 +941,200 @@ def main():
                 per_try=TWO_D)
     card_vs_cpu("2D acoustic pulse 64^2", lambda where: pulse_sim(64, where), per_try=TWO_D)
 
+    # path G: two-level AMR (driver/amr.py) in 3D, 2D and 1D
+    def amr_sim(dim, n, device="cuda", tagging=None, regrid_int=2, problem="sedov"):
+        """Sedov (r_init 0.1, exp_energy 0.5, outflow) or Sod with one
+        refined level, float32; tags from the pressure's relative gradient
+        above 0.1 (Sod: the density's above 0.05), or from `tagging`."""
+        if problem == "sod":
+            p = sod.make_params(n=n, dim=1, dtype="float32")
+            ind = {"amr.tag.field": "density", "amr.tag.relative_gradient": 0.05}
+            init = sod.problem_init
+        else:
+            p = sedov.make_params(n=n, dim=dim, stop_time=1.0, r_init=0.1, exp_energy=0.5,
+                                  dtype="float32")
+            ind = {"amr.tag.field": "pressure", "amr.tag.relative_gradient": 0.1}
+            init = sedov.problem_init
+        p = p.with_ns("amr", max_level=1, regrid_int=regrid_int, n_error_buf=2,
+                      refinement_indicators=() if tagging else ("tag",)).replace(extra=ind)
+        return AmrSimulation(p, problem_init=init, problem_tagging=tagging, device=device)
+
+    def amr_mass(amr):
+        """Level 0's mass: covered cells hold their children's average."""
+        vol = amr.sim0.geom.volume(0).double()
+        return float((amr.interior(0)[amr.sim0.layout.URHO].double() * vol).sum())
+
+    def drive_amr(label, amr, level_step, window_step, max_step=None, stop_time=None):
+        """AmrSimulation.run on the card with the launch counts zeroed just
+        before and read just after, checked against the hierarchy's
+        structure: `level_step` launches a level-0 step tried,
+        `window_step` a level-1 window's step tried (two a coarse step for
+        each window, more where a retry subcycles), and in 3D one clean_fill
+        of level 0 for each avgDown, of level 0 and each window at init,
+        and of each new window at a regrid. Checks finite levels and level
+        0's mass. Returns the coarse steps taken."""
+        print(f"main path {label}, AmrSimulation.run on the card", flush=True)
+        cf3 = 1 if amr.dim == 3 else 0
+        rec = {"level0": 0, "window": 0, "avg_down": 0, "new_windows": 0, "windows": []}
+        hooks = ("advance", "_advance_level", "_advance_extra", "_avg_down", "regrid")
+        saved = {h: getattr(amr, h) for h in hooks}
+
+        def advance(dt):
+            rec["windows"].append(1 + len(amr.extra[1]))
+            return saved["advance"](dt)
+
+        def advance_level(l, dt, t):
+            rec["level0" if l == 0 else "window"] += 1
+            return saved["_advance_level"](l, dt, t)
+
+        def advance_extra(*a):
+            rec["window"] += 1
+            return saved["_advance_extra"](*a)
+
+        def avg_down(*a, **kw):
+            rec["avg_down"] += 1
+            return saved["_avg_down"](*a, **kw)
+
+        def regrid(*a, **kw):
+            out = saved["regrid"](*a, **kw)
+            rec["new_windows"] += 1 + len(amr.extra[1])
+            return out
+
+        amr.advance, amr._advance_level, amr._advance_extra, amr._avg_down, amr.regrid = \
+            advance, advance_level, advance_extra, avg_down, regrid
+        K.reset_launch_counts()
+        amr.init_data()
+        rec["new_windows"] += 1 + len(amr.extra[1])
+        mass0 = amr_mass(amr)
+        amr.run(max_step=max_step, stop_time=stop_time, verbose=False)
+        torch.cuda.synchronize()
+        launches = K.launch_counts()
+        for h in hooks:
+            delattr(amr, h)
+        # a coarse step without a retry: one level-0 step, two steps of each
+        # window, one avgDown of each window
+        steps, windows = len(rec["windows"]), sum(rec["windows"])
+        if rec["level0"] == steps and (rec["window"], rec["avg_down"]) != (2 * windows, windows):
+            fail(f"path {label}: {rec['window']} window steps and {rec['avg_down']} avgDowns "
+                 f"for {steps} coarse steps over {windows} windows, without a retry")
+        expected = {name: 0 for name in launches}
+        for name, v in level_step.items():
+            expected[name] += v * rec["level0"]
+        for name, v in window_step.items():
+            expected[name] += v * rec["window"]
+        expected["clean_fill"] += cf3 * (1 + rec["avg_down"] + rec["new_windows"])
+        win = amr.window[1]
+        frac = float(amr.masks[1].sum()) / float(np.prod(amr.geom_full[1].n_cell))
+        print(f"  {amr.step_count} coarse steps, t = {amr.t:.6e}; tried {rec['level0']} level-0 "
+              f"steps ({rec['level0'] - steps} in retries) and {rec['window']} window steps, "
+              f"{rec['avg_down']} avgDowns, "
+              f"{rec['new_windows']} windows made; level-1 window {tuple(win[1])} at "
+              f"{tuple(int(v) for v in win[0])}, {len(amr.extra[1])} extra windows, refined "
+              f"fraction {frac:.4f} of the fine level; launches {launches}; expected {expected}")
+        if launches != expected or any(launches[k] == 0 for k, v in window_step.items() if v):
+            fail(f"path {label}: the launch counts do not match the hierarchy's structure")
+        if not all(bool(torch.isfinite(u).all()) for u in amr.u):
+            fail(f"path {label}: non-finite state")
+        mass1 = amr_mass(amr)
+        dm = abs(mass1 - mass0) / mass0
+        print(f"  level-0 mass: {mass0:.9e} -> {mass1:.9e}, relative change {dm:.3e} "
+              f"(limit {MASS_RTOL:g})")
+        if dm > MASS_RTOL:
+            fail(f"path {label}: mass is not conserved")
+        path_launches[label] = launches
+        return amr.step_count
+
+    def window_sim(amr):
+        return amr._get_level(1, amr.window[1][1]).sim
+
+    def amr_card_vs_cpu(label, make, steps=2):
+        """`steps` coarse steps on the CPU, then the same dt sequence on the
+        card, from a geometric tagging (no threshold a rounding can cross)
+        and no regrid after init: the windows and masks must be equal, then
+        each level is held as card_vs_cpu holds a state."""
+        print(f"card vs CPU, {label} float32, {steps} coarse steps:", flush=True)
+        runs, dts = {}, []
+        for where in ("cpu", "cuda"):
+            a = make(where)
+            a.init_data()
+            for k in range(steps):
+                if where == "cpu":
+                    dts.append(a.estimate_dt())
+                a.advance(dts[k])
+                a.step_count += 1
+                a.dt = dts[k]
+            runs[where] = a
+        c, g = runs["cpu"], runs["cuda"]
+        for l in range(2):
+            same_win = (np.array_equal(c.window[l][0], g.window[l][0])
+                        and tuple(c.window[l][1]) == tuple(g.window[l][1]))
+            if not same_win or not torch.equal(c.masks[l], g.masks[l].cpu()):
+                fail(f"{label}: the card's level-{l} window or mask differs from the CPU's")
+            err, rel, ok = compare(g.interior(l).cpu(), c.interior(l), RTOL, floor=True)
+            print(f"  level {l} (window {tuple(g.window[l][1])}): max abs err {err:.3e} rel "
+                  f"{rel:.3e} (tol {RTOL:g}|cpu| + {RTOL:g} max|cpu| per component) "
+                  f"{'ok' if ok else 'DISAGREES'}")
+            if not ok:
+                compare(g.interior(l).cpu(), c.interior(l), RTOL, floor=True, report=True)
+                fail(f"the card and the CPU disagree on {label}, level {l}")
+
+    def ball(radius):
+        """Tags the cells within `radius` of the domain's centre."""
+        def tag(s_, u_int, level):
+            return s_.geom.radius(0) < radius
+        return tag
+
+    G_FUSED_WINDOW = {k: v for k, v in FUSED.items() if k != "clean_fill"}
+    amr = amr_sim(3, N_AMR)
+    drive_amr(f"G: 3D Sedov AMR {N_AMR}^3 + 1 level float32, {STEPS_AMR} coarse steps", amr,
+              FUSED, G_FUSED_WINDOW, max_step=STEPS_AMR)
+    print(f"kernel vs plain, the level-1 window of path G3D "
+          f"({' x '.join(str(n) for n in amr.u[1].shape[1:])} grown):", flush=True)
+    ws = window_sim(amr)
+    dtw = amr.estimate_dt() / 2
+    compare_step(inputs(ws, amr.u[1], dtw), "G3D window")
+    g3d_window = tuple(amr.window[1][1])
+    del amr, ws
+    torch.cuda.empty_cache()
+    amr_card_vs_cpu(f"3D Sedov AMR {N_SMALL}^3 + 1 level",
+                    lambda where: amr_sim(3, N_SMALL, where, tagging=ball(0.15), regrid_int=0))
+
+    amr = amr_sim(2, N_AMR_2D)
+    drive_amr(f"G: 2D Sedov AMR {N_AMR_2D}^2 + 1 level float32, {STEPS_AMR_2D} coarse steps",
+              amr, TWO_D, TWO_D, max_step=STEPS_AMR_2D)
+    ws = window_sim(amr)
+    compare_low_dim(inputs_low_dim(ws, amr.u[1], amr.estimate_dt() / 2),
+                    f"G2D window {tuple(amr.u[1].shape[1:])} grown")
+    del amr, ws
+    torch.cuda.empty_cache()
+    amr_card_vs_cpu(f"2D Sedov AMR {N_2D_SMALL}^2 + 1 level",
+                    lambda where: amr_sim(2, N_2D_SMALL, where, tagging=ball(0.15),
+                                          regrid_int=0))
+
+    amr = amr_sim(1, N_AMR_1D, problem="sod")
+    t0 = time.perf_counter()
+    n_g1 = drive_amr(f"G: 1D Sod AMR n={N_AMR_1D} + 1 level float32 to t=0.2", amr, ONE_D, ONE_D,
+                     stop_time=0.2)
+    g1_ms = 1e3 * (time.perf_counter() - t0) / n_g1
+    comp = amr.composite_interior()[amr.sim0.layout.URHO].double().cpu().numpy()
+    xc = amr.geom_full[1].cell_centers_1d(0, 0).double().cpu().numpy()
+    rho_ex, _, _ = exact_solution(xc, amr.t, 0.5, 1.0, 0.0, 1.0, 0.125, 0.0, 0.1, 1.4)
+    g1_l1 = float(abs(comp - rho_ex).mean() / rho_ex.mean())
+    print(f"  1D Sod AMR at t = {amr.t:.6f}: composite mean |rho - exact| / mean exact = "
+          f"{g1_l1:.6e} (bound {SOD_L1_BOUND}); {g1_ms:.3f} ms a coarse step over {n_g1}, "
+          f"init and regrids included [{card}]")
+    if not g1_l1 < SOD_L1_BOUND:
+        fail("1D Sod AMR disagrees with the exact Riemann solution")
+    ws = window_sim(amr)
+    compare_low_dim(inputs_low_dim(ws, amr.u[1], amr.dt / 2),
+                    f"G1D window {tuple(amr.u[1].shape[1:])} grown")
+    del amr, ws
+    amr_card_vs_cpu("1D Sod AMR n=256 + 1 level",
+                    lambda where: amr_sim(1, 256, where, problem="sod", regrid_int=0,
+                                          tagging=lambda s_, u_, l_: (
+                                              s_.geom.cell_centers_1d(0, 0) - 0.5).abs() < 0.1),
+                    steps=4)
+
     # the probes: each against its plain version, then the entry points
     print("probes vs plain (scripts/prof_cmpflx.py setup at 128^3, float32):", flush=True)
     px = prof_cmpflx.setup(n=120)
@@ -983,9 +1189,16 @@ def main():
         zps = (s.num_zones_advanced - zones0) / wall
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
         results[key] = dict(zones_per_s=zps, step_ms=1e3 * wall / steps, peak_gib=peak)
+        amr_note = ""
+        if hasattr(s, "window"):  # an AmrSimulation: zones as _count_zones counts them
+            frac = float(s.masks[1].sum()) / float(np.prod(s.geom_full[1].n_cell))
+            results[key].update(window=list(s.window[1][1]), refined_fraction=frac,
+                                extra_windows=len(s.extra[1]))
+            amr_note = (f", level-1 window {tuple(s.window[1][1])} (+{len(s.extra[1])} extra), "
+                        f"refined fraction {frac:.4f}, zones a coarse step {s._count_zones(0)}")
         print(f"main path timing [{card}]: {label} float32, {steps} steps "
               f"(estimate_dt + advance): {1e3 * wall / steps:.3f} ms/step, {zps:.6e} zones/s, "
-              f"peak memory {peak:.3f} GiB", flush=True)
+              f"peak memory {peak:.3f} GiB{amr_note}", flush=True)
         if profile:
             profile_steps(s, profile, card)
         del s
@@ -994,6 +1207,8 @@ def main():
     time_path(str(N_MAIN), f"A: Sedov {N_MAIN}^3", lambda: sedov_sim(N_MAIN), STEPS_MAIN,
               profile=3)
     time_path(str(N_BIG), f"A: Sedov {N_BIG}^3", lambda: sedov_sim(N_BIG), STEPS_BIG)
+    time_path(f"amr-{N_AMR}", f"G: 3D Sedov AMR {N_AMR}^3 + 1 level",
+              lambda: amr_sim(3, N_AMR), STEPS_AMR, profile=3)
     time_path(f"{N_MAIN}-cg", f"B: Sedov {N_MAIN}^3 riemann_solver=1",
               lambda: sedov_sim(N_MAIN, riemann_solver=1), 5, profile=2)
     time_path(f"{N_HYBRID}-hybrid", f"B: Sedov {N_HYBRID}^3 hybrid_riemann=1",
@@ -1179,7 +1394,9 @@ def main():
         "peak_gib": {k: v["peak_gib"] for k, v in results.items()},
         "step_bound_ms_128": step_bound, "sod_1d_ms_per_step": sod_ms, "sod_1d_l1": l1,
         "shock_zones_flagged": flagged, "rz_vs_spherical_l1": rz_l1,
-        "rz_vs_spherical_peak_cells": peak_shift, "dmr_checks": dmr_checks}))
+        "rz_vs_spherical_peak_cells": peak_shift, "dmr_checks": dmr_checks,
+        "amr_3d": results.get(f"amr-{N_AMR}"), "amr_3d_window_after_run": list(g3d_window),
+        "amr_sod_1d_l1": g1_l1, "amr_sod_1d_ms_per_coarse_step": g1_ms}))
     print(smi_line())
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

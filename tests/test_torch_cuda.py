@@ -14,7 +14,10 @@ and flatten do their plain versions' operations in the same order and
 are held bit for bit, in every direction, on grids whose extents cut
 their tiles raggedly: prime extents, an axis of one interior cell
 between its ghosts, and (prim_aux and flatten) a grid thinner than a
-tile along every axis.
+tile along every axis. The kernels an AMR window runs are also held on
+two window shapes: 48 x 32 x 64 interior cells (multiples of the windows'
+16-cell bucket) and 36 x 44 x 28 (a window clamped to a level's extent,
+not a multiple of 16), each grown by 2 x 4 ghost cells.
 """
 
 import numpy as np
@@ -37,8 +40,12 @@ NG = 4
 SHAPE = (20, 24, 28)  # grown extents
 # grown extents for the tiled face kernels: SHAPE, prime extents, and one
 # interior cell along z
-FACE_SHAPES = pytest.mark.parametrize("shape", [SHAPE, (37, 29, 45), (28, 20, 2 * NG + 1)],
-                                      ids=["20x24x28", "37x29x45", "28x20x9"])
+# grown AMR window shapes (driver/amr.py buckets windows to 16 fine cells)
+WINDOWS = [(56, 40, 72), (44, 52, 36)]
+WINDOW_IDS = ["window-56x40x72", "window-44x52x36"]
+FACE_SHAPES = pytest.mark.parametrize("shape", [SHAPE, (37, 29, 45), (28, 20, 2 * NG + 1)]
+                                      + WINDOWS, ids=["20x24x28", "37x29x45", "28x20x9"]
+                                      + WINDOW_IDS)
 DX = (1.0 / 12, 1.0 / 16, 1.0 / 20)
 DT = 2e-3
 SMALL = dict(small_dens=1e-12, small_temp=1e-12, small_pres=1e-20, small_ener=1e-200)
@@ -116,9 +123,10 @@ def _edge_shock_state(seed, dtype, device, shape, at):
 CELL_CASES = pytest.mark.parametrize(
     "shape,walls",
     [(SHAPE, False), (SHAPE, True), ((37, 29, 45), False), ((37, 29, 45), True),
-     ((28, 20, 2 * NG + 1), False), ((28, 20, 2 * NG + 1), True), ((9, 5, 3), False)],
+     ((28, 20, 2 * NG + 1), False), ((28, 20, 2 * NG + 1), True), ((9, 5, 3), False),
+     (WINDOWS[0], False), (WINDOWS[1], True)],
     ids=["20x24x28", "20x24x28-walls", "37x29x45", "37x29x45-walls", "28x20x9",
-         "28x20x9-walls", "9x5x3"])
+         "28x20x9-walls", "9x5x3"] + [WINDOW_IDS[0], WINDOW_IDS[1] + "-walls"])
 
 
 @DTYPES
@@ -232,6 +240,24 @@ def test_clean_fill_kernel(card, dtype, lo, hi):
 
 
 @DTYPES
+@pytest.mark.parametrize("shape", WINDOWS, ids=WINDOW_IDS)
+@pytest.mark.parametrize("lo,hi", [((2, 2, 2), (2, 2, 2)), ((3, 3, 3), (3, 3, 3))],
+                         ids=["outflow", "symmetry"])
+def test_clean_fill_kernel_on_windows(card, dtype, shape, lo, hi):
+    """As test_clean_fill_kernel, on the grown shapes of AMR windows."""
+    u = _state(3, dtype, card, bad_cells=True, shape=shape)
+    args = (u, L, EOS, lo, hi, NG, SMALL["small_dens"], SMALL["small_temp"], 1e-4, True)
+    before = K.clean_fill.launches
+    got = K.clean_fill(*args, with_status=True)
+    assert K.clean_fill.launches == before + 1
+    ref = K.clean_fill_plain(*args, with_status=True)
+    _close(got[0], ref[0], dtype, "state")
+    _close(got[1], ref[1], dtype, "min rho")
+    assert bool(got[2]) == bool(ref[2])
+    _close(K.clean_fill(*args), K.clean_fill_plain(*args), dtype, "no status")
+
+
+@DTYPES
 @FACE_SHAPES
 @pytest.mark.parametrize("with_src", [False, True], ids=["no-src", "src"])
 def test_trace_ppm_kernel_without_riemann(card, dtype, shape, with_src):
@@ -249,10 +275,11 @@ def test_trace_ppm_kernel_without_riemann(card, dtype, shape, with_src):
         _exact(got, ref, f"d={d} (qm, qp)")
 
 
-def _face_inputs(dim, dtype, device, seed=5):
+def _face_inputs(dim, dtype, device, seed=5, shape=None):
     """Face states, both sides' gamc and c, and two summed bundles on a
-    `dim`-D grid, from a traced random state."""
-    shape = SHAPE[:dim] if dim > 1 else (SHAPE[2] * 4,)
+    `dim`-D grid (default: from SHAPE), from a traced random state."""
+    if shape is None:
+        shape = SHAPE[:dim] if dim > 1 else (SHAPE[2] * 4,)
     lay = StateLayout(dim=dim, nspec=1)
     rng = np.random.default_rng(seed)
 
@@ -364,6 +391,37 @@ def test_consup_kernel(card, dtype, d, with_fin):
     assert K.consup.launches == before + 1
     for name, g_, r_ in zip(("hsrc", "flux"), got, K.consup_plain(*args, finalize_dt=fin)):
         _close(g_, r_, dtype, name)
+
+
+@DTYPES
+@pytest.mark.parametrize("shape", [WINDOWS[0][:2], WINDOWS[1][1:], WINDOWS[0][2:],
+                                   WINDOWS[1][:1]],
+                         ids=["2D-56x40", "2D-52x36", "1D-72", "1D-44"])
+def test_cmpflx_and_trans_cmpflx_kernels_on_windows(card, dtype, shape):
+    """cmpflx (1D and 2D) and trans_cmpflx (2D), the kernels of a 1D or 2D
+    AMR window's step, on window shapes, with wall faces (HLLC) and
+    without (CGF), as test_cmpflx_kernel and test_trans_cmpflx_kernel."""
+    dim = len(shape)
+    lay, shape, qm, qp, aux, bm, bp = _face_inputs(dim, dtype, card, shape=shape)
+    for solver, bc in ((0, 2), (2, 3)):
+        for d in range(dim):
+            mask = _bnd_masks(shape, dim, NG, (bc,) * dim, (bc,) * dim)[d]
+            args = (qm, qp, *aux, d, lay, 0, solver, SMALL["small_dens"], SMALL["small_pres"])
+            before = K.cmpflx.launches
+            got = K.cmpflx(*args, bnd_mask=mask)
+            assert K.cmpflx.launches == before + 1
+            for g_, r_ in zip(got, K.cmpflx_plain(*args, bnd_mask=mask)):
+                _close(g_, r_, dtype, f"cmpflx d={d}")
+            if dim == 1:
+                continue
+            args = (qm, qp, bm[0], bp[0], bm[1], bp[1], bm[2], bp[2], *aux, d, lay, 0, solver,
+                    SMALL["small_dens"], SMALL["small_pres"], True, False)
+            got = K.trans_cmpflx(*args, bnd_mask=mask)
+            ref = K.trans_cmpflx_plain(*args, bnd_mask=mask)
+            ok = ref[1][lay.GDGAME] < 11.0  # as test_trans_cmpflx_kernel
+            assert float(ok.double().mean()) > 0.7
+            for g_, r_ in zip(got, ref):
+                _close(g_[:, ok], r_[:, ok], dtype, f"trans_cmpflx d={d}")
 
 
 def test_term_bundle_feeds_trans_apply_as_ctu_face(card):
