@@ -2,7 +2,10 @@
 [ns.key=value ...] [device=cpu]`, the counterpart of `python -m castro_tpu`
 (reference `Source/driver/main.cpp:33`): parse inputs, run the
 coarse-timestep loop on the card, print the STEP lines and the FOM.
-problem= one of sedov, sod, acoustic_pulse or double_mach. double_mach is
+problem= one of sedov, sod, acoustic_pulse, detonation, burning_blob or
+double_mach. detonation is the 1D reacting shock tube (powerlaw network,
+Strang burns), burning_blob the 3D iso7 blob; network.network_name= and
+eos.eos_name=helmholtz swap in a stellar network and EOS. double_mach is
 built by `problems.double_mach.build` with its inflow hook, at its own
 size, and ignores overrides, as in the JAX package. With amr.max_level > 0
 the run is an `AmrSimulation` (regrids every amr.regrid_int steps, tags
@@ -23,11 +26,14 @@ from castro_tpu_torch.config import load_inputs, parse_inputs_text
 def main(argv=None):
     from castro_tpu_torch.driver.amr import AmrSimulation
     from castro_tpu_torch.driver.sim import Simulation
-    from castro_tpu_torch.problems import acoustic_pulse, double_mach, sedov, sod
+    from castro_tpu_torch.problems import (acoustic_pulse, burning_blob, detonation,
+                                           double_mach, sedov, sod)
 
     problems = {"sedov": (sedov.make_params, sedov.problem_init),
                 "sod": (sod.make_params, sod.problem_init),
                 "acoustic_pulse": (acoustic_pulse.make_params, acoustic_pulse.problem_init),
+                "detonation": (detonation.make_params, detonation.problem_init),
+                "burning_blob": (burning_blob.make_params, burning_blob.problem_init),
                 # custom construction (the inflow fill closure)
                 "double_mach": ("build", double_mach.build)}
     argv = list(sys.argv[1:] if argv is None else argv)

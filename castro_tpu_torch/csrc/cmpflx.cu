@@ -21,45 +21,46 @@
 
 namespace ctt {
 
-template <typename T, int NPASS>
+template <typename T>
 __global__ void __launch_bounds__(256) cmpflx_kernel(
     const T* __restrict__ qm, const T* __restrict__ qp, const T* __restrict__ gl,
     const T* __restrict__ gr, const T* __restrict__ cl, const T* __restrict__ cr,
-    T* __restrict__ flux, T* __restrict__ qe, Grid g, int d, int coord, int solver,
+    T* __restrict__ flux, T* __restrict__ qe, Grid g, Layout L, int d, int coord, int solver,
     int mask_lo, int mask_hi, T small_dens, T small_pres) {
-  constexpr int NQ = QFS + NPASS, NVAR = UFS + NPASS;
   long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (t >= g.S) return;
   const long long S = g.S;
-  T qmv[NQ], qpv[NQ];
+  T qmv[QFS], qpv[QFS];
 #pragma unroll
-  for (int c = 0; c < NQ; ++c) {
+  for (int c = 0; c < QFS; ++c) {
     qmv[c] = qm[c * S + t];
     qpv[c] = qp[c * S + t];
   }
   int pos = cell_of(g, t).c[d];
   T mask = (pos == mask_lo || pos == mask_hi) ? T(0) : T(1);
-  T fl[NVAR], qg[NGDNV];
-  riemann_flux<T, NPASS>(qmv, qpv, gl[t], gr[t], cl[t], cr[t], d, solver, mask, small_dens,
-                         small_pres, fl, qg, coord == 0 || d != 0);
+  T fl[NUH], qg[NGDNV];
+  Upwind<T> w = riemann_hydro(qmv, qpv, gl[t], gr[t], cl[t], cr[t], d, solver, mask,
+                              small_dens, small_pres, fl, qg, coord == 0 || d != 0);
 #pragma unroll
-  for (int c = 0; c < NVAR; ++c) flux[c * S + t] = fl[c];
+  for (int c = 0; c < NUH; ++c) flux[c * S + t] = fl[c];
 #pragma unroll
   for (int c = 0; c < NGDNV; ++c) qe[c * S + t] = qg[c];
+  store_passive_fluxes(L, w, qm, qp, flux, S, t);
 }
 
 template <typename T>
 int launch_cmpflx(const void* qm, const void* qp, const void* gl, const void* gr,
                   const void* cl, const void* cr, void* flux, void* qe, const int* n,
-                  int npass, int d, int coord, int solver, int mask_lo, int mask_hi,
+                  const int* lay, int d, int coord, int solver, int mask_lo, int mask_hi,
                   double small_dens, double small_pres, cudaStream_t stream) {
   Grid g{{n[0], n[1], n[2]}, (long long)n[0] * n[1] * n[2]};
-  if (npass != 1 || d < 0 || d > 2 || coord < 0 || coord > 2)
+  Layout L = layout_of(lay);
+  if (!layout_ok(L) || d < 0 || d > 2 || coord < 0 || coord > 2)
     return (int)cudaErrorInvalidValue;
   const int threads = 256;
-  cmpflx_kernel<T, 1><<<blocks_for(g.S, threads), threads, 0, stream>>>(
+  cmpflx_kernel<T><<<blocks_for(g.S, threads), threads, 0, stream>>>(
       (const T*)qm, (const T*)qp, (const T*)gl, (const T*)gr, (const T*)cl, (const T*)cr,
-      (T*)flux, (T*)qe, g, d, coord, solver, mask_lo, mask_hi, T(small_dens),
+      (T*)flux, (T*)qe, g, L, d, coord, solver, mask_lo, mask_hi, T(small_dens),
       T(small_pres));
   return (int)cudaGetLastError();
 }
@@ -69,9 +70,9 @@ int launch_cmpflx(const void* qm, const void* qp, const void* gl, const void* gr
 #define CMPFLX_ENTRY(NAME, T)                                                              \
   extern "C" int NAME(const void* qm, const void* qp, const void* gl, const void* gr,      \
                       const void* cl, const void* cr, void* flux, void* qe, const int* n,  \
-                      int npass, int d, int coord, int solver, int mask_lo, int mask_hi,   \
-                      double small_dens, double small_pres, void* stream) {                \
-    return ctt::launch_cmpflx<T>(qm, qp, gl, gr, cl, cr, flux, qe, n, npass, d, coord,     \
+                      const int* lay, int d, int coord, int solver, int mask_lo,           \
+                      int mask_hi, double small_dens, double small_pres, void* stream) {   \
+    return ctt::launch_cmpflx<T>(qm, qp, gl, gr, cl, cr, flux, qe, n, lay, d, coord,       \
                                  solver, mask_lo, mask_hi, small_dens, small_pres,         \
                                  (cudaStream_t)stream);                                    \
   }

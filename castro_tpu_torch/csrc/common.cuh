@@ -1,9 +1,17 @@
-// Shared helpers of the castro_tpu_torch CUDA kernels: the fixed state
-// layout of the kernel path, grid indexing with the edge clamp of
+// Shared helpers of the castro_tpu_torch CUDA kernels: the state layout
+// of the kernel path, grid indexing with the edge clamp of
 // ops/stencil.py:shifted, sign(), block reductions, and the gamma-law EOS.
 //
-// Every kernel is templated on the working type T (float or double) and on
-// NPASS, the number of passively advected components (species + aux).
+// Every kernel is templated on the working type T (float or double). The
+// hydro components are compile-time constants; the passively advected
+// components (species + aux) and the extra conserved components (the
+// shock flag, the hybrid momenta) come from a Layout, and every kernel
+// handles the passives one at a time in a loop, so that one build serves
+// any number of them and no register array grows with them. The kernels
+// whose loops cost time at one passive are built twice: for the
+// pure-hydro layout of every hydro-only problem (HYDRO, its offsets and
+// counts compile-time constants, so the loops unroll to one iteration),
+// and for any layout read at run time.
 // Constants are converted to T where they are written (T(0.5)), so float
 // code never does double arithmetic; the small_* floors arrive from the
 // host already rounded to T, as the JAX package's weakly typed constants
@@ -18,13 +26,42 @@
 namespace ctt {
 
 // Conserved, primitive, auxiliary and Godunov-state indices of the kernel
-// path (castro_tpu_torch/state.py without shock_var, hybrid momenta, MHD or
-// radiation; the wrappers check the layout).
-enum { URHO = 0, UMX = 1, UMY = 2, UMZ = 3, UEDEN = 4, UEINT = 5, UTEMP = 6, UFS = 7 };
+// path (castro_tpu_torch/state.py without MHD or radiation; the wrappers
+// check the layout). The NUH hydro components of the conserved state come
+// first in every layout; the primitive layout does not change with the
+// shock flag or hybrid momenta, so its passives always start at QFS.
+enum { URHO = 0, UMX = 1, UMY = 2, UMZ = 3, UEDEN = 4, UEINT = 5, UTEMP = 6, NUH = 7 };
 enum { QRHO = 0, QU = 1, QV = 2, QW = 3, QGAME = 4, QPRES = 5, QREINT = 6, QTEMP = 7, QFS = 8 };
 enum { QGAMC = 0, QC = 1, QDPDR = 2, QDPDE = 3, NQAUX = 4 };
 enum { GDRHO = 0, GDU = 1, GDV = 2, GDW = 3, GDPRES = 4, GDGAME = 5, NGDNV = 6 };
-enum { MAXSPEC = 8 };
+// the first passive of the pure-hydro layout, to which the profiling
+// probes (prof_cmpflx.cu) stay fixed
+enum { UFS_HYDRO = 7 };
+
+// The conserved layout past the hydro components (state.py): the extras
+// [NUH, ufs) are the shock flag (at ushk, or none when ushk < 0) and the
+// hybrid momenta; they carry no Riemann flux. The passives [ufs, ufs +
+// npass) are nspec species, then the aux components.
+struct Layout {
+  int ufs, nspec, npass, ushk;
+  __host__ __device__ int nvar() const { return ufs + npass; }
+};
+
+inline Layout layout_of(const int* lay) { return Layout{lay[0], lay[1], lay[2], lay[3]}; }
+// the pure-hydro layout: one species, no extras
+inline bool is_hydro(const Layout& L) {
+  return L.ufs == NUH && L.nspec == 1 && L.npass == 1 && L.ushk < 0;
+}
+// the layout a kernel built for HYDRO (or not) works with
+template <bool HYDRO>
+__device__ __forceinline__ Layout kernel_layout(const Layout& L) {
+  if constexpr (HYDRO) return Layout{NUH, 1, 1, -1};
+  return L;
+}
+inline bool layout_ok(const Layout& L) {
+  return L.ufs >= NUH && L.ufs <= NUH + 4 && L.nspec >= 1 && L.npass >= L.nspec &&
+         (L.ushk < 0 || (L.ushk >= NUH && L.ushk < L.ufs));
+}
 
 // BC codes (AMReX phys_bc)
 enum { BC_INTERIOR = 0, BC_INFLOW = 1, BC_OUTFLOW = 2, BC_SYMMETRY = 3,
@@ -119,43 +156,38 @@ template <> __device__ __forceinline__ float tiny<float>() { return FLT_MIN; }
 template <> __device__ __forceinline__ double tiny<double>() { return DBL_MIN; }
 
 // Gamma-law EOS constants (castro_tpu_torch/eos/gamma_law.py): 1/mu =
-// sum_s xn_s * num_s / A_s; cv = k_B/m_u / (mu (gamma-1)).
+// sum_s xn_s * num_s / A_s; cv = k_B/m_u / (mu (gamma-1)). The per-species
+// numbers lie in device memory as num_s/A_s (nspec values) and 1/A_s
+// (nspec values), read at a run-time index, so that nothing goes to a
+// stack and the species loop holds no division (whose slow path is a
+// call); each term is one rounding from the plain version's x num / A.
 template <typename T>
 struct EosGL {
   T gamma, gm1, kb_over_mu;
-  int nspec;
   int neutral;
-  T num[MAXSPEC];
-  T aion[MAXSPEC];
+  const T* num_over_a;
+  const T* inv_a;
 
-  // The loop is bounded by the mass fractions' count N (the kernel's
-  // NPASS >= nspec), so every index into num[], aion[] and xn[] is a
-  // constant and neither this struct (a kernel parameter) nor xn[] is
-  // copied to local memory; the sum keeps species order.
-  template <int N>
-  __device__ __forceinline__ T cv(const T (&xn)[N]) const {
-    T inv_mu = neutral ? xn[0] / aion[0] : xn[0] * num[0] / aion[0];
-#pragma unroll
-    for (int s = 1; s < N; ++s)
-      if (s < nspec) inv_mu = inv_mu + (neutral ? xn[s] / aion[s] : xn[s] * num[s] / aion[s]);
+  // cv from the nspec mass fractions xn(s), summed in species order
+  template <typename F>
+  __device__ __forceinline__ T cv(int nspec, const F& xn) const {
+    const T* w = neutral ? inv_a : num_over_a;
+    T inv_mu = xn(0) * w[0];
+    for (int s = 1; s < nspec; ++s) inv_mu = inv_mu + xn(s) * w[s];
     T mu = T(1) / inv_mu;
     return kb_over_mu / (mu * gm1);
   }
 };
 
 template <typename T>
-EosGL<T> make_eos(double gamma, double kb_over_mu, int nspec, int neutral,
-                  const double* num, const double* aion) {
+EosGL<T> make_eos(double gamma, double kb_over_mu, int nspec, int neutral, const void* coef) {
   EosGL<T> e;
   e.gamma = T(gamma);
   e.gm1 = T(gamma - 1.0);
   e.kb_over_mu = T(kb_over_mu);
-  e.nspec = nspec;
   e.neutral = neutral;
-  for (int s = 0; s < MAXSPEC; ++s) {
-    e.num[s] = s < nspec ? T(num[s]) : T(1);
-    e.aion[s] = s < nspec ? T(aion[s]) : T(1);
-  }
+  e.num_over_a = (const T*)coef;
+  e.inv_a = (const T*)coef + nspec;
   return e;
 }
 

@@ -39,10 +39,10 @@ constexpr int PA_BZ = 32;  // threadIdx.x, along z
 constexpr int PA_BY = 8;   // threadIdx.y, along y: row 0 is the j-1 halo
 constexpr int PA_CH = 16;  // planes along x a block marches over
 
-template <typename T, int NPASS>
+template <typename T, bool HYDRO>
 __global__ void __launch_bounds__(PA_BZ * PA_BY) prim_aux_kernel(
     const T* __restrict__ u, T* __restrict__ q, T* __restrict__ qaux,
-    T* __restrict__ div, T* __restrict__ courant, Grid g, EosGL<T> eos,
+    T* __restrict__ div, T* __restrict__ courant, Grid g, Layout lay, EosGL<T> eos,
     T small_dens, T e_floor, T dx0, T dx1, T dx2, T dtdx0, T dtdx1, T dtdx2) {
   // velocities of the plane, and the differences along x (d0), y (d1) and
   // z (d2) of planes i and i-1 (buffer i & 1); column tz + 1 is lane tz's
@@ -65,11 +65,15 @@ __global__ void __launch_bounds__(PA_BZ * PA_BY) prim_aux_kernel(
   T cou = T(0), v0prev = T(0), h0prev = T(0);
   // the loads of the next plane are issued before the current plane's
   // work, so that their latency hides behind it: density, momenta,
-  // internal energy and species for an owner; density and momenta for the
-  // halo row, the first plane (which only need velocities) and lane 0's
-  // cell at k0-1 (total energy and temperature are not read)
+  // internal energy and, in the pure-hydro build, the passive for an
+  // owner; density and momenta for the halo row, the first plane (which
+  // only need velocities) and lane 0's cell at k0-1 (total energy and
+  // temperature are not read). Any other build reads the passives one at
+  // a time where they are converted (a register more spills its float
+  // build).
+  const Layout L = kernel_layout<HYDRO>(lay);
   const int first = div != nullptr ? i0 - 1 : i0;  // with div u, one plane below (clamped)
-  T nx[UFS + NPASS] = {}, nh[4] = {};
+  T nx[NUH + 1] = {}, nh[4] = {};  // nx[NUH]: the passive of the pure-hydro build
   auto fetch = [&](int i) {
     const int oi = (i < 0 ? 0 : i) * plane;
     const T* a = &at(u, oi + col);
@@ -77,8 +81,7 @@ __global__ void __launch_bounds__(PA_BZ * PA_BY) prim_aux_kernel(
     for (int c = URHO; c <= UMZ; ++c) nx[c] = comp(a, c, S);
     if (owner && i >= i0) {
       nx[UEINT] = comp(a, UEINT, S);
-#pragma unroll
-      for (int c = UFS; c < UFS + NPASS; ++c) nx[c] = comp(a, c, S);
+      if (HYDRO) nx[NUH] = comp(a, L.ufs, S);
     }
     if (left) {
 #pragma unroll
@@ -89,9 +92,9 @@ __global__ void __launch_bounds__(PA_BZ * PA_BY) prim_aux_kernel(
   for (int i = first; i < i1; ++i) {
     const int o = (i < 0 ? 0 : i) * plane + col;
     const bool out = owner && i >= i0;
-    T r[UFS + NPASS], rh[4];
+    T r[NUH + 1], rh[4];
 #pragma unroll
-    for (int c = 0; c < UFS + NPASS; ++c) r[c] = nx[c];
+    for (int c = 0; c <= NUH; ++c) r[c] = nx[c];
 #pragma unroll
     for (int c = 0; c < 4; ++c) rh[c] = nh[c];
     if (i + 1 < i1) fetch(i + 1);
@@ -101,11 +104,12 @@ __global__ void __launch_bounds__(PA_BZ * PA_BY) prim_aux_kernel(
     for (int d = 0; d < 3; ++d) vel[d] = r[UMX + d] * rhoinv;
     if (out) {
       T e = vmax(r[UEINT], e_floor * rho) * rhoinv;
-      T xn[NPASS];
-#pragma unroll
-      for (int s = 0; s < NPASS; ++s) xn[s] = r[UFS + s] * rhoinv;
+      const T* a = &at(u, o);
+      auto xn = [&](int s) {
+        return (HYDRO && s == 0 ? r[NUH] : comp(a, L.ufs + s, S)) * rhoinv;
+      };
       // gamma-law re(): T = e/cv, then the state is filled from (rho, T)
-      T cv = eos.cv(xn);
+      T cv = eos.cv(L.nspec, xn);
       T temp = e / cv;
       T e2 = cv * temp;
       T p = rho * e2 * eos.gm1;
@@ -118,8 +122,7 @@ __global__ void __launch_bounds__(PA_BZ * PA_BY) prim_aux_kernel(
       comp(w, QPRES, S) = p;
       comp(w, QREINT, S) = rho * e;
       comp(w, QTEMP, S) = temp;
-#pragma unroll
-      for (int s = 0; s < NPASS; ++s) comp(w, QFS + s, S) = xn[s];
+      for (int s = 0; s < L.npass; ++s) comp(w, QFS + s, S) = xn(s);
       w = &at(qaux, o);
       comp(w, QGAMC, S) = eos.gamma;
       comp(w, QC, S) = cs;
@@ -177,17 +180,19 @@ __global__ void __launch_bounds__(PA_BZ * PA_BY) prim_aux_kernel(
 
 template <typename T>
 int launch_prim_aux(const void* u, void* q, void* qaux, void* div, void* courant,
-           const int* n, int npass, const double* eos_d, int nspec, int neutral,
-           const double* num, const double* aion, double small_dens,
+           const int* n, const int* lay, const double* eos_d, int neutral,
+           const void* coef, double small_dens,
            double e_floor, const double* dx, const double* dtdx,
            cudaStream_t stream) {
   Grid g{{n[0], n[1], n[2]}, (long long)n[0] * n[1] * n[2]};
-  if (npass != 1 || g.S > INT_MAX) return (int)cudaErrorInvalidValue;
-  EosGL<T> eos = make_eos<T>(eos_d[0], eos_d[1], nspec, neutral, num, aion);
+  Layout L = layout_of(lay);
+  if (!layout_ok(L) || g.S > INT_MAX) return (int)cudaErrorInvalidValue;
+  EosGL<T> eos = make_eos<T>(eos_d[0], eos_d[1], L.nspec, neutral, coef);
   auto up = [](int a, int b) { return (unsigned)((a + b - 1) / b); };
   dim3 blocks(up(n[2], PA_BZ), up(n[1], PA_BY - 1), up(n[0], PA_CH));
-  prim_aux_kernel<T, 1><<<blocks, dim3(PA_BZ, PA_BY), 0, stream>>>(
-      (const T*)u, (T*)q, (T*)qaux, (T*)div, (T*)courant, g, eos, T(small_dens),
+  auto kernel = is_hydro(L) ? prim_aux_kernel<T, true> : prim_aux_kernel<T, false>;
+  kernel<<<blocks, dim3(PA_BZ, PA_BY), 0, stream>>>(
+      (const T*)u, (T*)q, (T*)qaux, (T*)div, (T*)courant, g, L, eos, T(small_dens),
       T(e_floor), T(dx[0]), T(dx[1]), T(dx[2]), T(dtdx[0]), T(dtdx[1]), T(dtdx[2]));
   return (int)cudaGetLastError();
 }
@@ -196,13 +201,11 @@ int launch_prim_aux(const void* u, void* q, void* qaux, void* div, void* courant
 
 #define PRIM_AUX_ENTRY(NAME, T)                                                      \
   extern "C" int NAME(const void* u, void* q, void* qaux, void* div, void* courant,  \
-                      const int* n, int npass, const double* eos, int nspec,         \
-                      int neutral, const double* num, const double* aion,            \
-                      double small_dens, double e_floor, const double* dx,           \
-                      const double* dtdx, void* stream) {                            \
-    return ctt::launch_prim_aux<T>(u, q, qaux, div, courant, n, npass, eos, nspec, neutral,   \
-                          num, aion, small_dens, e_floor, dx, dtdx,                  \
-                          (cudaStream_t)stream);                                     \
+                      const int* n, const int* lay, const double* eos, int neutral,  \
+                      const void* coef, double small_dens, double e_floor,           \
+                      const double* dx, const double* dtdx, void* stream) {          \
+    return ctt::launch_prim_aux<T>(u, q, qaux, div, courant, n, lay, eos, neutral, coef,      \
+                                   small_dens, e_floor, dx, dtdx, (cudaStream_t)stream);     \
   }
 PRIM_AUX_ENTRY(ctt_prim_aux_f32, float)
 PRIM_AUX_ENTRY(ctt_prim_aux_f64, double)

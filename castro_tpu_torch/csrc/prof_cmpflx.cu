@@ -49,7 +49,7 @@ __global__ void probe_cmpflx_kernel(const T* __restrict__ qm, const T* __restric
                                     const T* __restrict__ cl, const T* __restrict__ cr,
                                     T* __restrict__ flux, T* __restrict__ qe, Grid g, Tile tile,
                                     int coord, T small_dens, T small_pres) {
-  constexpr int NQ = QFS + NPASS, NVAR = UFS + NPASS;
+  constexpr int NQ = QFS + NPASS, NVAR = UFS_HYDRO + NPASS;
   const long long S = g.S;
   for (long long c = threadIdx.x; c < tile.cells(g); c += blockDim.x) {
     long long t;
@@ -73,7 +73,7 @@ __global__ void probe_cmpflx_kernel(const T* __restrict__ qm, const T* __restric
 template <typename T, int NPASS>
 __global__ void probe_copy_kernel(const T* __restrict__ qm, const T* __restrict__ qp,
                                   T* __restrict__ flux, T* __restrict__ qe, Grid g, Tile tile) {
-  constexpr int NVAR = UFS + NPASS;
+  constexpr int NVAR = UFS_HYDRO + NPASS;
   const long long S = g.S;
   for (long long c = threadIdx.x; c < tile.cells(g); c += blockDim.x) {
     long long t;

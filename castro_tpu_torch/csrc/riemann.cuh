@@ -169,15 +169,30 @@ __device__ Godunov<T> riemann_hllc(const RiemannIn<T>& ri, T small_dens, T small
   return g;
 }
 
+// What the passives of a face need from its solve: the mass flux and the
+// upwind weights of the interface velocity's sign (half each at 0).
+template <typename T>
+struct Upwind {
+  T frho, fp, fm;
+};
+
+// A passive's flux from its two interface values (riemann.cpp:106-135).
+template <typename T>
+__device__ __forceinline__ T upwind(const Upwind<T>& w, T qm_s, T qp_s) {
+  return w.frho * (w.fp * qm_s + w.fm * qp_s);
+}
+
 // Riemann solve (riemann_solver 0 = CGF, 2 = HLLC) and flux assembly of one
-// face: flux[NVAR], qe[NGDNV]. `mask` is 0 on a wall face (bnd_fac,
-// riemann.cpp:55-61) and 1 elsewhere. `mom_p` is false for the radial
-// direction of a curvilinear grid, whose momentum flux carries no pressure
-// (mom_flux_has_p; the update adds the pressure gradient instead).
-template <typename T, int NPASS, typename Dir>
-__device__ void riemann_flux(const T* qm, const T* qp, T gl, T gr, T cl, T cr,
-                             Dir d, int solver, T mask, T small_dens, T small_pres,
-                             T* flux, T* qe, bool mom_p = true) {
+// face: the hydro flux[NUH] and qe[NGDNV], and the upwind data of the
+// passives, whose fluxes the callers form one at a time. `mask` is 0 on a
+// wall face (bnd_fac, riemann.cpp:55-61) and 1 elsewhere. `mom_p` is false
+// for the radial direction of a curvilinear grid, whose momentum flux
+// carries no pressure (mom_flux_has_p; the update adds the pressure
+// gradient instead).
+template <typename T, typename Dir>
+__device__ Upwind<T> riemann_hydro(const T* qm, const T* qp, T gl, T gr, T cl, T cr,
+                                   Dir d, int solver, T mask, T small_dens, T small_pres,
+                                   T* flux, T* qe, bool mom_p = true) {
   RiemannIn<T> ri = riemann_inputs(qm, qp, gl, gr, cl, cr, d, small_dens);
   Godunov<T> gd = solver == 2 ? riemann_hllc(ri, small_dens, small_pres)
                               : riemannus(ri, small_dens, small_pres);
@@ -193,17 +208,37 @@ __device__ void riemann_flux(const T* qm, const T* qp, T gl, T gr, T cl, T cr,
   flux[UEINT] = un * gd.rhoe;
   flux[UTEMP] = T(0);
   T sg = sgn(un);
-  T fp = T(0.5) * (T(1) + sg);
-  T fm = T(0.5) * (T(1) - sg);
-#pragma unroll
-  for (int k = 0; k < NPASS; ++k)
-    flux[UFS + k] = frho * (fp * qm[QFS + k] + fm * qp[QFS + k]);
   qe[GDRHO] = gd.rho;
   qe[GDU + d] = un;
   qe[GDU + t1] = gd.ut;
   qe[GDU + t2] = gd.utt;
   qe[GDPRES] = gd.p;
   qe[GDGAME] = gd.p / vmax(gd.rhoe, tiny<T>()) + T(1);
+  return Upwind<T>{frho, T(0.5) * (T(1) + sg), T(0.5) * (T(1) - sg)};
+}
+
+// The flux of the pure-hydro layout with NPASS passives held in the
+// arrays, flux[UFS_HYDRO + NPASS]: the profiling probes' fixed layout.
+template <typename T, int NPASS, typename Dir>
+__device__ void riemann_flux(const T* qm, const T* qp, T gl, T gr, T cl, T cr,
+                             Dir d, int solver, T mask, T small_dens, T small_pres,
+                             T* flux, T* qe, bool mom_p = true) {
+  Upwind<T> w = riemann_hydro(qm, qp, gl, gr, cl, cr, d, solver, mask, small_dens,
+                              small_pres, flux, qe, mom_p);
+#pragma unroll
+  for (int k = 0; k < NPASS; ++k) flux[UFS_HYDRO + k] = upwind(w, qm[QFS + k], qp[QFS + k]);
+}
+
+// The components of a pointwise face's flux past the hydro ones, at t:
+// zero for the extras, the upwinded passives from the face states qm, qp
+// (component stride S).
+template <typename T>
+__device__ __forceinline__ void store_passive_fluxes(const Layout& L, const Upwind<T>& w,
+                                                     const T* qm, const T* qp, T* flux,
+                                                     long long S, long long t) {
+  for (int c = NUH; c < L.ufs; ++c) flux[c * S + t] = T(0);
+  for (int k = 0; k < L.npass; ++k)
+    flux[(L.ufs + k) * S + t] = upwind(w, qm[(QFS + k) * S + t], qp[(QFS + k) * S + t]);
 }
 
 }  // namespace ctt

@@ -138,9 +138,9 @@ __device__ __forceinline__ T edge(const Wave1<T>& w) {
   else return w.ip;
 }
 
-// The traced state of the cell toward its left edge (PLUS) or right edge,
-// but the passives; `q` is the cell's own state.
-template <typename T, int NPASS, int D, bool PLUS>
+// The traced hydro state of the cell toward its left edge (PLUS) or right
+// edge; `q` is the cell's own state.
+template <typename T, int D, bool PLUS>
 __device__ __forceinline__ void edge_state(const CellWaves<T>& w, const T* q, T un, T cc,
                                            const TraceConst<T>& k, T* out) {
   constexpr int QUN = QU + D, QUT = QU + (D + 1) % 3, QUTT = QU + (D + 2) % 3;
@@ -188,7 +188,7 @@ __device__ __forceinline__ void edge_state(const CellWaves<T>& w, const T* q, T 
   alpha0e = -alpha0e * w0;
 
 #pragma unroll
-  for (int c = 0; c < QFS + NPASS; ++c) out[c] = q[c];
+  for (int c = 0; c < QFS; ++c) out[c] = q[c];
   out[QRHO] = vmax(k.small_dens, rho_ref + alphap + alpham + alpha0r);
   out[QUN] = un_ref + (alphap - alpham) * cc_ref * rho_ref_inv;
   out[QREINT] = vmax(k.small_rhoe, rhoe_ref + (alphap + alpham) * h_ref + alpha0e);
@@ -197,14 +197,14 @@ __device__ __forceinline__ void edge_state(const CellWaves<T>& w, const T* q, T 
   out[QUTT] = edge<PLUS>(w.utt) + hdt * edge<PLUS>(w.s_utt);
 }
 
-// Both traced states of one cell: toward its left edge (qp) and its right
-// edge (qm), from one reconstruction of each component. q, qaux, flatn and
-// src point to the cell; o5 are its stencil's offsets along D.
-template <typename T, int NPASS, int D, bool SRC>
+// Both traced hydro states of one cell: toward its left edge (qp) and its
+// right edge (qm), from one reconstruction of each component. q, qaux,
+// flatn and src point to the cell; o5 are its stencil's offsets along D.
+// The passives ride the contact only: passive_waves traces them one by one.
+template <typename T, int D, bool SRC>
 __device__ __forceinline__ void trace_cell(const T* q, const T* qaux, const T* flatn,
                                            const T* src, long long S, const int (&o5)[5],
                                            const TraceConst<T>& k, T* qp, T* qm) {
-  constexpr int NQ = QFS + NPASS;
   constexpr int QUN = QU + D, QUT = QU + (D + 1) % 3, QUTT = QU + (D + 2) % 3;
   T fl = *flatn;
   T un = q[QUN * S];
@@ -232,18 +232,27 @@ __device__ __forceinline__ void trace_cell(const T* q, const T* qaux, const T* f
     w.s_rho = w.s_un = w.s_p = w.s_re = z3;
     w.s_ut = w.s_utt = z1;
   }
-  T qc[NQ];
+  T qc[QFS];
 #pragma unroll
-  for (int c = 0; c < NQ; ++c) qc[c] = q[c * S];
-  edge_state<T, NPASS, D, true>(w, qc, un, cc, k, qp);
-  edge_state<T, NPASS, D, false>(w, qc, un, cc, k, qm);
-  // passives ride the contact only
+  for (int c = 0; c < QFS; ++c) qc[c] = q[c * S];
+  edge_state<T, D, true>(w, qc, un, cc, k, qp);
+  edge_state<T, D, false>(w, qc, un, cc, k, qm);
+}
+
+// Passive j of the cell at linear index i (stencil offsets o5 along D):
+// its integrals toward the left edge (im, qp of face i) and the right edge
+// (ip, qm of face i + 1), with the cell's flattening and normal velocity.
+template <typename T, int D>
+__device__ __forceinline__ Wave1<T> passive_wave(const T* q, const T* flatn, long long S,
+                                                 long long i, const int (&o5)[5], int j,
+                                                 T dtdx) {
+  return wave1(q + (QFS + j) * S + i, o5, flatn[i], q[(QU + D) * S + i], dtdx);
+}
+
+// the stencil offsets along D of the cell at position c0 (stride sd)
+__device__ __forceinline__ void stencil5(int c0, int n, int sd, int (&o5)[5]) {
 #pragma unroll
-  for (int j = 0; j < NPASS; ++j) {
-    Wave1<T> wp = wave1(q + (QFS + j) * S, o5, fl, un, dtdx);
-    qp[QFS + j] = wp.im;
-    qm[QFS + j] = wp.ip;
-  }
+  for (int j = 0; j < 5; ++j) o5[j] = (clampi(c0 + j - 2, n) - c0) * sd;
 }
 
 // The block: 8 z columns of 32 cells along D = 0, 1; 32 cells along z
@@ -251,59 +260,85 @@ __device__ __forceinline__ void trace_cell(const T* q, const T* qaux, const T* f
 template <int D>
 using TraceTile = FaceTile<D, 0, D == 2 ? 32 : 8, D == 2 ? 8 : 32>;
 
-template <typename T, int NPASS, int D, bool SRC, bool FUSE>
+template <typename T, int D, bool SRC, bool FUSE, bool HYDRO>
 __global__ void __launch_bounds__(TraceTile<D>::THREADS) trace_ppm_kernel(
     const T* __restrict__ q, const T* __restrict__ qaux, const T* __restrict__ flatn,
     const T* __restrict__ src, T* __restrict__ qm_out, T* __restrict__ qp_out,
-    T* __restrict__ flux, T* __restrict__ qe, Grid g, TraceConst<T> k, int solver,
+    T* __restrict__ flux, T* __restrict__ qe, Grid g, Layout lay, TraceConst<T> k, int solver,
     int mask_lo, int mask_hi) {
   using Tile = TraceTile<D>;
-  constexpr int NQ = QFS + NPASS, NVAR = UFS + NPASS;
-  // the right-edge state, gamc and c of each cell, for the face above it
-  __shared__ T xs[FUSE ? NQ + 2 : 1][Tile::THREADS];
+  // the right-edge hydro state, gamc and c of each cell, and in the
+  // pure-hydro build its passive, for the face above it (any other build
+  // traces each passive after the solve: the passive held across it
+  // spills)
+  __shared__ T xs[FUSE ? QFS + 2 + HYDRO : 1][Tile::THREADS];
+  const Layout L = kernel_layout<HYDRO>(lay);
   const Tile tl(g);
   const long long S = g.S;
   const long long ix = tl.ix();
-  T qp[NQ], qm[NQ];
+  const int n = g.n[D], sd = (int)tl.sd;
+  // whether this thread writes qm of face p + 1 (this tile's)
+  const bool up = tl.in && tl.r < Tile::OWN && tl.p + 1 < n;
+  const long long iu = tl.at(g, tl.p + 1);
+  int o5[5];
+  stencil5(tl.x.c[D], n, sd, o5);
+  T qp[QFS], qm[QFS];
+  Wave1<T> w0{T(0), T(0)};  // the pure-hydro build's passive: its two integrals
   if (tl.in) {
-    const int c0 = tl.x.c[D], sd = (int)tl.sd;
-    int o5[5];
-#pragma unroll
-    for (int j = 0; j < 5; ++j) o5[j] = (clampi(c0 + j - 2, g.n[D]) - c0) * sd;
-    trace_cell<T, NPASS, D, SRC>(q + ix, qaux + ix, flatn + ix, SRC ? src + ix : src, S, o5,
-                                 k, qp, qm);
+    trace_cell<T, D, SRC>(q + ix, qaux + ix, flatn + ix, SRC ? src + ix : src, S, o5, k, qp,
+                          qm);
+    if (HYDRO) w0 = passive_wave<T, D>(q, flatn, S, ix, o5, 0, k.dtdx);
     if (tl.owns()) {
 #pragma unroll
-      for (int c = 0; c < NQ; ++c) qp_out[c * S + ix] = qp[c];
+      for (int c = 0; c < QFS; ++c) qp_out[c * S + ix] = qp[c];
     }
-    if (tl.r < Tile::OWN && tl.p + 1 < g.n[D]) {  // face p + 1 is this tile's
-      const long long iu = tl.at(g, tl.p + 1);
+    if (up) {
 #pragma unroll
-      for (int c = 0; c < NQ; ++c) qm_out[c * S + iu] = qm[c];
+      for (int c = 0; c < QFS; ++c) qm_out[c * S + iu] = qm[c];
     }
   }
+  Upwind<T> w{T(0), T(0), T(0)};
   if constexpr (FUSE) {
     if (tl.in) {
 #pragma unroll
-      for (int c = 0; c < NQ; ++c) xs[c][tl.slot] = qm[c];
-      xs[NQ][tl.slot] = qaux[QGAMC * S + ix];
-      xs[NQ + 1][tl.slot] = qaux[QC * S + ix];
+      for (int c = 0; c < QFS; ++c) xs[c][tl.slot] = qm[c];
+      xs[QFS][tl.slot] = qaux[QGAMC * S + ix];
+      xs[QFS + 1][tl.slot] = qaux[QC * S + ix];
+      if (HYDRO) xs[QFS + 2][tl.slot] = w0.ip;
     }
     __syncthreads();
     if (tl.owns()) {
       const int b = tl.slot - Tile::STEP;  // the cell below
-      T ql[NQ];
+      T ql[QFS];
 #pragma unroll
-      for (int c = 0; c < NQ; ++c) ql[c] = xs[c][b];
+      for (int c = 0; c < QFS; ++c) ql[c] = xs[c][b];
       T mask = (tl.p == mask_lo || tl.p == mask_hi) ? T(0) : T(1);
-      T f[NVAR], e[NGDNV];
-      riemann_flux<T, NPASS>(ql, qp, xs[NQ][b], qaux[QGAMC * S + ix], xs[NQ + 1][b],
-                             qaux[QC * S + ix], Axis<D>(), solver, mask, k.small_dens,
-                             k.small_pres, f, e);
+      T f[NUH], e[NGDNV];
+      w = riemann_hydro(ql, qp, xs[QFS][b], qaux[QGAMC * S + ix], xs[QFS + 1][b],
+                        qaux[QC * S + ix], Axis<D>(), solver, mask, k.small_dens,
+                        k.small_pres, f, e);
 #pragma unroll
-      for (int c = 0; c < NVAR; ++c) flux[c * S + ix] = f[c];
+      for (int c = 0; c < NUH; ++c) flux[c * S + ix] = f[c];
 #pragma unroll
       for (int c = 0; c < NGDNV; ++c) qe[c * S + ix] = e[c];
+      for (int c = NUH; c < L.ufs; ++c) flux[c * S + ix] = T(0);
+    }
+  }
+  if (!tl.in) return;
+  // the passives, one at a time; a face's left state is the cell below's
+  // right-edge integral: the pure-hydro build's from shared memory, any
+  // other traced again here (the same operations as the cell's owner)
+  const long long ib = tl.at(g, tl.p - 1);
+  int o5b[5];
+  stencil5(clampi(tl.p - 1, n), n, sd, o5b);
+  for (int j = 0; j < L.npass; ++j) {
+    Wave1<T> wo = HYDRO ? w0 : passive_wave<T, D>(q, flatn, S, ix, o5, j, k.dtdx);
+    if (tl.owns()) qp_out[(QFS + j) * S + ix] = wo.im;
+    if (up) qm_out[(QFS + j) * S + iu] = wo.ip;
+    if (FUSE && tl.owns()) {
+      T left = HYDRO ? xs[QFS + 2][tl.slot - Tile::STEP]
+                     : passive_wave<T, D>(q, flatn, S, ib, o5b, j, k.dtdx).ip;
+      flux[(L.ufs + j) * S + ix] = upwind(w, left, wo.im);
     }
   }
 }
@@ -322,39 +357,47 @@ struct TraceArrays {
 };
 
 template <typename T, int D, bool SRC, bool FUSE>
-int launch_variant(const TraceArrays<T>& a, const Grid& g, const TraceConst<T>& k,
-                   int solver, int mask_lo, int mask_hi, cudaStream_t stream) {
+int launch_variant(const TraceArrays<T>& a, const Grid& g, const Layout& L,
+                   const TraceConst<T>& k, int solver, int mask_lo, int mask_hi,
+                   cudaStream_t stream) {
   using Tile = TraceTile<D>;
-  trace_ppm_kernel<T, 1, D, SRC, FUSE><<<Tile::blocks(g), Tile::threads(), 0, stream>>>(
-      a.q, a.qaux, a.flatn, a.src, a.qm, a.qp, a.flux, a.qe, g, k, solver, mask_lo, mask_hi);
+  auto kernel = is_hydro(L) ? trace_ppm_kernel<T, D, SRC, FUSE, true>
+                            : trace_ppm_kernel<T, D, SRC, FUSE, false>;
+  kernel<<<Tile::blocks(g), Tile::threads(), 0, stream>>>(
+      a.q, a.qaux, a.flatn, a.src, a.qm, a.qp, a.flux, a.qe, g, L, k, solver, mask_lo,
+      mask_hi);
   return (int)cudaGetLastError();
 }
 
 template <typename T, int D>
-int launch_dir(const TraceArrays<T>& a, const Grid& g, const TraceConst<T>& k, int solver,
-               int mask_lo, int mask_hi, cudaStream_t stream) {
+int launch_dir(const TraceArrays<T>& a, const Grid& g, const Layout& L,
+               const TraceConst<T>& k, int solver, int mask_lo, int mask_hi,
+               cudaStream_t stream) {
   if (a.src != nullptr)
     return a.flux != nullptr
-               ? launch_variant<T, D, true, true>(a, g, k, solver, mask_lo, mask_hi, stream)
-               : launch_variant<T, D, true, false>(a, g, k, solver, mask_lo, mask_hi, stream);
+               ? launch_variant<T, D, true, true>(a, g, L, k, solver, mask_lo, mask_hi, stream)
+               : launch_variant<T, D, true, false>(a, g, L, k, solver, mask_lo, mask_hi,
+                                                   stream);
   return a.flux != nullptr
-             ? launch_variant<T, D, false, true>(a, g, k, solver, mask_lo, mask_hi, stream)
-             : launch_variant<T, D, false, false>(a, g, k, solver, mask_lo, mask_hi, stream);
+             ? launch_variant<T, D, false, true>(a, g, L, k, solver, mask_lo, mask_hi, stream)
+             : launch_variant<T, D, false, false>(a, g, L, k, solver, mask_lo, mask_hi,
+                                                  stream);
 }
 
 template <typename T>
 int launch_trace_ppm(const void* q, const void* qaux, const void* flatn, const void* src,
-                     void* qm, void* qp, void* flux, void* qe, const int* n, int npass,
+                     void* qm, void* qp, void* flux, void* qe, const int* n, const int* lay,
                      int d, const double* consts, int solver, int mask_lo, int mask_hi,
                      cudaStream_t stream) {
   Grid g{{n[0], n[1], n[2]}, (long long)n[0] * n[1] * n[2]};
   TraceConst<T> k{T(consts[0]), T(consts[1]), T(consts[2]), T(consts[3]), T(consts[4])};
   TraceArrays<T> a{(const T*)q, (const T*)qaux, (const T*)flatn, (const T*)src,
                    (T*)qm,      (T*)qp,         (T*)flux,        (T*)qe};
-  if (npass != 1) return (int)cudaErrorInvalidValue;
-  if (d == 0) return launch_dir<T, 0>(a, g, k, solver, mask_lo, mask_hi, stream);
-  if (d == 1) return launch_dir<T, 1>(a, g, k, solver, mask_lo, mask_hi, stream);
-  if (d == 2) return launch_dir<T, 2>(a, g, k, solver, mask_lo, mask_hi, stream);
+  Layout L = layout_of(lay);
+  if (!layout_ok(L)) return (int)cudaErrorInvalidValue;
+  if (d == 0) return launch_dir<T, 0>(a, g, L, k, solver, mask_lo, mask_hi, stream);
+  if (d == 1) return launch_dir<T, 1>(a, g, L, k, solver, mask_lo, mask_hi, stream);
+  if (d == 2) return launch_dir<T, 2>(a, g, L, k, solver, mask_lo, mask_hi, stream);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -363,9 +406,9 @@ int launch_trace_ppm(const void* q, const void* qaux, const void* flatn, const v
 #define TRACE_ENTRY(NAME, T)                                                          \
   extern "C" int NAME(const void* q, const void* qaux, const void* flatn,             \
                       const void* src, void* qm, void* qp, void* flux, void* qe,      \
-                      const int* n, int npass, int d, const double* consts,           \
+                      const int* n, const int* lay, int d, const double* consts,      \
                       int solver, int mask_lo, int mask_hi, void* stream) {           \
-    return ctt::launch_trace_ppm<T>(q, qaux, flatn, src, qm, qp, flux, qe, n, npass,  \
+    return ctt::launch_trace_ppm<T>(q, qaux, flatn, src, qm, qp, flux, qe, n, lay,    \
                                     d, consts, solver, mask_lo, mask_hi,              \
                                     (cudaStream_t)stream);                            \
   }

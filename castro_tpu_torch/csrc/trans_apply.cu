@@ -17,36 +17,38 @@
 
 namespace ctt {
 
-template <typename T, int NPASS>
+template <typename T>
 __global__ void __launch_bounds__(256) trans_apply_kernel(
     const T* __restrict__ q, const T* __restrict__ df, const T* __restrict__ dre,
-    const T* __restrict__ dp, T* __restrict__ out, long long S, int reset_density,
+    const T* __restrict__ dp, T* __restrict__ out, long long S, Layout L, int reset_density,
     int reset_rhoe, T small_pres) {
-  constexpr int NQ = QFS + NPASS, NVAR = UFS + NPASS;
   long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (t >= S) return;
-  T qv[NQ], ov[NQ];
-  Bundle<T, NPASS> b;
+  T qv[QFS], ov[QFS];
+  Bundle<T> b;
 #pragma unroll
-  for (int c = 0; c < NQ; ++c) qv[c] = q[c * S + t];
+  for (int c = 0; c < QFS; ++c) qv[c] = q[c * S + t];
 #pragma unroll
-  for (int c = 0; c < NVAR; ++c) b.df[c] = df[c * S + t];
+  for (int c = 0; c < NUH; ++c) b.df[c] = df[c * S + t];
   b.dre = dre[t];
   b.dp = dp[t];
-  trans_apply<T, NPASS>(qv, b, small_pres, reset_density != 0, reset_rhoe != 0, ov);
+  Dens<T> n = trans_apply(qv, b, small_pres, reset_density != 0, reset_rhoe != 0, ov);
 #pragma unroll
-  for (int c = 0; c < NQ; ++c) out[c * S + t] = ov[c];
+  for (int c = 0; c < QFS; ++c) out[c * S + t] = ov[c];
+  for (int k = 0; k < L.npass; ++k)
+    out[(QFS + k) * S + t] = trans_passive(n, q[(QFS + k) * S + t], df[(L.ufs + k) * S + t]);
 }
 
 template <typename T>
 int launch_trans_apply(const void* q, const void* df, const void* dre, const void* dp,
-                       void* out, const int* n, int npass, int reset_density,
+                       void* out, const int* n, const int* lay, int reset_density,
                        int reset_rhoe, double small_pres, cudaStream_t stream) {
   long long S = (long long)n[0] * n[1] * n[2];
-  if (npass != 1) return (int)cudaErrorInvalidValue;
+  Layout L = layout_of(lay);
+  if (!layout_ok(L)) return (int)cudaErrorInvalidValue;
   const int threads = 256;
-  trans_apply_kernel<T, 1><<<blocks_for(S, threads), threads, 0, stream>>>(
-      (const T*)q, (const T*)df, (const T*)dre, (const T*)dp, (T*)out, S, reset_density,
+  trans_apply_kernel<T><<<blocks_for(S, threads), threads, 0, stream>>>(
+      (const T*)q, (const T*)df, (const T*)dre, (const T*)dp, (T*)out, S, L, reset_density,
       reset_rhoe, T(small_pres));
   return (int)cudaGetLastError();
 }
@@ -55,9 +57,9 @@ int launch_trans_apply(const void* q, const void* df, const void* dre, const voi
 
 #define TRANS_APPLY_ENTRY(NAME, T)                                                        \
   extern "C" int NAME(const void* q, const void* df, const void* dre, const void* dp,     \
-                      void* out, const int* n, int npass, int reset_density,              \
+                      void* out, const int* n, const int* lay, int reset_density,         \
                       int reset_rhoe, double small_pres, void* stream) {                  \
-    return ctt::launch_trans_apply<T>(q, df, dre, dp, out, n, npass, reset_density,       \
+    return ctt::launch_trans_apply<T>(q, df, dre, dp, out, n, lay, reset_density,         \
                                       reset_rhoe, small_pres, (cudaStream_t)stream);      \
   }
 TRANS_APPLY_ENTRY(ctt_trans_apply_f32, float)

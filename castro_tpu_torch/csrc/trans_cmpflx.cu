@@ -42,50 +42,58 @@ struct TransCmpflxParams {
   T small_dens, small_pres;
 };
 
-template <typename T, int NPASS>
-__device__ __forceinline__ void corrected(const T* q, const T* df, const T* dre,
-                                          const T* dp, long long S, long long t,
-                                          const TransCmpflxParams<T>& p, T* out) {
-  constexpr int NQ = QFS + NPASS, NVAR = UFS + NPASS;
-  T qv[NQ];
-  Bundle<T, NPASS> b;
+// A corrected hydro state out[QFS] of point t, and its density.
+template <typename T>
+__device__ __forceinline__ Dens<T> corrected(const T* q, const T* df, const T* dre,
+                                             const T* dp, long long S, long long t,
+                                             const TransCmpflxParams<T>& p, T* out) {
+  T qv[QFS];
+  Bundle<T> b;
 #pragma unroll
-  for (int c = 0; c < NQ; ++c) qv[c] = q[c * S + t];
+  for (int c = 0; c < QFS; ++c) qv[c] = q[c * S + t];
 #pragma unroll
-  for (int c = 0; c < NVAR; ++c) b.df[c] = df[c * S + t];
+  for (int c = 0; c < NUH; ++c) b.df[c] = df[c * S + t];
   b.dre = dre[t];
   b.dp = dp[t];
-  trans_apply<T, NPASS>(qv, b, p.small_pres, p.reset_density != 0, p.reset_rhoe != 0, out);
+  return trans_apply(qv, b, p.small_pres, p.reset_density != 0, p.reset_rhoe != 0, out);
 }
 
-template <typename T, int NPASS>
+template <typename T>
 __global__ void __launch_bounds__(256) trans_cmpflx_kernel(
-    const __grid_constant__ TransCmpflxParams<T> p, Grid g) {
-  constexpr int NQ = QFS + NPASS, NVAR = UFS + NPASS;
+    const __grid_constant__ TransCmpflxParams<T> p, Grid g, Layout L) {
   long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (t >= g.S) return;
   const long long S = g.S;
-  T qmc[NQ], qpc[NQ];
-  corrected<T, NPASS>(p.qm, p.df_m, p.dre_m, p.dp_m, S, t, p, qmc);
-  corrected<T, NPASS>(p.qp, p.df_p, p.dre_p, p.dp_p, S, t, p, qpc);
+  T qmc[QFS], qpc[QFS];
+  Dens<T> nm = corrected(p.qm, p.df_m, p.dre_m, p.dp_m, S, t, p, qmc);
+  Dens<T> np = corrected(p.qp, p.df_p, p.dre_p, p.dp_p, S, t, p, qpc);
   int pos = cell_of(g, t).c[p.d];
   T mask = (pos == p.mask_lo || pos == p.mask_hi) ? T(0) : T(1);
-  T fl[NVAR], qg[NGDNV];
-  riemann_flux<T, NPASS>(qmc, qpc, p.gl[t], p.gr[t], p.cl[t], p.cr[t], p.d, p.solver, mask,
-                         p.small_dens, p.small_pres, fl, qg, p.coord == 0 || p.d != 0);
+  T fl[NUH], qg[NGDNV];
+  Upwind<T> w = riemann_hydro(qmc, qpc, p.gl[t], p.gr[t], p.cl[t], p.cr[t], p.d, p.solver,
+                              mask, p.small_dens, p.small_pres, fl, qg,
+                              p.coord == 0 || p.d != 0);
 #pragma unroll
-  for (int c = 0; c < NVAR; ++c) p.flux[c * S + t] = fl[c];
+  for (int c = 0; c < NUH; ++c) p.flux[c * S + t] = fl[c];
 #pragma unroll
   for (int c = 0; c < NGDNV; ++c) p.qe[c * S + t] = qg[c];
+  for (int c = NUH; c < L.ufs; ++c) p.flux[c * S + t] = T(0);
+  for (int k = 0; k < L.npass; ++k) {
+    const long long iq = (QFS + k) * S + t, iu = (L.ufs + k) * S + t;
+    T qm_s = trans_passive(nm, p.qm[iq], p.df_m[iu]);
+    T qp_s = trans_passive(np, p.qp[iq], p.df_p[iu]);
+    p.flux[iu] = upwind(w, qm_s, qp_s);
+  }
 }
 
 template <typename T>
 int launch_trans_cmpflx(const void* const* in, void* flux, void* qe, const int* n,
-                        int npass, int d, int coord, int solver, int mask_lo, int mask_hi,
+                        const int* lay, int d, int coord, int solver, int mask_lo, int mask_hi,
                         int reset_density, int reset_rhoe, double small_dens,
                         double small_pres, cudaStream_t stream) {
   Grid g{{n[0], n[1], n[2]}, (long long)n[0] * n[1] * n[2]};
-  if (npass != 1 || d < 0 || d > 2 || coord < 0 || coord > 2)
+  Layout L = layout_of(lay);
+  if (!layout_ok(L) || d < 0 || d > 2 || coord < 0 || coord > 2)
     return (int)cudaErrorInvalidValue;
   TransCmpflxParams<T> p;
   p.qm = (const T*)in[0];
@@ -112,7 +120,7 @@ int launch_trans_cmpflx(const void* const* in, void* flux, void* qe, const int* 
   p.small_dens = T(small_dens);
   p.small_pres = T(small_pres);
   const int threads = 256;
-  trans_cmpflx_kernel<T, 1><<<blocks_for(g.S, threads), threads, 0, stream>>>(p, g);
+  trans_cmpflx_kernel<T><<<blocks_for(g.S, threads), threads, 0, stream>>>(p, g, L);
   return (int)cudaGetLastError();
 }
 
@@ -122,12 +130,12 @@ int launch_trans_cmpflx(const void* const* in, void* flux, void* qe, const int* 
   extern "C" int NAME(const void* qm, const void* qp, const void* df_m, const void* df_p,  \
                       const void* dre_m, const void* dre_p, const void* dp_m,              \
                       const void* dp_p, const void* gl, const void* gr, const void* cl,    \
-                      const void* cr, void* flux, void* qe, const int* n, int npass,       \
+                      const void* cr, void* flux, void* qe, const int* n, const int* lay,  \
                       int d, int coord, int solver, int mask_lo, int mask_hi,              \
                       int reset_density, int reset_rhoe, double small_dens,                \
                       double small_pres, void* stream) {                                   \
     const void* in[12] = {qm, qp, df_m, df_p, dre_m, dre_p, dp_m, dp_p, gl, gr, cl, cr};   \
-    return ctt::launch_trans_cmpflx<T>(in, flux, qe, n, npass, d, coord, solver, mask_lo,  \
+    return ctt::launch_trans_cmpflx<T>(in, flux, qe, n, lay, d, coord, solver, mask_lo,    \
                                        mask_hi, reset_density, reset_rhoe, small_dens,     \
                                        small_pres, (cudaStream_t)stream);                  \
   }

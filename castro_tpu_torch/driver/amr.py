@@ -184,6 +184,8 @@ def _unported_amr(params, sim0, mesh):
          "a device mesh or amr.distribute_fine (queue 1 item 13)"),
         (sim0.geom.coord != CoordSys.CARTESIAN,
          "AMR on a curvilinear grid (queue 1 item 5, its Cartesian slice)"),
+        (bool(params.castro.hybrid_hydro) and sim0.layout.hybrid_momentum,
+         "hybrid_hydro on AMR, its source at a window's position (queue 1 item 5)"),
     ]
     return next((item for bad, item in checks if bad), None)
 

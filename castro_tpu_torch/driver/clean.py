@@ -4,8 +4,8 @@ reset, temperature computation (counterpart of `castro_tpu/driver/clean.py`).
 Reference: `Castro::clean_state` (`Source/driver/Castro.cpp:4238`),
 `enforce_min_density`, `normalize_species` (:2902), `reset_internal_energy`
 + `computeTemp` (:3575), dual-energy parameters eta1/eta2
-(`Docs/source/FlowChart.rst:89-107`). Hybrid momenta are not ported
-(ROADMAP.md).
+(`Docs/source/FlowChart.rst:89-107`), and the hybrid momenta refreshed
+from the linear ones (`update_hybrid_momenta`).
 """
 
 from __future__ import annotations
@@ -144,7 +144,9 @@ def clean_state(u, layout, eos, small_dens=1e-200, small_temp=1e-200,
     if do_normalize_species and L.nspec > 0:
         rx = torch.minimum(torch.maximum(xn * rho[None], 1e-30 * rho[None]),
                            rho[None])
-        s = torch.sum(rx, dim=0)
+        s = rx[0]
+        for k in range(1, L.nspec):  # in species order, as clean_fill.cu sums
+            s = s + rx[k]
         rxn = rx * (rho / s)[None]
         xn2 = rxn / rho[None]
     else:
@@ -177,6 +179,29 @@ def clean_state(u, layout, eos, small_dens=1e-200, small_temp=1e-200,
         if cval is None:
             comps[i] = u[i]
     return torch.stack(comps)
+
+
+def update_hybrid_momenta(u, layout, geom, ng):
+    """Keep the hybrid momenta (radial/angular/perpendicular about the
+    domain centre, reference `Source/hydro/hybrid.H:1-162`
+    linear_to_hybrid) consistent with the linear momenta: without
+    hybrid_hydro they are derived fields, refreshed every clean."""
+    L = layout
+    if not L.hybrid_momentum:
+        return u
+    dim = L.dim
+    center = [0.5 * (geom.prob_lo[d] + geom.prob_hi[d]) for d in range(dim)]
+    shape = u.shape[1:]
+    x = torch.broadcast_to(geom.cell_centers(0, ng) - center[0], shape)
+    y = (torch.broadcast_to(geom.cell_centers(1, ng) - center[1], shape)
+         if dim > 1 else torch.zeros(shape, dtype=u.dtype, device=u.device))
+    px, py, pz = u[L.UMX], u[L.UMY], u[L.UMZ]
+    R = torch.clamp(torch.sqrt(x * x + y * y), min=1e-30)
+    u = u.clone()
+    u[L.UMR] = (x * px + y * py) / R
+    u[L.UML] = x * py - y * px
+    u[L.UMP] = pz
+    return u
 
 
 def clean_and_fill(u, layout, eos, lo_bc, hi_bc, ng, small_dens, small_temp,

@@ -25,11 +25,18 @@ The 2D RZ geometric source runs through the source path of the step
 (old-time sources traced into the states, the time-centred corrector, the
 lagged predictor of `source_term_predictor=1`), and
 `point_mass_fix_solution` resets the box around the centre after a step.
+With `do_react` and a reactive network the step is Strang-split: a half-dt
+burn (`reactions/strang.py`) and clean + fill before the hydro update and
+another after it; a failed burn fails the step and so takes the retry. An
+EOS the kernels cannot evaluate (Helmholtz) sends prim_aux and clean_fill
+to the torch ops, as the JAX package sends them to XLA
+(`castro_tpu/driver/sim.py:258-260`); the face kernels still run. So do
+hybrid momenta for clean_fill (`:384`).
 `StepCtx` carries how a step fills ghosts and reduces, and its geometry:
 the AMR driver (`driver/amr.py`) steps its windows through it, with the
 head fill and the status reductions of an explicit context. Other sources,
-reactions, radiation, MHD, SDC and I/O are not ported (ROADMAP.md); a
-configuration that needs them raises.
+radiation, MHD, SDC and I/O are not ported (ROADMAP.md); a configuration
+that needs them raises.
 """
 
 from __future__ import annotations
@@ -42,8 +49,8 @@ import numpy as np
 import torch
 
 from castro_tpu_torch.config import Params
-from castro_tpu_torch.driver.clean import clean_state
-from castro_tpu_torch.driver.timestep import estdt_cfl
+from castro_tpu_torch.driver.clean import clean_state, update_hybrid_momenta
+from castro_tpu_torch.driver.timestep import estdt_burning, estdt_cfl
 from castro_tpu_torch.eos import make_eos
 from castro_tpu_torch.geometry import geometry_from_params, resolve_device, torch_dtype
 from castro_tpu_torch.network import make_network
@@ -75,10 +82,11 @@ class StepCtx:
 class StepStatus:
     min_rho: float
     has_nan: bool
+    burn_fail: bool = False
 
     @property
     def success(self) -> bool:
-        return (not self.has_nan) and self.min_rho > 0.0
+        return (not self.has_nan) and self.min_rho > 0.0 and not self.burn_fail
 
 
 def _unported(params):
@@ -87,12 +95,9 @@ def _unported(params):
     c = params.castro
     checks = [
         (c.do_hydro != 1, "castro.do_hydro=0 (queue 1 item 10)"),
-        (bool(c.use_shock_var),
-         "use_shock_var, kernel layout generalization (queue 1 item 6)"),
-        (bool(c.hybrid_momentum),
-         "hybrid momenta, kernel layout generalization (queue 1 item 6)"),
-        (bool(c.do_react) or c.time_integration_method != 0,
-         "reactions and SDC (queue 1 items 7, 12)"),
+        (c.time_integration_method != 0,
+         f"castro.time_integration_method={c.time_integration_method}, SDC and MOL "
+         "(queue 1 item 12)"),
         (bool(c.do_radiation), "radiation (queue 1 item 9)"),
         (bool(c.do_mhd), "MHD (queue 1 item 11)"),
         (bool(c.do_scf_initial_model),
@@ -144,7 +149,6 @@ class Simulation:
         self.problem_init = problem_init
         self.problem_fill = problem_fill
         K.check_kernel_layout(self.layout, dims=(1, 2, 3))
-        K.check_kernel_eos(self.eos, self.layout)
         self.source_fns = build_sources(params, self.geom, self.layout, self.layout.ngrow)
 
         c = params.castro
@@ -152,6 +156,8 @@ class Simulation:
         self.small_temp = max(c.small_temp, 1e-200)
         self.cfg = HydroConfig(
             use_flattening=bool(c.use_flattening),
+            use_shock_var=bool(c.use_shock_var),
+            hybrid_hydro=bool(c.hybrid_hydro) and self.layout.hybrid_momentum,
             difmag=c.difmag,
             riemann_solver=c.riemann_solver,
             small_dens=max(c.small_dens, 1e-200),
@@ -176,12 +182,24 @@ class Simulation:
             hi_bc=tuple(c.hi_bc[:self.layout.dim]),
             ng=self.ng,
         )
-        # the 3D kernel route of prim_aux, and of clean_fill where neither
-        # speed_limit nor a fill hook asks for the torch ops
-        # (castro_tpu/driver/sim.py:258, :380-392)
-        self._kernel_prim = self.cfg.use_kernels and self.layout.dim == 3
+        # the 3D kernel route of prim_aux with an EOS the kernels evaluate,
+        # and of clean_fill where neither hybrid momenta, speed_limit nor a
+        # fill hook asks for the torch ops (castro_tpu/driver/sim.py:258-260,
+        # :380-392)
+        self._kernel_prim = (self.cfg.use_kernels and self.layout.dim == 3
+                             and getattr(self.eos, "pallas_safe", False))
+        if self._kernel_prim:
+            K.check_kernel_eos(self.eos, self.layout)
         self._kernel_clean_fill = (self._kernel_prim and problem_fill is None
+                                   and not self.layout.hybrid_momentum
                                    and c.speed_limit <= 0.0)
+        # Strang reaction coupling (reactions/strang.py)
+        self.reactor = None
+        if c.do_react and self.network.reactive:
+            from castro_tpu_torch.reactions.strang import StrangReactor
+
+            self.reactor = StrangReactor(params, self.network, self.eos, self.layout)
+        self._burn_fail = None
         self.t = 0.0
         self.step_count = 0
         self.dt = None
@@ -217,6 +235,10 @@ class Simulation:
         rho_i = torch.clamp(u[L.URHO], min=1e-300)
         ke = 0.5 * (u[L.UMX] ** 2 + u[L.UMY] ** 2 + u[L.UMZ] ** 2) / rho_i
         u[L.UEDEN] = u[L.UEINT] + ke
+        if self.cfg.hybrid_hydro:
+            # seed the (authoritative) hybrid momenta from the linear ones
+            # (reference initData -> linear_to_hybrid_momentum, Castro.cpp:1154)
+            u = update_hybrid_momenta(u, L, self.geom, self.ng)
         self.u = self._clean_fill_impl(u)
         return self.u
 
@@ -242,6 +264,15 @@ class Simulation:
                         small_temp=self.small_temp, dual_energy_eta2=c.dual_energy_eta2,
                         do_normalize_species=bool(c.normalize_species),
                         speed_limit=c.speed_limit)
+        if self.layout.hybrid_momentum:
+            if self.cfg.hybrid_hydro:
+                # the hybrid momenta are authoritative: rebuild the linear
+                # ones from them (Castro_hybrid.cpp hybrid_to_linear_momentum)
+                from castro_tpu_torch.ops.hybrid import sync_linear_from_hybrid
+
+                u = sync_linear_from_hybrid(u, ctx.geom, self.layout, self.ng)
+            else:
+                u = update_hybrid_momenta(u, self.layout, ctx.geom, self.ng)
         u = ctx.fill(u, t)
         return (u,) + status if with_status else u
 
@@ -252,7 +283,10 @@ class Simulation:
     # -- dt ------------------------------------------------------------------
     def _estdt_impl(self, u):
         c = self.params.castro
-        return estdt_cfl(u, self.layout, self.eos, self.geom, self.ng, c.cfl)
+        dt = estdt_cfl(u, self.layout, self.eos, self.geom, self.ng, c.cfl)
+        dt_b = estdt_burning(u, self.layout, self.eos, self.network, self.ng, c.dtnuc_e,
+                             c.dtnuc_X, c.dtnuc_X_threshold)
+        return dt if isinstance(dt_b, float) else torch.minimum(dt, dt_b)
 
     def estimate_dt(self) -> float:
         c = self.params.castro
@@ -291,6 +325,12 @@ class Simulation:
         check_cfl = bool(c.check_cfl_violation)
         if not skip_head_fill:
             u = ctx.fill(u, t)
+        burn_fail = None
+        if self.reactor is not None:
+            # the first half-dt burn (Strang), then clean + fill
+            u, _, _, burn_fail = self.reactor.react(u, 0.5 * dtw,
+                                                    u[L.USHK] if L.shock_var else None)
+            u = self._clean_fill_impl(u, t=t, ctx=ctx)
         courant = None
         div_node = None
         if self._kernel_prim:
@@ -354,6 +394,15 @@ class Simulation:
                     pred_out[comp] = 2.0 * newtime[comp] / dtw
             u_new = self._clean_fill_impl(u_new, t=t + dt, ctx=ctx)
 
+        self._burn_fail = None
+        if self.reactor is not None:
+            # the second half-dt burn; a failed burn fails the step
+            u_new, _, _, bf2 = self.reactor.react(u_new, 0.5 * dtw,
+                                                  u_new[L.USHK] if L.shock_var else None)
+            u_new = self._clean_fill_impl(u_new, t=t + dt, ctx=ctx)
+            self._burn_fail = ctx.pany(burn_fail | bf2)
+            nan_flag = nan_flag | self._burn_fail
+
         out = (u_new, min_rho, nan_flag)
         if self.keep_fluxes:
             ng, dim = self.ng, L.dim
@@ -398,9 +447,12 @@ class Simulation:
         stp = self.params.castro.source_term_predictor == 1
         out = self._step_impl(self.u, dt, t, src_pred=self._src_pred if stp else None)
         u_new, min_rho, nan_flag = out[:3]
-        # one host sync for both checks
-        mr, nf = torch.stack([min_rho.to(torch.float64), nan_flag.to(torch.float64)]).tolist()
-        status = StepStatus(min_rho=mr, has_nan=bool(nf))
+        # one host sync for the checks (the burn's flag is folded into
+        # nan_flag, as the JAX step folds it, and reported on its own)
+        checks = [min_rho, nan_flag] + ([self._burn_fail] if self._burn_fail is not None else [])
+        vals = torch.stack([x.to(torch.float64) for x in checks]).tolist()
+        bf = bool(vals[2]) if len(vals) > 2 else False
+        status = StepStatus(min_rho=vals[0], has_nan=bool(vals[1]) and not bf, burn_fail=bf)
         if status.success:
             if stp:
                 self._src_pred = out[-1]

@@ -1,13 +1,16 @@
-"""The CFL timestep estimator (counterpart of
-`castro_tpu/driver/timestep.py:estdt_cfl`; reference
-`Source/driver/timestep.cpp:31`). The burning and diffusion limiters wait
-with their physics (ROADMAP.md)."""
+"""Timestep estimators (counterpart of `castro_tpu/driver/timestep.py`;
+reference `Source/driver/timestep.cpp`): CFL (:31) and burning (:354).
+Reductions run over the valid interior only. The diffusion limiter waits
+with its physics (ROADMAP.md, queue 1 item 10)."""
 
 from __future__ import annotations
+
+import math
 
 import torch
 
 from castro_tpu_torch.ops.stencil import interior_slice
+from castro_tpu_torch.utils.tmath import vmax
 
 
 def estdt_cfl(u, layout, eos, geom, ng, cfl):
@@ -25,3 +28,27 @@ def estdt_cfl(u, layout, eos, geom, ng, cfl):
         m = torch.min(geom.dx[d] / (vel + cs))
         dt = m if dt is None else torch.minimum(dt, m)
     return cfl * dt
+
+
+def estdt_burning(u, layout, eos, network, ng, dtnuc_e, dtnuc_X, dtnuc_X_threshold):
+    """Nuclear-burning dt limiters Delta-e/edot and Delta-X/Xdot (reference
+    `estdt_burning`, timestep.cpp:354); a Python inf when they are off."""
+    L = layout
+    if network is None or not network.reactive or (dtnuc_e > 1e199 and dtnuc_X > 1e199):
+        return math.inf
+    ui = u[interior_slice(ng, L.dim, comp_ndim=1)]
+    rho = ui[L.URHO]
+    rhoinv = 1.0 / rho
+    T = ui[L.UTEMP]
+    xn = ui[L.UFS: L.UFS + L.nspec] * rhoinv[None]
+    e = ui[L.UEINT] * rhoinv
+    xdot, edot = network.rhs(rho, T, xn, e)
+    dt = torch.full((), math.inf, dtype=u.dtype, device=u.device)
+    if dtnuc_e < 1e199:
+        dt = torch.minimum(dt, dtnuc_e * torch.min(e / vmax(torch.abs(edot), 1e-50)))
+    if dtnuc_X < 1e199:
+        big = xn > dtnuc_X_threshold
+        rate = torch.where(big, torch.abs(xdot), torch.zeros_like(xdot))
+        dt = torch.minimum(dt, dtnuc_X * torch.min(
+            torch.where(big, xn, torch.full_like(xn, math.inf)) / vmax(rate, 1e-50)))
+    return dt

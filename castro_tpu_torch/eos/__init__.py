@@ -1,6 +1,7 @@
 """Equation-of-state factory (counterpart of `castro_tpu/eos/__init__.py`).
 
-Only the gamma-law EOS is ported; the others are ROADMAP.md queue 1 item 7."""
+Ported: the gamma law and Helmholtz; the others are ROADMAP.md queue 1
+item 7."""
 
 from __future__ import annotations
 
@@ -15,5 +16,10 @@ def make_eos(params, network=None) -> Eos:
     if name == "gamma_law":
         return GammaLawEos(gamma=params.eos.eos_gamma, network=network,
                            assume_neutral=bool(params.eos.eos_assume_neutral))
+    if name == "helmholtz":
+        from castro_tpu_torch.eos.helmholtz import HelmholtzEos
+
+        return HelmholtzEos(network=network,
+                            use_coulomb=bool(params.extra.get("eos.use_coulomb", 1)))
     raise NotImplementedError(
         f"EOS {name!r} is not ported (ROADMAP.md, queue 1 item 7)")

@@ -1,57 +1,41 @@
-"""Reaction networks: the inert `general_null` composition carrier.
+"""Reaction networks (counterpart of `castro_tpu/network/__init__.py`;
+reference Microphysics networks, chosen per problem with `NETWORK_DIR`).
 
-Counterpart of `castro_tpu/network/general_null.py` and `make_network`.
-Reactive networks are not ported yet (ROADMAP.md, queue 1 item 7)."""
+A Network owns species metadata (names, A, Z, binding energies) and, for
+reactive networks, a vectorized RHS f(rho, T, X) -> (dX/dt, de/dt) over
+whole arrays at once. Ported: general_null, powerlaw, iso7, aprox13 and
+aprox19; the others raise (ROADMAP.md, queue 1 item 7)."""
 
 from __future__ import annotations
 
-from typing import Tuple
+from castro_tpu_torch.network.base import Network
+from castro_tpu_torch.network.general_null import GeneralNullNetwork
+from castro_tpu_torch.network.powerlaw import PowerLawNetwork
 
-import numpy as np
-
-# species properties for the common general_null .net files
-_KNOWN = {
-    "X": (1.0, 1.0),
-    "H1": (1.0, 1.0),
-    "He4": (4.0, 2.0),
-    "C12": (12.0, 6.0),
-    "N14": (14.0, 7.0),
-    "O16": (16.0, 8.0),
-    "Ne20": (20.0, 10.0),
-    "Mg24": (24.0, 12.0),
-    "Si28": (28.0, 14.0),
-    "Fe56": (56.0, 26.0),
-    "ash": (1.0, 1.0),
-    "fuel": (1.0, 1.0),
-    "inert": (1.0, 1.0),
-}
+__all__ = ["Network", "GeneralNullNetwork", "PowerLawNetwork", "make_network"]
 
 
-class GeneralNullNetwork:
-    """Species metadata of an inert network (reference Microphysics
-    networks/general_null): names, mass numbers `aion`, charges `zion`."""
-
-    reactive = False
-
-    def __init__(self, spec_names=("X",), aux_names=()):
-        self.spec_names: Tuple[str, ...] = tuple(spec_names)
-        self.aux_names: Tuple[str, ...] = tuple(aux_names)
-        self.aion = np.array([_KNOWN.get(s, (1.0, 1.0))[0] for s in spec_names])
-        self.zion = np.array([_KNOWN.get(s, (1.0, 1.0))[1] for s in spec_names])
-
-    @property
-    def nspec(self) -> int:
-        return len(self.spec_names)
-
-    @property
-    def naux(self) -> int:
-        return len(self.aux_names)
-
-
-def make_network(params) -> GeneralNullNetwork:
+def make_network(params) -> Network:
     name = params.network.network_name
     if name in ("general_null", "null"):
         return GeneralNullNetwork(spec_names=params.network.spec_names or ("X",),
                                   aux_names=params.network.aux_names)
+    if name == "powerlaw":
+        n = params.network
+        return PowerLawNetwork(rtilde=n.rtilde, nu=n.nu, specific_q_burn=n.specific_q_burn,
+                               T_burn_ref=n.T_burn_ref, rho_burn_ref=n.rho_burn_ref,
+                               f_act=n.f_act)
+    if name == "aprox13":
+        from castro_tpu_torch.network.aprox13 import Aprox13Network
+
+        return Aprox13Network()
+    if name == "iso7":
+        from castro_tpu_torch.network.iso7 import Iso7Network
+
+        return Iso7Network()
+    if name == "aprox19":
+        from castro_tpu_torch.network.aprox19 import Aprox19Network
+
+        return Aprox19Network()
     raise NotImplementedError(
         f"network {name!r} is not ported (ROADMAP.md, queue 1 item 7)")

@@ -128,7 +128,10 @@ def normalize_species_fluxes(flux, layout):
     L = layout
     if L.nspec == 0:
         return flux
-    sumn = torch.sum(flux[L.UFS: L.UFS + L.nspec], dim=0)
+    # summed in species order, as the kernels sum them
+    sumn = flux[L.UFS]
+    for k in range(1, L.nspec):
+        sumn = sumn + flux[L.UFS + k]
     one = torch.ones_like(sumn)
     fac = torch.where(sumn != 0.0,
                       flux[L.URHO] / torch.where(sumn == 0.0, one, sumn), one)

@@ -35,7 +35,10 @@ Without it, the plain structure (the JAX package's XLA path, `ctu.py:326-358`,
 driver takes it on the card with `transverse_use_eos`, as the JAX package
 turns its kernel route off for that option.
 
-Shock variables and hybrid momenta are not ported (ROADMAP.md).
+With `use_shock_var` the shock flag is written into USHK (set, not
+fluxed), and with `hybrid_hydro` the hybrid momenta take their own fluxes,
+the radial pressure gradient and the linear-momentum sync
+(`castro_tpu/ops/ctu.py:363-420`, `:472-477`).
 """
 
 from __future__ import annotations
@@ -68,8 +71,11 @@ class HydroConfig(NamedTuple):
     transverse_reset_density: bool = True
     transverse_reset_rhoe: bool = False
     ppm_type: int = 1
+    use_shock_var: bool = False
     shock_threshold: float = 2.0 / 3.0
     hybrid_riemann: bool = False
+    #: evolve the hybrid momenta with their own fluxes (castro.hybrid_hydro)
+    hybrid_hydro: bool = False
     use_pslope: bool = False
     plm_iorder: int = 2
     pslope_cutoff_density: float = -1.0e20
@@ -99,13 +105,6 @@ def _bnd_masks(grid_shape, dim, ng, lo_bc, hi_bc):
     return masks
 
 
-def _check_supported(layout):
-    if layout.shock_var or layout.hybrid_momentum:
-        raise NotImplementedError(
-            "shock variables and hybrid momenta change the state layout the kernels are "
-            "built for (ROADMAP.md, queue 1 item 6)")
-
-
 def _dloga(geom, ng):
     """d(ln A)/dr of the radial direction of a curvilinear grid (the dloga
     metric of the trace's geometry source), or None when Cartesian."""
@@ -126,7 +125,6 @@ def ctu_hydro(u, q, qaux, srcQ, dt, geom, layout, cfg: HydroConfig,
     transverse_use_eos) re-evaluates the transversely corrected states."""
     L = layout
     dim = L.dim
-    _check_supported(L)
     dx = geom.dx
     coord = geom.coord
     grid_shape = tuple(q.shape[1:])
@@ -139,7 +137,8 @@ def ctu_hydro(u, q, qaux, srcQ, dt, geom, layout, cfg: HydroConfig,
         flatn = K.flatten(q, L) if kern and dim == 3 else uflatten(q, L)
     else:
         flatn = torch.ones(grid_shape, dtype=q.dtype, device=q.device)
-    shk = au.shock(q, dx, L, cfg.shock_threshold) if cfg.hybrid_riemann else None
+    need_shk = cfg.use_shock_var or cfg.hybrid_riemann
+    shk = au.shock(q, dx, L, cfg.shock_threshold) if need_shk else None
     if div_node is None:
         div_node = au.divu_node(q, dx, L)
     dloga = _dloga(geom, cfg.ng)
@@ -161,7 +160,7 @@ def ctu_hydro(u, q, qaux, srcQ, dt, geom, layout, cfg: HydroConfig,
         hsrc, fluxes, qes = _ctu_kernels(u, q, qaux, srcQ, dt, dx, flatn, div_node, masks, L,
                                          cfg, fold_update_dt, trace, consup=not limiters)
         if not limiters:
-            return hsrc, fluxes, qes, None
+            return _finish(hsrc, u, shk, dt, fold_update_dt, fluxes, qes, geom, L, cfg)
         return _update(u, q, fluxes, qes, None, dt, div_node, geom, L, cfg, fold_update_dt)
 
     def solve(qm, qp, d):
@@ -239,10 +238,56 @@ def ctu_hydro(u, q, qaux, srcQ, dt, geom, layout, cfg: HydroConfig,
             hsrc, fluxes[d] = K.consup(hsrc, fluxes[d], qes[d][L.GDPRES],
                                        qes[d][(L.GDU, L.GDV, L.GDW)[d]], div_node, u, d, L,
                                        cfg.difmag, dx, finalize_dt=fin)
-        if fold_update_dt is None:
-            hsrc[L.UTEMP] = 0.0
-        return hsrc, fluxes, qes, shk
+        return _finish(hsrc, u, shk, dt, fold_update_dt, fluxes, qes, geom, L, cfg)
     return _update(u, q, fluxes, qes, shk, dt, div_node, geom, L, cfg, fold_update_dt)
+
+
+def _finish(hsrc, u, shk, dt, fold_update_dt, fluxes, qes, geom, L, cfg):
+    """The tail of the kernel structure's consup (`castro_tpu/ops/ctu.py:
+    405-422`): temperature and the shock flag are set, not fluxed (USHK to
+    the flag itself when the update is folded), then the hybrid momenta."""
+    if fold_update_dt is None:
+        hsrc[L.UTEMP] = 0.0
+        if cfg.use_shock_var:
+            hsrc[L.USHK] = (shk - u[L.USHK]) / max(float(dt), 1e-300)
+    elif cfg.use_shock_var:
+        hsrc[L.USHK] = shk
+    if _use_hybrid(cfg, L, geom):
+        hsrc = _apply_hybrid(hsrc, 1.0 if fold_update_dt is None else
+                             K.wt(fold_update_dt, u.dtype), fluxes, qes, geom, L, cfg)
+    return hsrc, fluxes, qes, shk
+
+
+def _use_hybrid(cfg, L, geom):
+    return cfg.hybrid_hydro and L.hybrid_momentum and geom.coord == CoordSys.CARTESIAN
+
+
+def _apply_hybrid(target, factor, fluxes, qes, geom, L, cfg):
+    """Add the hybrid-momentum flux divergence (hybrid_hydro=1,
+    Castro_hybrid.cpp / hybrid.H compute_hybrid_flux) times `factor` into
+    `target` (hsrc, or the folded u + dt*hsrc), record the hybrid rows in
+    `fluxes` for refluxing, and subtract the radial pressure gradient from
+    the face Godunov pressures (Castro_ctu_hydro.cpp:1280-1300)."""
+    from castro_tpu_torch.ops.hybrid import R_MIN, _loc, hybrid_flux
+
+    dim, dx = L.dim, geom.dx
+    target = target.clone()
+    for d in range(dim):
+        fr, fl, fp = hybrid_flux(qes[d], d, geom, L, cfg.ng)
+        fluxes[d] = fluxes[d].clone()
+        for comp, F in ((L.UMR, fr), (L.UML, fl), (L.UMP, fp)):
+            div = (F - shifted(F, 1, d)) / dx[d]
+            target[comp] = target[comp] + factor * div
+            fluxes[d][comp] = F
+    grid_shape = tuple(target.shape[1:])
+    loc = _loc(geom, L, cfg.ng, grid_shape, target.dtype)
+    R = torch.clamp(torch.sqrt(loc[0] ** 2 + loc[1] ** 2), min=R_MIN)
+    gradp = 0.0
+    for d in range(min(dim, 2)):
+        gdp = qes[d][L.GDPRES]
+        gradp = gradp + (loc[d] / R) * (shifted(gdp, 1, d) - gdp) / dx[d]
+    target[L.UMR] = target[L.UMR] - factor * gradp
+    return target
 
 
 def _update(u, q, fluxes, qes, shk, dt, div_node, geom, L, cfg, fold_update_dt):
@@ -286,6 +331,11 @@ def _update(u, q, fluxes, qes, shk, dt, div_node, geom, L, cfg, fold_update_dt):
     if not mom_flux_has_p(0, geom.coord):
         gdp0 = qes[0][L.GDPRES]
         hsrc[L.UMX] = hsrc[L.UMX] + (-(shifted(gdp0, 1, 0) - gdp0) / dx[0])
+    if cfg.use_shock_var:
+        # USHK is set, not fluxed (consup_hydro n==USHK branch)
+        hsrc[L.USHK] = (shk - u[L.USHK]) / max(float(dt), 1e-300)
+    if _use_hybrid(cfg, L, geom):
+        hsrc = _apply_hybrid(hsrc, 1.0, fluxes, qes, geom, L, cfg)
     if fold_update_dt is not None:
         hsrc = u + K.wt(fold_update_dt, u.dtype) * hsrc
     return hsrc, fluxes, qes, shk

@@ -67,9 +67,6 @@ SOURCES = ("prim_aux.cu", "flatten.cu", "trace_ppm.cu", "ctu_face.cu", "clean_fi
 # (measured on an H100, f32 at 128^3), outside the float32 budget of 2e-5.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "--fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-# passive components (species + aux) the kernels are instantiated for
-KERNEL_NPASS = (1,)
-MAXSPEC = 8
 
 
 # -- build and load ------------------------------------------------------------
@@ -147,22 +144,22 @@ def build() -> Path:
 
 _VP, _INT, _DBL, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_double, ctypes.c_longlong
 _SIGNATURES = {
-    "prim_aux": [_VP, _VP, _VP, _VP, _VP, _VP, _INT, _VP, _INT, _INT, _VP, _VP,
-                 _DBL, _DBL, _VP, _VP, _VP],
+    "prim_aux": [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _INT, _VP, _DBL, _DBL, _VP, _VP,
+                 _VP],
     "flatten": [_VP, _VP, _VP, _INT, _INT, _VP, _VP],
-    "trace_ppm": [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _INT, _INT, _VP,
+    "trace_ppm": [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _INT, _VP,
                   _INT, _INT, _INT, _VP],
-    "ctu_face": [_VP, _VP, _VP, _VP, _INT, _INT, _INT, _INT, _VP, _VP, _VP, _VP, _VP,
+    "ctu_face": [_VP, _VP, _VP, _VP, _VP, _INT, _INT, _INT, _VP, _VP, _VP, _VP, _VP,
                  _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _INT, _INT, _INT, _INT,
                  _INT, _INT, _DBL, _DBL, _VP],
-    "clean_fill": [_VP, _VP, _VP, _VP, _VP, _INT, _VP, _VP, _INT, _VP, _INT, _INT,
-                   _VP, _VP, _VP, _INT, _VP],
-    "cmpflx": [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _INT, _INT, _INT, _INT, _INT,
+    "clean_fill": [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _INT, _VP, _INT, _VP, _VP,
+                   _INT, _VP],
+    "cmpflx": [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _INT, _INT, _INT, _INT,
                _INT, _DBL, _DBL, _VP],
-    "trans_apply": [_VP, _VP, _VP, _VP, _VP, _VP, _INT, _INT, _INT, _DBL, _VP],
-    "trans_cmpflx": [_VP] * 14 + [_VP, _INT, _INT, _INT, _INT, _INT, _INT, _INT, _INT,
+    "trans_apply": [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _INT, _INT, _DBL, _VP],
+    "trans_cmpflx": [_VP] * 14 + [_VP, _VP, _INT, _INT, _INT, _INT, _INT, _INT, _INT,
                                   _DBL, _DBL, _VP],
-    "consup": [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _INT, _INT, _VP, _INT, _VP],
+    "consup": [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _INT, _VP, _INT, _VP],
     # the profiling probes (ops/probes.py)
     "probe_cmpflx": [_VP] * 8 + [_VP, _INT, _INT, _INT, _INT, _INT, _DBL, _DBL, _VP],
     "probe_copy": [_VP, _VP, _VP, _VP, _VP, _INT, _INT, _INT, _INT, _VP],
@@ -235,36 +232,55 @@ def _check(t, name, dtype, shape):
 
 def check_kernel_layout(layout, dims=(3,)):
     """Raise NotImplementedError unless a kernel that takes grids of the
-    dimensions `dims` covers this layout."""
+    dimensions `dims` covers this layout: any number of species and aux
+    components, the shock flag and hybrid momenta, but not MHD or radiation
+    (whose states the kernels do not carry)."""
     L = layout
     if L.dim not in dims:
         raise NotImplementedError(
             f"this CUDA kernel takes {'/'.join(f'{k}D' for k in dims)} grids, not {L.dim}D "
             "(ROADMAP.md, queue 2, kernel coverage)")
-    if L.shock_var or L.hybrid_momentum or L.mhd or L.radiation:
+    if L.mhd or L.radiation:
         raise NotImplementedError(
-            "the CUDA kernels cover pure hydro without shock_var or hybrid momenta: kernel "
-            "layout generalization, radiation, MHD (queue 1 items 6, 9, 11, ROADMAP.md)")
-    if L.naux != 0 or L.nspec not in KERNEL_NPASS:
-        raise NotImplementedError(
-            f"the CUDA kernels are built for {KERNEL_NPASS} species and no aux "
-            "components: kernel layout generalization (queue 1 item 6, ROADMAP.md)")
+            "the CUDA kernels carry no magnetic or radiation components: radiation, MHD "
+            "(queue 1 items 9, 11, ROADMAP.md)")
+    if L.nspec < 1:
+        raise NotImplementedError("the CUDA kernels need at least one species")
 
 
 def check_kernel_eos(eos, layout):
-    """Raise unless the kernels can evaluate this EOS in-kernel."""
+    """Raise unless the kernels can evaluate this EOS in-kernel (prim_aux
+    and clean_fill; `driver/sim.py` sends any other EOS to the torch ops,
+    as the JAX package sends it to XLA)."""
     if not getattr(eos, "pallas_safe", False) or not hasattr(eos, "species_coefficients"):
         raise NotImplementedError(
-            "the CUDA kernels evaluate the gamma-law EOS only (ROADMAP.md, queue 1 item 7)")
-    if len(eos.species_coefficients()[1]) != layout.nspec or layout.nspec > MAXSPEC:
+            "prim_aux and clean_fill evaluate the gamma-law EOS in-kernel; another EOS takes "
+            "the torch ops (driver/sim.py)")
+    if len(eos.species_coefficients()[1]) != layout.nspec:
         raise ValueError("EOS species do not match the layout")
 
 
-def _eos_args(eos, layout):
+def _layout_args(layout):
+    """The layout the kernels take at run time: the first passive conserved
+    component, species, passives (species + aux), the shock flag's
+    component (-1 without it)."""
+    L = layout
+    return _ints(L.UFS, L.nspec, L.nspec + L.naux, L.USHK)
+
+
+def _eos_args(eos, layout, like):
+    """The gamma-law EOS as prim_aux and clean_fill take it; its per-species
+    numbers (num/A [nspec], 1/A [nspec], csrc/common.cuh:EosGL) are kept on
+    the EOS, one device tensor for each device and dtype."""
     check_kernel_eos(eos, layout)
-    num, aion = eos.species_coefficients()
-    return ((_DBL * 2)(eos.gamma, eos._KB_OVER_MU), len(aion), int(eos.assume_neutral),
-            (_DBL * len(num))(*num), (_DBL * len(aion))(*aion))
+    cache = eos.__dict__.setdefault("_kernel_coef", {})
+    coef = cache.get((like.device, like.dtype))
+    if coef is None:
+        num, aion = eos.species_coefficients()
+        vals = [n / a for n, a in zip(num, aion)] + [1.0 / a for a in aion]
+        coef = torch.tensor(vals, dtype=torch.float64).to(like.dtype).to(like.device)
+        cache[(like.device, like.dtype)] = coef
+    return (_DBL * 2)(eos.gamma, eos._KB_OVER_MU), int(eos.assume_neutral), coef
 
 
 def _ints(*xs):
@@ -324,7 +340,7 @@ def prim_aux(u, layout, eos, small_dens, small_temp, dx, with_divu=True,
     check_kernel_layout(L)
     g = tuple(u.shape[1:])
     _check(u, "u", u.dtype, (L.NVAR,) + g)
-    eos_d, nspec, neutral, num, aion = _eos_args(eos, L)
+    eos_d, neutral, coef = _eos_args(eos, L, u)
     q = torch.empty((L.NQ,) + g, dtype=u.dtype, device=u.device)
     qaux = torch.empty((L.NQAUX,) + g, dtype=u.dtype, device=u.device)
     div = torch.empty(g, dtype=u.dtype, device=u.device) if with_divu else None
@@ -332,7 +348,7 @@ def prim_aux(u, layout, eos, small_dens, small_temp, dx, with_divu=True,
     dtw = wt(0.0 if courant_dt is None else courant_dt, u.dtype)
     dtdx = [dtw / wt(d_, u.dtype) for d_ in dx]
     _call("prim_aux", u, u.data_ptr(), q.data_ptr(), qaux.data_ptr(), _ptr(div),
-          _ptr(cou), _ints(*g), L.nspec + L.naux, eos_d, nspec, neutral, num, aion,
+          _ptr(cou), _ints(*g), _layout_args(L), eos_d, neutral, coef.data_ptr(),
           float(wt(small_dens, u.dtype)), float(wt(1e-200, u.dtype)), _dbls(*dx),
           _dbls(*dtdx), _stream(u))
     prim_aux.launches += 1
@@ -421,7 +437,7 @@ def trace_ppm(q, qaux, srcQ, flatn, d, dt, dx_d, layout, small_dens, small_pres,
     mlo, mhi = _wall_index(mask)
     _call("trace_ppm", q, q.data_ptr(), qaux.data_ptr(), flatn.data_ptr(),
           _ptr(srcQ), qm.data_ptr(), qp.data_ptr(), _ptr(flux), _ptr(qe), _ints(*g),
-          L.nspec + L.naux, d, consts, solver, mlo, mhi, _stream(q))
+          _layout_args(L), d, consts, solver, mlo, mhi, _stream(q))
     trace_ppm.launches += 1
     if fuse_riemann is None:
         return qm, qp
@@ -553,7 +569,7 @@ def ctu_face(qm, qp, qaux, d, terms, layout, coord, riemann_solver, small_dens,
     vp3 = ctypes.c_void_p * 3
     mlo, mhi = _wall_index(bnd_mask)
     _call("ctu_face", qm, qm.data_ptr(), qp.data_ptr(), qaux.data_ptr(), _ints(*g),
-          L.nspec + L.naux, d, nt1, nt2, vp3(*F), vp3(*pg), vp3(*ug), _dbls(*cdt),
+          _layout_args(L), d, nt1, nt2, vp3(*F), vp3(*pg), vp3(*ug), _dbls(*cdt),
           _ints(*tdir), flux1.data_ptr(), qe1.data_ptr(), _ptr(flux2), _ptr(qe2),
           _ptr(hsrc), _ptr(div), _ptr(u), _ptr(hout), _dbls(*cons), with_fin, solver,
           mlo, mhi, int(bool(reset_density)), int(bool(reset_rhoe)),
@@ -589,7 +605,7 @@ def clean_fill(u, layout, eos, lo_bc, hi_bc, ng, small_dens, small_temp,
     for code in tuple(lo_bc) + tuple(hi_bc):
         if code not in (0, 1, 2) + WALLS:
             raise ValueError(f"unsupported BC code {code}")
-    eos_d, nspec, neutral, num, aion = _eos_args(eos, L)
+    eos_d, neutral, coef = _eos_args(eos, L, u)
     out = torch.empty_like(u)
     mrho = total = None
     if with_status:
@@ -599,8 +615,8 @@ def clean_fill(u, layout, eos, lo_bc, hi_bc, ng, small_dens, small_temp,
     consts = _dbls(wt(small_dens, dt_), wt(small_temp, dt_), wt(dual_energy_eta2, dt_),
                    wt(1e-300, dt_), wt(1e-30, dt_), wt(1.0 / L.nspec, dt_))
     _call("clean_fill", u, u.data_ptr(), out.data_ptr(), _ptr(mrho), _ptr(total),
-          _ints(*g), L.nspec + L.naux, _ints(*lo_bc), _ints(*hi_bc), ng, eos_d, nspec,
-          neutral, num, aion, consts, int(bool(do_normalize_species)), _stream(u))
+          _ints(*g), _layout_args(L), _ints(*lo_bc), _ints(*hi_bc), ng, eos_d, neutral,
+          coef.data_ptr(), consts, int(bool(do_normalize_species)), _stream(u))
     clean_fill.launches += 1
     if with_status:
         return out, mrho, ~torch.isfinite(total)
@@ -647,7 +663,7 @@ def cmpflx(qm, qp, gamc_l, gamc_r, c_l, c_r, d, layout, coord, riemann_solver,
     mlo, mhi = _wall_index(bnd_mask)
     _call("cmpflx", qm, qm.data_ptr(), qp.data_ptr(), gamc_l.data_ptr(), gamc_r.data_ptr(),
           c_l.data_ptr(), c_r.data_ptr(), flux.data_ptr(), qe.data_ptr(), _grid3(g),
-          L.nspec + L.naux, d, coord, solver, mlo, mhi, float(wt(small_dens, dt_)),
+          _layout_args(L), d, coord, solver, mlo, mhi, float(wt(small_dens, dt_)),
           float(wt(small_pres, dt_)), _stream(qm))
     cmpflx.launches += 1
     return flux, qe
@@ -680,7 +696,7 @@ def trans_apply(q_face, dflux, dreint_extra, dp, layout, small_pres, reset_densi
     _check(dp, "dp", dt_, g)
     out = torch.empty_like(q_face)
     _call("trans_apply", q_face, q_face.data_ptr(), dflux.data_ptr(), dreint_extra.data_ptr(),
-          dp.data_ptr(), out.data_ptr(), _grid3(g), L.nspec + L.naux,
+          dp.data_ptr(), out.data_ptr(), _grid3(g), _layout_args(L),
           int(bool(reset_density)), int(bool(reset_rhoe)), float(wt(small_pres, dt_)),
           _stream(q_face))
     trans_apply.launches += 1
@@ -729,7 +745,7 @@ def trans_cmpflx(qm, qp, df_m, df_p, dre_m, dre_p, dp_m, dp_p, gamc_l, gamc_r, c
     qe = torch.empty((L.NGDNV,) + g, dtype=dt_, device=qm.device)
     mlo, mhi = _wall_index(bnd_mask)
     _call("trans_cmpflx", qm, *(t.data_ptr() for t in tensors), flux.data_ptr(),
-          qe.data_ptr(), _grid3(g), L.nspec + L.naux, d, coord, solver, mlo, mhi,
+          qe.data_ptr(), _grid3(g), _layout_args(L), d, coord, solver, mlo, mhi,
           int(bool(reset_density)), int(bool(reset_rhoe)), float(wt(small_dens, dt_)),
           float(wt(small_pres, dt_)), _stream(qm))
     trans_cmpflx.launches += 1
@@ -783,7 +799,7 @@ def consup(hsrc, flux, pg, ug, div_node, u, d, layout, difmag, dx, finalize_dt=N
                  wt(0.0 if finalize_dt is None else finalize_dt, dt_))
     _call("consup", flux, hsrc.data_ptr(), flux.data_ptr(), pg.data_ptr(), ug.data_ptr(),
           div_node.data_ptr(), u.data_ptr(), hout.data_ptr(), fout.data_ptr(), _ints(*g),
-          L.nspec + L.naux, d, cons, int(finalize_dt is not None), _stream(flux))
+          _layout_args(L), d, cons, int(finalize_dt is not None), _stream(flux))
     consup.launches += 1
     return hout, fout
 

@@ -30,12 +30,22 @@ from castro_tpu_torch.scripts.common import card_label, mean_ms, parse_args
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, published
 
 
-def setup(n=128, device=None):
+# inert species of a layout with more than one (general_null's table)
+SPECIES = ("He4", "C12", "O16", "Ne20", "Mg24", "Si28", "Fe56")
+
+
+def setup(n=128, device=None, nspec=1):
     """Every face-kernel input of one fused step: dict(q, qaux, div, flatn,
     masks, tr (the plain fused traces of the three directions), u, hsrc,
-    dt, dx, layout, cfg)."""
+    dt, dx, layout, cfg). With `nspec` > 1 the state carries that many
+    inert species (the first holds all the mass), the layout of a reacting
+    network of that size."""
     params = sedov.make_params(n=n, dim=3, stop_time=1.0, r_init=0.1, exp_energy=0.5,
                                dtype="float32")
+    if nspec > 1:
+        params = params.with_ns("network", spec_names=tuple(
+            SPECIES[i % len(SPECIES)] + ("" if i < len(SPECIES) else str(i))
+            for i in range(nspec)))
     sim = Simulation(params, problem_init=sedov.problem_init, device=device)
     sim.init_data()
     dt = sim.estimate_dt()
@@ -49,7 +59,8 @@ def setup(n=128, device=None):
                             fuse_riemann=dict(coord=0, riemann_solver=0, bnd_mask=masks[d]))
           for d in range(3)]
     return dict(q=q, qaux=qaux, div=div, flatn=flatn, masks=masks, tr=tr, u=u,
-                hsrc=torch.zeros_like(u), dt=dt, dx=dx, layout=L, cfg=cfg)
+                hsrc=torch.zeros_like(u), dt=dt, dx=dx, layout=L, cfg=cfg, eos=sim.eos,
+                small_temp=sim.small_temp, ng=sim.ng)
 
 
 def variants(x):

@@ -7,13 +7,14 @@ time-centred corrector (`Source/sources/Castro_sources.cpp:123,185`).
 A source is a callable (sim, u, q, qaux, t, dt) -> src [NVAR, grown grid].
 The step applies dt*S_old with the hydro update (and traces it into the
 interface states through src_to_prim), then the corrector
-0.5*dt*(S_new - S_old). Only the 2D RZ geometric source is ported; every
-other source raises, naming its ROADMAP.md item, where a later slice
-adds it to this list."""
+0.5*dt*(S_new - S_old). The hybrid-momentum source (hybrid_hydro) and the
+2D RZ geometric source are ported; every other source raises, naming its
+ROADMAP.md item, where a later slice adds it to this list."""
 
 from __future__ import annotations
 
 from castro_tpu_torch.geometry import CoordSys
+from castro_tpu_torch.ops.hybrid import HybridSource
 from castro_tpu_torch.sources.geom_src import GeomSource
 
 
@@ -25,7 +26,6 @@ def build_sources(params, geom, layout, ng):
         (bool(c.do_grav), "gravity", 8),
         (bool(c.do_rotation), "rotation", 10),
         (bool(c.do_sponge), "the sponge", 10),
-        (bool(c.hybrid_hydro and layout.hybrid_momentum), "the hybrid-momentum source", 6),
         (bool(c.add_ext_src), "external sources", 10),
     ]
     for on, name, item in unported:
@@ -33,6 +33,8 @@ def build_sources(params, geom, layout, ng):
             raise NotImplementedError(
                 f"not ported yet: {name} (queue 1 item {item}), see ROADMAP.md")
     srcs = []
+    if c.hybrid_hydro and layout.hybrid_momentum:
+        srcs.append(HybridSource(geom, layout, ng))
     if geom.coord == CoordSys.CYLINDRICAL and geom.dim == 2:
         srcs.append(GeomSource(params, geom, layout, ng))
     return srcs

@@ -1,6 +1,13 @@
 """Fundamental constants, CGS (matches Microphysics `fundamental_constants.H`).
 
-The subset of `castro_tpu/utils/constants.py` that the gamma-law EOS reads."""
+The subset of `castro_tpu/utils/constants.py` that the EOSes and the
+reaction networks read."""
 
 k_B = 1.380649e-16  # erg/K
 m_u = 1.66053906660e-24  # g (atomic mass unit)
+N_A = 6.02214076e23  # 1/mol
+c_light = 2.99792458e10  # cm/s
+sigma_SB = 5.670374419e-5  # erg/cm^2/s/K^4
+a_rad = 4.0 * sigma_SB / c_light  # radiation constant, erg/cm^3/K^4
+q_e = 4.80320425e-10  # esu
+MeV2erg = 1.602176634e-6

@@ -22,6 +22,9 @@ toolkit. In order:
      flags of trans_apply), at a grid of prime extents that cuts the face
      kernels' tiles raggedly (RAGGED, with wall faces), and cmpflx and
      trans_cmpflx with coord 1 and 2 at the RZ and spherical paths' shapes;
+     and every step kernel, on the prime grid in float32 and float64, at the
+     reacting layouts (LAYOUTS: 7, 13 and 19 species, the shock flag, hybrid
+     momenta, an aux component);
   4. drive the main paths through Simulation(...).run() on the card, each
      with every launch count zeroed just before and read just after and
      checked against the step's structure, with mass conservation and a
@@ -51,6 +54,21 @@ toolkit. In order:
           made), the kernels held on the level-1 window's state, and a
           32^3 / 64^2 / 256 run on the card against the CPU with equal
           windows and masks;
+       H  Strang-split reactions (a half-dt burn and clean + fill before
+          the hydro step and after it), the kernels first held on the
+          blob's state: the 3D burning blob (iso7, 128^3)
+          with the gamma law in float32 (path A's kernels at NPASS = 7,
+          clean_fill after each burn) and with Helmholtz in float64 (the
+          face kernels; prim_aux and clean_fill are torch ops, as in JAX),
+          each with its time a step (the mean of the steps after init), burn
+          time, iterations, energy released, mass balanced against the
+          boundary outflow and a device-only profile, and a 16^3 copy on the
+          card against the CPU (float32 against float64 within 1e-4, float64
+          at 1e-8); the 1D detonation (powerlaw, n=512, cmpflx at NPASS = 3)
+          with tests/test_problems.py's checks, the fuel it burnt held against
+          the same steps on the CPU, cmpflx held on its final state, and n=64
+          card vs CPU; aprox19 with Helmholtz, one react() on 32^3 at T =
+          3e9, card vs CPU;
      then the probe entry points (castro_tpu_torch/scripts/prof_cmpflx.py
      at 128^3 and prof_vpu.py), each probe first held against its plain
      version (probe_cmpflx at every tiling and probe_copy bit for bit,
@@ -59,7 +77,8 @@ toolkit. In order:
      kernel under torch.profiler; G3D's window and refined fraction) and each kernel (its device time under
      torch.profiler) beside its bound and its plain version's time (CUDA
      events); trace_ppm and ctu_face variant by variant
-     (castro_tpu_torch/scripts/prof_faces.py).
+     (castro_tpu_torch/scripts/prof_faces.py); the nine step kernels again
+     at NPASS = 7 and 19.
 Any failure exits non-zero. The last two lines are the kernels' JSON and
 the {"ok": true, ...} line. Without a card, or without the package beside
 this file, it exits 2 and prints no result.
@@ -112,6 +131,17 @@ DMR_CHECK, DMR_BIG, STEPS_DMR = (128, 32), (2048, 512), 10   # path F
 N_AMR, STEPS_AMR = 128, 10        # path G: 3D Sedov with one refined level (256^3 effective)
 N_AMR_2D, STEPS_AMR_2D = 1024, 5  # path G: 2D Sedov
 N_AMR_1D = 1024                   # path G: 1D Sod to t=0.2
+STEPS_H3 = 2                      # path H: the 128^3 burning blob, steps of each EOS
+N_BLOB_CPU = 16                   # path H: the blob's card-vs-CPU copy (the CPU burns slowly)
+N_DET, STEPS_DET = 512, 200       # path H1: the 1D detonation, n and at most these steps
+DET_BURNT_RTOL = 1e-4             # H1: fuel burnt on the card against the same steps on the CPU
+F32_VS_F64 = 1e-4                 # card float32 against CPU float64 (tests/test_f32_physics.py)
+F64_RTOL = 1e-8                   # card float64 against CPU float64, coupled burns
+# the reacting layouts held kernel vs plain: (nspec, naux, shock flag,
+# hybrid momenta)
+LAYOUTS = [(7, 0, False, False), (13, 0, False, False), (19, 0, False, False),
+           (7, 0, True, False), (3, 0, False, True), (7, 1, False, False),
+           (19, 1, True, True)]
 # the vpu bodies held to their plain versions: fma and div bit for bit;
 # fma_rn (one rounding an iteration against two) to iterations x 2^-23;
 # recip_approx (rcp.approx, at most one ulp from 1/x; the body's map has
@@ -156,9 +186,17 @@ ARITH_OPS = {
 PROFILER_OVERHEAD = ("Command Buffer Full", "Buffer Flush", "Activity Buffer Request")
 
 
+T_START = time.perf_counter()
+
+
 def fail(msg):
     print(f"FAIL: {msg}", file=sys.stderr)
     sys.exit(1)
+
+
+def elapsed():
+    """Seconds since the script started, for the section headers."""
+    return f"[+{time.perf_counter() - T_START:.0f} s]"
 
 
 def smi_line():
@@ -340,35 +378,59 @@ def count_ops(fn):
     return Count.ops
 
 
-def profile_steps(sim, steps, card):
+def annotation(e):
+    """Whether a profiler record is a range annotation, not device work
+    (the record's methods differ between torch versions)."""
+    kind = getattr(e, "activity_type", None)
+    flag = getattr(e, "is_user_annotation", None)
+    return (kind is not None and "annotation" in kind()) or (flag is not None and bool(flag()))
+
+
+def profile_steps(sim, steps, card, host=True):
     """Device busy time by kernel over a few steps of `sim.run`, under
     torch.profiler; the idle share is 1 - busy / wall (the profiler's own
     host overhead included). Also the share of the busy time spent in this
-    repo's kernels (ctt::) against torch's own."""
+    repo's kernels (ctt::) against torch's own. host=False traces the
+    device alone (a burn's 10^6 launches a step are too many host events)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA] if host else [ProfilerActivity.CUDA]
+    with profile(activities=acts) as prof:
         t0 = time.perf_counter()
         sim.run(max_step=sim.step_count + steps, verbose=False)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     rows = []
-    averages = prof.key_averages()
-    host_names = {e.key for e in averages if e.device_type != torch.autograd.DeviceType.CUDA}
-    for e in averages:
-        # kernels, copies and fills only: a host-side aten:: row, and the
-        # device-side annotation of the same name, repeat the time of the
-        # kernels the operation launched
-        if e.device_type != torch.autograd.DeviceType.CUDA or e.key in host_names \
-                or e.key in PROFILER_OVERHEAD:
-            continue
-        dev_us = getattr(e, "self_device_time_total", None)
-        if dev_us is None:
-            dev_us = getattr(e, "self_cuda_time_total", 0.0)
-        if dev_us > 0:
-            rows.append((dev_us, e.count, e.key))
+    if host:
+        averages = prof.key_averages()
+        host_names = {e.key for e in averages
+                      if e.device_type != torch.autograd.DeviceType.CUDA}
+        for e in averages:
+            # kernels, copies and fills only: a host-side aten:: row, and the
+            # device-side annotation of the same name, repeat the time of the
+            # kernels the operation launched
+            if e.device_type != torch.autograd.DeviceType.CUDA or e.key in host_names \
+                    or e.key in PROFILER_OVERHEAD:
+                continue
+            dev_us = getattr(e, "self_device_time_total", None)
+            if dev_us is None:
+                dev_us = getattr(e, "self_cuda_time_total", 0.0)
+            if dev_us > 0:
+                rows.append((dev_us, e.count, e.key))
+    else:
+        # the device's records read as they are: key_averages() builds an
+        # object a record, minutes for a burn's 10^6 launches
+        by_name = {}
+        for e in prof.profiler.kineto_results.events():
+            if e.device_type() != torch.autograd.DeviceType.CUDA or annotation(e) \
+                    or e.name() in PROFILER_OVERHEAD:
+                continue
+            r = by_name.setdefault(e.name(), [0.0, 0])
+            r[0] += e.duration_ns() / 1e3 if hasattr(e, "duration_ns") else e.duration_us()
+            r[1] += 1
+        rows = [(us, count, name) for name, (us, count) in by_name.items() if us > 0]
     if not rows:
         print(f"profile [{card}]: device time not measured (the profiler saw no device time)")
         return
@@ -395,6 +457,8 @@ def main():
     try:
         from castro_tpu_torch.driver.amr import AmrSimulation
         from castro_tpu_torch.driver.sim import Simulation
+        from castro_tpu_torch.eos.gamma_law import GammaLawEos
+        from castro_tpu_torch.network import GeneralNullNetwork
         from castro_tpu_torch.ops import kernels as K
         from castro_tpu_torch.ops import advection_util as au
         from castro_tpu_torch.ops import probes as P
@@ -402,7 +466,9 @@ def main():
         from castro_tpu_torch.ops.stencil import shifted
         from castro_tpu_torch.ops.trace_ppm import trace_ppm as trace_ppm_ops
         from castro_tpu_torch.ops.trans import term_bundle
-        from castro_tpu_torch.problems import acoustic_pulse, double_mach, sedov, sod
+        from castro_tpu_torch.problems import (acoustic_pulse, burning_blob, detonation,
+                                               double_mach, sedov, sod)
+        from castro_tpu_torch.state import StateLayout
         from castro_tpu_torch.scripts import prof_cmpflx, prof_faces, prof_vpu
         from castro_tpu_torch.utils.exact_riemann import solution as exact_solution
     except ImportError as e:
@@ -425,8 +491,10 @@ def main():
     print(f"build: {time.perf_counter() - t0:.1f} s (nvcc, one process per source)")
     ptxas = ptxas_table(K.build_log(), K._LIB.path)
     print(f"ptxas -v, {len(ptxas)} kernels (registers, stack bytes, spill stores / loads "
-          f"bytes, static shared memory bytes, SASS instructions; trace_ppm_kernel<T, NPASS, "
-          f"D, SRC, FUSE>, ctu_face_kernel<T, NPASS, D, NT1, NT2, CONSUP, TA>):")
+          f"bytes, static shared memory bytes, SASS instructions; trace_ppm_kernel<T, D, SRC, "
+          f"FUSE, HYDRO>, ctu_face_kernel<T, D, NT1, NT2, CONSUP, TA, HYDRO>; HYDRO true: the "
+          f"pure-hydro layout's build, its passive loops unrolled; false: any layout, the "
+          f"passives looped at run time):")
     for r in ptxas:
         print(f"  {r['kernel']:50s} {r.get('registers', -1):4d} regs  stack {r.get('stack', -1):4d}"
               f"  spills {r.get('spill_stores', -1)} / {r.get('spill_loads', -1)}"
@@ -435,7 +503,9 @@ def main():
     # local-memory stack (EosGL indexed at run time put 88 B there) and no
     # spills, in float32 and float64
     cells = [r for r in ptxas if r["kernel"].startswith(NO_STACK)]
-    if len(cells) != 2 * len(NO_STACK) or any(
+    built = {(name, t) for r in cells for name in NO_STACK for t in ("float", "double")
+             if r["kernel"].startswith(f"{name}<{t}")}
+    if len(built) != 2 * len(NO_STACK) or any(
             r.get("stack", -1) != 0 or r.get("spill_stores", -1) != 0 for r in cells):
         fail(f"ptxas: {NO_STACK} must build for float32 and float64 with no stack and no "
              f"spills: {cells}")
@@ -502,12 +572,16 @@ def main():
                     dx=sim.geom.dx, L=L, cfg=cfg, eos=sim.eos, sim=sim, u=u,
                     eta2=c.dual_energy_eta2)
 
-    def compare_step(x, label, solver=0, src=None, off_path=False):
+    def compare_step(x, label, solver=0, src=None, off_path=False, cells=True):
+        """The kernels of a fused step on its inputs `x`; without `cells`
+        (an EOS the kernels do not evaluate) not prim_aux and clean_fill."""
         L, cfg, dt, dx = x["L"], x["cfg"], x["dt"], x["dx"]
         sim, u = x["sim"], x["u"]
         args = (u, L, x["eos"], cfg.small_dens, sim.small_temp, dx)
-        check("prim_aux", K.prim_aux(*args, courant_dt=dt),
-              K.prim_aux_plain(*args, courant_dt=dt), f"{label}, divu+courant", floor=(2,))
+        if cells:
+            check("prim_aux", K.prim_aux(*args, courant_dt=dt),
+                  K.prim_aux_plain(*args, courant_dt=dt), f"{label}, divu+courant",
+                  floor=(2,))
         check("flatten", K.flatten(x["q"], L), K.flatten_plain(x["q"], L), label)
         tr = []
         for d in range(3):
@@ -553,6 +627,8 @@ def main():
                                     (fin, "final, no consup")):
                     check("ctu_face", K.ctu_face(*fa, terms, *fb, **kw),
                           K.ctu_face_plain(*fa, terms, *fb, **kw), f"{label}, {kind} d={d}")
+        if not cells:
+            return
         ca = (hsrc, L, x["eos"], cfg.lo_bc, cfg.hi_bc, sim.ng, cfg.small_dens,
               sim.small_temp, x["eta2"], True)
         check("clean_fill", K.clean_fill(*ca, with_status=True),
@@ -666,6 +742,124 @@ def main():
                     check("trans_apply", K.trans_apply(*b), K.trans_apply_plain(*b),
                           f"{what} {side} state")
 
+    def layout_state(L, dtype, shape, seed):
+        """A random state of layout L on a grid: species mass fractions that
+        sum to one (one species at exactly zero), aux, the shock flag, hybrid
+        momenta, a cell below small_dens and two with negative energies."""
+        rng = np.random.default_rng(seed)
+        rho = rng.uniform(0.5, 1.5, shape)
+        vel = rng.uniform(-0.4, 0.4, (3,) + shape)
+        rhoe = rng.uniform(0.3, 2.0, shape) / 0.4
+        u = np.zeros((L.NVAR,) + shape)
+        u[L.URHO] = rho
+        u[L.UMX:L.UMZ + 1] = rho * vel
+        u[L.UEINT] = rhoe
+        u[L.UEDEN] = rhoe + 0.5 * rho * (vel ** 2).sum(0)
+        u[L.UTEMP] = 1.0
+        xs = rng.uniform(0.0, 1.0, (L.nspec,) + shape)
+        xs[min(1, L.nspec - 1)] = 0.0 if L.nspec > 1 else xs[0]
+        u[L.UFS:L.UFS + L.nspec] = rho * xs / xs.sum(0)
+        if L.naux:
+            u[L.UFX:L.UFX + L.naux] = rho * rng.uniform(0.4, 0.6, (L.naux,) + shape)
+        if L.shock_var:
+            u[L.USHK] = rng.integers(0, 2, shape)
+        if L.hybrid_momentum:
+            u[L.UMR:L.UMP + 1] = rho * rng.uniform(-0.4, 0.4, (3,) + shape)
+        u[L.URHO, 5, 6, 7] = 1e-14
+        u[L.UEINT, 9, 9, 9] = -1.0
+        u[L.UEDEN, 10, 11, 12] = -3.0
+        return torch.as_tensor(u, dtype=dtype, device=dev)
+
+    def layout_eos(L):
+        names = ("He4", "C12", "O16", "Ne20", "Mg24", "Si28", "Fe56")
+        net = GeneralNullNetwork(spec_names=[names[i % len(names)] for i in range(L.nspec)])
+        return GammaLawEos(1.4, network=net, assume_neutral=False)
+
+    def compare_layout(L, dtype, shape):
+        """Every step kernel against its plain version at layout L: prim_aux
+        (four variants), flatten, trace_ppm (alone and with CGF / HLLC +
+        srcQ + walls), ctu_face (every variant, walls), clean_fill (two BC
+        sets), consup (each direction, accumulating and finalizing), and
+        cmpflx, trans_apply, trans_cmpflx on the 3D grid."""
+        eos = layout_eos(L)
+        tag = (f"nspec {L.nspec}" + (f" + {L.naux} aux" if L.naux else "")
+               + (", shock flag" if L.shock_var else "") + (", hybrid" if L.hybrid_momentum
+                                                            else "")
+               + (", f64" if dtype == torch.float64 else ", f32"))
+        sd, st, sp, se = 1e-12, 1e-12, 1e-20, 1e-200
+        dxs, dtl = (1.0 / 12, 1.0 / 16, 1.0 / 20), 2e-3
+        raw = layout_state(L, dtype, shape, 3)
+        u = K.clean_fill_plain(raw, L, eos, (2,) * 3, (2,) * 3, 4, sd, st, 1e-4, True)
+        a = (u, L, eos, sd, st, dxs)
+        for wd, cd in ((True, dtl), (False, dtl), (True, None), (False, None)):
+            check("prim_aux", K.prim_aux(*a, with_divu=wd, courant_dt=cd),
+                  K.prim_aux_plain(*a, with_divu=wd, courant_dt=cd),
+                  f"{tag}, divu {wd} courant {cd is not None}", floor=(2,) if wd else ())
+        q, qaux, div = K.prim_aux_plain(*a)
+        check("flatten", K.flatten(q, L), K.flatten_plain(q, L), tag)
+        flatn = K.flatten_plain(q, L)
+        for lo, hi in (((2, 2, 2), (2, 2, 2)), ((5, 4, 0), (2, 3, 0))):
+            ca = (raw, L, eos, lo, hi, 4, sd, st, 1e-4, True)
+            check("clean_fill", K.clean_fill(*ca, with_status=True),
+                  K.clean_fill_plain(*ca, with_status=True), f"{tag}, bc {lo} {hi}")
+        g = torch.Generator(dev).manual_seed(1)
+        src = 0.05 * torch.randn(q.shape, dtype=dtype, device=dev, generator=g)
+        walls = _bnd_masks(shape, 3, 4, (3,) * 3, (3,) * 3)
+        tr = []
+        for d in range(3):
+            ta = (q, qaux, None, flatn, d, dtl, dxs[d], L, sd, sp, se)
+            check("trace_ppm", K.trace_ppm(*ta), K.trace_ppm_plain(*ta), f"{tag}, d={d}")
+            fr = dict(coord=0, riemann_solver=0, bnd_mask=None)
+            ref = K.trace_ppm_plain(*ta, fuse_riemann=fr)
+            check("trace_ppm", K.trace_ppm(*ta, fuse_riemann=fr), ref, f"{tag}, CGF d={d}")
+            tr.append(ref)
+            tb = (q, qaux, src, *ta[3:])
+            fr = dict(coord=0, riemann_solver=2, bnd_mask=walls[d])
+            check("trace_ppm", K.trace_ppm(*tb, fuse_riemann=fr),
+                  K.trace_ppm_plain(*tb, fuse_riemann=fr), f"{tag}, HLLC srcQ walls d={d}")
+        hs = 0.1 * u
+        for d in range(3):
+            t1, t2 = [t for t in range(3) if t != d]
+
+            def term(t, f):
+                return {"flux": tr[t][2], "qe": tr[t][3], "t_dir": t, "cdtdx": f * dtl / dxs[t]}
+
+            fa = (tr[d][0], tr[d][1], qaux, d)
+            fb = (L, 0, 0, sd, sp, True, False)
+            fin = [term(t1, 0.5), term(t2, 0.5)]
+            cs = dict(hsrc=hs, div_node=50.0 * div, u=u, difmag=0.1, dx=dxs,
+                      finalize_dt=dtl if d == 2 else None)
+            for terms, kw, kind in (([], {}, "terms=[]"), ([term(t2, 1 / 3)], {}, "corner t2"),
+                                    ([term(t1, 1 / 3)], dict(terms2=[term(t2, 1 / 3)]), "pair"),
+                                    (fin, {}, "final"), (fin, dict(consup=cs), "final+consup")):
+                kw = dict(kw, bnd_mask=walls[d])
+                check("ctu_face", K.ctu_face(*fa, terms, *fb, **kw),
+                      K.ctu_face_plain(*fa, terms, *fb, **kw), f"{tag}, {kind} d={d}")
+            gc, cc = qaux[L.QGAMC], qaux[L.QC]
+            ca = (tr[d][0], tr[d][1], shifted(gc, -1, d), gc, shifted(cc, -1, d), cc, d, L, 0)
+            for solver, m in ((0, None), (2, walls[d])):
+                check("cmpflx", K.cmpflx(*ca, solver, sd, sp, bnd_mask=m),
+                      K.cmpflx_plain(*ca, solver, sd, sp, bnd_mask=m),
+                      f"{tag}, solver {solver} d={d}")
+            f1, q1 = tr[t1][2], tr[t1][3]
+            bp = term_bundle([term(t1, 0.5)], qaux, d, 0, L)
+            bm = term_bundle([term(t1, 0.5)], qaux, d, -1, L)
+            for qf, b_, side in ((tr[d][1], bp, "p"), (tr[d][0], bm, "m")):
+                ta_ = (qf, *b_, L, sp, True, d == 1)
+                check("trans_apply", K.trans_apply(*ta_), K.trans_apply_plain(*ta_),
+                      f"{tag}, {side} state d={d}")
+            tc = (tr[d][0], tr[d][1], bm[0], bp[0], bm[1], bp[1], bm[2], bp[2], *ca[2:6], d, L,
+                  0, 2, sd, sp, True, False)
+            check("trans_cmpflx", K.trans_cmpflx(*tc, bnd_mask=walls[d]),
+                  K.trans_cmpflx_plain(*tc, bnd_mask=walls[d]), f"{tag}, HLLC walls d={d}")
+            for fin_dt in (None, dtl):
+                co = (hs, tr[d][2], tr[d][3][L.GDPRES], tr[d][3][L.GDU + d], 50.0 * div, u, d,
+                      L, 0.1, dxs)
+                check("consup", K.consup(*co, finalize_dt=fin_dt),
+                      K.consup_plain(*co, finalize_dt=fin_dt),
+                      f"{tag}, d={d}" + (", finalize" if fin_dt else ""))
+        del raw, u, q, qaux, div, flatn, tr, hs, src
+
     print(f"kernel vs plain, {N_MAIN}^3 Sedov float32, the unfused structure's shapes:",
           flush=True)
     sim = sedov_sim(N_MAIN)
@@ -725,6 +919,17 @@ def main():
         del s
         torch.cuda.empty_cache()
 
+    # the reacting layouts: 7, 13 and 19 species (iso7, aprox13, aprox19),
+    # the shock flag, hybrid momenta and an aux component, on the ragged grid
+    # in float32 and float64 (tests/test_torch_cuda_layouts.py's cases)
+    grown_r = tuple(n + 8 for n in RAGGED)
+    print(f"kernel vs plain at the reacting layouts, {' x '.join(map(str, grown_r))} grown "
+          f"(prime extents), float32 and float64 {elapsed()}:", flush=True)
+    for dtype in (torch.float32, torch.float64):
+        for lay in LAYOUTS:
+            compare_layout(StateLayout(dim=3, nspec=lay[0], naux=lay[1], shock_var=lay[2],
+                                       hybrid_momentum=lay[3]), dtype, grown_r)
+
     # -- 4. the main path -------------------------------------------------------------
     path_launches = {}
 
@@ -734,19 +939,33 @@ def main():
         return float((sim.interior()[sim.layout.URHO].double() * vol).sum())
 
     def drive(label, sim, per_try, max_step=None, stop_time=None, callbacks=None,
-              conserves_mass=True):
+              conserves_mass=True, outflow=False):
         """Run `sim` through Simulation.run with the launch counts zeroed just
         before and read just after; check them against `per_try` (launches a
         tried step; clean_fill once more at init where the kernel cleans),
         finite values and, unless an inflow feeds the grid, mass
-        conservation. Returns the number of steps tried."""
-        print(f"main path {label}, Simulation.run on the card", flush=True)
-        tries = {"n": 0}
+        conservation; with `outflow`, the mass change must equal the mass the
+        steps' boundary fluxes carried out (no step may be retried). Returns
+        the number of steps tried."""
+        print(f"main path {label}, Simulation.run on the card {elapsed()}", flush=True)
+        tries = {"n": 0, "out": 0.0}
         step_impl = sim._step_impl
+        if outflow:
+            sim.keep_fluxes = True
 
         def counted(*a, **kw):
             tries["n"] += 1
-            return step_impl(*a, **kw)
+            out = step_impl(*a, **kw)
+            if outflow:  # interior face fluxes: the first and last face along d
+                dxs = sim.geom.dx
+                for d_, f_ in enumerate(out[3]):
+                    rho_f = f_[sim.layout.URHO].double()
+                    area = float(np.prod([dxs[k] for k in range(len(dxs)) if k != d_]))
+                    net = (rho_f.narrow(d_, rho_f.shape[d_] - 1, 1).sum()
+                           - rho_f.narrow(d_, 0, 1).sum())
+                    tries["out"] += float(a[1]) * area * float(net)
+                out = out[:3] + out[4:]
+            return out
 
         sim._step_impl = counted
         K.reset_launch_counts()
@@ -767,13 +986,18 @@ def main():
         if not bool(torch.isfinite(u_end).all()):
             fail(f"path {label}: non-finite state")
         mass1 = mass(sim)
-        dm = abs(mass1 - mass0) / mass0
-        print(f"  mass: {mass0:.9e} -> {mass1:.9e}, relative change {dm:.3e} "
+        dm = abs(mass1 - mass0 + tries["out"]) / mass0
+        print(f"  mass: {mass0:.9e} -> {mass1:.9e}"
+              + (f", out through the boundaries {tries['out']:.9e}" if outflow else "")
+              + f", relative change {dm:.3e} "
               + (f"(limit {MASS_RTOL:g})" if conserves_mass else "(inflow: not checked)"))
         if conserves_mass and dm > MASS_RTOL:
             fail(f"path {label}: mass is not conserved")
+        if outflow and n != sim.step_count:
+            fail(f"path {label}: a step was retried, its boundary fluxes counted twice")
         path_launches[label] = launches
         sim._step_impl = step_impl
+        sim.keep_fluxes = False
         return n
 
     def card_vs_cpu(label, make, steps=3, per_try=None):
@@ -1135,8 +1359,258 @@ def main():
                                               s_.geom.cell_centers_1d(0, 0) - 0.5).abs() < 0.1),
                     steps=4)
 
+    # path H: Strang-split reactions (reactions/strang.py: a half-dt burn and
+    # clean + fill before the hydro step and after it)
+    def blob_sim(n, dtype="float32", eos="gamma_law", device="cuda"):
+        return Simulation(burning_blob.make_params(n=n, dtype=dtype, eos=eos),
+                          problem_init=burning_blob.problem_init, device=device)
+
+    def burn_stats(sim):
+        """Wrap sim's reactor: each half burn is timed (synchronized), its
+        iterations and the energy it released (sum of rho de over the
+        interior's cells, erg/cm^3 x cm^3) recorded."""
+        st = dict(calls=0, s=0.0, iters=[], released=0.0)
+        react = sim.reactor.react
+        L, ng = sim.layout, sim.ng
+        vol = float(np.prod(sim.geom.dx))
+
+        def timed(u, dt, shk=None):
+            torch.cuda.synchronize()
+            t0_ = time.perf_counter()
+            out = react(u, dt, shk)
+            torch.cuda.synchronize()
+            st["s"] += time.perf_counter() - t0_
+            st["calls"] += 1
+            st["iters"].append(sim.reactor.burner.stats.iterations)
+            inner = (slice(ng, -ng),) * L.dim
+            de = (out[0][L.UEINT] - u[L.UEINT])[inner]
+            st["released"] += float(de.double().sum()) * vol
+            return out
+
+        sim.reactor.react = timed
+        return st
+
+    # the kernels at path H's shapes: the blob's initial state, NPASS = 7,
+    # float32 with the gamma law, float64 with Helmholtz (face kernels)
+    print(f"kernel vs plain, the burning blob {N_MAIN}^3 iso7 (NPASS = 7) {elapsed()}:",
+          flush=True)
+    for dtype, eos in (("float32", "gamma_law"), ("float64", "helmholtz")):
+        s_ = blob_sim(N_MAIN, dtype, eos)
+        s_.init_data()
+        compare_step(inputs(s_, s_.u, s_.estimate_dt()), f"blob {eos} {dtype}",
+                     cells=eos == "gamma_law")
+        del s_
+        torch.cuda.empty_cache()
+
+    FUSED_STRANG = dict(FUSED, clean_fill=3)  # clean + fill after each half burn
+    FACES = {"flatten": 1, "trace_ppm": 3, "ctu_face": 6}  # Helmholtz: no prim_aux/clean_fill
+    h_results = {}
+    for key, dtype, eos, per_try in (("H3-gl", "float32", "gamma_law", FUSED_STRANG),
+                                     ("H3-helm", "float64", "helmholtz", FACES)):
+        sim = blob_sim(N_MAIN, dtype, eos)
+        st = burn_stats(sim)
+        # the steps are timed from the end of init_data (synchronized)
+        stamps = []
+        init = sim.init_data
+
+        def stamped_init(*a, **kw):
+            out = init(*a, **kw)
+            torch.cuda.synchronize()
+            stamps.append(time.perf_counter())
+            return out
+
+        sim.init_data = stamped_init
+        n_h = drive(f"{key}: burning blob {N_MAIN}^3 iso7 {eos} {dtype}, {STEPS_H3} steps", sim,
+                    per_try, max_step=STEPS_H3, outflow=True)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - stamps[0]
+        sim.init_data = init
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        h_results[key] = dict(step_ms=1e3 * wall / n_h, burn_share=st["s"] / wall,
+                              iters=st["iters"], released_erg=st["released"], peak_gib=peak,
+                              zones_per_s=sim.num_zones_advanced / wall)
+        print(f"  [{card}] {1e3 * wall / n_h:.1f} ms a step, the mean of {n_h} steps after "
+              f"init; burns {st['s']:.2f} s of {wall:.2f} s ({st['s'] / wall:.4f}), "
+              f"{st['calls']} half burns, iterations each {st['iters']}; energy released "
+              f"{st['released']:.6e} erg; peak memory {peak:.3f} GiB", flush=True)
+        if not st["released"] > 0.0:
+            fail(f"path {key}: the hot zone released no energy")
+        # one more step under the profiler, the device's kernels only
+        profile_steps(sim, 1, card, host=False)
+        del sim
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+
+    def blob_card_vs_cpu(label, dtype_card, dtype_cpu, eos, rtol, steps=2):
+        """The N_BLOB_CPU^3 blob: `steps` steps on the CPU in dtype_cpu, then
+        the same dt sequence on the card in dtype_card, within rtol |cpu| +
+        rtol max|cpu| per component; the species as mass fractions, within
+        rtol of a zone's total of one (the burn's trace products are 1e-25
+        of the mass, where float32 and float64 rates differ by a percent)."""
+        print(f"card vs CPU, {label}: {N_BLOB_CPU}^3 blob, {steps} steps, card {dtype_card}, "
+              f"CPU {dtype_cpu} {elapsed()}:", flush=True)
+        runs, dts = {}, []
+        for where, dt_ in (("cpu", dtype_cpu), ("cuda", dtype_card)):
+            s_ = blob_sim(N_BLOB_CPU, dt_, eos, where)
+            s_.init_data()
+            if where == "cpu":
+                s_.run(max_step=steps, verbose=False, callbacks=[lambda q_: dts.append(q_.dt)])
+            else:
+                for d_ in dts:
+                    s_.advance(d_)
+            ui_ = s_.interior().double().cpu()
+            Ls = s_.layout
+            xs_ = ui_[Ls.UFS:Ls.UFS + Ls.nspec] / ui_[Ls.URHO][None]
+            runs[where] = (torch.cat([ui_[:Ls.UFS], ui_[Ls.UFS + Ls.nspec:]]), xs_)
+            runs[where + "_iters"] = s_.reactor.burner.stats.iterations
+        err, rel, ok = compare(runs["cuda"][0], runs["cpu"][0], rtol, floor=True)
+        x_err = float((runs["cuda"][1] - runs["cpu"][1]).abs().max())
+        ok = ok and x_err <= rtol
+        print(f"  max abs err {err:.3e} rel {rel:.3e} (tol {rtol:g}|cpu| + {rtol:g} max|cpu| "
+              f"per component); mass fractions max abs err {x_err:.3e} (tol {rtol:g}); last "
+              f"half burn's iterations card {runs['cuda_iters']}, CPU {runs['cpu_iters']} "
+              f"{'ok' if ok else 'DISAGREES'}")
+        if not ok:
+            compare(runs["cuda"][0], runs["cpu"][0], rtol, floor=True, report=True)
+            fail(f"the card and the CPU disagree on {label}")
+
+    # float32 on the card against float64 on the CPU: the f32-vs-f64 budget of
+    # tests/test_f32_physics.py:53-75 (1e-4)
+    blob_card_vs_cpu("H3-gl", "float32", "float64", "gamma_law", F32_VS_F64)
+    blob_card_vs_cpu("H3-helm", "float64", "float64", "helmholtz", F64_RTOL, steps=1)
+
+    # H1: the 1D detonation (powerlaw, gamma law 1.4, float64; cmpflx with
+    # NPASS = 3), tests/test_problems.py:64-79's checks; the same steps on
+    # the CPU hold the fuel burnt, and cmpflx is held on the final state
+    sim = Simulation(detonation.make_params(n=N_DET), problem_init=detonation.problem_init)
+    L = sim.layout
+    det_dts = []
+    t0 = time.perf_counter()
+    n_det = drive(f"H1: detonation n={N_DET} float64 to t=0.4 (at most {STEPS_DET} steps)", sim,
+                  ONE_D, stop_time=0.4, max_step=STEPS_DET, outflow=True,
+                  callbacks=[lambda q_: det_dts.append(q_.dt)])
+    det_ms = 1e3 * (time.perf_counter() - t0) / n_det
+    compare_low_dim(inputs_low_dim(sim, sim.u, sim.dt), f"H1 detonation n={N_DET} float64")
+    ui = sim.interior().double()
+    sims = {}
+    for where in ("cpu", "cuda"):
+        sims[where] = Simulation(detonation.make_params(n=N_DET),
+                                 problem_init=detonation.problem_init, device=where)
+        sims[where].init_data()
+    fuel0 = float(sims["cuda"].interior()[L.UFS].double().sum())
+    fuel_ratio = float(ui[L.UFS].sum()) / fuel0
+    mom_max = float(ui[L.UMX].abs().max())
+    t_cpu = time.perf_counter()
+    for d_ in det_dts:
+        sims["cpu"].advance(d_)
+    t_cpu = time.perf_counter() - t_cpu
+    u_cpu = sims["cpu"].interior()
+    burnt, burnt_cpu = 1.0 - fuel_ratio, 1.0 - float(u_cpu[L.UFS].sum()) / fuel0
+    burnt_err = abs(burnt - burnt_cpu) / burnt_cpu
+    err, rel, _ = compare(ui.cpu(), u_cpu, F64_RTOL, floor=True)
+    print(f"  [{card}] {det_ms:.3f} ms a step; t = {sim.t:.6e} after {sim.step_count} steps; "
+          f"fuel / initial fuel {fuel_ratio:.9f} (tests/test_problems.py asks < 0.9 at n=128 "
+          f"after 2000 steps, t ~ 1.5e-3); max |rho u| {mom_max:.6e} (> 1e-3); the same "
+          f"steps on the CPU ({t_cpu:.1f} s): fuel burnt {burnt:.9e} card, {burnt_cpu:.9e} CPU,"
+          f" {burnt_err:.3e} apart (tol {DET_BURNT_RTOL:g}); state max abs err {err:.3e} rel "
+          f"{rel:.3e}", flush=True)
+    if not (mom_max > 1e-3 and fuel_ratio < 1.0):
+        fail("H1: the detonation did not burn or did not move")
+    if not burnt_err <= DET_BURNT_RTOL:
+        fail("H1: the card and the CPU burnt different amounts of fuel")
+    h_results["H1"] = dict(step_ms=det_ms, fuel_ratio=fuel_ratio, burnt_rel_err=burnt_err)
+    del sim, sims, u_cpu
+    print("card vs CPU, H1: detonation n=64, 10 steps, float64:", flush=True)
+    runs, dts = {}, []
+    for where in ("cpu", "cuda"):
+        s_ = Simulation(detonation.make_params(n=64), problem_init=detonation.problem_init,
+                        device=where)
+        s_.init_data()
+        if where == "cpu":
+            s_.run(max_step=10, verbose=False, callbacks=[lambda q_: dts.append(q_.dt)])
+        else:
+            for d_ in dts:
+                s_.advance(d_)
+        runs[where] = s_.interior().cpu()
+    err, rel, ok = compare(runs["cuda"], runs["cpu"], F64_RTOL, floor=True)
+    print(f"  max abs err {err:.3e} rel {rel:.3e} (tol {F64_RTOL:g}|cpu| + {F64_RTOL:g} "
+          f"max|cpu| per component) {'ok' if ok else 'DISAGREES'}")
+    if not ok:
+        compare(runs["cuda"], runs["cpu"], F64_RTOL, floor=True, report=True)
+        fail("the card and the CPU disagree on the detonation")
+
+    # H-burn: aprox19 with Helmholtz, float64, StrangReactor.react on a 32^3
+    # box at rho 1e6 and T 3e9 +- 10% (tests/test_f32_physics.py:78-116's
+    # setup), the card against the CPU on an 8^3 corner of the same zones
+    from castro_tpu_torch.config import Params
+    from castro_tpu_torch.eos import make_eos
+    from castro_tpu_torch.network import make_network
+    from castro_tpu_torch.reactions.strang import StrangReactor
+    from castro_tpu_torch.state import layout_from_params
+    import dataclasses as dc
+
+    p = Params().with_ns("network", network_name="aprox19").with_ns("eos", eos_name="helmholtz")
+    p = p.with_ns("tpu", dtype="float64")
+    hb = {}
+    for where, n_b in (("cuda", N_SMALL), ("cpu", 8)):
+        net = make_network(p)
+        pp = dc.replace(p, network=dc.replace(p.network, nspec=net.nspec,
+                                              spec_names=net.spec_names))
+        L = layout_from_params(pp)
+        eos = make_eos(pp, net)
+        reactor = StrangReactor(pp, net, eos, L)
+        g = torch.Generator("cpu").manual_seed(7)
+        T = 3e9 * (1.0 + 0.1 * (2 * torch.rand((N_SMALL,) * 3, generator=g,
+                                                dtype=torch.float64) - 1))
+        T = T[:n_b, :n_b, :n_b].to(where)
+        rho = torch.full_like(T, 1e6)
+        xn = torch.zeros((net.nspec,) + T.shape, dtype=T.dtype, device=where)
+        xn[net.spec_names.index("He4")] = 1.0
+        es = eos.rt(rho=rho, T=T, xn=xn)
+        u = torch.zeros((L.NVAR,) + T.shape, dtype=T.dtype, device=where)
+        u[L.URHO], u[L.UTEMP], u[L.UEINT], u[L.UEDEN] = rho, T, rho * es.e, rho * es.e
+        u[L.UFS:L.UFS + L.nspec] = rho[None] * xn
+        if where == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = reactor.react(u, 1e-8)
+        if where == "cuda":
+            torch.cuda.synchronize()
+        hb[where] = (out, time.perf_counter() - t0, reactor.burner.stats.iterations)
+    # the state but its species, and enuc: F64_RTOL |cpu| + F64_RTOL max|cpu|;
+    # the mass fractions within F64_RTOL (a zone's total is one) and
+    # omega_dot within F64_RTOL of its zone's largest rate (species the burn
+    # leaves at zero come out at zero on one device and at 1e-12 on the
+    # other, from the LU solves' rounding)
+    Lb = L
+    gu, ru = hb["cuda"][0][0][:, :8, :8, :8].cpu(), hb["cpu"][0][0]
+    spec = slice(Lb.UFS, Lb.UFS + Lb.nspec)
+    rest = [c for c in range(Lb.NVAR) if not Lb.UFS <= c < Lb.UFS + Lb.nspec]
+    err, rel, ok = compare([gu[rest], hb["cuda"][0][2][:8, :8, :8].cpu()],
+                           [ru[rest], hb["cpu"][0][2]], F64_RTOL, floor=True)
+    x_err = float((gu[spec] / gu[Lb.URHO] - ru[spec] / ru[Lb.URHO]).abs().max())
+    god, rod = hb["cuda"][0][1][:, :8, :8, :8].cpu(), hb["cpu"][0][1]
+    w_err = float(((god - rod).abs() / rod.abs().amax(0, keepdim=True).clamp(min=1e-300)).max())
+    ok = ok and x_err <= F64_RTOL and w_err <= F64_RTOL
+    rel = max(rel, x_err, w_err)
+    print(f"H-burn [{card}]: aprox19 + Helmholtz float64, react(dt=1e-8) on {N_SMALL}^3: "
+          f"{hb['cuda'][1]:.3f} s, {hb['cuda'][2]} iterations; CPU on 8^3: {hb['cpu'][1]:.3f} s,"
+          f" {hb['cpu'][2]} iterations; card vs CPU on the 8^3 corner: state and enuc max abs "
+          f"err {err:.3e} (tol {F64_RTOL:g}|cpu| + {F64_RTOL:g} max|cpu| per component), mass "
+          f"fractions {x_err:.3e} (tol {F64_RTOL:g}), omega_dot {w_err:.3e} of the zone's "
+          f"largest rate (tol {F64_RTOL:g}) {'ok' if ok else 'DISAGREES'}; failed zones card "
+          f"{bool(hb['cuda'][0][3])}, CPU {bool(hb['cpu'][0][3])}", flush=True)
+    if not ok or bool(hb["cuda"][0][3]) != bool(hb["cpu"][0][3]):
+        compare([gu[rest]], [ru[rest]], F64_RTOL, floor=True, report=True)
+        fail("H-burn: the card and the CPU disagree")
+    h_results["H-burn"] = dict(card_s=hb["cuda"][1], iterations=hb["cuda"][2],
+                               cpu_iterations=hb["cpu"][2], max_rel_err=rel)
+    del hb, gu, ru, god, rod
+    torch.cuda.empty_cache()
+
     # the probes: each against its plain version, then the entry points
-    print("probes vs plain (scripts/prof_cmpflx.py setup at 128^3, float32):", flush=True)
+    print(f"probes vs plain (scripts/prof_cmpflx.py setup at 128^3, float32) {elapsed()}:",
+          flush=True)
     px = prof_cmpflx.setup(n=120)
     pargs = prof_cmpflx.cmpflx_args(px)
     pref = P.probe_cmpflx_plain(*pargs)
@@ -1171,6 +1645,7 @@ def main():
         fail("a probe entry point launched no probe kernel")
 
     # -- 5. timing ---------------------------------------------------------------------
+    print(f"timing {elapsed()}", flush=True)
     results = {}
 
     def time_path(key, label, make, steps, profile=0):
@@ -1196,7 +1671,8 @@ def main():
                                 extra_windows=len(s.extra[1]))
             amr_note = (f", level-1 window {tuple(s.window[1][1])} (+{len(s.extra[1])} extra), "
                         f"refined fraction {frac:.4f}, zones a coarse step {s._count_zones(0)}")
-        print(f"main path timing [{card}]: {label} float32, {steps} steps "
+        dname = str(getattr(s, "sim0", s).dtype).replace("torch.", "")
+        print(f"main path timing [{card}]: {label} {dname}, {steps} steps "
               f"(estimate_dt + advance): {1e3 * wall / steps:.3f} ms/step, {zps:.6e} zones/s, "
               f"peak memory {peak:.3f} GiB{amr_note}", flush=True)
         if profile:
@@ -1232,6 +1708,10 @@ def main():
               lambda: curvilinear_sim("rz", N_RZ), 5, profile=2)
     time_path(f"dmr-{DMR_BIG[0]}", f"F: 2D double Mach reflection {DMR_BIG[0]} x {DMR_BIG[1]}",
               lambda: dmr_sim(DMR_BIG), STEPS_DMR, profile=2)
+
+    time_path("H1", f"H1: detonation n={N_DET}",
+              lambda: Simulation(detonation.make_params(n=N_DET),
+                                 problem_init=detonation.problem_init), 20, profile=5)
 
     sim = sedov_sim(N_MAIN)
     sim.init_data()
@@ -1322,7 +1802,7 @@ def main():
                            lambda: P.probe_vpu_plain(vx, "fma", VPU_TIME_ITERS), 2, vx.numel())]
 
     entries, extra = [], {}
-    print(f"kernel timing [{card}], float32, at Sedov {N_MAIN}^3 (grown {u.shape[1]}^3; "
+    print(f"kernel timing {elapsed()} [{card}], float32, at Sedov {N_MAIN}^3 (grown {u.shape[1]}^3; "
           f"cmpflx and trans_cmpflx at 2D Sedov {N_2D}^2, grown {sim2.u.shape[1]}^2; the "
           f"probes at 128^3 and, probe_vpu, 512^2 x {VPU_TIME_ITERS} iterations), per "
           f"launch: the kernel's device time (torch.profiler), the wrapper's and the plain "
@@ -1387,6 +1867,97 @@ def main():
             e["iterations"] = VPU_TIME_ITERS
             e["ps_per_element_op"] = vpu_ps
             e["bound_ps_per_element_op"] = vpu_bound_ps
+    # the nine step kernels at the reacting layouts: NPASS = 7 (iso7, path
+    # H3's) and 19 (aprox19), the same 136^3 Sedov state with that many
+    # species; cmpflx and trans_cmpflx on the 3D grid's faces
+    def layout_calls(nspec):
+        fxl = prof_faces.setup(N_MAIN, nspec=nspec)
+        Ll, ul, dxl, dtl, cfl = fxl["layout"], fxl["u"], fxl["dx"], fxl["dt"], fxl["cfg"]
+        trl, ql, qxl, dvl = fxl["tr"], fxl["q"], fxl["qaux"], fxl["div"]
+        al = (ul, Ll, fxl["eos"], cfl.small_dens, fxl["small_temp"], dxl)
+        cl = {"prim_aux": [(lambda: K.prim_aux(*al, courant_dt=dtl),
+                            lambda: K.prim_aux_plain(*al, courant_dt=dtl),
+                            Ll.NVAR - 2 + Ll.NQ + Ll.NQAUX + 1)],
+              "flatten": [(lambda: K.flatten(ql, Ll), lambda: K.flatten_plain(ql, Ll), 5)]}
+        for name, variant, d, kern, plain, comps in prof_faces.variants(fxl):
+            if variant in ("with the solve", "corner pair", "final + consup"):
+                cl.setdefault(name, []).append((kern, plain, comps))
+        cfa = (ul, Ll, fxl["eos"], cfl.lo_bc, cfl.hi_bc, fxl["ng"], cfl.small_dens,
+               fxl["small_temp"], 1e-4, True)
+        cl["clean_fill"] = [(lambda: K.clean_fill(*cfa, with_status=True),
+                             lambda: K.clean_fill_plain(*cfa, with_status=True), 2 * Ll.NVAR)]
+        g_, c_ = qxl[Ll.QGAMC], qxl[Ll.QC]
+
+        def term_l(t, f):
+            return {"flux": trl[t][2], "qe": trl[t][3], "t_dir": t, "cdtdx": f * dtl / dxl[t]}
+
+        for key in ("consup", "cmpflx", "trans_apply", "trans_cmpflx"):
+            cl[key] = []
+        for d in range(3):
+            t1 = [t for t in range(3) if t != d][0]
+            co = (torch.zeros_like(ul), trl[d][2], trl[d][3][Ll.GDPRES], trl[d][3][Ll.GDU + d],
+                  dvl, ul, d, Ll, cfl.difmag, dxl)
+            fin = dtl if d == 2 else None
+            cl["consup"].append((lambda co=co, fin=fin: K.consup(*co, finalize_dt=fin),
+                                 lambda co=co, fin=fin: K.consup_plain(*co, finalize_dt=fin),
+                                 5 * Ll.NVAR + 3))
+            ca = (trl[d][0], trl[d][1], shifted(g_, -1, d), g_, shifted(c_, -1, d), c_, d, Ll,
+                  0, 0, cfl.small_dens, cfl.small_pres)
+            cl["cmpflx"].append((lambda ca=ca: K.cmpflx(*ca), lambda ca=ca: K.cmpflx_plain(*ca),
+                                 2 * Ll.NQ + 4 + Ll.NVAR + Ll.NGDNV))
+            bp = term_bundle([term_l(t1, 0.5)], qxl, d, 0, Ll)
+            bm = term_bundle([term_l(t1, 0.5)], qxl, d, -1, Ll)
+            ta = (trl[d][1], *bp, Ll, cfl.small_pres, True, False)
+            cl["trans_apply"].append((lambda ta=ta: K.trans_apply(*ta),
+                                      lambda ta=ta: K.trans_apply_plain(*ta),
+                                      2 * Ll.NQ + Ll.NVAR + 2))
+            tc = (trl[d][0], trl[d][1], bm[0], bp[0], bm[1], bp[1], bm[2], bp[2], *ca[2:6], d,
+                  Ll, 0, 0, cfl.small_dens, cfl.small_pres, True, False)
+            cl["trans_cmpflx"].append((lambda tc=tc: K.trans_cmpflx(*tc),
+                                       lambda tc=tc: K.trans_cmpflx_plain(*tc),
+                                       2 * Ll.NQ + 2 * Ll.NVAR + 8 + Ll.NVAR + Ll.NGDNV))
+        return cl, ul
+
+    h_launches = {}
+    for label, c in path_launches.items():
+        if label.startswith("H"):
+            for k_, v_ in c.items():
+                h_launches[k_] = h_launches.get(k_, 0) + v_
+    for nspec in (7, 19):
+        cl, ul = layout_calls(nspec)
+        Sl, iszl = ul[0].numel(), ul.element_size()
+        print(f"kernel timing [{card}], float32, Sedov {N_MAIN}^3 with NPASS = {nspec} "
+              f"(NVAR {ul.shape[0]}), per launch as above {elapsed()}:", flush=True)
+        for e in entries:
+            if e["name"] not in cl:
+                continue
+            sums = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, bytes_ms=0.0, ops_ms=0.0)
+            for kern, plain, comps in cl[e["name"]]:
+                k_ms = kernel_device_ms(kern, reps=10)
+                if k_ms is None:
+                    k_ms = time_ms(kern, reps=10)
+                p_ms = time_ms(plain, reps=2, warm=1)
+                ops = count_ops(plain)
+                b_bytes = comps * Sl * iszl / HBM_BYTES_PER_S * 1e3
+                b_ops = ops / FP32_OPS_PER_S * 1e3
+                n_ = len(cl[e["name"]])
+                for key_, v_ in (("ms", k_ms), ("plain_ms", p_ms),
+                                 ("bound_ms", max(b_bytes, b_ops)), ("bytes_ms", b_bytes),
+                                 ("ops_ms", b_ops)):
+                    sums[key_] += v_ / n_
+            e[f"npass{nspec}"] = dict(
+                ms=sums["ms"], plain_ms=sums["plain_ms"], bound_ms=sums["bound_ms"],
+                bound_by="bytes" if sums["bytes_ms"] >= sums["ops_ms"] else "operations",
+                launches_path_H=h_launches.get(e["name"], 0))
+            print(f"  {e['name']:12s} {sums['ms']:9.4f} ms   plain {sums['plain_ms']:9.4f} ms   "
+                  f"bound {sums['bound_ms']:.4f} ms ({e[f'npass{nspec}']['bound_by']}); "
+                  f"NPASS = 1: {e['ms']:.4f} ms, bound {e['bound_ms']:.4f} ms", flush=True)
+        del cl, ul
+        torch.cuda.empty_cache()
+    for e in entries:
+        if e["name"] in REPLACES and e["name"] not in ("probe_cmpflx", "probe_copy",
+                                                         "probe_vpu"):
+            e["launches_path_H"] = h_launches.get(e["name"], 0)
     step_bound = sum(e["bound_ms"] * FUSED.get(e["name"], 0) for e in entries)
     print(f"summary [{card}]: " + json.dumps({
         "zones_per_s": {k: v["zones_per_s"] for k, v in results.items()},
@@ -1396,7 +1967,9 @@ def main():
         "shock_zones_flagged": flagged, "rz_vs_spherical_l1": rz_l1,
         "rz_vs_spherical_peak_cells": peak_shift, "dmr_checks": dmr_checks,
         "amr_3d": results.get(f"amr-{N_AMR}"), "amr_3d_window_after_run": list(g3d_window),
-        "amr_sod_1d_l1": g1_l1, "amr_sod_1d_ms_per_coarse_step": g1_ms}))
+        "amr_sod_1d_l1": g1_l1, "amr_sod_1d_ms_per_coarse_step": g1_ms,
+        "path_H": h_results, "detonation": dict(ms_per_step=det_ms, fuel_ratio=fuel_ratio,
+                                                max_mom=mom_max)}))
     print(smi_line())
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -455,9 +455,9 @@ def test_wrappers_refuse_bad_inputs(card):
         K.flatten(torch.zeros((L.NQ,) + SHAPE, dtype=torch.float16, device=card), L)
     with pytest.raises(ValueError):
         K.prim_aux(u[:, :, :, ::2], L, EOS, 1e-12, 1e-12, DX)
+    mhd = StateLayout(dim=3, nspec=1, mhd=True)  # the kernels carry no magnetic fields
     with pytest.raises(NotImplementedError):
-        K.prim_aux(torch.zeros((9,) + SHAPE, device=card), StateLayout(dim=3, nspec=2),
-                   GammaLawEos(1.4, network=GeneralNullNetwork(("X", "Y"))), 1e-12, 1e-12, DX)
+        K.prim_aux(torch.zeros((mhd.NVAR,) + SHAPE, device=card), mhd, EOS, 1e-12, 1e-12, DX)
     lay2 = StateLayout(dim=2, nspec=1)
     z2 = torch.ones((lay2.NVAR, 8, 8), device=card)
     with pytest.raises(NotImplementedError, match="3D"):  # consup is 3D only

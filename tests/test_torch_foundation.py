@@ -146,19 +146,23 @@ def test_device_rules_and_unported_configs():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             Simulation(params, problem_init=sedov.problem_init)
-    for bad in (params.with_ns("castro", hybrid_momentum=1),
-                params.with_ns("castro", use_shock_var=1),
+    for bad in (params.with_ns("castro", time_integration_method=2),
+                params.with_ns("castro", do_react=1).with_ns(
+                    "network", network_name="iso7", nse=1),
                 params.with_ns("castro", do_rotation=1),
                 params.with_ns("castro", do_grav=1)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             Simulation(bad, device="cpu")
     # the 1D and 2D branches, riemanncg, the HLL hybrid, curvilinear
-    # geometry and PLM are ported
+    # geometry, PLM, the shock flag, hybrid momenta and reactions are ported
     for good in (sedov.make_params(n=8, dim=2), sedov.make_params(n=8, dim=1),
                  params.with_ns("castro", riemann_solver=1),
                  params.with_ns("castro", hybrid_riemann=1),
                  sedov.make_params(n=8, dim=2, coord=1),
-                 params.with_ns("castro", ppm_type=0)):
+                 params.with_ns("castro", ppm_type=0),
+                 params.with_ns("castro", hybrid_momentum=1),
+                 params.with_ns("castro", use_shock_var=1),
+                 params.with_ns("castro", do_react=1).with_ns("network", network_name="iso7")):
         Simulation(good, device="cpu")
 
 

@@ -2,8 +2,9 @@
 Simulation on the CPU against the JAX Simulation on its XLA path, for 2D
 Sedov with outflow and with symmetry boundaries, with riemann_solver=1 and
 with hybrid_riemann=1 over HLLC, and 1D Sod with riemann_solver 0 and 1, in
-float64 and float32; the port's 1D Sod against the exact Riemann solution;
-and every configuration that stays unported raising at construction.
+float64 and float32; the shock flag, hybrid momenta (3D) and more than one
+species; the port's 1D Sod against the exact Riemann solution; and every
+configuration that stays unported raising at construction.
 (`tests/test_torch_hydro_paths_3d.py` holds the unfused 3D paths,
 `tests/test_torch_hydro_kernel_route.py` the JAX package's kernel route.)
 
@@ -34,6 +35,7 @@ from castro_tpu_torch.driver.sim import Simulation
 from castro_tpu_torch.ops import advection_util as au
 from castro_tpu_torch.ops import kernels as K
 from castro_tpu_torch.problems import sedov, sod
+from castro_tpu_torch.state import StateLayout as StateLayoutT
 from castro_tpu_torch.utils.exact_riemann import solution
 
 # name -> (problem, dim, n, castro overrides, steps, dt)
@@ -59,11 +61,14 @@ def _few_threads():
 
 
 def _params(mod, spec, dtype):
-    problem, dim, n, castro, _, _ = spec
+    """spec: a CASES entry, optionally followed by the species' names."""
+    problem, dim, n, castro = spec[:4]
     if problem == "sedov":
         p = mod.make_params(n=n, dim=dim, stop_time=0.1, r_init=0.2, dtype=dtype)
     else:
         p = mod.make_params(n=n, dim=dim, dtype=dtype)
+    if len(spec) > 6:
+        p = p.with_ns("network", spec_names=spec[6])
     return p.with_ns("castro", **castro) if castro else p
 
 
@@ -82,7 +87,7 @@ def _jax_states(spec, dtype, use_pallas=False):
     """The JAX package's states [initial, after step 1, ...] of the case
     `spec` (an entry of CASES) as numpy; `use_pallas` takes its kernel route
     (the caller sets the Pallas interpreter)."""
-    problem, _, _, _, steps, dt = spec
+    problem, _, _, _, steps, dt = spec[:6]
     jmod = MODS[problem][0]
     with jax.disable_jit():
         js = JSim(_params(jmod, spec, dtype), problem_init=jmod.problem_init)
@@ -101,7 +106,7 @@ def _jax_states(spec, dtype, use_pallas=False):
 
 def _port_matches(spec, dtype, states, ng):
     """Step the port from states[0] and hold every step against `states`."""
-    problem, dim, _, castro, steps, dt = spec
+    problem, dim, _, castro, steps, dt = spec[:6]
     mod = MODS[problem][1]
     sim = Simulation(_params(mod, spec, dtype), problem_init=mod.problem_init, device="cpu")
     sim.init_data()
@@ -148,22 +153,48 @@ def test_sod_1d_against_exact(riemann_solver):
     assert abs((u[L.UEINT] * 0.4)[mid].mean() - 0.30313) / 0.30313 < 0.03
 
 
+# layouts the kernels were once not built for, now held against JAX:
+# name -> (dim, n, castro, species, steps)
 UNPORTED = {
-    "use_shock_var": (2, dict(use_shock_var=1), {}),
-    "hybrid-momentum": (3, dict(hybrid_momentum=1), {}),
-    "nspec-2": (2, {}, dict(spec_names=("He4", "C12"))),
+    "use_shock_var": (2, 16, dict(use_shock_var=1), ("He4", "C12", "O16"), 2),
+    "hybrid-momentum": (3, 8, dict(hybrid_momentum=1, hybrid_hydro=1), ("He4", "C12", "O16"), 1),
+    "nspec-2": (2, 16, {}, ("He4", "C12"), 1),
 }
 
 
 @pytest.mark.parametrize("name", list(UNPORTED))
 def test_unported_configurations_raise(name):
-    """What changes the kernels' state layout stays unported, raises at
-    construction and names its ROADMAP item (kernel layout generalization)."""
-    dim, castro, network = UNPORTED[name]
-    p = sedov.make_params(n=8, dim=dim).with_ns("castro", **castro)
+    """The configurations that changed the kernels' state layout (the
+    shock flag, hybrid momenta, more than one species) and raised until the
+    kernels took any layout now step as the JAX package steps them: Sedov
+    in float64 from the JAX initial state, the port's kernel structure
+    through the plain versions, held as test_steps_match_jax holds them.
+    What stays unported raises: test_still_unported_configurations_raise."""
+    dim, n, castro, species, steps = UNPORTED[name]
+    spec = ("sedov", dim, n, castro, steps, 2e-3, species)
+    states, ng = _jax_states(spec, "float64")
+    _port_matches(spec, "float64", states, ng)
+    if name == "use_shock_var":
+        L = StateLayoutT(dim=2, nspec=3, shock_var=True)
+        shk = states[-1][(L.USHK,) + (slice(ng, -ng),) * dim]
+        assert set(np.unique(shk)) <= {0.0, 1.0} and shk.max() == 1.0
+
+
+STILL_UNPORTED = {
+    "nse": (dict(do_react=1), dict(network_name="iso7", nse=1), "queue 1 item 7"),
+    "sdc": (dict(time_integration_method=2), {}, "queue 1 item 12"),
+}
+
+
+@pytest.mark.parametrize("name", list(STILL_UNPORTED))
+def test_still_unported_configurations_raise(name):
+    """The NSE bypass of the burn and SDC raise at construction and name
+    their ROADMAP item."""
+    castro, network, item = STILL_UNPORTED[name]
+    p = sedov.make_params(n=8, dim=1).with_ns("castro", **castro)
     if network:
         p = p.with_ns("network", **network)
-    with pytest.raises(NotImplementedError, match=r"queue 1 item 6.*ROADMAP\.md"):
+    with pytest.raises(NotImplementedError, match=item + r".*ROADMAP\.md"):
         Simulation(p, problem_init=sedov.problem_init, device="cpu")
 
 
