@@ -2,10 +2,14 @@
 [ns.key=value ...] [device=cpu]`, the counterpart of `python -m castro_tpu`
 (reference `Source/driver/main.cpp:33`): parse inputs, run the
 coarse-timestep loop on the card, print the STEP lines and the FOM.
-problem= one of sedov, sod, acoustic_pulse, detonation, burning_blob or
-double_mach. detonation is the 1D reacting shock tube (powerlaw network,
-Strang burns), burning_blob the 3D iso7 blob; network.network_name= and
-eos.eos_name=helmholtz swap in a stellar network and EOS. double_mach is
+problem= one of sedov, sod, acoustic_pulse, detonation, burning_blob,
+dust_collapse or double_mach. detonation is the 1D reacting shock tube
+(powerlaw network, Strang burns), burning_blob the 3D iso7 blob
+(physics=full: with Poisson gravity and the sponge, the JAX package's
+full-physics configuration); network.network_name= and
+eos.eos_name=helmholtz swap in a stellar network and EOS. dust_collapse is
+the self-gravitating collapse, 1D spherical with monopole gravity, or
+(dim=3) 3D Cartesian with Poisson gravity. double_mach is
 built by `problems.double_mach.build` with its inflow hook, at its own
 size, and ignores overrides, as in the JAX package. With amr.max_level > 0
 the run is an `AmrSimulation` (regrids every amr.regrid_int steps, tags
@@ -27,25 +31,30 @@ def main(argv=None):
     from castro_tpu_torch.driver.amr import AmrSimulation
     from castro_tpu_torch.driver.sim import Simulation
     from castro_tpu_torch.problems import (acoustic_pulse, burning_blob, detonation,
-                                           double_mach, sedov, sod)
+                                           double_mach, dust_collapse, sedov, sod)
 
     problems = {"sedov": (sedov.make_params, sedov.problem_init),
                 "sod": (sod.make_params, sod.problem_init),
                 "acoustic_pulse": (acoustic_pulse.make_params, acoustic_pulse.problem_init),
                 "detonation": (detonation.make_params, detonation.problem_init),
                 "burning_blob": (burning_blob.make_params, burning_blob.problem_init),
+                "dust_collapse": (dust_collapse.make_params, dust_collapse.problem_init),
                 # custom construction (the inflow fill closure)
                 "double_mach": ("build", double_mach.build)}
     argv = list(sys.argv[1:] if argv is None else argv)
     if not argv:
         print(__doc__)
         return 1
-    inputs_path, problem, device, overrides = None, None, None, []
+    inputs_path, problem, device, overrides, setup = None, None, None, [], {}
     for a in argv:
         if a.startswith("problem="):
             problem = a.split("=", 1)[1]
         elif a.startswith("device="):
             device = a.split("=", 1)[1]
+        elif a.startswith("physics="):  # burning_blob's physics set
+            setup["physics"] = a.split("=", 1)[1]
+        elif a.startswith("dim="):  # dust_collapse's 1D or 3D setup
+            setup["dim"] = int(a.split("=", 1)[1])
         elif "=" in a:
             overrides.append(a.replace("=", " = ", 1))
         else:
@@ -64,7 +73,7 @@ def main(argv=None):
         sim.init_data()
         sim.run(verbose=True)
         return 0
-    params = make_params()
+    params = make_params(**setup)
     if inputs_path:
         params = load_inputs(inputs_path, base=params)
     if overrides:

@@ -35,7 +35,7 @@ def params_from_inputs_text(text: str) -> Params:
 
 
 def restart_from_jax_checkpoint(sim, path: str):
-    """Restore `sim` (state, t, step, dt) from a JAX checkpoint directory,
+    """Restore `sim` (state, t, step, dt, the point mass) from a JAX checkpoint directory,
     with the state-variable check of the reference restart (Castro_io.cpp:42)."""
     with open(os.path.join(path, "meta.json")) as f:
         meta = json.load(f)
@@ -57,6 +57,8 @@ def restart_from_jax_checkpoint(sim, path: str):
     sim.step_count = meta["step"]
     sim.dt = meta["dt"]
     sim.num_zones_advanced = meta.get("num_zones_advanced", 0)
+    if "point_mass" in meta:  # accreted with point_mass_fix_solution
+        sim.point_mass = meta["point_mass"]
     return sim
 
 

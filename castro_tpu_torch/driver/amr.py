@@ -13,19 +13,24 @@ Each fine level is a dense window, the bucketed bounding box (multiples of
 resolution, with a boolean refinement mask inside. Disjoint tag clusters
 get windows of their own (`extra`). The unmasked ring of a window carries
 time-interpolated coarse data, which is also the coarse-fine ghost region
-of its stencil. Level 0 steps on the default context (the clean_fill
-kernel in 3D); a window steps through a `StepCtx` with its position-correct
-geometry, whose step ends in the torch-op clean + fill, as the JAX package
-routes it (`castro_tpu/driver/sim.py:382`, `:578`). The clean + fill of
-`_avg_down` and of a new window's state take the default route. Every
+of its stencil. Composite gravity (Cartesian PoissonGrav): level 0 solves
+with the domain's multipole BCs, a window with Dirichlet phi on its faces
+interpolated from its parent's phi at the substep's midpoint (the old and
+new phi bracket the subcycle), the new coarse phi corrected once by the
+delta-phi sync of the grad-phi flux register (`_solve_phi_sync`). Level 0
+steps on the default context (the clean_fill kernel in 3D); a window
+steps through a `StepCtx` with its position-correct geometry, whose step
+ends in the torch-op clean + fill, as the JAX package routes it
+(`castro_tpu/driver/sim.py:382`, `:578`). The clean + fill of `_avg_down`
+and of a new window's state take the default route. Every
 update of a level array is functional (a new tensor), so the pre-step
 snapshot of `advance` and the old states of the time interpolation are
 never written through.
 
-Cartesian hydro only. What the JAX driver does beyond it raises, naming
-its ROADMAP.md item: gravity (8), radiation (9), MHD (11), SDC (12), a
-device mesh or `amr.distribute_fine` (13), plotfiles and checkpoints (14),
-and a curvilinear grid (5, the Cartesian slice).
+Cartesian hydro with gravity and the sponge. What the JAX driver does
+beyond it raises, naming its ROADMAP.md item: radiation (9), MHD (11), SDC
+(12), a device mesh or `amr.distribute_fine` (13), plotfiles and
+checkpoints (14), and a curvilinear grid (5, the Cartesian slice).
 Refinement ratio 2 on every level.
 """
 
@@ -41,8 +46,9 @@ from castro_tpu_torch.driver.sim import Simulation, StepCtx, check_io_cadence
 from castro_tpu_torch.driver.tagging import tag_cells
 from castro_tpu_torch.geometry import CoordSys, geometry_from_params
 from castro_tpu_torch.ops.interlevel import (coarsen_flux, prolong, prolong_mask, restrict,
-                                             restrict_mask)
+                                             restrict_face, restrict_mask)
 from castro_tpu_torch.ops.stencil import interior_slice
+from castro_tpu_torch.utils import constants as C
 
 BUCKET = 16   # window extents rounded up to multiples of this (fine cells)
 MARGIN = 8    # unmasked fine-cell ring kept around tags (>= ng + stencil)
@@ -130,6 +136,28 @@ def _set(a, idx, value):
     return out
 
 
+def _edge_pad(a, d):
+    """`a` with its first and last plane along d repeated once (edge pad)."""
+    return torch.cat([a.narrow(d, 0, 1), a, a.narrow(d, a.shape[d] - 1, 1)], dim=d)
+
+
+def _lerp_axis(f, k, x):
+    """Linear interpolation of f along axis k at the coordinates x (cell
+    indices, numpy), as map_coordinates(order=1, mode="nearest") does it:
+    the indices floor(x) and floor(x) + 1 clamped to [0, n-1], the weights
+    1 - w and w, w = x - floor(x), in f's precision."""
+    n = f.shape[k]
+    xt = torch.as_tensor(x, dtype=f.dtype, device=f.device)
+    lo = torch.floor(xt)
+    w = xt - lo
+    i0 = lo.to(torch.int64)
+    shape = [1] * f.dim()
+    shape[k] = len(x)
+    w = w.reshape(shape)
+    return (1.0 - w) * f.index_select(k, i0.clamp(0, n - 1)) + \
+        w * f.index_select(k, (i0 + 1).clamp(0, n - 1))
+
+
 def _pad_false(m, d, lo, hi):
     """Pad a boolean mask with `lo` and `hi` False planes along axis d."""
     parts = []
@@ -166,20 +194,33 @@ class _Level:
                               **sim_kw)
         self.sim.keep_fluxes = True
         self.geom_full = geom_full
+        self.grav = _poisson_gravity(self.sim)
 
-    def step(self, u, dt, t, ilo):
+    def _ctx(self, ilo, grav_bc):
         sim = self.sim
         geom = self.geom_full.local_view(self.shape, tuple(int(v) for v in ilo))
-        ctx = StepCtx(fill=sim._fill, pmin=torch.min, pany=lambda b: b, geom=geom)
-        return sim._step_impl(u, dt, t, ctx=ctx)
+        return StepCtx(fill=sim._fill, pmin=torch.min, pany=lambda b: b, geom=geom,
+                       grav_bc=grav_bc)
+
+    def step(self, u, dt, t, ilo, grav_bc=None):
+        return self.sim._step_impl(u, dt, t, ctx=self._ctx(ilo, grav_bc))
+
+    def phi(self, rho, ilo, grav_bc):
+        """The window's phi from its interior density, Dirichlet on its faces
+        with `grav_bc` (PoissonGrav only)."""
+        return self.grav._poisson(rho, self._ctx(ilo, grav_bc))[1]
+
+
+def _poisson_gravity(sim):
+    """The Gravity of a sim's PoissonGrav source, else None."""
+    g = next((fn.gravity for fn in sim.source_fns if getattr(fn, "name", "") == "grav"), None)
+    return g if g is not None and g.gtype == "PoissonGrav" else None
 
 
 def _unported_amr(params, sim0, mesh):
     """The ROADMAP.md item of the first AMR feature of the JAX driver that
     this configuration needs and the port does not have yet."""
     checks = [
-        (bool(params.castro.do_grav), "gravity on AMR: level solves and the delta-phi sync "
-         "(queue 1 item 8)"),
         (mesh is not None or bool(params.amr.distribute_fine),
          "a device mesh or amr.distribute_fine (queue 1 item 13)"),
         (sim0.geom.coord != CoordSys.CARTESIAN,
@@ -239,8 +280,15 @@ class AmrSimulation:
         self.dt = None
         self.num_zones_advanced = 0
         # windows of disjoint tag clusters beyond the primary, per level:
-        # {ilo, shape, u, mask}
+        # {ilo, shape, u, mask, grav_bc}
         self.extra: List[List[dict]] = [[] for _ in range(self.max_level + 1)]
+        # composite gravity (Cartesian PoissonGrav, castro_tpu/driver/amr.py:
+        # 326-337): each window level's grav_bc for the current substep, set
+        # by its parent's subcycle loop
+        self._grav0 = _poisson_gravity(self.sim0)
+        self._has_poisson = self._grav0 is not None
+        self._cur_grav_bc: Dict[int, object] = {}
+        self.phi_sync_resid = None
 
     # ------------------------------------------------------------------ setup
     @staticmethod
@@ -382,7 +430,7 @@ class AmrSimulation:
             self.u[l] = self._make_window_state(l, (ilo, shape))
             self.masks[l] = self._window_mask(l, tags)
             self.extra[l] = [{"ilo": e[0], "shape": e[1], "u": self._make_window_state(l, e),
-                              "mask": self._window_mask(l, tags, win=e)}
+                              "mask": self._window_mask(l, tags, win=e), "grav_bc": None}
                              for e in extras]
         return self
 
@@ -466,7 +514,7 @@ class AmrSimulation:
             new_extra_state = [
                 {"ilo": e[0], "shape": e[1],
                  "u": self._migrate_window(l + 1, e, old_wins, fill_new),
-                 "mask": self._window_mask(l + 1, tags, win=e)}
+                 "mask": self._window_mask(l + 1, tags, win=e), "grav_bc": None}
                 for e in new_extras]
             self.window[l + 1] = (new_ilo, new_shape)
             self.u[l + 1] = u_new
@@ -541,7 +589,8 @@ class AmrSimulation:
         else:
             lev = self._get_level(l, self.window[l][1])
             sim = lev.sim
-            out = lev.step(self.u[l], dt, t_level, self.window[l][0])
+            out = lev.step(self.u[l], dt, t_level, self.window[l][0],
+                           grav_bc=self._cur_grav_bc.get(l))
         fluxes = out[3] if sim.keep_fluxes else None
         self._check(out, f"at level {l}, t={t_level}")
         if l == 0:
@@ -559,11 +608,26 @@ class AmrSimulation:
         # flux register: the coarse side (CrseInit)
         f_coarse = [f * dt for f in fluxes]
         fine_acc = None
+        # composite gravity: this level's old and new phi bracket the
+        # subcycle, the fine windows taking Dirichlet data at each substep's
+        # midpoint; the new phi carries the delta-phi sync correction
+        # (Gravity::gravity_sync)
+        phi_old = phi_new = None
+        if self._has_poisson:
+            phi_old = self._solve_phi(l, self.u_old[l])
+            phi_new = self._solve_phi_sync(l, self.u[l])
         extras = self.extra[l + 1]
         fine_acc_extra = [None] * len(extras)
         r = self.ref_ratio
         for i in range(r):
             frac0 = i / r
+            if phi_old is not None:
+                fm = (i + 0.5) / r  # the substep's midpoint
+                phi_mid = (1.0 - fm) * phi_old + fm * phi_new
+                self._cur_grav_bc[l + 1] = self._window_face_bc(l + 1, phi_mid)
+                for e in extras:
+                    e["grav_bc"] = self._window_face_bc(l + 1, phi_mid,
+                                                        win=(e["ilo"], e["shape"]))
             self._set_unmasked_from_coarse(l + 1, frac0 + 0.0)
             fine_fluxes = self._advance_level(l + 1, dt / r, t_level + i * dt / r)
             if fine_acc is None:
@@ -599,10 +663,116 @@ class AmrSimulation:
         """Advance one extra window by dt (the same per-shape Simulation
         cache as the primary). Returns its interior face fluxes."""
         lev = self._get_level(l, e["shape"])
-        out = lev.step(e["u"], dt, t_level, e["ilo"])
+        out = lev.step(e["u"], dt, t_level, e["ilo"], grav_bc=e.get("grav_bc"))
         self._check(out, f"(extra window) at level {l}, t={t_level}")
         e["u"] = self._keep_masked(e["u"], out[0], e["mask"])
         return out[3]
+
+    # ------------------------------------------------------------ composite phi
+    def _solve_phi(self, l, u_l):
+        """Level l's phi from u_l's density with the level's current
+        boundary data: the domain's multipole (or periodic) BCs at level 0,
+        a window's coarse-interpolated Dirichlet faces above it."""
+        rho = u_l[(self._sims_at(l).layout.URHO,) + interior_slice(self.ng, self.dim, 0)]
+        if l == 0:
+            return self._grav0._poisson(rho)[1]
+        lev = self._get_level(l, self.window[l][1])
+        return lev.phi(rho, self.window[l][0], self._cur_grav_bc.get(l))
+
+    def _solve_phi_sync(self, l, u_l):
+        """The composite delta-phi sync (reference Gravity::gravity_sync,
+        `Gravity.cpp:488-631`, with the phi flux register of
+        `Castro.cpp:2727-2760`), one pass: the level solve, the fine
+        window's Dirichlet solve against it, the grad-phi flux-register
+        mismatch at the coarse-fine interface as a rhs, a Poisson solve for
+        delta-phi, and the corrected coarse phi. phi is solved from the
+        current (post-reflux, post-avgDown) density, so the reference's
+        4 pi G drho term is absorbed and the register carries the composite
+        solve's flux mismatch alone; its largest magnitude is kept as
+        `phi_sync_resid`. Iterated, the pass does not contract
+        (castro_tpu/driver/amr.py:856-866): one pass, as in JAX."""
+        phi_c = self._solve_phi(l, u_l)
+        if l != 0 or l + 1 > self.max_level:
+            return phi_c
+        lev = self._get_level(l + 1, self.window[l + 1][1])
+        if lev.grav is None:
+            return phi_c
+        L = self.sim0.layout
+        rho_f = self.u[l + 1][(L.URHO,) + interior_slice(self.ng, self.dim, 0)]
+        phi_f = lev.phi(rho_f, self.window[l + 1][0], self._window_face_bc(l + 1, phi_c))
+        rhs = self._phi_flux_register(l, phi_c, phi_f)
+        self.phi_sync_resid = float(rhs.abs().max())
+        # the delta solve: the level Poisson machinery with the equivalent
+        # delta density rhs / (4 pi G) (the multipole BCs of the delta
+        # density are the reference's fill_multipole_BCs of its rhs)
+        dphi = self._grav0._poisson(rhs / (4.0 * np.pi * C.Gconst))[1]
+        return phi_c + dphi
+
+    def _phi_flux_register(self, l, phi_c, phi_f):
+        """The grad-phi coarse-fine flux register of the sync: rhs =
+        -div(grad phi_fine - grad phi_crse) at the level-(l+1) window's
+        interface, in the hydro reflux's sign convention (CrseInit(-grad
+        phi_crse) + FineAdd(grad phi_fine) -> Reflux; reference
+        `Castro.cpp:2727-2760`)."""
+        dim = self.dim
+        sim = self._sims_at(l)
+        csl = self._parent_rel_slice(l + 1)
+        cmask = restrict_mask(self.masks[l + 1], dim)
+        rhs = torch.zeros_like(phi_c)
+        win = rhs[csl]
+        for d in range(dim):
+            dx_c = sim.geom.dx[d]
+            dx_f = self._sims_at(l + 1).geom.dx[d]
+            # the coarse face gradients over the footprint's n_fp + 1 faces
+            fsl = tuple(slice(s.start, s.stop + 1) if k == d else s for k, s in enumerate(csl))
+            pc = _edge_pad(phi_c, d)
+            n = pc.shape[d]
+            Fc = ((pc.narrow(d, 1, n - 1) - pc.narrow(d, 0, n - 1)) / dx_c)[fsl]
+            # the fine face gradients restricted to the footprint's faces
+            # (the edge faces are garbage, masked off: the interface faces
+            # are interior)
+            pf = _edge_pad(phi_f, d)
+            n = pf.shape[d]
+            Ff_fine = (pf.narrow(d, 1, n - 1) - pf.narrow(d, 0, n - 1)) / dx_f
+            m = Ff_fine.shape[d]
+            # n_fp faces, then the footprint's hi face
+            Ff = torch.cat([restrict_face(Ff_fine.narrow(d, 0, m - 1), d, dim),
+                            restrict_face(Ff_fine.narrow(d, m - 1, 1), d, dim)], dim=d)
+            delta = Ff - Fc
+            m_left = _pad_false(cmask, d, 1, 0)
+            m_right = _pad_false(cmask, d, 0, 1)
+            zero = torch.zeros((), dtype=delta.dtype, device=delta.device)
+            gain_r = torch.where(m_left & ~m_right, delta, zero)
+            lose_l = torch.where(~m_left & m_right, delta, zero)
+            k = delta.shape[d]
+            win = win + gain_r.narrow(d, 0, k - 1) / dx_c
+            win = win - lose_l.narrow(d, 1, k - 1) / dx_c
+        return _set(rhs, csl, win)
+
+    def _window_face_bc(self, l, phi_c, win=None):
+        """Dirichlet values of a cell field on a level-l window's faces,
+        linearly interpolated from the parent level's field phi_c (the
+        parent's interior): the coarse-phi boundary registers of composite
+        gravity (Gravity.cpp:418-487). JAX's map_coordinates(order=1,
+        mode="nearest") written out: the coordinate's floor and the next
+        index, each clamped to [0, n-1], with linear weights."""
+        ilo, shape = win if win is not None else self.window[l]
+        base_c = (np.zeros(self.dim, int) if l - 1 == 0
+                  else np.asarray(self.window[l - 1][0], int))
+        bvl, bvh = [], []
+        for d in range(self.dim):
+            for side in ("lo", "hi"):
+                vals = phi_c
+                for k in range(self.dim):
+                    if k == d:
+                        xf = int(ilo[d]) if side == "lo" else int(ilo[d]) + shape[d]
+                        x = np.asarray([xf / 2.0 - 0.5 - base_c[d]])
+                    else:
+                        i = np.arange(int(ilo[k]), int(ilo[k]) + shape[k])
+                        x = (i + 0.5) / 2.0 - 0.5 - base_c[k]
+                    vals = _lerp_axis(vals, k, x)
+                (bvl if side == "lo" else bvh).append(vals)
+        return (tuple(bvl), tuple(bvh))
 
     def _reflux(self, l, f_coarse, fine_acc, fwin=None, fmask=None):
         """fine_acc: the window-coarsened sums of fine flux dt (over the

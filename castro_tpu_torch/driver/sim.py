@@ -21,9 +21,11 @@ kernels. With `transverse_use_eos` the whole step takes the plain structure,
 the JAX package's own route for that option (its EOS re-evaluation rides
 the XLA transverse path). On the card (`device="cuda"`, the default) each
 kernel is a CUDA kernel; on the CPU it runs its plain PyTorch version.
-The 2D RZ geometric source runs through the source path of the step
-(old-time sources traced into the states, the time-centred corrector, the
-lagged predictor of `source_term_predictor=1`), and
+Gravity (constant, monopole, Poisson), the sponge and the 2D RZ geometric
+source run through the source path of the step (old-time sources traced
+into the states, the time-centred corrector or a source's own, the lagged
+predictor of `source_term_predictor=1`): then prim_aux runs a second time,
+without div u, for the new-time primitives, and clean_fill twice. And
 `point_mass_fix_solution` resets the box around the centre after a step.
 With `do_react` and a reactive network the step is Strang-split: a half-dt
 burn (`reactions/strang.py`) and clean + fill before the hydro update and
@@ -34,7 +36,8 @@ to the torch ops, as the JAX package sends them to XLA
 hybrid momenta for clean_fill (`:384`).
 `StepCtx` carries how a step fills ghosts and reduces, and its geometry:
 the AMR driver (`driver/amr.py`) steps its windows through it, with the
-head fill and the status reductions of an explicit context. Other sources,
+head fill and the status reductions of an explicit context, and a
+window's composite-gravity BCs. Diffusion, rotation, external sources,
 radiation, MHD, SDC and I/O are not ported (ROADMAP.md); a configuration
 that needs them raises.
 """
@@ -63,19 +66,37 @@ from castro_tpu_torch.sources import build_sources
 from castro_tpu_torch.state import layout_from_params
 
 
+def _identity(x):
+    return x
+
+
 class StepCtx:
-    """How one step fills ghosts (`fill(u, t)`), reduces (`pmin`, `pany`)
-    and where it lies (`geom`). The default context is the whole domain on
-    one device; an AMR window passes its own, with its position-correct
-    geometry (counterpart of `castro_tpu/driver/sim.py:StepCtx`)."""
+    """How one step fills ghosts (`fill(u, t)`), reduces (`pmin`, `pany`,
+    the elementwise cross-device sum `psum`, the identity on one device) and
+    where it lies (`geom`). The default context is the whole domain on one
+    device; an AMR window passes its own, with its position-correct
+    geometry and, for composite gravity, `grav_bc`: the (bvl, bvh) Dirichlet
+    phi on the window's faces, interpolated from the coarse level's solve
+    (reference Gravity.cpp:418-487); None for the isolated domain's
+    multipole or periodic BCs. `point_mass` is the run-time point mass
+    (accretion, Castro_pointmass.cpp:155), None for castro.point_mass
+    (counterpart of `castro_tpu/driver/sim.py:StepCtx`)."""
 
-    __slots__ = ("fill", "pmin", "pany", "geom")
+    __slots__ = ("fill", "pmin", "pany", "psum", "geom", "grav_bc", "point_mass")
 
-    def __init__(self, fill, pmin, pany, geom):
+    def __init__(self, fill, pmin, pany, geom, psum=_identity, grav_bc=None,
+                 point_mass=None):
         self.fill = fill
         self.pmin = pmin
         self.pany = pany
+        self.psum = psum
         self.geom = geom
+        self.grav_bc = grav_bc
+        self.point_mass = point_mass
+
+    def with_point_mass(self, point_mass):
+        return StepCtx(self.fill, self.pmin, self.pany, self.geom, self.psum, self.grav_bc,
+                       point_mass)
 
 
 @dataclass
@@ -300,7 +321,8 @@ class Simulation:
         return min(dt, c.max_dt)
 
     # -- the step --------------------------------------------------------------
-    def _step_impl(self, u, dt, t=0.0, ctx: Optional[StepCtx] = None, src_pred=None):
+    def _step_impl(self, u, dt, t=0.0, ctx: Optional[StepCtx] = None, src_pred=None,
+                   point_mass=None):
         """One CTU step of single-level hydro (reference do_advance_ctu,
         Castro_advance_ctu.cpp:16, and the source path of do_old_sources /
         do_new_sources, Castro_sources.cpp:123,185). Returns (u_new, min_rho,
@@ -315,9 +337,31 @@ class Simulation:
         fills again only with a fill hook; an explicit context (an AMR
         window) always fills first. `src_pred` (source_term_predictor=1):
         the previous step's dS/dt; the old-time source becomes S^n + dt/2
-        dS/dt (create_source_corrector, Castro.cpp:3780-3836)."""
+        dS/dt (create_source_corrector, Castro.cpp:3780-3836). `point_mass`
+        (point_mass_fix_solution=1): the run-time point mass, a 0-d tensor,
+        which gravity reads through the context.
+
+        Sources take the context. Their old-time terms are kept one by one:
+        a source with a `corrector` (gravity) adds dt*corr from (u, u_new,
+        fluxes) in place of its share of 0.5*dt*(S_new - S_old). The
+        sources' memos (the gravity field of a state) are cleared at the
+        start and the end of the step."""
+        self._reset_sources()
+        try:
+            return self._step(u, dt, t, ctx, src_pred, point_mass)
+        finally:
+            self._reset_sources()
+
+    def _reset_sources(self):
+        for fn in self.source_fns:
+            if hasattr(fn, "reset"):
+                fn.reset()
+
+    def _step(self, u, dt, t, ctx, src_pred, point_mass):
         skip_head_fill = ctx is None and self.problem_fill is None
         ctx = ctx or self._default_ctx
+        if point_mass is not None:
+            ctx = ctx.with_point_mass(point_mass)
         L = self.layout
         c = self.params.castro
         cfg = self.cfg
@@ -347,10 +391,15 @@ class Simulation:
 
         # old-time sources S(u^n), traced into the interface states
         src_old = None
+        src_old_terms = []
         if self.source_fns:
             src_old = torch.zeros_like(u)
             for fn in self.source_fns:
-                src_old = src_old + fn(self, u, q, qaux, t, dtw)
+                term = fn(self, u, q, qaux, t, dtw, ctx=ctx)
+                # a source with its own corrector needs its term again
+                src_old_terms.append(term if hasattr(fn, "corrector") else None)
+                src_old = src_old + term
+            del term
         src_eff = src_old
         if src_pred is not None and c.source_term_predictor == 1 and src_old is not None:
             # S^{n+1/2} = S^n + dt/2 dS/dt (the momentum rows; src_pred is
@@ -382,13 +431,26 @@ class Simulation:
             else:
                 q2, qaux2 = au.ctoprim(u_new, L, self.eos, cfg.small_dens, self.small_temp)
             src_new = torch.zeros_like(u)
-            for fn in self.source_fns:
-                src_new = src_new + fn(self, u_new, q2, qaux2, t + dt, dtw)
-            u_new = u_new + 0.5 * dtw * (src_new - src_old)
+            corr = None
+            src_old_generic = src_old
+            for fn, term in zip(self.source_fns, src_old_terms):
+                if hasattr(fn, "corrector"):
+                    cfn = fn.corrector(self, u, u_new, t, dtw, ctx=ctx, fluxes=fluxes)
+                    corr = cfn if corr is None else corr + cfn
+                    # this source's old-time term leaves the generic pair
+                    src_old_generic = src_old_generic - term
+                else:
+                    src_new = src_new + fn(self, u_new, q2, qaux2, t + dt, dtw, ctx=ctx)
+            del src_old_terms
+            u_new = u_new + 0.5 * dtw * (src_new - src_old_generic)
+            if corr is not None:
+                u_new = u_new + dtw * corr
             if c.source_term_predictor == 1:
                 # 2/dt x the new-time source term, momentum rows only
                 # (Castro.cpp:3815-3818)
-                newtime = 0.5 * (src_new - src_old)
+                newtime = 0.5 * (src_new - src_old_generic)
+                if corr is not None:
+                    newtime = newtime + corr
                 pred_out = torch.zeros_like(u)
                 for comp in (L.UMX, L.UMY, L.UMZ):
                     pred_out[comp] = 2.0 * newtime[comp] / dtw
@@ -445,7 +507,11 @@ class Simulation:
         the point-mass fix (point_mass_fix_solution=1)."""
         t = self.t if t is None else t
         stp = self.params.castro.source_term_predictor == 1
-        out = self._step_impl(self.u, dt, t, src_pred=self._src_pred if stp else None)
+        pm = None
+        if self._pm_fix:
+            pm = torch.tensor(self.point_mass, dtype=self.dtype, device=self.device)
+        out = self._step_impl(self.u, dt, t, src_pred=self._src_pred if stp else None,
+                              point_mass=pm)
         u_new, min_rho, nan_flag = out[:3]
         # one host sync for the checks (the burn's flag is folded into
         # nan_flag, as the JAX step folds it, and reported on its own)
@@ -457,7 +523,6 @@ class Simulation:
             if stp:
                 self._src_pred = out[-1]
             if self._pm_fix:
-                pm = torch.tensor(self.point_mass, dtype=self.dtype, device=self.device)
                 u_new, pm = self._pointmass_fix_impl(self.u, u_new, pm)
                 self.point_mass = float(pm)
         return u_new, status

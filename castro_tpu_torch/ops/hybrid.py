@@ -96,8 +96,9 @@ class HybridSource:
     def __init__(self, geom, layout, ng):
         self.geom, self.layout, self.ng = geom, layout, ng
 
-    def __call__(self, sim, u, q, qaux, t, dt):
-        return hybrid_geom_source(u, self.geom, self.layout, self.ng)
+    def __call__(self, sim, u, q, qaux, t, dt, ctx=None):
+        geom = ctx.geom if ctx is not None else self.geom
+        return hybrid_geom_source(u, geom, self.layout, self.ng)
 
 
 def sync_linear_from_hybrid(u, geom, layout, ng):

@@ -6,9 +6,10 @@ registers.
 Counterpart of `castro_tpu/ops/interlevel.py` (reference: AMReX
 CellConservativeLinear, `average_down`, `FluxRegister::CrseInit/FineAdd/
 Reflux`, `Source/driver/Castro.cpp:2549-2700`). Dense whole-array torch
-ops, as the JAX package leaves them to XLA. The face operators of MHD
-(`prolong_face`, `restrict_face`, `restrict_edge`) come with MHD (ROADMAP.md,
-queue 1 item 11).
+ops, as the JAX package leaves them to XLA. `restrict_face` serves the
+phi flux register of composite gravity; MHD's other face operators
+(`prolong_face`, `restrict_edge`) come with MHD (ROADMAP.md, queue 1 item
+11).
 """
 
 from __future__ import annotations
@@ -84,6 +85,21 @@ def prolong_mask(m, dim):
     out = m
     for d in range(dim):
         out = torch.repeat_interleave(out, 2, dim=d)
+    return out
+
+
+def restrict_face(bf, d, dim):
+    """Fine -> coarse face restriction: coarse face I-1/2 at I is the area
+    mean of its 2^(dim-1) fine subfaces (the even fine faces along the
+    normal, pair means across it)."""
+    idx = [slice(None)] * bf.dim()
+    idx[d] = slice(0, None, 2)
+    out = bf[tuple(idx)]
+    for k in range(dim):
+        if k == d:
+            continue
+        n = out.shape[k]
+        out = out.reshape(out.shape[:k] + (n // 2, 2) + out.shape[k + 1:]).mean(dim=k + 1)
     return out
 
 

@@ -20,9 +20,10 @@ class GeomSource:
         self.layout = layout
         self.ng = ng
 
-    def __call__(self, sim, u, q, qaux, t, dt):
+    def __call__(self, sim, u, q, qaux, t, dt, ctx=None):
         L = self.layout
-        r = torch.clamp(self.geom.cell_centers(0, self.ng), min=1e-30)
+        geom = ctx.geom if ctx is not None else self.geom
+        r = torch.clamp(geom.cell_centers(0, self.ng), min=1e-30)
         rho = u[L.URHO]
         ur = u[L.UMX] / rho
         vth = u[L.UMZ] / rho

@@ -1,8 +1,9 @@
 """Fundamental constants, CGS (matches Microphysics `fundamental_constants.H`).
 
 The subset of `castro_tpu/utils/constants.py` that the EOSes and the
-reaction networks read."""
+reaction networks and gravity read."""
 
+Gconst = 6.67430e-8  # cm^3/g/s^2
 k_B = 1.380649e-16  # erg/K
 m_u = 1.66053906660e-24  # g (atomic mass unit)
 N_A = 6.02214076e23  # 1/mol

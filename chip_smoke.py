@@ -69,6 +69,22 @@ toolkit. In order:
           the same steps on the CPU, cmpflx held on its final state, and n=64
           card vs CPU; aprox19 with Helmholtz, one react() on 32^3 at T =
           3e9, card vs CPU;
+       I  self-gravity (the multigrid in torch ops, the gravity source and
+          its corrector, the sponge; a step runs prim_aux twice, once
+          without div u, the source-traced trace_ppm and clean_fill twice),
+          the kernels first held on the state after a DustCollapse step: I3,
+          the 3D DustCollapse (PoissonGrav, float32, fixed dt) at 128^3 with
+          launch counts, two Poisson solves a step (V-cycles and residuals
+          printed), mass against the boundary outflow and the centre's
+          density rising, 32^3 card vs CPU (float64; float32 against
+          float64), the uniform sphere against its analytic field, and 256^3
+          timed with its gravity share and a device-only profile; I1, the 1D
+          spherical DustCollapse (MonopoleGrav, float64) to 0.6 t_ff with
+          tests/test_convergence.py's checks; IF, the full-physics blob
+          (burning_blob physics="full": + Poisson gravity and the sponge) at
+          128^3, one step with its burn and gravity shares, 16^3 card vs
+          CPU; IG, composite gravity on two levels (a 3D blob 64^3 + one
+          level timed, phi_sync_resid; 2D 32^2 card vs CPU);
      then the probe entry points (castro_tpu_torch/scripts/prof_cmpflx.py
      at 128^3 and prof_vpu.py), each probe first held against its plain
      version (probe_cmpflx at every tiling and probe_copy bit for bit,
@@ -134,6 +150,15 @@ N_AMR_1D = 1024                   # path G: 1D Sod to t=0.2
 STEPS_H3 = 2                      # path H: the 128^3 burning blob, steps of each EOS
 N_BLOB_CPU = 16                   # path H: the blob's card-vs-CPU copy (the CPU burns slowly)
 N_DET, STEPS_DET = 512, 200       # path H1: the 1D detonation, n and at most these steps
+STEPS_I3 = 5                      # path I: 3D DustCollapse at N_MAIN^3, checked
+STEPS_I3_BIG = 5                  # path I: 3D DustCollapse at N_BIG^3, timed after init
+GRAV_DT = 2e-5                    # path I: DustCollapse's fixed dt (s; t_ff = 0.066 s; float32
+                                  # overflows in the Riemann solve past t ~ 2e-4 at 16^3-64^3)
+N_GRAV_CPU = 32                   # path I: DustCollapse's card-vs-CPU copy
+N_SPHERE = 128                    # path I: the uniform sphere against its analytic field
+N_I1 = 128                        # path I: 1D spherical DustCollapse to 0.6 t_ff
+N_IG, STEPS_IG = 64, 2            # path I: composite gravity, 3D blob + one level, timed
+N_IG_CPU = 32                     # path I: composite gravity's 2D card-vs-CPU copy
 DET_BURNT_RTOL = 1e-4             # H1: fuel burnt on the card against the same steps on the CPU
 F32_VS_F64 = 1e-4                 # card float32 against CPU float64 (tests/test_f32_physics.py)
 F64_RTOL = 1e-8                   # card float64 against CPU float64, coupled burns
@@ -269,8 +294,9 @@ def compare(got, ref, rtol, floor=(), report=False):
     for i, (g, r) in enumerate(zip(got, ref)):
         g, r = g.double(), r.double()
         # NaN in both at the same place (the ghost margin is garbage by
-        # construction) counts as agreement
-        both_nan = torch.isnan(g) & torch.isnan(r)
+        # construction), and the same infinity in both (a float32 overflow
+        # both versions reach), count as agreement
+        both_nan = (torch.isnan(g) & torch.isnan(r)) | (torch.isinf(r) & (g == r))
         d = torch.where(both_nan, 0.0, torch.nan_to_num((g - r).abs(), nan=float("inf")))
         worst = max(worst, float(d.max()))
         rel = torch.where(d == 0, 0.0, torch.nan_to_num(d / r.abs(), nan=float("inf")))
@@ -463,7 +489,7 @@ def main():
         from castro_tpu_torch.ops import advection_util as au
         from castro_tpu_torch.ops import probes as P
         from castro_tpu_torch.ops.ctu import _bnd_masks
-        from castro_tpu_torch.ops.stencil import shifted
+        from castro_tpu_torch.ops.stencil import interior_slice, shifted
         from castro_tpu_torch.ops.trace_ppm import trace_ppm as trace_ppm_ops
         from castro_tpu_torch.ops.trans import term_bundle
         from castro_tpu_torch.problems import (acoustic_pulse, burning_blob, detonation,
@@ -1361,8 +1387,8 @@ def main():
 
     # path H: Strang-split reactions (reactions/strang.py: a half-dt burn and
     # clean + fill before the hydro step and after it)
-    def blob_sim(n, dtype="float32", eos="gamma_law", device="cuda"):
-        return Simulation(burning_blob.make_params(n=n, dtype=dtype, eos=eos),
+    def blob_sim(n, dtype="float32", eos="gamma_law", device="cuda", physics="burn"):
+        return Simulation(burning_blob.make_params(n=n, dtype=dtype, eos=eos, physics=physics),
                           problem_init=burning_blob.problem_init, device=device)
 
     def burn_stats(sim):
@@ -1441,7 +1467,7 @@ def main():
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
 
-    def blob_card_vs_cpu(label, dtype_card, dtype_cpu, eos, rtol, steps=2):
+    def blob_card_vs_cpu(label, dtype_card, dtype_cpu, eos, rtol, steps=2, physics="burn"):
         """The N_BLOB_CPU^3 blob: `steps` steps on the CPU in dtype_cpu, then
         the same dt sequence on the card in dtype_card, within rtol |cpu| +
         rtol max|cpu| per component; the species as mass fractions, within
@@ -1451,7 +1477,7 @@ def main():
               f"CPU {dtype_cpu} {elapsed()}:", flush=True)
         runs, dts = {}, []
         for where, dt_ in (("cpu", dtype_cpu), ("cuda", dtype_card)):
-            s_ = blob_sim(N_BLOB_CPU, dt_, eos, where)
+            s_ = blob_sim(N_BLOB_CPU, dt_, eos, where, physics)
             s_.init_data()
             if where == "cpu":
                 s_.run(max_step=steps, verbose=False, callbacks=[lambda q_: dts.append(q_.dt)])
@@ -1607,6 +1633,369 @@ def main():
                                cpu_iterations=hb["cpu"][2], max_rel_err=rel)
     del hb, gu, ru, god, rod
     torch.cuda.empty_cache()
+
+    # path I: self-gravity (gravity/, the multigrid of solvers/multigrid.py,
+    # the gravity source and its corrector, the sponge): a step with sources
+    # runs prim_aux twice (the second without div u, for the corrector's
+    # primitives), traces the old-time source into the three trace_ppm and
+    # ends in clean_fill twice; two Poisson solves a step
+    from castro_tpu_torch.geometry import geometry_from_params
+    from castro_tpu_torch.gravity import Gravity
+    from castro_tpu_torch.problems import dust_collapse
+    from castro_tpu_torch.problems.util import fill_from_prim
+    from castro_tpu_torch.utils import constants as UC
+
+    i_results = {}
+    FUSED_SRC = dict(FUSED, prim_aux=2, clean_fill=2)
+
+    def grav_of(s_):
+        return next(fn.gravity for fn in s_.source_fns if fn.name == "grav")
+
+    def dust_sim(n, dtype="float32", device="cuda"):
+        """The 3D DustCollapse (PoissonGrav, multipole BCs, outflow) at a
+        fixed dt: the CFL estimate knows no gravity (the JAX CLI's default
+        run fails at t = 0, ROADMAP.md)."""
+        p = dust_collapse.make_params(n=n, dim=3, dtype=dtype).with_ns("castro",
+                                                                      fixed_dt=GRAV_DT)
+        return Simulation(p, problem_init=dust_collapse.problem_init, device=device)
+
+    def timed_gravity(s_):
+        """Wrap the Gravity's grav_vector: the synchronized host time of each
+        field (the solver reads its residual on the host every V-cycle)."""
+        grav = grav_of(s_)
+        st = dict(s=0.0, calls=0)
+        inner = grav.grav_vector
+
+        def timed(*a, **kw):
+            torch.cuda.synchronize()
+            t0_ = time.perf_counter()
+            out = inner(*a, **kw)
+            torch.cuda.synchronize()
+            st["s"] += time.perf_counter() - t0_
+            st["calls"] += 1
+            return out
+
+        grav.grav_vector = timed
+        return st
+
+    def centre_rho(s_):
+        """The mean density of the 2^3 cells about the centre."""
+        n_ = s_.geom.n_cell[0] // 2
+        ui = s_.interior()[s_.layout.URHO]
+        return float(ui[n_ - 1:n_ + 1, n_ - 1:n_ + 1, n_ - 1:n_ + 1].double().mean())
+
+    print(f"kernel vs plain, 3D DustCollapse {N_MAIN}^3 float32 after a step (PoissonGrav; "
+          f"the old-time source traced into trace_ppm, prim_aux without div u) {elapsed()}:",
+          flush=True)
+    s_ = dust_sim(N_MAIN)
+    s_.init_data()
+    s_.advance(GRAV_DT)
+    x = inputs(s_, s_.u, GRAV_DT)
+    dtw = K.wt(GRAV_DT, s_.dtype)
+    src_old = sum(fn(s_, s_.u, x["q"], x["qaux"], s_.t, dtw) for fn in s_.source_fns)
+    s_._reset_sources()
+    srcQ = au.src_to_prim(x["q"], x["qaux"], src_old, s_.layout)
+    compare_step(x, "DustCollapse, srcQ", src=srcQ)
+    args = (s_.u, s_.layout, s_.eos, s_.cfg.small_dens, s_.small_temp, s_.geom.dx)
+    check("prim_aux", K.prim_aux(*args, with_divu=False),
+          K.prim_aux_plain(*args, with_divu=False), "DustCollapse, no divu")
+    del s_, x, src_old, srcQ
+    torch.cuda.empty_cache()
+
+    # I3: the 3D DustCollapse at 128^3 through Simulation.run
+    sim = dust_sim(N_MAIN)
+    grav = grav_of(sim)
+    gst = timed_gravity(sim)
+    rec = {}
+    init = sim.init_data
+
+    def init_rec(*a, **kw):
+        out = init(*a, **kw)
+        rec["rho_c0"] = centre_rho(sim)
+        torch.cuda.synchronize()
+        gst.update(s=0.0, calls=0)
+        rec["t0"] = time.perf_counter()
+        return out
+
+    sim.init_data = init_rec
+    n_i = drive(f"I3: DustCollapse {N_MAIN}^3 float32 PoissonGrav, {STEPS_I3} steps", sim,
+                FUSED_SRC, max_step=STEPS_I3, outflow=True)
+    wall = time.perf_counter() - rec["t0"]
+    sim.init_data = init
+    rho_c1 = centre_rho(sim)
+    solves = grav.solve_stats
+    print(f"  [{card}] {1e3 * wall / n_i:.1f} ms a step after init (the launch-count and "
+          f"outflow bookkeeping included), gravity {gst['s']:.3f} s ({gst['s'] / wall:.4f}); "
+          f"Poisson solves: {len(solves)} for {n_i} steps tried (V-cycles, final max "
+          f"residual): {solves}; centre density {rec['rho_c0']:.9e} -> {rho_c1:.9e}")
+    if len(solves) != 2 * n_i:
+        fail("path I3: not two Poisson solves a step")
+    if any(v >= grav.n_vcycles for v, _ in solves):
+        print(f"  note: a solve ran to the {grav.n_vcycles}-cycle cap (float32 stalled above "
+              f"rtol {grav.rtol:g})")
+    if not rho_c1 > rec["rho_c0"]:
+        fail("path I3: the centre's density did not rise")
+    i_results["I3_128"] = dict(step_ms=1e3 * wall / n_i, gravity_share=gst["s"] / wall,
+                               solves=solves, rho_centre=[rec["rho_c0"], rho_c1])
+    del sim, grav
+    torch.cuda.empty_cache()
+
+    def grav_card_vs_cpu(label, make, dtype_card, dtype_cpu, rtol, steps):
+        """`steps` steps on the CPU in dtype_cpu, then the same dt sequence on
+        the card in dtype_card, within rtol |cpu| + rtol max|cpu| per
+        component; rho e and rho T (UEINT, and UTEMP times the density: T
+        is e / c_v) with their floor scaled by max|rho E| / max|rho e|: in
+        the cold collapse e is E - KE, a difference the precision resolves
+        only to rtol of E's scale (T alone, e over the cell's density, is
+        then unbounded where the density is low)."""
+        print(f"card vs CPU, {label}: {steps} steps, card {dtype_card}, CPU {dtype_cpu} "
+              f"{elapsed()}:", flush=True)
+        runs, dts = {}, []
+        for where, dt_ in (("cpu", dtype_cpu), ("cuda", dtype_card)):
+            s2 = make(where, dt_)
+            s2.init_data()
+            if where == "cpu":
+                s2.run(max_step=steps, verbose=False, callbacks=[lambda q_: dts.append(q_.dt)])
+            else:
+                for d_ in dts:
+                    s2.advance(d_)
+            runs[where] = s2.interior().double().cpu()
+            runs[where + "_solves"] = [v for v, _ in grav_of(s2).solve_stats]
+        Lg = s2.layout
+        rest = [c for c in range(Lg.NVAR) if c not in (Lg.UEINT, Lg.UTEMP)]
+        err, rel, ok = compare(runs["cuda"][rest], runs["cpu"][rest], rtol, floor=True)
+
+        def derived(u_):
+            return torch.stack([u_[Lg.UEINT], u_[Lg.URHO] * u_[Lg.UTEMP]])
+
+        ref_d = derived(runs["cpu"])
+        ratio = float(runs["cpu"][Lg.UEDEN].abs().max() / runs["cpu"][Lg.UEINT].abs().max())
+        mag = ref_d.abs().flatten(1).amax(1).reshape(-1, 1, 1, 1)
+        d_err = (derived(runs["cuda"]) - ref_d).abs()
+        ok_d = bool((d_err <= rtol * ref_d.abs() + rtol * max(ratio, 1.0) * mag).all())
+        print(f"  max abs err {err:.3e} rel {rel:.3e} (tol {rtol:g}|cpu| + {rtol:g} max|cpu| "
+              f"per component); rho e and rho T max err {float((d_err / mag).max()):.3e} of their "
+              f"largest magnitude (tol {rtol:g} x max|rho E| / max|rho e| = {rtol * ratio:.3e}); "
+              f"V-cycles card {runs['cuda_solves']}, CPU {runs['cpu_solves']} "
+              f"{'ok' if ok and ok_d else 'DISAGREES'}")
+        if not (ok and ok_d):
+            compare(runs["cuda"][rest], runs["cpu"][rest], rtol, floor=True, report=True)
+            fail(f"the card and the CPU disagree on {label}")
+
+    # float64 over one step: from the second step on, a perturbation of one
+    # ulp of the state moves it by far more than 1e-8 (a switch of the scheme
+    # flips in some cells of the cold collapse), on one device as on two
+    grav_card_vs_cpu(f"I3 DustCollapse {N_GRAV_CPU}^3", lambda w, d: dust_sim(N_GRAV_CPU, d, w),
+                     "float64", "float64", F64_RTOL, 1)
+    grav_card_vs_cpu(f"I3 DustCollapse {N_GRAV_CPU}^3", lambda w, d: dust_sim(N_GRAV_CPU, d, w),
+                     "float32", "float64", F32_VS_F64, 3)
+
+    # the uniform sphere (tests/test_gravity.py:30-57) at N_SPHERE^3 on the card
+    for gtype in ("PoissonGrav", "MonopoleGrav"):
+        p = Params().with_ns("amr", n_cell=(N_SPHERE,) * 3).with_ns(
+            "geometry", prob_lo=(-1.0,) * 3, prob_hi=(1.0,) * 3).with_ns(
+            "castro", lo_bc=(2, 2, 2), hi_bc=(2, 2, 2), do_grav=1).with_ns(
+            "gravity", gravity_type=gtype).with_ns("tpu", dtype="float32")
+        geom = geometry_from_params(p, device="cuda")
+        gr = Gravity(p, geom, layout_from_params(p), 4)
+        xs = geom.cell_centers_1d(0, 0).double()
+        X, Y, Z = torch.meshgrid(xs, xs, xs, indexing="ij")
+        r = torch.sqrt(X ** 2 + Y ** 2 + Z ** 2)
+        R = 0.5
+        rho = torch.where(r < R, 1.0, 0.0).float()
+        M = 4.0 / 3.0 * np.pi * R ** 3
+        g3 = gr.grav_vector(rho)[0].double()
+        gmag = torch.sqrt((g3 ** 2).sum(0))
+        g_exact = torch.where(r < R, UC.Gconst * M * r / R ** 3, UC.Gconst * M / r ** 2)
+        mask = (r > 0.25) & ((r < 0.4) | (r > 0.65)) & (r < 0.95)
+        rel = ((gmag - g_exact).abs()[mask] / g_exact[mask])
+        inward = bool(((g3[0] * X + g3[1] * Y + g3[2] * Z)[mask] < 0).all())
+        print(f"I3 uniform sphere {N_SPHERE}^3 {gtype} float32 [{card}]: |g| against the "
+              f"analytic field, mean rel err {float(rel.mean()):.4e} (limit 0.05), max "
+              f"{float(rel.max()):.4e} (limit 0.25), inward {inward}; solves "
+              f"{gr.solve_stats}", flush=True)
+        if not (float(rel.mean()) < 0.05 and float(rel.max()) < 0.25 and inward):
+            fail(f"path I3: the uniform sphere's field ({gtype}) misses the analytic one")
+        i_results[f"sphere_{gtype}"] = dict(mean_rel=float(rel.mean()),
+                                            max_rel=float(rel.max()))
+        del gr, g3, X, Y, Z, r, rho, gmag, g_exact
+    torch.cuda.empty_cache()
+
+    # I3 timed at 256^3: STEPS_I3_BIG steps after init, then 1 step under
+    # the profiler, the device traced alone (~2 x 10^5 launches a step)
+    sim = dust_sim(N_BIG)
+    gst = timed_gravity(sim)
+    sim.init_data()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    gst.update(s=0.0, calls=0)
+    nsolve0 = len(grav_of(sim).solve_stats)
+    t0 = time.perf_counter()
+    sim.run(max_step=STEPS_I3_BIG, verbose=False)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    solves = grav_of(sim).solve_stats[nsolve0:]
+    i_results["I3_256"] = dict(step_ms=1e3 * wall / STEPS_I3_BIG, gravity_share=gst["s"] / wall,
+                               zones_per_s=sim.num_zones_advanced / wall, peak_gib=peak,
+                               solves=solves)
+    print(f"main path timing [{card}]: I3: DustCollapse {N_BIG}^3 float32, {STEPS_I3_BIG} "
+          f"steps after init: {1e3 * wall / STEPS_I3_BIG:.3f} ms/step, "
+          f"{sim.num_zones_advanced / wall:.6e} zones/s, gravity {gst['s']:.3f} s of "
+          f"{wall:.3f} s ({gst['s'] / wall:.4f}, {gst['calls']} fields), peak memory "
+          f"{peak:.3f} GiB; solves (V-cycles, final max residual): {solves}", flush=True)
+    if len(solves) != 2 * STEPS_I3_BIG:
+        fail("path I3: not two Poisson solves a step at 256^3")
+    profile_steps(sim, 1, card, host=False)
+    del sim
+    torch.cuda.empty_cache()
+
+    # I1: 1D spherical DustCollapse (MonopoleGrav, float64) to 0.6 t_ff with
+    # tests/test_convergence.py:36-55's checks
+    s1 = Simulation(dust_collapse.make_params(n=N_I1, dim=1),
+                    problem_init=dust_collapse.problem_init, device="cuda")
+    s1.init_data()
+    L1 = s1.layout
+    rho0_max = float(s1.interior()[L1.URHO].max())
+    t_ff = dust_collapse.free_fall_time(1.0e9)
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    s1.run(stop_time=0.6 * t_ff, max_step=4000, verbose=False)
+    torch.cuda.synchronize()
+    i1_s = time.perf_counter() - t0
+    rho = s1.interior()[L1.URHO].double().cpu().numpy()
+    inner = rho[:20]
+    flat_ = float(inner.std() / inner.mean())
+    launches1 = K.launch_counts()
+    path_launches[f"I1: DustCollapse 1D n={N_I1}"] = launches1
+    print(f"I1 [{card}]: 1D spherical DustCollapse n={N_I1} float64 to 0.6 t_ff: "
+          f"{s1.step_count} steps, {i1_s:.3f} s; max rho {rho.max() / rho0_max:.6f} x the "
+          f"initial (limit > 1.5), inner std/mean {flat_:.4e} (limit 0.2), finite and positive "
+          f"{bool(np.isfinite(rho).all() and rho.min() > 0)}; launches {launches1}", flush=True)
+    if not (np.isfinite(rho).all() and rho.min() > 0 and rho.max() > 1.5 * rho0_max
+            and flat_ < 0.2 and launches1["cmpflx"] >= s1.step_count > 0):
+        fail("path I1: the 1D DustCollapse misses test_convergence.py's checks")
+    i_results["I1"] = dict(steps=s1.step_count, s=i1_s, compression=float(rho.max() / rho0_max),
+                           inner_std_over_mean=flat_)
+    del s1
+
+    # IF: the full-physics blob (burning_blob physics="full": Poisson gravity
+    # with order-2 multipole BCs, iso7 Strang, the sponge), gamma law, float32
+    sim = blob_sim(N_MAIN, physics="full")
+    st = burn_stats(sim)
+    gst = timed_gravity(sim)
+    stamps = []
+    init = sim.init_data
+
+    def stamped_init(*a, **kw):
+        out = init(*a, **kw)
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+        gst.update(s=0.0, calls=0)
+        return out
+
+    sim.init_data = stamped_init
+    n_f = drive(f"IF: full-physics blob {N_MAIN}^3 float32, 1 step", sim,
+                dict(FUSED, prim_aux=2, clean_fill=4), max_step=1, outflow=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - stamps[0]
+    sim.init_data = init
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    i_results["IF"] = dict(step_ms=1e3 * wall / n_f, burn_share=st["s"] / wall,
+                           gravity_share=gst["s"] / wall, iters=st["iters"],
+                           released_erg=st["released"], peak_gib=peak,
+                           solves=grav_of(sim).solve_stats)
+    print(f"  [{card}] {1e3 * wall / n_f:.1f} ms a step after init; burns {st['s']:.3f} s "
+          f"({st['s'] / wall:.4f}), gravity {gst['s']:.3f} s ({gst['s'] / wall:.4f}), "
+          f"iterations {st['iters']}, energy released {st['released']:.6e} erg, peak memory "
+          f"{peak:.3f} GiB; solves {grav_of(sim).solve_stats}", flush=True)
+    if not st["released"] > 0.0:
+        fail("path IF: the hot zone released no energy")
+    del sim
+    torch.cuda.empty_cache()
+    blob_card_vs_cpu("IF", "float32", "float64", "gamma_law", F32_VS_F64, steps=1,
+                     physics="full")
+
+    # IG: composite gravity on two levels (tests/test_composite_gravity.py's
+    # blob: 0.01 + 2 exp(-(r/0.25)^2), p = 1, order-4 multipole BCs, tags
+    # where rho > 0.5), float32
+    def grav_amr(dim, n, device="cuda", dtype="float32"):
+        p = Params().with_ns("amr", n_cell=(n,) * dim, max_level=1, regrid_int=2,
+                             refinement_indicators=("dens",))
+        p = p.with_ns("geometry", prob_lo=(-1.0,) * 3, prob_hi=(1.0,) * 3)
+        p = p.with_ns("castro", lo_bc=(2,) * dim, hi_bc=(2,) * dim, do_grav=1,
+                      small_dens=1e-8)
+        p = p.with_ns("gravity", gravity_type="PoissonGrav", max_multipole_order=4)
+        p = p.replace(extra={"amr.dens.field": "density", "amr.dens.value_greater": 0.5})
+        p = p.with_ns("tpu", dtype=dtype)
+
+        def init_(s_, u_):
+            r_ = s_.geom.radius(s_.ng, center=(0.0,) * s_.geom.dim)
+            return fill_from_prim(s_, u_, 0.01 + 2.0 * torch.exp(-(r_ / 0.25) ** 2),
+                                  (0.0, 0.0, 0.0), p=1.0)
+
+        return AmrSimulation(p, problem_init=init_, device=device)
+
+    amr = grav_amr(3, N_IG)
+    amr.init_data()
+    amr.run(max_step=1, verbose=False)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zones0 = amr.num_zones_advanced
+    t0 = time.perf_counter()
+    amr.run(max_step=1 + STEPS_IG, verbose=False)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    u_ok = all(bool(torch.isfinite(u_).all()) for u_ in amr.u)
+    i_results["IG"] = dict(ms_per_coarse_step=1e3 * wall / STEPS_IG,
+                           zones_per_s=(amr.num_zones_advanced - zones0) / wall,
+                           window=list(amr.window[1][1]), phi_sync_resid=amr.phi_sync_resid,
+                           peak_gib=peak)
+    print(f"main path timing [{card}]: IG: 3D blob {N_IG}^3 + 1 level float32, {STEPS_IG} "
+          f"coarse steps: {1e3 * wall / STEPS_IG:.3f} ms a coarse step, "
+          f"{(amr.num_zones_advanced - zones0) / wall:.6e} zones/s, window "
+          f"{tuple(amr.window[1][1])} (+{len(amr.extra[1])} extra), refined cells "
+          f"{int(amr.masks[1].sum())}, phi_sync_resid {amr.phi_sync_resid:.6e}, peak memory "
+          f"{peak:.3f} GiB; finite {u_ok}", flush=True)
+    if not u_ok or not amr.phi_sync_resid > 0.0:
+        fail("path IG: the composite-gravity run failed")
+    del amr
+    torch.cuda.empty_cache()
+
+    # float64: the blob is at rest in pressure balance, its momenta (gravity
+    # with G in cgs on a unit blob: ~1e-10) are float32's round-off
+    print(f"card vs CPU, IG 2D blob {N_IG_CPU}^2 + 1 level float64, 2 coarse steps {elapsed()}:",
+          flush=True)
+    runs = {}
+    for where in ("cpu", "cuda"):
+        a_ = grav_amr(2, N_IG_CPU, where, "float64")
+        a_.init_data()
+        for _ in range(2):
+            a_.advance(1e-3)
+        runs[where] = ([u_[interior_slice(a_.ng, 2)].cpu() for u_ in a_.u],
+                       [a_.window[1][0].tolist(), a_.window[1][1]], a_.phi_sync_resid)
+    # the tolerance of tests/test_torch_amr.py: F64_RTOL (|cpu| + each
+    # component's largest magnitude), a momentum's magnitude at least
+    # sqrt(max rho x max rho E), the state's momentum scale: the blob is at
+    # rest, its momenta the round-off of the pressure balance
+    ok = runs["cuda"][1] == runs["cpu"][1]
+    Lg, worst = a_.sim0.layout, 0.0
+    for gu_, ru_ in zip(runs["cuda"][0], runs["cpu"][0]):
+        mag = ru_.abs().flatten(1).amax(1)
+        mom = float(torch.sqrt(mag[Lg.URHO] * mag[Lg.UEDEN]))
+        for c in (Lg.UMX, Lg.UMY, Lg.UMZ):
+            mag[c] = max(float(mag[c]), mom)
+        tol = F64_RTOL * (ru_.abs() + mag.reshape(-1, 1, 1))
+        worst = max(worst, float(((gu_ - ru_).abs() / tol).max()))
+    ok = ok and worst <= 1.0
+    print(f"  windows card {runs['cuda'][1]}, CPU {runs['cpu'][1]}; max error {worst:.3e} of "
+          f"the tolerance ({F64_RTOL:g} (|cpu| + max|cpu|) per component, the momenta's "
+          f"magnitude at least sqrt(max rho max rho E)); phi_sync_resid card "
+          f"{runs['cuda'][2]:.6e}, CPU {runs['cpu'][2]:.6e} {'ok' if ok else 'DISAGREES'}")
+    if not ok:
+        fail("the card and the CPU disagree on IG")
+    del runs
 
     # the probes: each against its plain version, then the entry points
     print(f"probes vs plain (scripts/prof_cmpflx.py setup at 128^3, float32) {elapsed()}:",
@@ -1968,7 +2357,7 @@ def main():
         "rz_vs_spherical_peak_cells": peak_shift, "dmr_checks": dmr_checks,
         "amr_3d": results.get(f"amr-{N_AMR}"), "amr_3d_window_after_run": list(g3d_window),
         "amr_sod_1d_l1": g1_l1, "amr_sod_1d_ms_per_coarse_step": g1_ms,
-        "path_H": h_results, "detonation": dict(ms_per_step=det_ms, fuel_ratio=fuel_ratio,
+        "path_H": h_results, "path_I": i_results, "detonation": dict(ms_per_step=det_ms, fuel_ratio=fuel_ratio,
                                                 max_mom=mom_max)}))
     print(smi_line())
     print(json.dumps({"kernels": entries}))

@@ -574,3 +574,68 @@ def test_probe_vpu_kernel(card, op):
     torch.testing.assert_close(got, ref, rtol=rtol, atol=0.0)
     with pytest.raises(TypeError):
         P.probe_vpu(x.double(), op, 1)
+
+
+@DTYPES
+@pytest.mark.parametrize("bc", ["dirichlet", "periodic"])
+def test_multigrid_card_vs_cpu(card, dtype, bc):
+    """The multigrid's V-cycles in torch ops on the card against the CPU: a
+    Dirichlet problem with face values and the singular periodic one (its
+    pinned dense bottom factored on the card), run to a tolerance; the
+    solution within the dtype's tolerance of its largest magnitude, and
+    the same V-cycle count (float32 within one: its stalled residual sits
+    at the rounding of the sums, which the card orders otherwise)."""
+    from castro_tpu_torch.solvers import multigrid as mg
+
+    rng = np.random.default_rng(21)
+    rhs = rng.standard_normal((24, 20, 16))
+    vals = [rng.standard_normal(s) for s in ((1, 20, 16), (24, 1, 16), (24, 20, 1))]
+    out = {}
+    for dev in ("cpu", "cuda"):
+        kw = dict(bc_lo=(bc,) * 3, bc_hi=(bc,) * 3, n_vcycles=30,
+                  rtol=1e-9 if dtype == torch.float64 else 1e-4)
+        if bc == "dirichlet":
+            kw["bc_vals_lo"] = [torch.as_tensor(v, dtype=dtype, device=dev) for v in vals]
+        stats = []
+        u, _ = mg.poisson(torch.as_tensor(rhs, dtype=dtype, device=dev), (0.1, 0.12, 0.15),
+                          stats=stats, **kw)
+        out[dev] = (u.cpu(), stats[0][0])
+    u_card, u_cpu = out["cuda"][0], out["cpu"][0]
+    err = float((u_card - u_cpu).abs().max() / u_cpu.abs().max())
+    assert err <= TOL[dtype], err
+    slack = 0 if dtype == torch.float64 else 1
+    assert abs(out["cuda"][1] - out["cpu"][1]) <= slack, (out["cuda"][1], out["cpu"][1])
+
+
+@pytest.mark.parametrize("gtype", ["PoissonGrav", "MonopoleGrav"])
+def test_gravity_step_card_vs_cpu(card, gtype):
+    """Two steps of the 3D DustCollapse (float64, 16^3, the fixed dt of
+    chip_smoke.py's path I) on the card against the CPU: 1e-8 |cpu| + 1e-8
+    max|cpu| per component, rho e and rho T with their floor scaled by
+    max|rho E| / max|rho e| (e is E - KE in the cold collapse); two
+    gravity fields a step on both."""
+    from castro_tpu_torch.driver.sim import Simulation
+    from castro_tpu_torch.problems import dust_collapse
+
+    params = dust_collapse.make_params(n=16, dim=3, dtype="float64").with_ns(
+        "gravity", gravity_type=gtype)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        sim = Simulation(params, problem_init=dust_collapse.problem_init, device=dev)
+        sim.init_data()
+        for _ in range(2):
+            sim.advance(2e-5)
+        out[dev] = sim.interior().cpu()
+        if gtype == "PoissonGrav":
+            assert len(sim.source_fns[0].gravity.solve_stats) == 4
+    Ls, rtol = sim.layout, 1e-8
+    got, ref = out["cuda"], out["cpu"]
+    mag = ref.abs().flatten(1).amax(1)
+    ratio = float(mag[Ls.UEDEN] / mag[Ls.UEINT])
+    for c in range(Ls.NVAR):
+        g_, r_, m_ = got[c], ref[c], float(mag[c])
+        if c in (Ls.UEINT, Ls.UTEMP):
+            g_, r_ = g_ * got[Ls.URHO], r_ * ref[Ls.URHO]
+            m_ = float(r_.abs().max()) * max(ratio, 1.0)
+        bad = (g_ - r_).abs() > rtol * r_.abs() + rtol * m_
+        assert not bool(bad.any()), (c, int(bad.sum()))

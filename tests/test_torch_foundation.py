@@ -150,11 +150,12 @@ def test_device_rules_and_unported_configs():
                 params.with_ns("castro", do_react=1).with_ns(
                     "network", network_name="iso7", nse=1),
                 params.with_ns("castro", do_rotation=1),
-                params.with_ns("castro", do_grav=1)):
+                params.with_ns("castro", do_radiation=1)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             Simulation(bad, device="cpu")
     # the 1D and 2D branches, riemanncg, the HLL hybrid, curvilinear
-    # geometry, PLM, the shock flag, hybrid momenta and reactions are ported
+    # geometry, PLM, the shock flag, hybrid momenta, reactions, gravity and
+    # the sponge are ported
     for good in (sedov.make_params(n=8, dim=2), sedov.make_params(n=8, dim=1),
                  params.with_ns("castro", riemann_solver=1),
                  params.with_ns("castro", hybrid_riemann=1),
@@ -162,13 +163,18 @@ def test_device_rules_and_unported_configs():
                  params.with_ns("castro", ppm_type=0),
                  params.with_ns("castro", hybrid_momentum=1),
                  params.with_ns("castro", use_shock_var=1),
-                 params.with_ns("castro", do_react=1).with_ns("network", network_name="iso7")):
+                 params.with_ns("castro", do_react=1).with_ns("network", network_name="iso7"),
+                 params.with_ns("castro", do_grav=1).with_ns("gravity",
+                                                            gravity_type="PoissonGrav"),
+                 params.with_ns("castro", do_sponge=1, sponge_lower_density=1e-3,
+                                sponge_upper_density=1e-2)):
         Simulation(good, device="cpu")
 
 
 def test_port_loads_no_jax():
-    """`import castro_tpu_torch` and one CPU step load neither jax nor any
-    castro_tpu module (a fresh process: this one has imported JAX)."""
+    """`import castro_tpu_torch` and a CPU step, of Sedov and of the 3D
+    DustCollapse (Poisson gravity), load neither jax nor any castro_tpu
+    module (a fresh process: this one has imported JAX)."""
     code = textwrap.dedent("""
         import sys
         import castro_tpu_torch
@@ -178,6 +184,12 @@ def test_port_loads_no_jax():
                          problem_init=sedov.problem_init, device="cpu")
         sim.init_data()
         sim.advance(sim.estimate_dt())
+        from castro_tpu_torch.problems import dust_collapse
+        grav = Simulation(dust_collapse.make_params(n=8, dim=3, dtype="float32"),
+                          problem_init=dust_collapse.problem_init, device="cpu")
+        grav.init_data()
+        grav.advance(2e-4)
+        assert len(grav.source_fns[0].gravity.solve_stats) == 2
         bad = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
                or m == "jaxlib" or m == "castro_tpu" or m.startswith("castro_tpu.")]
         print("LOADED", bad)
