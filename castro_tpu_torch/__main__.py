@@ -3,17 +3,21 @@
 (reference `Source/driver/main.cpp:33`): parse inputs, run the
 coarse-timestep loop on the card, print the STEP lines and the FOM.
 problem= one of sedov, sod, acoustic_pulse, detonation, burning_blob,
-dust_collapse or double_mach. detonation is the 1D reacting shock tube
-(powerlaw network, Strang burns), burning_blob the 3D iso7 blob
+dust_collapse, double_mach, flame_wave or hse_convergence. detonation is
+the 1D reacting shock tube (powerlaw network, Strang burns), burning_blob
+the 3D iso7 blob
 (physics=full: with Poisson gravity and the sponge, the JAX package's
 full-physics configuration); network.network_name= and
 eos.eos_name=helmholtz swap in a stellar network and EOS. dust_collapse is
 the self-gravitating collapse, 1D spherical with monopole gravity, or
-(dim=3) 3D Cartesian with Poisson gravity. double_mach is
-built by `problems.double_mach.build` with its inflow hook, at its own
-size, and ignores overrides, as in the JAX package. With amr.max_level > 0
-the run is an `AmrSimulation` (regrids every amr.regrid_int steps, tags
-from amr.refinement_indicators), e.g.
+(dim=3) 3D Cartesian with Poisson gravity. double_mach, flame_wave (2D,
+aprox13 + Helmholtz + conduction + constant gravity, an HSE lower face)
+and hse_convergence (1D, HSE fills on both faces) are built by their
+problems' `build` with their fill hooks, at their own sizes, and ignore
+overrides, as in the JAX package (flame_wave sets no stop time or step
+count: it runs until interrupted, as the JAX CLI's does). With
+amr.max_level > 0 the run is an `AmrSimulation` (regrids every
+amr.regrid_int steps, tags from amr.refinement_indicators), e.g.
 
     python -m castro_tpu_torch problem=sedov amr.n_cell="128 128 128" \
         amr.max_level=1 amr.refinement_indicators=denerr \
@@ -31,7 +35,8 @@ def main(argv=None):
     from castro_tpu_torch.driver.amr import AmrSimulation
     from castro_tpu_torch.driver.sim import Simulation
     from castro_tpu_torch.problems import (acoustic_pulse, burning_blob, detonation,
-                                           double_mach, dust_collapse, sedov, sod)
+                                           double_mach, dust_collapse, flame_wave,
+                                           hse_convergence, sedov, sod)
 
     problems = {"sedov": (sedov.make_params, sedov.problem_init),
                 "sod": (sod.make_params, sod.problem_init),
@@ -39,8 +44,10 @@ def main(argv=None):
                 "detonation": (detonation.make_params, detonation.problem_init),
                 "burning_blob": (burning_blob.make_params, burning_blob.problem_init),
                 "dust_collapse": (dust_collapse.make_params, dust_collapse.problem_init),
-                # custom construction (the inflow fill closure)
-                "double_mach": ("build", double_mach.build)}
+                # custom construction (the fill hooks)
+                "double_mach": ("build", double_mach.build),
+                "flame_wave": ("build", flame_wave.build),
+                "hse_convergence": ("build", hse_convergence.build)}
     argv = list(sys.argv[1:] if argv is None else argv)
     if not argv:
         print(__doc__)

@@ -21,9 +21,10 @@ kernels. With `transverse_use_eos` the whole step takes the plain structure,
 the JAX package's own route for that option (its EOS re-evaluation rides
 the XLA transverse path). On the card (`device="cuda"`, the default) each
 kernel is a CUDA kernel; on the CPU it runs its plain PyTorch version.
-Gravity (constant, monopole, Poisson), the sponge and the 2D RZ geometric
-source run through the source path of the step (old-time sources traced
-into the states, the time-centred corrector or a source's own, the lagged
+Thermal diffusion, gravity (constant, monopole, Poisson), rotation, the
+sponge, a problem's external source and the 2D RZ geometric source run
+through the source path of the step (old-time sources traced into the
+states, the time-centred corrector or a source's own, the lagged
 predictor of `source_term_predictor=1`): then prim_aux runs a second time,
 without div u, for the new-time primitives, and clean_fill twice. And
 `point_mass_fix_solution` resets the box around the centre after a step.
@@ -37,9 +38,8 @@ hybrid momenta for clean_fill (`:384`).
 `StepCtx` carries how a step fills ghosts and reduces, and its geometry:
 the AMR driver (`driver/amr.py`) steps its windows through it, with the
 head fill and the status reductions of an explicit context, and a
-window's composite-gravity BCs. Diffusion, rotation, external sources,
-radiation, MHD, SDC and I/O are not ported (ROADMAP.md); a configuration
-that needs them raises.
+window's composite-gravity BCs. Radiation, MHD, SDC and I/O are not
+ported (ROADMAP.md); a configuration that needs them raises.
 """
 
 from __future__ import annotations
@@ -53,7 +53,7 @@ import torch
 
 from castro_tpu_torch.config import Params
 from castro_tpu_torch.driver.clean import clean_state, update_hybrid_momenta
-from castro_tpu_torch.driver.timestep import estdt_burning, estdt_cfl
+from castro_tpu_torch.driver.timestep import estdt_burning, estdt_cfl, estdt_temp_diffusion
 from castro_tpu_torch.eos import make_eos
 from castro_tpu_torch.geometry import geometry_from_params, resolve_device, torch_dtype
 from castro_tpu_torch.network import make_network
@@ -111,8 +111,7 @@ class StepStatus:
 
 
 def _unported(params):
-    """The ROADMAP.md item of the first unported feature a config needs
-    (sources raise in `sources.build_sources`)."""
+    """The ROADMAP.md item of the first unported feature a config needs."""
     c = params.castro
     checks = [
         (c.do_hydro != 1, "castro.do_hydro=0 (queue 1 item 10)"),
@@ -147,12 +146,14 @@ class Simulation:
     the step on one device."""
 
     def __init__(self, params: Params, problem_init: Optional[Callable] = None,
-                 device=None, problem_fill: Optional[Callable] = None, geom=None):
+                 device=None, problem_fill: Optional[Callable] = None, geom=None,
+                 ext_src: Optional[Callable] = None):
         """device: None = "cuda"; the tests pass "cpu". `problem_fill(u, t)`
         sets the ghosts of inflow faces after every fill (reference
         problem_bc_fill). `geom` overrides the geometry of `params`: an AMR
         window passes a `local_view` of its level, so that dx is the
-        level's."""
+        level's. `ext_src` is the problem's external source, taken with
+        castro.add_ext_src=1 (reference ext_src, Castro_sources.cpp)."""
         item = _unported(params)
         if item is not None:
             raise NotImplementedError(f"not ported yet: {item}, see ROADMAP.md")
@@ -170,7 +171,8 @@ class Simulation:
         self.problem_init = problem_init
         self.problem_fill = problem_fill
         K.check_kernel_layout(self.layout, dims=(1, 2, 3))
-        self.source_fns = build_sources(params, self.geom, self.layout, self.layout.ngrow)
+        self.source_fns = build_sources(params, self.geom, self.layout, self.layout.ngrow,
+                                        ext_src=ext_src)
 
         c = params.castro
         self.ng = self.layout.ngrow
@@ -307,7 +309,13 @@ class Simulation:
         dt = estdt_cfl(u, self.layout, self.eos, self.geom, self.ng, c.cfl)
         dt_b = estdt_burning(u, self.layout, self.eos, self.network, self.ng, c.dtnuc_e,
                              c.dtnuc_X, c.dtnuc_X_threshold)
-        return dt if isinstance(dt_b, float) else torch.minimum(dt, dt_b)
+        if not isinstance(dt_b, float):
+            dt = torch.minimum(dt, dt_b)
+        diff = next((s for s in self.source_fns if getattr(s, "name", "") == "diff"), None)
+        if diff is not None:
+            dt = torch.minimum(dt, estdt_temp_diffusion(u, self.layout, self.eos, self.geom,
+                                                        self.ng, diff))
+        return dt
 
     def estimate_dt(self) -> float:
         c = self.params.castro

@@ -1,7 +1,6 @@
 """Timestep estimators (counterpart of `castro_tpu/driver/timestep.py`;
-reference `Source/driver/timestep.cpp`): CFL (:31) and burning (:354).
-Reductions run over the valid interior only. The diffusion limiter waits
-with its physics (ROADMAP.md, queue 1 item 10)."""
+reference `Source/driver/timestep.cpp`): CFL (:31), burning (:354) and
+thermal diffusion (:262). Reductions run over the valid interior only."""
 
 from __future__ import annotations
 
@@ -52,3 +51,24 @@ def estdt_burning(u, layout, eos, network, ng, dtnuc_e, dtnuc_X, dtnuc_X_thresho
         dt = torch.minimum(dt, dtnuc_X * torch.min(
             torch.where(big, xn, torch.full_like(xn, math.inf)) / vmax(rate, 1e-50)))
     return dt
+
+
+def estdt_temp_diffusion(u, layout, eos, geom, ng, diffusion_src):
+    """Half the explicit-conduction stability limit dt <= 0.5 dx^2 / D with
+    D = k / (rho c_v) (reference `estdt_temp_diffusion`, timestep.cpp:262);
+    a Python inf without a diffusion source."""
+    if diffusion_src is None:
+        return math.inf
+    L = layout
+    ui = u[interior_slice(ng, L.dim, comp_ndim=1)]
+    rho = ui[L.URHO]
+    T = ui[L.UTEMP]
+    xn = ui[L.UFS: L.UFS + L.nspec] / rho[None]
+    es = eos.re(rho=rho, e=ui[L.UEINT] / rho, xn=xn)
+    k = diffusion_src.conductivity(rho, T)
+    D = k / vmax(rho * es.cv, 1e-300)
+    dt = None
+    for d in range(L.dim):
+        m = torch.min(0.5 * geom.dx[d] ** 2 / vmax(D, 1e-300))
+        dt = m if dt is None else torch.minimum(dt, m)
+    return 0.5 * dt

@@ -54,5 +54,14 @@ class Eos:
     def rp(self, rho, p, xn=None) -> EosState:
         raise NotImplementedError
 
+    def rh(self, rho, h, xn=None) -> EosState:
+        raise NotImplementedError
+
+    def tp(self, T, p, xn=None) -> EosState:
+        raise NotImplementedError
+
+    def ph(self, p, h, xn=None) -> EosState:
+        raise NotImplementedError
+
     def __call__(self, mode: str, **kw) -> EosState:
         return getattr(self, mode)(**kw)

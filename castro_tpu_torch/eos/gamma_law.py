@@ -100,3 +100,11 @@ class GammaLawEos(Eos):
 
     def rh(self, rho, h, xn=None) -> EosState:
         return self.re(rho, h / self.gamma, xn)
+
+    def tp(self, T, p, xn=None) -> EosState:
+        mu = self.mu_from_xn(xn)
+        return self._fill(p * mu * C.m_u / (C.k_B * T), T, xn)
+
+    def ph(self, p, h, xn=None) -> EosState:
+        e = h / self.gamma
+        return self.re(p / (e * (self.gamma - 1.0)), e, xn)

@@ -3,8 +3,9 @@ reference Microphysics networks, chosen per problem with `NETWORK_DIR`).
 
 A Network owns species metadata (names, A, Z, binding energies) and, for
 reactive networks, a vectorized RHS f(rho, T, X) -> (dX/dt, de/dt) over
-whole arrays at once. Ported: general_null, powerlaw, iso7, aprox13 and
-aprox19; the others raise (ROADMAP.md, queue 1 item 7)."""
+whole arrays at once. Ported: general_null, powerlaw, iso7, aprox13,
+aprox19, triple_alpha_plus_cago, rprox and nova; aprox21 and subch raise
+(ROADMAP.md, queue 1 item 7)."""
 
 from __future__ import annotations
 
@@ -37,5 +38,17 @@ def make_network(params) -> Network:
         from castro_tpu_torch.network.aprox19 import Aprox19Network
 
         return Aprox19Network()
+    if name in ("triple_alpha_plus_cago", "triple_alpha"):
+        from castro_tpu_torch.network.triple_alpha import TripleAlphaCagoNetwork
+
+        return TripleAlphaCagoNetwork()
+    if name == "rprox":
+        from castro_tpu_torch.network.rprox import RproxNetwork
+
+        return RproxNetwork()
+    if name == "nova":
+        from castro_tpu_torch.network.nova import NovaNetwork
+
+        return NovaNetwork()
     raise NotImplementedError(
         f"network {name!r} is not ported (ROADMAP.md, queue 1 item 7)")

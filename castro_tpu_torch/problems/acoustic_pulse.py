@@ -1,8 +1,9 @@
 """Acoustic pulse (reference `Exec/hydro_tests/acoustic_pulse`; counterpart of
 `castro_tpu/problems/acoustic_pulse.py`): a smooth isentropic density and
 pressure bump in a periodic box, the standard problem for measuring the
-order of convergence. The general-EOS variant needs the Helmholtz EOS
-(ROADMAP.md, queue 1 item 7)."""
+order of convergence. The general-EOS variant (Helmholtz, through
+`utils/initial_models.isentrope_through`) is not ported yet (ROADMAP.md,
+queue 1 item 7, the remaining setups)."""
 
 from __future__ import annotations
 

@@ -8,9 +8,10 @@ counterpart of `castro_tpu/problems/gravity_tests.py:22-117`).
 - evrard_collapse: the Evrard (1988) adiabatic collapse of a cold
   1/r-density gas sphere under self-gravity.
 
-Both use PoissonGrav with multipole boundary conditions. StarGrav and the
-HSE setups need `utils/initial_models.py` and external sources (items 7
-and 10).
+Both use PoissonGrav with multipole boundary conditions. StarGrav,
+hydrostatic_adjust and hse_convergence_general
+(`castro_tpu/problems/gravity_tests.py:112-290`) are not ported yet
+(ROADMAP.md, queue 1 item 7, the remaining setups).
 """
 
 from __future__ import annotations

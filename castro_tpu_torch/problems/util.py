@@ -40,3 +40,18 @@ def fill_from_prim(sim, u, rho, vel, p=None, T=None, xn=None):
     if L.naux > 0:
         u[L.UFX: L.UFX + L.naux] = 0.0
     return u
+
+
+def column_state(sim, u, model):
+    """rho, T [grid] and xn [nspec, grid] of a 1D model in y (a dict of
+    `utils/initial_models.py`), interpolated to u's cell centres, float64."""
+    from castro_tpu_torch.utils.initial_models import model_to_grid
+
+    shape = tuple(u.shape[1:])
+    vals = model_to_grid(model, sim.geom.cell_centers_1d(1, sim.ng).double().cpu().numpy())
+
+    def col(v):
+        return torch.as_tensor(v, dtype=torch.float64, device=u.device)[None, :].expand(shape)
+
+    xn = torch.stack([col(vals[f"spec_{k}"]) for k in range(sim.layout.nspec)])
+    return col(vals["density"]), col(vals["temperature"]), xn

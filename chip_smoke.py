@@ -85,6 +85,21 @@ toolkit. In order:
           128^3, one step with its burn and gravity shares, 16^3 card vs
           CPU; IG, composite gravity on two levels (a 3D blob 64^3 + one
           level timed, phi_sync_resid; 2D 32^2 card vs CPU);
+       J  flame_wave and the surface-burning setups (thermal diffusion,
+          rotation, the HSE fill hook, the initial models, aprox13, rprox,
+          nova and powerlaw with Helmholtz or the gamma law), float64:
+          cmpflx and trans_cmpflx first held bit for bit on the initial
+          states of flame_wave (NPASS = 13), xrb_mixed (10) and nova (14);
+          J-fw, flame_wave at N_FW (512 x 256) for STEPS_FW steps after
+          init_data with its init time, ms a step, zones/s, the burn's and
+          the conduction's shares, the HSE fill's time a step, peak
+          memory and a device-only profile, and 64 x 32 card vs CPU after
+          one step; J-hse, hse_convergence at n = 64 and 128 to t = 1, the
+          residual velocity falling with resolution; J-sci, toy_flame,
+          convective_flame, reacting_bubble, xrb_mixed and nova at the
+          JAX package's default sizes for STEPS_SCI steps, convective_flame
+          (128 x 96) and xrb_mixed (N_XRB_CPU, 32 x 96) card vs CPU after
+          one step;
      then the probe entry points (castro_tpu_torch/scripts/prof_cmpflx.py
      at 128^3 and prof_vpu.py), each probe first held against its plain
      version (probe_cmpflx at every tiling and probe_copy bit for bit,
@@ -94,7 +109,9 @@ toolkit. In order:
      torch.profiler) beside its bound and its plain version's time (CUDA
      events); trace_ppm and ctu_face variant by variant
      (castro_tpu_torch/scripts/prof_faces.py); the nine step kernels again
-     at NPASS = 7 and 19.
+     at NPASS = 7 and 19; cmpflx and trans_cmpflx in float64 at NPASS = 13
+     on flame_wave's state (J-fw's grid), the bound's operations over the
+     float64 peak.
 Any failure exits non-zero. The last two lines are the kernels' JSON and
 the {"ok": true, ...} line. Without a card, or without the package beside
 this file, it exits 2 and prints no result.
@@ -147,7 +164,7 @@ DMR_CHECK, DMR_BIG, STEPS_DMR = (128, 32), (2048, 512), 10   # path F
 N_AMR, STEPS_AMR = 128, 10        # path G: 3D Sedov with one refined level (256^3 effective)
 N_AMR_2D, STEPS_AMR_2D = 1024, 5  # path G: 2D Sedov
 N_AMR_1D = 1024                   # path G: 1D Sod to t=0.2
-STEPS_H3 = 2                      # path H: the 128^3 burning blob, steps of each EOS
+STEPS_H3 = 1                      # path H: the 128^3 burning blob, steps of each EOS
 N_BLOB_CPU = 16                   # path H: the blob's card-vs-CPU copy (the CPU burns slowly)
 N_DET, STEPS_DET = 512, 200       # path H1: the 1D detonation, n and at most these steps
 STEPS_I3 = 5                      # path I: 3D DustCollapse at N_MAIN^3, checked
@@ -159,6 +176,13 @@ N_SPHERE = 128                    # path I: the uniform sphere against its analy
 N_I1 = 128                        # path I: 1D spherical DustCollapse to 0.6 t_ff
 N_IG, STEPS_IG = 64, 2            # path I: composite gravity, 3D blob + one level, timed
 N_IG_CPU = 32                     # path I: composite gravity's 2D card-vs-CPU copy
+N_FW, STEPS_FW = (512, 256), 3   # path J: flame_wave, timed after init_data (at 1024 x 512
+                                  # the smoke would not end within its time limit)
+N_FW_CPU = (64, 32)               # path J: flame_wave's card-vs-CPU copy, one step
+N_HSE = (64, 128)                 # path J: hse_convergence to t = 1
+N_XRB_CPU = (32, 96)              # path J: xrb_mixed's card-vs-CPU copy, one step
+STEPS_SCI = 2                     # path J: the five surface-burning setups, steps of each
+FP64_OPS_PER_S = 34e12            # H100 SXM float64 outside the tensor cores (NVIDIA's data sheet)
 DET_BURNT_RTOL = 1e-4             # H1: fuel burnt on the card against the same steps on the CPU
 F32_VS_F64 = 1e-4                 # card float32 against CPU float64 (tests/test_f32_physics.py)
 F64_RTOL = 1e-8                   # card float64 against CPU float64, coupled burns
@@ -402,6 +426,35 @@ def count_ops(fn):
     with Count():
         fn()
     return Count.ops
+
+
+def time_kernel(name, variants, S, itemsize, ops_per_s, reps, plain_reps):
+    """Per-launch times of kernel `name` over its variants, each (kernel
+    call, plain call, components moved[, elements[, variant label]]): the
+    kernel's device time (torch.profiler; the wrapper's time, with a notice,
+    where the profiler sees none), the wrapper's and the plain version's
+    (CUDA events), and the bound max(components x elements x itemsize /
+    HBM_BYTES_PER_S, operations of the plain version / ops_per_s). Returns
+    the mean over the variants and the row of each."""
+    rows = []
+    for kern, plain, comps, *more in variants:
+        S_ = more[0] if more else S
+        w_ms = time_ms(kern, reps=reps)
+        k_ms = kernel_device_ms(kern, reps=reps)
+        if k_ms is None:
+            print(f"  {name}: the profiler saw no device time; ms is the wrapper's time")
+            k_ms = w_ms
+        p_ms = time_ms(plain, reps=plain_reps, warm=1)
+        ops = count_ops(plain)
+        b_bytes = comps * S_ * itemsize / HBM_BYTES_PER_S * 1e3
+        b_ops = ops / ops_per_s * 1e3
+        rows.append(dict(ms=k_ms, wrapper_ms=w_ms, plain_ms=p_ms, bound_ms=max(b_bytes, b_ops),
+                         bytes_ms=b_bytes, ops_ms=b_ops, comps=comps, ops_per_cell=ops / S_,
+                         variant=more[1] if len(more) > 1 else None))
+    mean = {k: sum(r[k] for r in rows) / len(rows)
+            for k in ("ms", "wrapper_ms", "plain_ms", "bound_ms", "bytes_ms", "ops_ms")}
+    mean["bound_by"] = "bytes" if mean["bytes_ms"] >= mean["ops_ms"] else "operations"
+    return mean, rows
 
 
 def annotation(e):
@@ -1467,43 +1520,59 @@ def main():
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
 
-    def blob_card_vs_cpu(label, dtype_card, dtype_cpu, eos, rtol, steps=2, physics="burn"):
-        """The N_BLOB_CPU^3 blob: `steps` steps on the CPU in dtype_cpu, then
-        the same dt sequence on the card in dtype_card, within rtol |cpu| +
-        rtol max|cpu| per component; the species as mass fractions, within
-        rtol of a zone's total of one (the burn's trace products are 1e-25
-        of the mass, where float32 and float64 rates differ by a percent)."""
-        print(f"card vs CPU, {label}: {N_BLOB_CPU}^3 blob, {steps} steps, card {dtype_card}, "
-              f"CPU {dtype_cpu} {elapsed()}:", flush=True)
-        runs, dts = {}, []
-        for where, dt_ in (("cpu", dtype_cpu), ("cuda", dtype_card)):
-            s_ = blob_sim(N_BLOB_CPU, dt_, eos, where, physics)
+    def reacting_card_vs_cpu(label, make, rtol, steps=2, shared_momentum=False):
+        """`steps` steps of make("cpu"), then the same dt sequence on
+        make("cuda"), within rtol |cpu| + rtol max|cpu| per component; the
+        species as mass fractions, within rtol of a zone's total of one (the
+        burn's trace products are 1e-25 of the mass, where float32 and
+        float64 rates differ by a percent). With `shared_momentum` the three
+        momenta share the largest momentum magnitude as their floor (a
+        momentum that the geometry cancels is rounding of the others)."""
+        print(f"card vs CPU, {label}, {steps} step(s) {elapsed()}:", flush=True)
+        runs, dts, iters = {}, [], {}
+        for where in ("cpu", "cuda"):
+            s_ = make(where)
             s_.init_data()
             if where == "cpu":
                 s_.run(max_step=steps, verbose=False, callbacks=[lambda q_: dts.append(q_.dt)])
             else:
                 for d_ in dts:
                     s_.advance(d_)
-            ui_ = s_.interior().double().cpu()
-            Ls = s_.layout
-            xs_ = ui_[Ls.UFS:Ls.UFS + Ls.nspec] / ui_[Ls.URHO][None]
-            runs[where] = (torch.cat([ui_[:Ls.UFS], ui_[Ls.UFS + Ls.nspec:]]), xs_)
-            runs[where + "_iters"] = s_.reactor.burner.stats.iterations
-        err, rel, ok = compare(runs["cuda"][0], runs["cpu"][0], rtol, floor=True)
-        x_err = float((runs["cuda"][1] - runs["cpu"][1]).abs().max())
-        ok = ok and x_err <= rtol
-        print(f"  max abs err {err:.3e} rel {rel:.3e} (tol {rtol:g}|cpu| + {rtol:g} max|cpu| "
-              f"per component); mass fractions max abs err {x_err:.3e} (tol {rtol:g}); last "
-              f"half burn's iterations card {runs['cuda_iters']}, CPU {runs['cpu_iters']} "
-              f"{'ok' if ok else 'DISAGREES'}")
+            runs[where] = s_.interior().double().cpu()
+            iters[where] = None if s_.reactor is None else s_.reactor.burner.stats.iterations
+        Ls = s_.layout
+        spec = slice(Ls.UFS, Ls.UFS + Ls.nspec)
+        rest = [c_ for c_ in range(Ls.NVAR) if not Ls.UFS <= c_ < Ls.UFS + Ls.nspec]
+        gu_, ru_ = runs["cuda"], runs["cpu"]
+        mag = ru_[rest].abs().flatten(1).amax(1)
+        if shared_momentum:
+            mom = [rest.index(c_) for c_ in (Ls.UMX, Ls.UMY, Ls.UMZ)]
+            mag[mom] = mag[mom].max()
+        err = (gu_[rest] - ru_[rest]).abs()
+        tol = rtol * (ru_[rest].abs() + mag.reshape((-1,) + (1,) * Ls.dim))
+        worst = float(torch.where(err == 0, 0.0, err / tol).max())
+        x_err = float((gu_[spec] / gu_[Ls.URHO] - ru_[spec] / ru_[Ls.URHO]).abs().max())
+        ok = worst <= 1.0 and x_err <= rtol
+        print(f"  dt {dts}; max abs err {float(err.max()):.3e}, {worst:.3e} of the tolerance "
+              f"({rtol:g} |cpu| + {rtol:g} max|cpu| per component"
+              f"{', the momenta sharing theirs' if shared_momentum else ''}); mass fractions max "
+              f"abs err {x_err:.3e} (tol {rtol:g}); last half burn's iterations card "
+              f"{iters['cuda']}, CPU {iters['cpu']} {'ok' if ok else 'DISAGREES'}", flush=True)
         if not ok:
-            compare(runs["cuda"][0], runs["cpu"][0], rtol, floor=True, report=True)
+            compare(gu_[rest], ru_[rest], rtol, floor=True, report=True)
             fail(f"the card and the CPU disagree on {label}")
+        return worst, x_err
+
+    def blob_make(dtype_card, dtype_cpu, eos, physics="burn"):
+        return lambda where: blob_sim(N_BLOB_CPU, dtype_card if where == "cuda" else dtype_cpu,
+                                      eos, where, physics)
 
     # float32 on the card against float64 on the CPU: the f32-vs-f64 budget of
     # tests/test_f32_physics.py:53-75 (1e-4)
-    blob_card_vs_cpu("H3-gl", "float32", "float64", "gamma_law", F32_VS_F64)
-    blob_card_vs_cpu("H3-helm", "float64", "float64", "helmholtz", F64_RTOL, steps=1)
+    reacting_card_vs_cpu(f"H3-gl: {N_BLOB_CPU}^3 blob, card float32, CPU float64",
+                         blob_make("float32", "float64", "gamma_law"), F32_VS_F64)
+    reacting_card_vs_cpu(f"H3-helm: {N_BLOB_CPU}^3 blob, float64",
+                         blob_make("float64", "float64", "helmholtz"), F64_RTOL, steps=1)
 
     # H1: the 1D detonation (powerlaw, gamma law 1.4, float64; cmpflx with
     # NPASS = 3), tests/test_problems.py:64-79's checks; the same steps on
@@ -1913,8 +1982,9 @@ def main():
         fail("path IF: the hot zone released no energy")
     del sim
     torch.cuda.empty_cache()
-    blob_card_vs_cpu("IF", "float32", "float64", "gamma_law", F32_VS_F64, steps=1,
-                     physics="full")
+    reacting_card_vs_cpu(f"IF: {N_BLOB_CPU}^3 blob, card float32, CPU float64",
+                         blob_make("float32", "float64", "gamma_law", "full"), F32_VS_F64,
+                         steps=1)
 
     # IG: composite gravity on two levels (tests/test_composite_gravity.py's
     # blob: 0.01 + 2 exp(-(r/0.25)^2), p = 1, order-4 multipole BCs, tags
@@ -1996,6 +2066,165 @@ def main():
     if not ok:
         fail("the card and the CPU disagree on IG")
     del runs
+
+    # path J: flame_wave and the surface-burning setups (problems/*.py:
+    # thermal diffusion, rotation, the HSE fill hook, the initial models of
+    # utils/initial_models.py, the triple-alpha, rprox and nova networks),
+    # float64. A 2D step launches cmpflx and trans_cmpflx twice each, a 1D
+    # step cmpflx once; everything else is torch ops (Helmholtz's prim_aux
+    # and clean_fill, as the JAX package leaves them to XLA, and a fill hook
+    # turns the kernel clean_fill off), so the launch counts are TWO_D and
+    # ONE_D a tried step. The kernels are first held on the states of the
+    # path at NPASS = 13 (flame_wave, aprox13), 10 (xrb_mixed, rprox) and 14
+    # (nova)
+    from castro_tpu_torch.problems import (convective_flame, flame_wave, hse_convergence,
+                                           nova, reacting_bubble, toy_flame, xrb_mixed)
+
+    j_results = {}
+
+    def sci_sim(mod, n=None, device="cuda"):
+        p = mod.make_params() if n is None else mod.make_params(n=n)
+        return Simulation(p, problem_init=mod.problem_init, device=device)
+
+    print(f"kernel vs plain, path J's states, float64 {elapsed()}:", flush=True)
+    for label, make in ((f"flame_wave {N_FW[0]} x {N_FW[1]} (NPASS 13)",
+                         lambda: flame_wave.build(n=N_FW)),
+                        ("xrb_mixed 64 x 192 (NPASS 10)", lambda: sci_sim(xrb_mixed)),
+                        ("nova 64 x 128 (NPASS 14)", lambda: sci_sim(nova))):
+        s_ = make()
+        s_.init_data()
+        compare_low_dim(inputs_low_dim(s_, s_.u, s_.estimate_dt()), label)
+        del s_
+        torch.cuda.empty_cache()
+
+    def sync_timed(fn, st):
+        """fn with the synchronized host time of each call added to st."""
+
+        def timed(*a, **kw):
+            torch.cuda.synchronize()
+            t0_ = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            st["s"] += time.perf_counter() - t0_
+            st["calls"] += 1
+            return out
+
+        return timed
+
+    def timed_run(sim):
+        """The burn and, where the setup has them, the conduction source and
+        the fill hook, each timed (synchronized host clock); the counters
+        restart at the end of init_data, whose own time is kept."""
+        st = dict(burn=burn_stats(sim), diff=dict(s=0.0, calls=0),
+                  fill=dict(s=0.0, calls=0), init=dict(s=0.0, end=None))
+        for i, src in enumerate(sim.source_fns):
+            if src.name == "diff":
+                timed_diff = sync_timed(src, st["diff"])
+                timed_diff.name, timed_diff.conductivity = src.name, src.conductivity
+                sim.source_fns[i] = timed_diff
+        if sim.problem_fill is not None:
+            fill = sim.problem_fill
+            sim.problem_fill = sync_timed(lambda u, t=0.0: fill(u, t), st["fill"])
+        init = sim.init_data
+
+        def stamped_init(*a, **kw):
+            torch.cuda.synchronize()
+            t0_ = time.perf_counter()
+            out = init(*a, **kw)
+            torch.cuda.synchronize()
+            st["init"].update(s=time.perf_counter() - t0_, end=time.perf_counter())
+            st["burn"].update(s=0.0, calls=0, iters=[], released=0.0)
+            st["diff"].update(s=0.0, calls=0)
+            st["fill"].update(s=0.0, calls=0)
+            return out
+
+        sim.init_data = stamped_init
+        return st
+
+    # J-fw: flame_wave as the JAX package configures it, timed
+    sim = flame_wave.build(n=N_FW)
+    assert [s_.name for s_ in sim.source_fns] == ["diff", "grav"]
+    st = timed_run(sim)
+    torch.cuda.reset_peak_memory_stats()
+    n_fw = drive(f"J-fw: flame_wave {N_FW[0]} x {N_FW[1]} float64, {STEPS_FW} steps", sim,
+                 TWO_D, max_step=STEPS_FW, conserves_mass=False)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - st["init"]["end"]
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    zones = int(np.prod(N_FW))
+    T_max = float(sim.interior()[sim.layout.UTEMP].max())
+    j_results["J-fw"] = dict(
+        n_cell=list(N_FW), init_s=st["init"]["s"], step_ms=1e3 * wall / n_fw,
+        zones_per_s=zones * sim.step_count / wall, burn_share=st["burn"]["s"] / wall,
+        diffusion_share=st["diff"]["s"] / wall, hse_fill_ms_per_step=1e3 * st["fill"]["s"] / n_fw,
+        hse_fills_per_step=st["fill"]["calls"] / n_fw, iters=st["burn"]["iters"],
+        released_erg=st["burn"]["released"], peak_gib=peak, T_max=T_max)
+    print(f"  [{card}] init_data {st['init']['s']:.3f} s; {1e3 * wall / n_fw:.1f} ms a step, the "
+          f"mean of {n_fw} steps after init, {zones * sim.step_count / wall:.6e} zones/s; burns "
+          f"{st['burn']['s']:.3f} s ({st['burn']['s'] / wall:.4f}), {st['burn']['calls']} half "
+          f"burns, iterations {st['burn']['iters']}; conduction {st['diff']['s']:.4f} s "
+          f"({st['diff']['s'] / wall:.4f}); HSE fill {1e3 * st['fill']['s'] / n_fw:.2f} ms a "
+          f"step ({st['fill']['calls'] / n_fw:.1f} fills a step); energy released "
+          f"{st['burn']['released']:.6e} erg; peak memory {peak:.3f} GiB; max T {T_max:.6e} K",
+          flush=True)
+    if not (st["burn"]["released"] > 0.0 and T_max > 3.5e8):
+        fail("path J-fw: the ignition patch did not burn")
+    profile_steps(sim, 1, card, host=False)
+    del sim
+    torch.cuda.empty_cache()
+
+    j_results["J-fw_vs_cpu"] = reacting_card_vs_cpu(
+        f"J-fw: flame_wave {N_FW_CPU[0]} x {N_FW_CPU[1]}, float64",
+        lambda where: flame_wave.build(n=N_FW_CPU, device=where), F64_RTOL, steps=1,
+        shared_momentum=True)
+
+    # J-hse: hse_convergence to t = 1, HSE fills on both faces; the residual
+    # velocity falls with resolution (tests/test_hse_convergence.py's bounds)
+    v_hse = {}
+    for n_h in N_HSE:
+        sim = hse_convergence.build(n=n_h)
+        drive(f"J-hse: hse_convergence n={n_h} float64 to t=1.0", sim, ONE_D, stop_time=1.0,
+              conserves_mass=False)
+        ui = sim.interior().double()
+        v_hse[n_h] = float((ui[sim.layout.UMX] / ui[sim.layout.URHO]).abs().max())
+        del sim
+    j_results["J-hse"] = dict(max_velocity=v_hse)
+    print(f"  max |u| at t = 1: {v_hse} (bounds: < 5e-4 at n = {N_HSE[0]}, falling at least 3x "
+          f"to n = {N_HSE[1]})", flush=True)
+    if not (v_hse[N_HSE[0]] < 5e-4 and v_hse[N_HSE[1]] < v_hse[N_HSE[0]] / 3.0):
+        fail("path J-hse: the hydrostatic atmosphere does not converge")
+
+    # J-sci: the five setups at the JAX package's default sizes, a few steps
+    for key, mod, per_try in (("toy_flame", toy_flame, ONE_D),
+                              ("convective_flame", convective_flame, TWO_D),
+                              ("reacting_bubble", reacting_bubble, TWO_D),
+                              ("xrb_mixed", xrb_mixed, TWO_D), ("nova", nova, TWO_D)):
+        sim = sci_sim(mod)
+        st = timed_run(sim)
+        n_s = drive(f"J-sci: {key} {' x '.join(map(str, sim.geom.n_cell))} float64, "
+                    f"{STEPS_SCI} steps", sim, per_try, max_step=STEPS_SCI, conserves_mass=False)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - st["init"]["end"]
+        b = st["burn"]
+        j_results[f"J-sci {key}"] = dict(
+            init_s=st["init"]["s"], step_ms=1e3 * wall / n_s, burn_share=b["s"] / wall,
+            diffusion_share=st["diff"]["s"] / wall, iters=b["iters"], released_erg=b["released"],
+            dt=sim.dt, sources=[s_.name for s_ in sim.source_fns])
+        print(f"  [{card}] init_data {st['init']['s']:.3f} s; {1e3 * wall / n_s:.1f} ms a step "
+              f"after init; burns {b['s']:.3f} s ({b['s'] / wall:.4f}), iterations {b['iters']}; "
+              f"conduction {st['diff']['s'] / wall:.4f} of the wall; energy released "
+              f"{b['released']:.6e} erg; last dt {sim.dt:.6e}; sources "
+              f"{[s_.name for s_ in sim.source_fns]}", flush=True)
+        del sim
+        torch.cuda.empty_cache()
+    j_results["J-sci convective_flame_vs_cpu"] = reacting_card_vs_cpu(
+        "J-sci: convective_flame 128 x 96, float64",
+        lambda where: sci_sim(convective_flame, device=where), F64_RTOL, steps=1,
+        shared_momentum=True)
+    j_results["J-sci xrb_mixed_vs_cpu"] = reacting_card_vs_cpu(
+        f"J-sci: xrb_mixed {N_XRB_CPU[0]} x {N_XRB_CPU[1]}, float64",
+        lambda where: sci_sim(xrb_mixed, N_XRB_CPU, device=where), F64_RTOL, steps=1,
+        shared_momentum=True)
 
     # the probes: each against its plain version, then the entry points
     print(f"probes vs plain (scripts/prof_cmpflx.py setup at 128^3, float32) {elapsed()}:",
@@ -2199,29 +2428,17 @@ def main():
           f"operations of the plain version / {FP32_OPS_PER_S:g} op/s):", flush=True)
     by_variant = {}  # ctu_face's variants: the mean over the three directions
     for name, variants in calls.items():
-        sums = dict(ms=0.0, wrapper_ms=0.0, plain_ms=0.0, bound_ms=0.0, bytes_ms=0.0,
-                    ops_ms=0.0)
-        for kern, plain, comps, *more in variants:
-            S = more[0] if more else u[0].numel()
-            w_ms = time_ms(kern, reps=20)
-            k_ms = kernel_device_ms(kern, reps=20)
-            if k_ms is None:
-                print(f"  {name}: the profiler saw no device time; ms is the wrapper's time")
-                k_ms = w_ms
-            p_ms = time_ms(plain, reps=3, warm=1)
-            ops = count_ops(plain)
-            b_bytes = comps * S * isz / HBM_BYTES_PER_S * 1e3
-            b_ops = ops / FP32_OPS_PER_S * 1e3
-            print(f"  {name:10s} {k_ms:9.4f} ms   wrapper {w_ms:9.4f} ms   plain {p_ms:9.4f} ms"
-                  f"   bound {max(b_bytes, b_ops):.4f} ms ({comps} components, {b_bytes:.4f} ms;"
-                  f" {ops / S:.1f} operations a cell, {b_ops:.4f} ms)", flush=True)
-            for key, v in (("ms", k_ms), ("wrapper_ms", w_ms), ("plain_ms", p_ms),
-                           ("bound_ms", max(b_bytes, b_ops)), ("bytes_ms", b_bytes),
-                           ("ops_ms", b_ops)):
-                sums[key] += v / len(variants)
-                if name.startswith("ctu_face") and key in ("ms", "plain_ms", "bound_ms"):
-                    by_variant.setdefault(more[1], {}).setdefault(key, 0.0)
-                    by_variant[more[1]][key] += v / 3
+        sums, rows = time_kernel(name, variants, u[0].numel(), isz, FP32_OPS_PER_S, reps=20,
+                                 plain_reps=3)
+        for r in rows:
+            print(f"  {name:10s} {r['ms']:9.4f} ms   wrapper {r['wrapper_ms']:9.4f} ms   plain "
+                  f"{r['plain_ms']:9.4f} ms   bound {r['bound_ms']:.4f} ms ({r['comps']} "
+                  f"components, {r['bytes_ms']:.4f} ms; {r['ops_per_cell']:.1f} operations a "
+                  f"cell, {r['ops_ms']:.4f} ms)", flush=True)
+            if name.startswith("ctu_face"):
+                for key in ("ms", "plain_ms", "bound_ms"):
+                    by_variant.setdefault(r["variant"], {}).setdefault(key, 0.0)
+                    by_variant[r["variant"]][key] += r[key] / 3
         if name not in REPLACES:  # a second variant of a kernel: printed, kept with its kernel
             extra[name] = sums
             continue
@@ -2235,7 +2452,7 @@ def main():
             "max_abs_err": errs[name][0], "max_rel_err": errs[name][1], "ms": sums["ms"],
             "wrapper_ms": sums["wrapper_ms"], "plain_ms": sums["plain_ms"],
             "bound_ms": sums["bound_ms"],
-            "bound_by": "bytes" if sums["bytes_ms"] >= sums["ops_ms"] else "operations",
+            "bound_by": sums["bound_by"],
             "library_ms": None})
     for e in entries:
         if e["name"] == "trace_ppm":  # the variant the unfused structure launches
@@ -2320,33 +2537,57 @@ def main():
         for e in entries:
             if e["name"] not in cl:
                 continue
-            sums = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, bytes_ms=0.0, ops_ms=0.0)
-            for kern, plain, comps in cl[e["name"]]:
-                k_ms = kernel_device_ms(kern, reps=10)
-                if k_ms is None:
-                    k_ms = time_ms(kern, reps=10)
-                p_ms = time_ms(plain, reps=2, warm=1)
-                ops = count_ops(plain)
-                b_bytes = comps * Sl * iszl / HBM_BYTES_PER_S * 1e3
-                b_ops = ops / FP32_OPS_PER_S * 1e3
-                n_ = len(cl[e["name"]])
-                for key_, v_ in (("ms", k_ms), ("plain_ms", p_ms),
-                                 ("bound_ms", max(b_bytes, b_ops)), ("bytes_ms", b_bytes),
-                                 ("ops_ms", b_ops)):
-                    sums[key_] += v_ / n_
+            sums, _ = time_kernel(e["name"], cl[e["name"]], Sl, iszl, FP32_OPS_PER_S, reps=10,
+                                  plain_reps=2)
             e[f"npass{nspec}"] = dict(
                 ms=sums["ms"], plain_ms=sums["plain_ms"], bound_ms=sums["bound_ms"],
-                bound_by="bytes" if sums["bytes_ms"] >= sums["ops_ms"] else "operations",
-                launches_path_H=h_launches.get(e["name"], 0))
+                bound_by=sums["bound_by"], launches_path_H=h_launches.get(e["name"], 0))
             print(f"  {e['name']:12s} {sums['ms']:9.4f} ms   plain {sums['plain_ms']:9.4f} ms   "
                   f"bound {sums['bound_ms']:.4f} ms ({e[f'npass{nspec}']['bound_by']}); "
                   f"NPASS = 1: {e['ms']:.4f} ms, bound {e['bound_ms']:.4f} ms", flush=True)
         del cl, ul
         torch.cuda.empty_cache()
+    # path J's kernels in float64 at NPASS = 13 on flame_wave's state
+    # (J-fw's grid, its initial state): the bound's operations over the
+    # float64 peak, its bytes at 8 a value
+    j_launches = {}
+    for label, c in path_launches.items():
+        if label.startswith("J"):
+            for k_, v_ in c.items():
+                j_launches[k_] = j_launches.get(k_, 0) + v_
+    sfw = flame_wave.build(n=N_FW)
+    sfw.init_data()
+    yf = inputs_low_dim(sfw, sfw.u, sfw.estimate_dt())
+    Lf, Sf, iszf = sfw.layout, sfw.u[0].numel(), sfw.u.element_size()
+    fcalls = {"cmpflx": [(lambda a=a: K.cmpflx(*a), lambda a=a: K.cmpflx_plain(*a),
+                          2 * Lf.NQ + 4 + Lf.NVAR + Lf.NGDNV) for a in yf["solves"]],
+              "trans_cmpflx": [(lambda a=a: K.trans_cmpflx(*a, True, False),
+                                lambda a=a: K.trans_cmpflx_plain(*a, True, False),
+                                2 * Lf.NQ + 2 * Lf.NVAR + 8 + Lf.NVAR + Lf.NGDNV)
+                               for a in yf["finals"]]}
+    print(f"kernel timing [{card}], float64, flame_wave {N_FW[0]} x {N_FW[1]} (grown "
+          f"{tuple(sfw.u.shape[1:])}, NPASS = {Lf.nspec}), per launch as above, the operations "
+          f"over {FP64_OPS_PER_S:g} op/s {elapsed()}:", flush=True)
+    for e in entries:
+        if e["name"] not in fcalls:
+            continue
+        sums, _ = time_kernel(e["name"], fcalls[e["name"]], Sf, iszf, FP64_OPS_PER_S, reps=10,
+                              plain_reps=2)
+        e["float64_npass13_flame_wave"] = dict(
+            ms=sums["ms"], wrapper_ms=sums["wrapper_ms"], plain_ms=sums["plain_ms"],
+            bound_ms=sums["bound_ms"], bound_by=sums["bound_by"],
+            launches_path_J=j_launches.get(e["name"], 0))
+        print(f"  {e['name']:12s} {sums['ms']:9.4f} ms   wrapper {sums['wrapper_ms']:9.4f} ms   "
+              f"plain {sums['plain_ms']:9.4f} ms   bound {sums['bound_ms']:.4f} ms "
+              f"({e['float64_npass13_flame_wave']['bound_by']}; bytes {sums['bytes_ms']:.4f} ms, "
+              f"operations {sums['ops_ms']:.4f} ms)", flush=True)
+    del sfw, yf, fcalls
+    torch.cuda.empty_cache()
     for e in entries:
         if e["name"] in REPLACES and e["name"] not in ("probe_cmpflx", "probe_copy",
                                                          "probe_vpu"):
             e["launches_path_H"] = h_launches.get(e["name"], 0)
+            e["launches_path_J"] = j_launches.get(e["name"], 0)
     step_bound = sum(e["bound_ms"] * FUSED.get(e["name"], 0) for e in entries)
     print(f"summary [{card}]: " + json.dumps({
         "zones_per_s": {k: v["zones_per_s"] for k, v in results.items()},
@@ -2357,8 +2598,8 @@ def main():
         "rz_vs_spherical_peak_cells": peak_shift, "dmr_checks": dmr_checks,
         "amr_3d": results.get(f"amr-{N_AMR}"), "amr_3d_window_after_run": list(g3d_window),
         "amr_sod_1d_l1": g1_l1, "amr_sod_1d_ms_per_coarse_step": g1_ms,
-        "path_H": h_results, "path_I": i_results, "detonation": dict(ms_per_step=det_ms, fuel_ratio=fuel_ratio,
-                                                max_mom=mom_max)}))
+        "path_H": h_results, "path_I": i_results, "path_J": j_results,
+        "detonation": dict(ms_per_step=det_ms, fuel_ratio=fuel_ratio, max_mom=mom_max)}))
     print(smi_line())
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -149,13 +149,12 @@ def test_device_rules_and_unported_configs():
     for bad in (params.with_ns("castro", time_integration_method=2),
                 params.with_ns("castro", do_react=1).with_ns(
                     "network", network_name="iso7", nse=1),
-                params.with_ns("castro", do_rotation=1),
                 params.with_ns("castro", do_radiation=1)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             Simulation(bad, device="cpu")
     # the 1D and 2D branches, riemanncg, the HLL hybrid, curvilinear
-    # geometry, PLM, the shock flag, hybrid momenta, reactions, gravity and
-    # the sponge are ported
+    # geometry, PLM, the shock flag, hybrid momenta, reactions, gravity,
+    # the sponge, rotation and thermal diffusion are ported
     for good in (sedov.make_params(n=8, dim=2), sedov.make_params(n=8, dim=1),
                  params.with_ns("castro", riemann_solver=1),
                  params.with_ns("castro", hybrid_riemann=1),
@@ -167,7 +166,10 @@ def test_device_rules_and_unported_configs():
                  params.with_ns("castro", do_grav=1).with_ns("gravity",
                                                             gravity_type="PoissonGrav"),
                  params.with_ns("castro", do_sponge=1, sponge_lower_density=1e-3,
-                                sponge_upper_density=1e-2)):
+                                sponge_upper_density=1e-2),
+                 params.with_ns("castro", do_rotation=1, rotational_period=1.0),
+                 params.with_ns("castro", do_thermal_diffusion=1),
+                 params.with_ns("castro", diffuse_temp=1, add_ext_src=1)):
         Simulation(good, device="cpu")
 
 
