@@ -14,14 +14,19 @@ forward mode (`torch.func.jacfwd`, or dual numbers) costs 10-20x more a
 step on the CPU, where an operation between a dual and a plain tensor
 takes a Python decomposition. The EOS and networks take their max/min
 with the JAX derivative at ties (`utils/tmath.py`). The step loop is a
-host loop with the JAX package's `lax.while_loop` condition: at most
-`max_substeps` iterations, while any zone has t < t_done = dt (1 - 100
-eps). Each iteration asks the device once which zones are still active
-(one sync a substep), and steps only those: a zone's steps depend on
-nothing but its own state, so its result, its failure flag and its
-iteration count are those of the loop over all zones. For the same
-reason the zones are taken a chunk at a time, which bounds the memory of
-the autograd graph.
+host loop with the JAX package's `lax.while_loop` condition and body: at
+most `max_substeps` iterations, while any zone has t < t_done = dt (1 -
+100 eps); each iteration steps every zone of a chunk and keeps the step
+where the zone is active. The zones are taken a chunk at a time (a zone's
+steps depend on nothing but its own state), which bounds the memory of
+the autograd graph. The body has fixed shapes and no host read, so on the
+card it is captured once as a CUDA graph (a chunk shape, kept with the
+burner: `utils/cuda_graph.py:GraphLoop`) and replayed; the host reads
+only whether any zone is still active, one sync a substep. An eager
+iteration is some 8e4 launches (the Helmholtz inversions of three RHS
+evaluations and the Jacobian's backward pass). W is factored in torch ops
+(`lu_factor_ops`), as the batched factorization of torch.linalg cannot
+be captured.
 
 Burn state: y = [X_0..X_{nspec-1}, e]; density is constant over the burn
 (the reference's burn_t)."""
@@ -30,6 +35,7 @@ from __future__ import annotations
 
 import torch
 
+from castro_tpu_torch.utils.cuda_graph import GraphLoop
 from castro_tpu_torch.utils.tmath import clip, vmax
 
 D = 1.0 / (2.0 + 2.0**0.5)
@@ -46,6 +52,30 @@ CHUNK = 1 << 17
 CHUNK_CUDA = 1 << 19
 
 
+def lu_factor_ops(W):
+    """LU factorization with partial pivoting of a batch of small matrices
+    W [nz, n, n] in torch ops, in LAPACK's form (L below the diagonal, U on
+    and above it, 1-based pivots) as torch.linalg.lu_factor gives it, for
+    torch.linalg.lu_solve: the unblocked algorithm, a column at a time.
+    It captures into a CUDA graph, where the batched factorization of
+    torch.linalg does not."""
+    A = W.clone()
+    nz, n, _ = A.shape
+    piv = torch.empty((nz, n), dtype=torch.int32, device=A.device)
+    piv[:, n - 1] = n
+    for k in range(n - 1):
+        p = torch.argmax(torch.abs(A[:, k:, k]), dim=1) + k
+        piv[:, k] = (p + 1).to(torch.int32)
+        idx = p[:, None, None].expand(nz, 1, n)
+        row_k = A[:, k:k + 1, :].clone()
+        row_p = torch.gather(A, 1, idx)
+        A.scatter_(1, idx, row_k)
+        A[:, k:k + 1, :] = row_p
+        A[:, k + 1:, k] = A[:, k + 1:, k] / A[:, k, k][:, None]
+        A[:, k + 1:, k + 1:] = A[:, k + 1:, k + 1:] - A[:, k + 1:, k, None] * A[:, k, None, k + 1:]
+    return A, piv
+
+
 class BurnStats:
     """What the last burn did: the loop's iterations (the most any zone
     took) and each zone's iteration count (flattened)."""
@@ -58,7 +88,7 @@ class BurnStats:
 def make_burner(network, eos, rtol=1e-6, atol_x=1e-8, atol_e=1e-6, max_substeps=1024):
     """Returns burn(rho, T, xn, e, dt) -> (xn_new, e_new, fail), all
     arrays of the grid's shape (xn [nspec, ...]); `burn.stats` holds the
-    last call's BurnStats."""
+    last call's BurnStats, `burn.rosenbrock_step` the step itself."""
     nspec = network.nspec
     ny = nspec + 1
 
@@ -97,7 +127,7 @@ def make_burner(network, eos, rtol=1e-6, atol_x=1e-8, atol_e=1e-6, max_substeps=
         J = jac_v(y, rho)
         eye = torch.eye(ny, dtype=y.dtype, device=y.device)
         W = eye[None] - (h * D)[:, None, None] * J
-        LU, piv = torch.linalg.lu_factor(W)
+        LU, piv = lu_factor_ops(W)
 
         def solve(b):
             return torch.linalg.lu_solve(LU, piv, b[..., None])[..., 0]
@@ -111,37 +141,42 @@ def make_burner(network, eos, rtol=1e-6, atol_x=1e-8, atol_e=1e-6, max_substeps=
         err = (h / 6.0)[:, None] * (k1 - 2.0 * k2 + k3)
         return y_new, err
 
-    def integrate(y, rho, dt, t_done):
-        """Advance the zones of one chunk; returns (y, t, steps)."""
-        nz = y.shape[0]
-        t = torch.zeros(nz, dtype=y.dtype, device=y.device)
-        h = torch.full_like(t, dt / 16.0)
-        steps = torch.zeros(nz, dtype=torch.int32, device=y.device)
-        it = 0
-        while it < max_substeps:
-            idx = torch.nonzero(t < t_done).flatten()  # the one sync of a substep
-            if idx.numel() == 0:
-                break
-            ya, ta, ha = y[idx], t[idx], h[idx]
-            h_eff = torch.minimum(ha, dt - ta)
-            y_new, err = rosenbrock_step(ya, rho[idx], h_eff)
+    def masked_iteration(st):
+        """One iteration of the JAX package's loop body over every zone of a
+        chunk, in place on st = [y, rho, t, h, steps, active, dt, t_done]:
+        the step is kept where the zone was active, and `active` is
+        recomputed for the next iteration."""
+        y, rho, t, h, steps, active, dt_t, t_done_t = st
+        h_eff = torch.where(active, torch.minimum(h, dt_t - t), h)
+        y_new, err = rosenbrock_step(y, rho, h_eff)
+        scale = atol_x + rtol * torch.maximum(torch.abs(y), torch.abs(y_new))
+        scale_e = atol_e + rtol * torch.maximum(torch.abs(y[:, nspec]), torch.abs(y_new[:, nspec]))
+        scale = torch.cat([scale[:, :nspec], scale_e[:, None]], dim=1)
+        enorm = torch.amax(torch.abs(err) / scale, dim=1)
+        ok = (enorm <= 1.0) & torch.all(torch.isfinite(y_new), dim=1)
+        take = ok & active
+        fac = SAFETY * torch.where(enorm > 0, enorm ** (-1.0 / 3.0),
+                                   torch.full_like(enorm, GROW_MAX))
+        fac = clip(fac, SHRINK_MIN, GROW_MAX)
+        fac = torch.where(torch.isfinite(enorm), fac, torch.full_like(fac, SHRINK_MIN))
+        y.copy_(torch.where(take[:, None], y_new, y))
+        t_new = torch.where(take, t + h_eff, t)
+        h.copy_(torch.where(active, h_eff * fac, h))
+        steps.add_(active.to(steps.dtype))
+        t.copy_(t_new)
+        active.copy_(t_new < t_done_t)
 
-            scale = atol_x + rtol * torch.maximum(torch.abs(ya), torch.abs(y_new))
-            scale[:, nspec] = atol_e + rtol * torch.maximum(torch.abs(ya[:, nspec]),
-                                                            torch.abs(y_new[:, nspec]))
-            enorm = torch.amax(torch.abs(err) / scale, dim=1)
-            ok = (enorm <= 1.0) & torch.all(torch.isfinite(y_new), dim=1)
+    loop = GraphLoop(masked_iteration)
 
-            y[idx] = torch.where(ok[:, None], y_new, ya)
-            t[idx] = torch.where(ok, ta + h_eff, ta)
-            fac = SAFETY * torch.where(enorm > 0, enorm ** (-1.0 / 3.0),
-                                       torch.full_like(enorm, GROW_MAX))
-            fac = clip(fac, SHRINK_MIN, GROW_MAX)
-            fac = torch.where(torch.isfinite(enorm), fac, torch.full_like(fac, SHRINK_MIN))
-            h[idx] = h_eff * fac
-            steps[idx] += 1
-            it += 1
-        return y, t, steps, it
+    def integrate(y0, rho, dt, t_done):
+        """Advance the zones of one chunk; returns (y, t, steps, iterations)."""
+        t = torch.zeros_like(rho)
+        st = [y0, rho, t, torch.full_like(t, dt / 16.0),
+              torch.zeros(rho.shape, dtype=torch.int32, device=rho.device), t < t_done,
+              torch.full((), dt, dtype=t.dtype, device=t.device),
+              torch.full((), t_done, dtype=t.dtype, device=t.device)]
+        it, st = loop(st, max_substeps, more=lambda s: bool(s[5].any()))  # one sync a substep
+        return st[0].clone(), st[2].clone(), st[4].clone(), it
 
     def burn(rho, T, xn, e, dt):
         shape = rho.shape
@@ -167,4 +202,5 @@ def make_burner(network, eos, rtol=1e-6, atol_x=1e-8, atol_e=1e-6, max_substeps=
         return xn_new, e_new, fail
 
     burn.stats = BurnStats()
+    burn.rosenbrock_step = rosenbrock_step
     return burn

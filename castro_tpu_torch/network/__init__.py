@@ -3,9 +3,9 @@ reference Microphysics networks, chosen per problem with `NETWORK_DIR`).
 
 A Network owns species metadata (names, A, Z, binding energies) and, for
 reactive networks, a vectorized RHS f(rho, T, X) -> (dX/dt, de/dt) over
-whole arrays at once. Ported: general_null, powerlaw, iso7, aprox13,
-aprox19, triple_alpha_plus_cago, rprox and nova; aprox21 and subch raise
-(ROADMAP.md, queue 1 item 7)."""
+whole arrays at once. general_null, powerlaw, iso7, aprox13, aprox19,
+aprox21, triple_alpha_plus_cago, rprox, nova and subch; the NSE solver of
+`network.nse=1` is `nse.py`."""
 
 from __future__ import annotations
 
@@ -50,5 +50,12 @@ def make_network(params) -> Network:
         from castro_tpu_torch.network.nova import NovaNetwork
 
         return NovaNetwork()
-    raise NotImplementedError(
-        f"network {name!r} is not ported (ROADMAP.md, queue 1 item 7)")
+    if name == "aprox21":
+        from castro_tpu_torch.network.aprox21 import Aprox21Network
+
+        return Aprox21Network()
+    if name == "subch":
+        from castro_tpu_torch.network.subch import SubchNetwork
+
+        return SubchNetwork()
+    raise ValueError(f"unknown network '{name}'")

@@ -42,9 +42,18 @@ class Network:
     def column(self, values, like, ndim):
         """A per-species constant as a tensor of like's dtype and device,
         shaped [nspec, 1, ...] to broadcast against an [nspec, *grid] of
-        `ndim` grid axes."""
-        return torch.as_tensor(np.asarray(values, dtype=np.float64), dtype=like.dtype,
-                               device=like.device).reshape((-1,) + (1,) * ndim)
+        `ndim` grid axes. Kept on the network, keyed by the values
+        themselves: a host-to-device copy is not allowed while a CUDA
+        graph captures the burner's iteration."""
+        a = np.asarray(values, dtype=np.float64)
+        key = (a.tobytes(), like.dtype, like.device, ndim)
+        cache = self.__dict__.setdefault("_columns", {})
+        col = cache.get(key)
+        if col is None:
+            col = torch.as_tensor(a, dtype=like.dtype, device=like.device).reshape(
+                (-1,) + (1,) * ndim)
+            cache[key] = col
+        return col
 
     def rhs(self, rho, T, xn, e=None):
         """Vectorized RHS: (xdot[nspec, ...], edot[...]); zero for an inert

@@ -55,3 +55,30 @@ def column_state(sim, u, model):
 
     xn = torch.stack([col(vals[f"spec_{k}"]) for k in range(sim.layout.nspec)])
     return col(vals["density"]), col(vals["temperature"]), xn
+
+
+def model_state(sim, u, model, dist, nspec=None):
+    """rho, T [grid] and, with nspec, xn [nspec, grid] of a 1D model (a
+    dict of `utils/initial_models.py`) interpolated to the distances
+    `dist` [grid] on the host, as tensors of u's dtype and device."""
+    from castro_tpu_torch.utils.initial_models import model_to_grid
+
+    shape = tuple(u.shape[1:])
+    vals = model_to_grid(model, dist.expand(shape).double().cpu().numpy().reshape(-1))
+
+    def grid(v):
+        return torch.as_tensor(v, dtype=u.dtype, device=u.device).reshape(shape)
+
+    rho, T = grid(vals["density"]), grid(vals["temperature"])
+    if nspec is None:
+        return rho, T
+    return rho, T, torch.stack([grid(vals[f"spec_{k}"]) for k in range(nspec)])
+
+
+def radius_from_origin(sim, shape):
+    """|x| in 1D, sqrt(x^2 + y^2 (+ z^2)) otherwise, at u's cell centres."""
+    g = sim.geom
+    axes = [g.cell_centers(d, sim.ng).expand(shape) for d in range(sim.layout.dim)]
+    if len(axes) == 1:
+        return axes[0]
+    return torch.sqrt(sum(a * a for a in axes))

@@ -1,7 +1,7 @@
 """Fundamental constants, CGS (matches Microphysics `fundamental_constants.H`).
 
 The subset of `castro_tpu/utils/constants.py` that the EOSes and the
-reaction networks and gravity read."""
+reaction networks, gravity and the problem setups read."""
 
 Gconst = 6.67430e-8  # cm^3/g/s^2
 k_B = 1.380649e-16  # erg/K
@@ -12,3 +12,5 @@ sigma_SB = 5.670374419e-5  # erg/cm^2/s/K^4
 a_rad = 4.0 * sigma_SB / c_light  # radiation constant, erg/cm^3/K^4
 q_e = 4.80320425e-10  # esu
 MeV2erg = 1.602176634e-6
+hplanck = 6.62607015e-27  # erg s
+M_solar = 1.98848e33  # g

@@ -10,8 +10,11 @@ one below, so it runs on the host, as the JAX package's numpy march does:
 the EOS is evaluated on one-element float64 CPU tensors (`HostEos`), with
 the JAX package's iteration counts and stopping tests, and only the
 finished columns go to the device. The spherical march keeps the JAX
-package's fixed 16 Newton iterations a shell; its callbacks take and
-return tensors (`torch.where`, not a Python `if`, on their argument).
+package's fixed 16 Newton iterations a shell and runs on tensors, on a
+device of the caller's choice, for several central densities at once (the
+white-dwarf mass bisection walks its tree that way, `wd_model_for_mass`);
+its callbacks take and return tensors (`torch.where`, not a Python `if`,
+on their argument).
 
 Every generator returns a dict of numpy arrays keyed like a model file
 (`density`, `temperature`, `pressure`, `spec_*`; `mass` for the spherical
@@ -25,6 +28,7 @@ import numpy as np
 import torch
 
 from castro_tpu_torch.utils import constants as C
+from castro_tpu_torch.utils.cuda_graph import GraphLoop
 
 
 class HostEos:
@@ -35,9 +39,11 @@ class HostEos:
         self.eos = eos
 
     def state(self, rho, T, xn):
-        """The EosState of one zone, one-element float64 CPU tensors."""
+        """The EosState of one zone, one-element float64 CPU tensors (xn
+        None: the EOS's composition-free state)."""
         t = lambda v: torch.tensor([float(v)], dtype=torch.float64)
-        xn = torch.as_tensor(np.asarray(xn, dtype=np.float64).reshape(-1, 1))
+        if xn is not None:
+            xn = torch.as_tensor(np.asarray(xn, dtype=np.float64).reshape(-1, 1))
         return self.eos.rt(rho=t(rho), T=t(T), xn=xn)
 
     def p_dpdr_gam1(self, rho, T, xn):
@@ -109,33 +115,55 @@ def hse_plane_parallel(eos, z, rho_base, T_base, g, xn_of_z: Callable[[float], n
     return _model(z, rho, T, p, xn)
 
 
-def hse_spherical(eos, r, rho_c, T_c, xn_of_m: Callable, T_of_rho: Optional[Callable] = None,
-                  rho_cutoff: float = 1e-4) -> Dict[str, np.ndarray]:
-    """Integrate a spherical hydrostatic star outward: dp/dr = -G m rho /
-    r^2, dm/dr = 4 pi r^2 rho, 16 Newton iterations in rho a shell (the WD
-    models behind sub_chandra and wdmerger). xn_of_m maps the enclosed mass
-    (a 0-d tensor) to the composition (a tensor [nspec]); T_of_rho
-    prescribes T(rho) (default: isothermal at T_c). Past rho < rho_cutoff
-    the march freezes at the floor."""
-    f64 = dict(dtype=torch.float64)
-    r_arr = torch.as_tensor(np.asarray(r, dtype=np.float64))
-    rho_c_ = torch.tensor(float(rho_c), **f64)
-    T_c_ = torch.tensor(float(T_c), **f64)
+def _spherical_lanes(eos, r, rho_c, T_c, xn_of_m: Callable, T_of_rho: Optional[Callable] = None,
+                     rho_cutoff: float = 1e-4, device=None):
+    """The spherical march of `hse_spherical` for several central densities
+    at once (rho_c a sequence, one lane each), on `device` (default the
+    CPU). The callbacks take one lane's 0-d tensor and are vmapped over the
+    lanes. On the card one shell's body is captured once as a CUDA graph
+    and replayed shell after shell (16 Newton iterations, a fixed count,
+    and no host read: `utils/cuda_graph.py:GraphLoop`); elsewhere it runs
+    eagerly. Returns the numpy columns
+    rho, T, p, m [nshell, lanes] and `xn_at`, which gives a lane's
+    composition column [nspec, nshell]: row i is xn_of_m of row i's mass
+    (of 0 in row 0), as the march evaluated it, so it is not stored."""
+    dev = torch.device("cpu" if device is None else device)
+    f64 = dict(dtype=torch.float64, device=dev)
+    r_arr = torch.as_tensor(np.asarray(r, dtype=np.float64), **f64)
+    n = r_arr.shape[0]
+    rho_c_ = torch.as_tensor(np.asarray(rho_c, dtype=np.float64).reshape(-1), **f64)
+    xn_fn = torch.func.vmap(xn_of_m)
+    T_fn = None if T_of_rho is None else torch.func.vmap(T_of_rho)
+    cutoff = torch.tensor(float(rho_cutoff), **f64)
 
     def p_dpdr(rho, T, xn):
-        s = eos.rt(rho=rho[None], T=T[None], xn=xn[:, None])
-        return s.p[0], s.dpdr_e[0]
+        s = eos.rt(rho=rho, T=T, xn=xn)
+        return s.p, s.dpdr_e
+
+    def xn_at(m):
+        return xn_fn(m).T.contiguous()
 
     dr = r_arr[1] - r_arr[0]
-    xn0 = xn_of_m(torch.tensor(0.0, **f64))
-    T0 = T_c_ if T_of_rho is None else T_of_rho(rho_c_)
+    xn0 = xn_at(torch.zeros_like(rho_c_))
+    T0 = torch.full_like(rho_c_, float(T_c)) if T_fn is None else T_fn(rho_c_)
     p0, _ = p_dpdr(rho_c_, T0, xn0)
     m0 = 4.0 / 3.0 * np.pi * r_arr[0] ** 3 * rho_c_
-    rho_p, T_p, p_p, m_p, xn_p, done, r_p = rho_c_, T0, p0, m0, xn0, torch.tensor(False), r_arr[0]
-    rows = [(rho_p, T_p, p_p, m_p, xn_p)]
-    for r_i in r_arr[1:]:
+    # the march's state, updated in place shell after shell: the last shell,
+    # the index of the next one and the columns
+    k = torch.ones(1, dtype=torch.long, device=dev)
+    state = [rho_c_.clone(), T0.clone(), p0.clone(), m0.clone(), xn0.clone(),
+             torch.zeros_like(rho_c_, dtype=torch.bool), k]
+    for v in state[:4]:
+        col = torch.empty((n,) + tuple(v.shape), **f64)
+        col[0] = v
+        state.append(col)
+
+    def shell(st):
+        rho_p, T_p, p_p, m_p, xn_p, done, k = st[:7]
+        r_i = torch.index_select(r_arr, 0, k)
+        r_p = torch.index_select(r_arr, 0, k - 1)
         g_face = -C.Gconst * m_p / (0.5 * (r_i + r_p)) ** 2
-        T_i = T_p if T_of_rho is None else T_of_rho(rho_p)
+        T_i = T_p if T_fn is None else T_fn(rho_p)
         rg = rho_p
         for _ in range(16):
             pi, dpdr = p_dpdr(rg, T_i, xn_p)
@@ -143,20 +171,49 @@ def hse_spherical(eos, r, rho_c, T_c, xn_of_m: Callable, T_of_rho: Optional[Call
             df = dpdr - 0.5 * g_face * dr
             rn = rg - f / df
             rg = torch.where(torch.isfinite(rn) & (rn > 0), rn, 0.5 * rg)
-        done = done | (rg < rho_cutoff)
-        rho_i = torch.where(done, torch.tensor(rho_cutoff, **f64), rg)
-        if T_of_rho is not None:
-            T_i = T_of_rho(rho_i)
+        done_i = done | (rg < rho_cutoff)
+        rho_i = torch.where(done_i, cutoff, rg)
+        if T_fn is not None:
+            T_i = T_fn(rho_i)
         p_i, _ = p_dpdr(rho_i, T_i, xn_p)
-        m_i = torch.where(done, m_p, m_p + 4.0 * np.pi * (0.5 * (r_i + r_p)) ** 2 * rho_i * dr)
-        xn_i = xn_of_m(m_i)
-        rho_p, T_p, p_p, m_p, xn_p, r_p = rho_i, T_i, p_i, m_i, xn_i, r_i
-        rows.append((rho_i, T_i, p_i, m_i, xn_i))
-    rho, T, p, m = (torch.stack([row[k] for row in rows]).numpy() for k in range(4))
-    xn = torch.stack([row[4] for row in rows]).T.numpy()
-    out = _model(r, rho, T, p, xn)
-    out["mass"] = m
+        m_i = torch.where(done_i, m_p, m_p + 4.0 * np.pi * (0.5 * (r_i + r_p)) ** 2 * rho_i * dr)
+        xn_i = xn_at(m_i)
+        for i, v in enumerate((rho_i, T_i, p_i, m_i, xn_i, done_i)):
+            st[i].copy_(v)
+            if i < 4:
+                st[7 + i].index_copy_(0, k, v[None])
+        k.add_(1)
+
+    _, state = GraphLoop(shell, keep=1)(state, n - 1)
+    cols = state[7:]
+    rho, T, p, m = (c.cpu().numpy() for c in cols)
+
+    def lane_xn(j):
+        mj = cols[3][:, j].clone()
+        mj[0] = 0.0
+        return xn_fn(mj).T.cpu().numpy()
+
+    return rho, T, p, m, lane_xn
+
+
+def _lane_model(r, cols, j):
+    rho, T, p, m, lane_xn = cols
+    out = _model(r, rho[:, j].copy(), T[:, j].copy(), p[:, j].copy(), lane_xn(j))
+    out["mass"] = m[:, j].copy()
     return out
+
+
+def hse_spherical(eos, r, rho_c, T_c, xn_of_m: Callable, T_of_rho: Optional[Callable] = None,
+                  rho_cutoff: float = 1e-4, device=None) -> Dict[str, np.ndarray]:
+    """Integrate a spherical hydrostatic star outward: dp/dr = -G m rho /
+    r^2, dm/dr = 4 pi r^2 rho, 16 Newton iterations in rho a shell (the WD
+    models behind sub_chandra and wdmerger). xn_of_m maps the enclosed mass
+    (a 0-d tensor) to the composition (a tensor [nspec]); T_of_rho
+    prescribes T(rho) (default: isothermal at T_c). Past rho < rho_cutoff
+    the march freezes at the floor. `device`: where the march runs (default
+    the CPU; the callbacks' tensors must be on it)."""
+    cols = _spherical_lanes(eos, r, [float(rho_c)], T_c, xn_of_m, T_of_rho, rho_cutoff, device)
+    return _lane_model(r, cols, 0)
 
 
 def wd_mass(model: Dict[str, np.ndarray]) -> float:
@@ -167,18 +224,43 @@ def wd_mass(model: Dict[str, np.ndarray]) -> float:
 
 
 def wd_model_for_mass(eos, r, M_target, T_c, xn_of_m, rho_c_lo=1e5, rho_c_hi=5e9, iters=30,
-                      **kw) -> Dict[str, np.ndarray]:
+                      levels=None, device=None, **kw) -> Dict[str, np.ndarray]:
     """Bisect the central density (in log) so that the spherical model
-    holds M_target (wdmerger's initial-model iteration)."""
+    holds M_target (wdmerger's initial-model iteration), through the
+    sequence of midpoints of the sequential bisection: the 2^k - 1
+    midpoints of the next k levels of the bisection tree march together,
+    as lanes of one batched march, and the walk then follows the mass
+    comparisons down the tree. k = `levels` (default 15 on the card, two
+    marches of 32767 lanes for 30 steps; 5 elsewhere). The model returned also carries `marches`, the number of
+    batched marches made."""
+    dev = torch.device("cpu" if device is None else device)
+    if levels is None:
+        levels = 15 if dev.type == "cuda" else 5
     lo, hi = np.log(rho_c_lo), np.log(rho_c_hi)
     model = None
-    for _ in range(iters):
-        mid = 0.5 * (lo + hi)
-        model = hse_spherical(eos, r, float(np.exp(mid)), T_c, xn_of_m, **kw)
-        if wd_mass(model) < M_target:
-            lo = mid
-        else:
-            hi = mid
+    left, marches = iters, 0
+    while left > 0:
+        k = min(levels, left)
+        # heap order: node j's children are 2j+1 (mass too low: lo = mid)
+        # and 2j+2 (hi = mid)
+        nodes, mids = [(lo, hi)], []
+        for j in range(2 ** k - 1):
+            a, b = nodes[j]
+            mid = 0.5 * (a + b)
+            mids.append(mid)
+            nodes += [(mid, b), (a, mid)]
+        cols = _spherical_lanes(eos, r, [float(np.exp(mid)) for mid in mids], T_c, xn_of_m,
+                                device=dev, **kw)
+        marches += 1
+        j = 0
+        for _ in range(k):
+            model = _lane_model(r, cols, j)
+            if wd_mass(model) < M_target:
+                lo, j = mids[j], 2 * j + 1
+            else:
+                hi, j = mids[j], 2 * j + 2
+        left -= k
+    model["marches"] = marches
     return model
 
 

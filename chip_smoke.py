@@ -1,10 +1,13 @@
 #!/usr/bin/env python3
 """Smoke run of castro_tpu_torch on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py            # every phase: the whole run
+    python3 chip_smoke.py K          # the build, then the phases named (kernels,
+                                     # A-K, probes, timing); no kernel table
 
 From the root of a checkout, on a machine with one card and the CUDA
-toolkit. In order:
+toolkit. Each phase is one function of main() over its shared state. In
+order:
   1. print the card (nvidia-smi name and power limit, torch's name, count);
   2. build the twelve CUDA kernels (the nine of the step and the three
      profiling probes) from castro_tpu_torch/csrc and print each compiled
@@ -33,14 +36,14 @@ toolkit. In order:
        B  3D Sedov 128^3 with riemann_solver=1 and 64^3 with
           hybrid_riemann=1 (some zones must be flagged as shocks): the
           unfused structure (trace, trans_apply x18, consup x3);
-       C  2D Sedov 4096^2 (cmpflx x2, trans_cmpflx x2) and 1D Sod n=4096
+       C  2D Sedov 4096^2 (cmpflx x2, trans_cmpflx x2) and 1D Sod n=2048
           to t=0.2 (cmpflx), held against the exact Riemann solution;
        D  3D Sedov 128^3 with PLM (ctu_face x9: three 1D solves, three
           corner pairs, three finals with consup) and with the positivity
           flux limiter (the finals without consup, the update in torch
           ops); speed_limit and transverse_use_eos at 32^3, card vs CPU;
        E  2D RZ Sedov 2048 x 4096 (cmpflx x4 with coord=1, all else torch
-          ops), and RZ 1024 x 2048 and 1D spherical n=1024 to t=0.01 (cmpflx
+          ops), and RZ 512 x 1024 and 1D spherical n=512 to t=0.01 (cmpflx
           x1 with coord=2), the RZ midplane held against the spherical run;
        F  2D double Mach reflection (inflow with its fill hook, HLLC, cfl
           0.9): 128 x 32 to t=0.05 with the checks of
@@ -48,7 +51,7 @@ toolkit. In order:
           card vs CPU;
        G  two-level AMR (AmrSimulation.run: windows, subcycling, refluxing,
           avgDown, regrids every 2 steps): 3D Sedov 128^3 + 1 level for 10
-          coarse steps, 2D Sedov 1024^2 + 1 level for 5, 1D Sod n=1024 + 1
+          coarse steps, 2D Sedov 1024^2 + 1 level for 5, 1D Sod n=512 + 1
           level to t=0.2 against the exact solution; launch counts against
           the hierarchy's structure (tried level steps, avgDowns, windows
           made), the kernels held on the level-1 window's state, and a
@@ -56,13 +59,13 @@ toolkit. In order:
           windows and masks;
        H  Strang-split reactions (a half-dt burn and clean + fill before
           the hydro step and after it), the kernels first held on the
-          blob's state: the 3D burning blob (iso7, 128^3)
+          blob's state: the 3D burning blob (iso7, 64^3)
           with the gamma law in float32 (path A's kernels at NPASS = 7,
           clean_fill after each burn) and with Helmholtz in float64 (the
           face kernels; prim_aux and clean_fill are torch ops, as in JAX),
           each with its time a step (the mean of the steps after init), burn
           time, iterations, energy released, mass balanced against the
-          boundary outflow and a device-only profile, and a 16^3 copy on the
+          boundary outflow and a device-only profile, and an 8^3 copy on the
           card against the CPU (float32 against float64 within 1e-4, float64
           at 1e-8); the 1D detonation (powerlaw, n=512, cmpflx at NPASS = 3)
           with tests/test_problems.py's checks, the fuel it burnt held against
@@ -82,7 +85,7 @@ toolkit. In order:
           spherical DustCollapse (MonopoleGrav, float64) to 0.6 t_ff with
           tests/test_convergence.py's checks; IF, the full-physics blob
           (burning_blob physics="full": + Poisson gravity and the sponge) at
-          128^3, one step with its burn and gravity shares, 16^3 card vs
+          64^3, one step with its burn and gravity shares, 8^3 card vs
           CPU; IG, composite gravity on two levels (a 3D blob 64^3 + one
           level timed, phi_sync_resid; 2D 32^2 card vs CPU);
        J  flame_wave and the surface-burning setups (thermal diffusion,
@@ -90,16 +93,34 @@ toolkit. In order:
           nova and powerlaw with Helmholtz or the gamma law), float64:
           cmpflx and trans_cmpflx first held bit for bit on the initial
           states of flame_wave (NPASS = 13), xrb_mixed (10) and nova (14);
-          J-fw, flame_wave at N_FW (512 x 256) for STEPS_FW steps after
+          J-fw, flame_wave at N_FW (256 x 128) for STEPS_FW steps after
           init_data with its init time, ms a step, zones/s, the burn's and
           the conduction's shares, the HSE fill's time a step, peak
-          memory and a device-only profile, and 64 x 32 card vs CPU after
+          memory and a device-only profile, and 32 x 16 card vs CPU after
           one step; J-hse, hse_convergence at n = 64 and 128 to t = 1, the
           residual velocity falling with resolution; J-sci, toy_flame,
           convective_flame, reacting_bubble, xrb_mixed and nova at the
           JAX package's default sizes for STEPS_SCI steps, convective_flame
           (128 x 96) and xrb_mixed (N_XRB_CPU, 32 x 96) card vs CPU after
           one step;
+       K  the spherical and convecting science setups (subch, aprox21, the
+          NSE bypass, multigamma, MonopoleGrav and PoissonGrav in RZ),
+          float64: cmpflx and trans_cmpflx first held bit for bit on seeded
+          faces at NPASS 3, 17, 19 and 21 (Cartesian and curvilinear) and on
+          the states of subchandra (17) and massive_star (19); K-sub,
+          subchandra in 2D RZ at 128 x 256, its 1024-shell model built on
+          the card (the batched bisection walk, one CUDA graph a march;
+          limit 60 s), 2 steps timed with the burn's and gravity's shares
+          and a device-only profile, the model on the card against the CPU's
+          and 1D n=128 card vs CPU; K-ms, massive_star 1D n=256 with NSE, the
+          NSE bisection's graph against the eager loop bit for bit, one step
+          timed with the NSE bypass's share, the iron core checked, 8 zones
+          over 2e8 cm card vs CPU; K-burn, aprox21 + Helmholtz react() on 16^3 with and without
+          NSE, card vs CPU on 2^3; K-sci, wdmerger (both problems), the
+          reacting and convection tests, the bubbles, celldet, planet,
+          StarGrav, hydrostatic_adjust, hse_convergence_general and the
+          general acoustic pulse one step each, double_bubble, celldet,
+          wdmerger problem 0 and nse_test's initial state card vs CPU;
      then the probe entry points (castro_tpu_torch/scripts/prof_cmpflx.py
      at 128^3 and prof_vpu.py), each probe first held against its plain
      version (probe_cmpflx at every tiling and probe_copy bit for bit,
@@ -118,12 +139,15 @@ this file, it exits 2 and prints no result.
 """
 
 import json
+import multiprocessing
 import os
 import re
 import shutil
 import subprocess
 import sys
 import time
+import types
+from concurrent.futures import ProcessPoolExecutor
 
 # Kernel vs plain version, on the same inputs on the card. flatten,
 # trace_ppm and ctu_face are built with --fmad=false and do their plain
@@ -149,42 +173,65 @@ MASS_RTOL = 1e-6
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 N_MAIN, STEPS_MAIN = 128, 10
-N_BIG, STEPS_BIG = 256, 4
+N_BIG, STEPS_BIG = 256, 4       # path A at a grid that fills the card, timed
+N_IF = 64                         # path I: the full-physics blob (cut from 128^3)
 N_SMALL = 32
 RAGGED = (29, 21, 37)             # interior cells; 37 x 29 x 45 grown, all prime
 N_HYBRID, STEPS_HYBRID = 64, 20   # path B with hybrid_riemann
 N_2D, STEPS_2D = 4096, 10         # path C
 N_2D_SMALL = 64
-N_1D = 4096
+N_1D = 2048                       # path C: 1D Sod (cut from 4096)
 SOD_L1_BOUND = 0.015              # mean |rho - exact| / mean exact (tests/test_sod.py)
 N_RZ, STEPS_RZ = 2048, 10         # path E: RZ N x 2N, timed
-N_SPH = 1024                      # path E: RZ N x 2N and 1D spherical N to t=0.01
+N_SPH = 512                       # path E: RZ N x 2N and 1D spherical N to t=0.01 (cut
+                                  # from 1024)
 RZ_L1_BOUND, RZ_PEAK_CELLS = 0.05, 2   # tests/test_sedov_analytic.py
 DMR_CHECK, DMR_BIG, STEPS_DMR = (128, 32), (2048, 512), 10   # path F
 N_AMR, STEPS_AMR = 128, 10        # path G: 3D Sedov with one refined level (256^3 effective)
 N_AMR_2D, STEPS_AMR_2D = 1024, 5  # path G: 2D Sedov
-N_AMR_1D = 1024                   # path G: 1D Sod to t=0.2
-STEPS_H3 = 1                      # path H: the 128^3 burning blob, steps of each EOS
-N_BLOB_CPU = 16                   # path H: the blob's card-vs-CPU copy (the CPU burns slowly)
-N_DET, STEPS_DET = 512, 200       # path H1: the 1D detonation, n and at most these steps
-STEPS_I3 = 5                      # path I: 3D DustCollapse at N_MAIN^3, checked
-STEPS_I3_BIG = 5                  # path I: 3D DustCollapse at N_BIG^3, timed after init
+N_AMR_1D = 512                    # path G: 1D Sod to t=0.2 (cut from 1024)
+N_H3, STEPS_H3 = 64, 1            # path H: the burning blob, steps of each EOS (cut from
+                                  # 128^3 to keep the whole smoke within 1000 s)
+N_BLOB_CPU = 8                    # paths H, I: the blob's card-vs-CPU copy (the CPU burns
+                                  # slowly; cut from 16)
+N_DET, STEPS_DET = 512, 100       # path H1: the 1D detonation, n and at most these steps
+                                  # (cut from 200)
+STEPS_I3 = 3                      # path I: 3D DustCollapse at N_MAIN^3, checked (cut from
+                                  # 5)
+STEPS_I3_BIG = 2                  # path I: 3D DustCollapse at N_MAIN^3, timed after init
+                                  # (cut from 5 steps at 256^3)
 GRAV_DT = 2e-5                    # path I: DustCollapse's fixed dt (s; t_ff = 0.066 s; float32
                                   # overflows in the Riemann solve past t ~ 2e-4 at 16^3-64^3)
 N_GRAV_CPU = 32                   # path I: DustCollapse's card-vs-CPU copy
 N_SPHERE = 128                    # path I: the uniform sphere against its analytic field
 N_I1 = 128                        # path I: 1D spherical DustCollapse to 0.6 t_ff
-N_IG, STEPS_IG = 64, 2            # path I: composite gravity, 3D blob + one level, timed
+N_IG, STEPS_IG = 64, 1            # path I: composite gravity, 3D blob + one level, timed
+                                  # (cut from 2 coarse steps)
 N_IG_CPU = 32                     # path I: composite gravity's 2D card-vs-CPU copy
-N_FW, STEPS_FW = (512, 256), 3   # path J: flame_wave, timed after init_data (at 1024 x 512
+N_FW, STEPS_FW = (256, 128), 2   # path J: flame_wave, timed after init_data (cut from 512
+                                  # x 256 and 3 steps; at 1024 x 512
                                   # the smoke would not end within its time limit)
-N_FW_CPU = (64, 32)               # path J: flame_wave's card-vs-CPU copy, one step
+N_FW_CPU = (32, 16)               # path J: flame_wave's card-vs-CPU copy, one step (cut
+                                  # from 64 x 32)
 N_HSE = (64, 128)                 # path J: hse_convergence to t = 1
 N_XRB_CPU = (32, 96)              # path J: xrb_mixed's card-vs-CPU copy, one step
-STEPS_SCI = 2                     # path J: the five surface-burning setups, steps of each
+STEPS_SCI = 1                     # path J: the five surface-burning setups, steps of each
+                                  # (cut from 2)
+N_KSUB, STEPS_KSUB = (128, 256), 2  # path K: subchandra in 2D RZ, timed after init_data (the
+                                    # JAX default; 256 x 512 asked, over the time budget)
+N_KSUB_CPU = 128                  # path K: subchandra 1D card vs CPU (the JAX test's size)
+N_KMS, STEPS_KMS = 256, 1         # path K: massive_star 1D with NSE, timed after init_data
+                                  # (3 steps asked; ~30 s a step: the burner's ~100
+                                  # iterations a half burn in the NSE zones)
+N_KMS_CPU = 8                     # path K: massive_star 1D card vs CPU over 2e8 cm
+N_KWDM = (32, 64)                 # path K: wdmerger, both problems (0.5 + 0.5 Msun)
+N_KCD_CPU = (64, 16)              # path K: celldet's card-vs-CPU copy
+STEPS_KSCI = 1                    # path K: the science setups, steps of each
 FP64_OPS_PER_S = 34e12            # H100 SXM float64 outside the tensor cores (NVIDIA's data sheet)
 DET_BURNT_RTOL = 1e-4             # H1: fuel burnt on the card against the same steps on the CPU
 F32_VS_F64 = 1e-4                 # card float32 against CPU float64 (tests/test_f32_physics.py)
+CPU_JOB_THREADS = 3               # path K: torch threads of the worker process that runs
+                                  # the CPU references beside the card's process
 F64_RTOL = 1e-8                   # card float64 against CPU float64, coupled burns
 # the reacting layouts held kernel vs plain: (nspec, naux, shock flag,
 # hybrid momenta)
@@ -373,10 +420,12 @@ def time_ms(fn, reps, warm=2):
 
 def kernel_device_ms(fn, reps):
     """Device time of one launch of the kernel that `fn` launches, from
-    torch.profiler: the median over the launches of `reps` calls that the
-    profiler recorded (it may miss or cut one) of the ctt:: kernel alone,
-    without the wrapper's allocations and fills. A trace without any such
-    record is taken once more; then None."""
+    torch.profiler: the median of the kernel's own records (ctt::, without
+    the wrapper's allocations and fills) over the calls traced. The
+    profiler can drop records of a trace (at NPASS 7 and 19 it returned
+    none for some directions of trace_ppm and ctu_face): traces are taken
+    until `reps` records are in hand, at most four; with none, the device
+    records it did see are printed and None is returned."""
     import statistics
 
     import torch
@@ -384,25 +433,66 @@ def kernel_device_ms(fn, reps):
 
     fn()
     torch.cuda.synchronize()
-    for _ in range(2):
+    times_us, seen = [], set()
+    for _ in range(4):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        times_us = []
+        got = []
         for e in prof.events():
-            if e.device_type == torch.autograd.DeviceType.CUDA and "ctt::" in e.name:
+            if e.device_type != torch.autograd.DeviceType.CUDA:
+                continue
+            seen.add(e.name[:60])
+            if "ctt::" in e.name:
                 dev_us = getattr(e, "self_device_time_total", None)
-                times_us.append(dev_us if dev_us is not None
-                                else getattr(e, "self_cuda_time_total", 0.0))
-        times_us = [t for t in times_us if t > 0]
-        if times_us:
+                got.append(dev_us if dev_us is not None
+                           else getattr(e, "self_cuda_time_total", 0.0))
+        got = [t for t in got if t > 0]
+        if len(got) > reps:
+            fail(f"the profiler counted {len(got)} kernel launches in {reps} calls")
+        times_us += got
+        if len(times_us) >= reps:
             break
     if not times_us:
+        print(f"  the profiler recorded no ctt:: kernel in 4 traces; device records seen: "
+              f"{sorted(seen)[:6]}")
         return None
-    if len(times_us) > reps:
-        fail(f"the profiler counted {len(times_us)} kernel launches in {reps} calls")
     return statistics.median(times_us) / 1e3
+
+
+def kernel_event_ms(fn, reps):
+    """Device time of one launch of the kernel that `fn` launches, from
+    CUDA events recorded on the launch's stream just before and just after
+    the launch itself (castro_tpu_torch.ops.kernels._call wrapped), the
+    median over `reps` calls after one warm-up: the kernel alone, without
+    the wrapper's allocations and fills, where the profiler returns no
+    record."""
+    import statistics
+
+    import torch
+    from castro_tpu_torch.ops import kernels as K_
+
+    inner, pairs = K_._call, []
+
+    def bracketed(name, like, *args):
+        ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+        ev[0].record()
+        inner(name, like, *args)
+        ev[1].record()
+        pairs.append(ev)
+
+    K_._call = bracketed
+    try:
+        fn()
+        torch.cuda.synchronize()
+        pairs.clear()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    finally:
+        K_._call = inner
+    return statistics.median(a.elapsed_time(b) for a, b in pairs)
 
 
 def count_ops(fn):
@@ -431,8 +521,9 @@ def count_ops(fn):
 def time_kernel(name, variants, S, itemsize, ops_per_s, reps, plain_reps):
     """Per-launch times of kernel `name` over its variants, each (kernel
     call, plain call, components moved[, elements[, variant label]]): the
-    kernel's device time (torch.profiler; the wrapper's time, with a notice,
-    where the profiler sees none), the wrapper's and the plain version's
+    kernel's device time (torch.profiler; CUDA events around the launch,
+    with a notice, where the profiler returns no record), the wrapper's and
+    the plain version's
     (CUDA events), and the bound max(components x elements x itemsize /
     HBM_BYTES_PER_S, operations of the plain version / ops_per_s). Returns
     the mean over the variants and the row of each."""
@@ -441,15 +532,18 @@ def time_kernel(name, variants, S, itemsize, ops_per_s, reps, plain_reps):
         S_ = more[0] if more else S
         w_ms = time_ms(kern, reps=reps)
         k_ms = kernel_device_ms(kern, reps=reps)
+        ms_from = "profiler"
         if k_ms is None:
-            print(f"  {name}: the profiler saw no device time; ms is the wrapper's time")
-            k_ms = w_ms
+            k_ms, ms_from = kernel_event_ms(kern, reps=reps), "events"
+            print(f"  {name}: the profiler saw no device time; ms from CUDA events around the "
+                  f"launch: {k_ms:.4f} ms")
         p_ms = time_ms(plain, reps=plain_reps, warm=1)
         ops = count_ops(plain)
         b_bytes = comps * S_ * itemsize / HBM_BYTES_PER_S * 1e3
         b_ops = ops / ops_per_s * 1e3
         rows.append(dict(ms=k_ms, wrapper_ms=w_ms, plain_ms=p_ms, bound_ms=max(b_bytes, b_ops),
                          bytes_ms=b_bytes, ops_ms=b_ops, comps=comps, ops_per_cell=ops / S_,
+                         ms_from=ms_from,
                          variant=more[1] if len(more) > 1 else None))
     mean = {k: sum(r[k] for r in rows) / len(rows)
             for k in ("ms", "wrapper_ms", "plain_ms", "bound_ms", "bytes_ms", "ops_ms")}
@@ -470,7 +564,8 @@ def profile_steps(sim, steps, card, host=True):
     torch.profiler; the idle share is 1 - busy / wall (the profiler's own
     host overhead included). Also the share of the busy time spent in this
     repo's kernels (ctt::) against torch's own. host=False traces the
-    device alone (a burn's 10^6 launches a step are too many host events)."""
+    device alone (a burn's 10^6 launches a step are too many host events).
+    Returns dict(idle, busy_us, wall_us) a step, or None."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -512,7 +607,7 @@ def profile_steps(sim, steps, card, host=True):
         rows = [(us, count, name) for name, (us, count) in by_name.items() if us > 0]
     if not rows:
         print(f"profile [{card}]: device time not measured (the profiler saw no device time)")
-        return
+        return None
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows)
     ours = sum(r[0] for r in rows if "ctt::" in r[2])
@@ -523,9 +618,77 @@ def profile_steps(sim, steps, card, host=True):
           f"device time by name (us/step, launches/step):")
     for dev_us, count, key in rows[:14]:
         print(f"  {dev_us / steps:10.1f}  {count / steps:5.1f}  {key[:90]}")
+    return dict(idle=1.0 - busy / wall_us, busy_us=busy / steps, wall_us=wall_us / steps)
 
 
-def main():
+def k_burn_react(nse_on, n_b, where):
+    """Path K-burn: aprox21 + Helmholtz, StrangReactor.react(dt=1e-8) on the
+    n_b^3 corner of a seeded 16^3 box at rho 1e9 and T 4e9 +- 10% (T_nse
+    4e9: half the zones in NSE with nse_on). Returns (react's outputs,
+    seconds, the burner's iterations, the layout)."""
+    import dataclasses as dc
+
+    import torch
+
+    from castro_tpu_torch.config import Params
+    from castro_tpu_torch.eos import make_eos
+    from castro_tpu_torch.network import make_network
+    from castro_tpu_torch.reactions.strang import StrangReactor
+    from castro_tpu_torch.state import layout_from_params
+
+    p = Params().with_ns("network", network_name="aprox21", nse=nse_on, T_nse=4.0e9)
+    p = p.with_ns("eos", eos_name="helmholtz").with_ns("tpu", dtype="float64")
+    net = make_network(p)
+    pp = dc.replace(p, network=dc.replace(p.network, nspec=net.nspec, spec_names=net.spec_names))
+    Lb = layout_from_params(pp)
+    eos = make_eos(pp, net)
+    reactor = StrangReactor(pp, net, eos, Lb)
+    g_ = torch.Generator("cpu").manual_seed(11)
+    T = 4e9 * (1.0 + 0.1 * (2 * torch.rand((16,) * 3, generator=g_, dtype=torch.float64) - 1))
+    T = T[:n_b, :n_b, :n_b].to(where)
+    rho = torch.full_like(T, 1e9)
+    xn = torch.zeros((net.nspec,) + T.shape, dtype=T.dtype, device=where)
+    for name, xv in (("Si28", 0.6), ("O16", 0.3), ("Fe54", 0.1)):
+        xn[net.spec_names.index(name)] = xv
+    es = eos.rt(rho=rho, T=T, xn=xn)
+    u = torch.zeros((Lb.NVAR,) + T.shape, dtype=T.dtype, device=where)
+    u[Lb.URHO], u[Lb.UTEMP], u[Lb.UEINT], u[Lb.UEDEN] = rho, T, rho * es.e, rho * es.e
+    u[Lb.UFS:Lb.UFS + Lb.nspec] = rho[None] * xn
+    if where != "cpu":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = reactor.react(u, 1e-8)
+    if where != "cpu":
+        torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, reactor.burner.stats.iterations, Lb
+
+
+def cpu_job(kind, *args):
+    """Path K's CPU references, run in a worker process while the card's
+    process goes on: ("ms", params, model, dt) one massive_star step,
+    ("burn", nse_on) K-burn's 2^3 corner. Returns numpy arrays, the
+    burner's iterations and the seconds."""
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import torch
+
+    torch.set_num_threads(CPU_JOB_THREADS)
+    if kind == "burn":
+        out, secs, iters, _ = k_burn_react(args[0], 2, "cpu")
+        return ([o.numpy() for o in out[:3]] + [bool(out[3])], iters, secs)
+    from castro_tpu_torch.driver.sim import Simulation
+    from castro_tpu_torch.problems import massive_star
+
+    msp, model, dt = args
+    s_ = Simulation(msp, device="cpu",
+                    problem_init=lambda a_, b_: massive_star.problem_init(a_, b_, model))
+    s_.init_data()
+    t0 = time.perf_counter()
+    s_.advance(dt)
+    return s_.interior().double().numpy(), s_.reactor.burner.stats.iterations, \
+        time.perf_counter() - t0
+
+
+def main(argv=()):
     import torch
 
     if not torch.cuda.is_available():
@@ -550,6 +713,10 @@ def main():
         from castro_tpu_torch.state import StateLayout
         from castro_tpu_torch.scripts import prof_cmpflx, prof_faces, prof_vpu
         from castro_tpu_torch.utils.exact_riemann import solution as exact_solution
+        from castro_tpu_torch.config import Params
+        from castro_tpu_torch.problems import dust_collapse, flame_wave
+        from castro_tpu_torch.problems.util import fill_from_prim
+        from castro_tpu_torch.state import layout_from_params
     except ImportError as e:
         print(f"castro_tpu_torch not found beside chip_smoke.py: {e}", file=sys.stderr)
         return 2
@@ -624,6 +791,11 @@ def main():
     def pulse_sim(n, device="cuda"):
         return Simulation(acoustic_pulse.make_params(n=n, dtype="float32"),
                           problem_init=acoustic_pulse.problem_init, device=device)
+
+    # what a phase hands on: its figures for the summary (each phase binds
+    # its own names; those it hands on it also binds here) and the probes'
+    # inputs, which the timing phase reads
+    ctx = types.SimpleNamespace()
 
     # -- 3. kernel vs plain --------------------------------------------------------
     errs = {name: [0.0, 0.0] for name in REPLACES}
@@ -713,29 +885,6 @@ def main():
         check("clean_fill", K.clean_fill(*ca, with_status=True),
               K.clean_fill_plain(*ca, with_status=True), f"{label}, with status")
         check("clean_fill", K.clean_fill(*ca), K.clean_fill_plain(*ca), f"{label}, no status")
-
-    print(f"kernel vs plain, {N_MAIN}^3 Sedov float32 (main-path shapes):", flush=True)
-    sim = sedov_sim(N_MAIN)
-    sim.init_data()
-    dt = sim.estimate_dt()
-    compare_step(inputs(sim, sim.u, dt), "Sedov init")
-    sim.advance(dt)
-    compare_step(inputs(sim, sim.u, dt), "after 1 step", off_path=True)
-    del sim
-    print(f"kernel vs plain, {N_SMALL}^3, branches off the main path:", flush=True)
-    for bc, solver, label in ((3, 2, "symmetry walls, HLLC"), (0, 0, "periodic"),
-                              (5, 0, "no-slip walls")):
-        s = sedov_sim(N_SMALL, bc=bc)
-        s.init_data()
-        dts = s.estimate_dt()
-        s.advance(dts)
-        x = inputs(s, s.u, dts)
-        g = torch.Generator(dev).manual_seed(0)
-        src = 1e-3 * x["q"].abs() * torch.randn(x["q"].shape, device=dev, generator=g)
-        compare_step(x, f"{label}, srcQ", solver=solver, src=src, off_path=True)
-        args = (s.u, s.layout, s.eos, s.cfg.small_dens, s.small_temp, s.geom.dx)
-        check("prim_aux", K.prim_aux(*args, with_divu=False),
-              K.prim_aux_plain(*args, with_divu=False), f"{label}, no divu")
 
     def compare_unfused_3d(x, label):
         """The kernels of the unfused 3D structure at the shapes path B gives
@@ -939,310 +1088,10 @@ def main():
                       f"{tag}, d={d}" + (", finalize" if fin_dt else ""))
         del raw, u, q, qaux, div, flatn, tr, hs, src
 
-    print(f"kernel vs plain, {N_MAIN}^3 Sedov float32, the unfused structure's shapes:",
-          flush=True)
-    sim = sedov_sim(N_MAIN)
-    sim.init_data()
-    dt = sim.estimate_dt()
-    sim.advance(dt)
-    compare_unfused_3d(inputs(sim, sim.u, dt), "after 1 step")
-    del sim
-    s = sedov_sim(N_SMALL, bc=3)
-    s.init_data()
-    dts = s.estimate_dt()
-    s.advance(dts)
-    compare_unfused_3d(inputs(s, s.u, dts), f"{N_SMALL}^3 symmetry walls")
-    grown = " x ".join(str(n + 8) for n in RAGGED)
-    print(f"kernel vs plain, Sedov {grown} grown (prime extents), symmetry walls:", flush=True)
-    s = sedov_sim(N_SMALL, bc=3, n_cell=RAGGED)
-    s.init_data()
-    dts = s.estimate_dt()
-    s.advance(dts)
-    x = inputs(s, s.u, dts)
-    compare_step(x, "ragged", off_path=True)
-    compare_step(x, "ragged, HLLC", solver=2)
-    compare_unfused_3d(x, "ragged")
-    del s, x
-    torch.cuda.empty_cache()
-    print(f"kernel vs plain, 2D Sedov {N_2D}^2 and 1D Sod {N_1D} float32 (path C's shapes):",
-          flush=True)
-    sim = sedov_sim(N_2D, dim=2)
-    sim.init_data()
-    dt = sim.estimate_dt()
-    sim.advance(dt)
-    y = inputs_low_dim(sim, sim.u, dt)
-    compare_low_dim(y, f"2D {N_2D}^2 after 1 step")
-    del sim, y
-    torch.cuda.empty_cache()
-    sim = sod_sim(N_1D)
-    sim.run(max_step=20, verbose=False)
-    compare_low_dim(inputs_low_dim(sim, sim.u, sim.dt), f"1D Sod {N_1D} after 20 steps")
-    del sim
-    print(f"kernel vs plain, 2D {N_2D_SMALL}^2, branches off the main paths:", flush=True)
-    s = sedov_sim(N_2D_SMALL, dim=2, bc=3)
-    s.init_data()
-    for _ in range(3):
-        s.advance(s.estimate_dt())
-    compare_low_dim(inputs_low_dim(s, s.u, s.estimate_dt(), solver=2),
-                    "symmetry walls, HLLC", resets=((True, False), (True, True), (False, False)))
-    del s
-    torch.cuda.empty_cache()
-    print(f"kernel vs plain, RZ {N_RZ} x {2 * N_RZ} (coord 1) and 1D spherical {N_SPH} "
-          f"(coord 2), float32 (path E's shapes):", flush=True)
-    for geometry, n in (("rz", N_RZ), ("sph", N_SPH)):
-        s = curvilinear_sim(geometry, n)
-        s.init_data()
-        dts = s.estimate_dt()
-        s.advance(dts)
-        compare_low_dim(inputs_low_dim(s, s.u, dts), f"{geometry} after 1 step")
-        del s
-        torch.cuda.empty_cache()
-
-    # the reacting layouts: 7, 13 and 19 species (iso7, aprox13, aprox19),
-    # the shock flag, hybrid momenta and an aux component, on the ragged grid
-    # in float32 and float64 (tests/test_torch_cuda_layouts.py's cases)
-    grown_r = tuple(n + 8 for n in RAGGED)
-    print(f"kernel vs plain at the reacting layouts, {' x '.join(map(str, grown_r))} grown "
-          f"(prime extents), float32 and float64 {elapsed()}:", flush=True)
-    for dtype in (torch.float32, torch.float64):
-        for lay in LAYOUTS:
-            compare_layout(StateLayout(dim=3, nspec=lay[0], naux=lay[1], shock_var=lay[2],
-                                       hybrid_momentum=lay[3]), dtype, grown_r)
-
-    # -- 4. the main path -------------------------------------------------------------
-    path_launches = {}
-
-    def mass(sim):
-        """The interior's mass, sum of rho times the cell volume."""
-        vol = sim.geom.volume(0).double()
-        return float((sim.interior()[sim.layout.URHO].double() * vol).sum())
-
-    def drive(label, sim, per_try, max_step=None, stop_time=None, callbacks=None,
-              conserves_mass=True, outflow=False):
-        """Run `sim` through Simulation.run with the launch counts zeroed just
-        before and read just after; check them against `per_try` (launches a
-        tried step; clean_fill once more at init where the kernel cleans),
-        finite values and, unless an inflow feeds the grid, mass
-        conservation; with `outflow`, the mass change must equal the mass the
-        steps' boundary fluxes carried out (no step may be retried). Returns
-        the number of steps tried."""
-        print(f"main path {label}, Simulation.run on the card {elapsed()}", flush=True)
-        tries = {"n": 0, "out": 0.0}
-        step_impl = sim._step_impl
-        if outflow:
-            sim.keep_fluxes = True
-
-        def counted(*a, **kw):
-            tries["n"] += 1
-            out = step_impl(*a, **kw)
-            if outflow:  # interior face fluxes: the first and last face along d
-                dxs = sim.geom.dx
-                for d_, f_ in enumerate(out[3]):
-                    rho_f = f_[sim.layout.URHO].double()
-                    area = float(np.prod([dxs[k] for k in range(len(dxs)) if k != d_]))
-                    net = (rho_f.narrow(d_, rho_f.shape[d_] - 1, 1).sum()
-                           - rho_f.narrow(d_, 0, 1).sum())
-                    tries["out"] += float(a[1]) * area * float(net)
-                out = out[:3] + out[4:]
-            return out
-
-        sim._step_impl = counted
-        K.reset_launch_counts()
-        sim.init_data()
-        mass0 = mass(sim)
-        sim.run(max_step=max_step, stop_time=stop_time, verbose=False, callbacks=callbacks)
-        torch.cuda.synchronize()
-        launches = K.launch_counts()
-        n = tries["n"]
-        expected = {name: per_try.get(name, 0) * n for name in launches}
-        if sim._kernel_clean_fill:
-            expected["clean_fill"] += 1
-        print(f"  {sim.step_count} steps ({n} tried), t = {sim.t:.6e}; launches {launches}; "
-              f"expected {expected}")
-        if launches != expected or any(launches[k] == 0 for k, v in per_try.items() if v):
-            fail(f"path {label}: the launch counts do not match the step's structure")
-        u_end = sim.interior()
-        if not bool(torch.isfinite(u_end).all()):
-            fail(f"path {label}: non-finite state")
-        mass1 = mass(sim)
-        dm = abs(mass1 - mass0 + tries["out"]) / mass0
-        print(f"  mass: {mass0:.9e} -> {mass1:.9e}"
-              + (f", out through the boundaries {tries['out']:.9e}" if outflow else "")
-              + f", relative change {dm:.3e} "
-              + (f"(limit {MASS_RTOL:g})" if conserves_mass else "(inflow: not checked)"))
-        if conserves_mass and dm > MASS_RTOL:
-            fail(f"path {label}: mass is not conserved")
-        if outflow and n != sim.step_count:
-            fail(f"path {label}: a step was retried, its boundary fluxes counted twice")
-        path_launches[label] = launches
-        sim._step_impl = step_impl
-        sim.keep_fluxes = False
-        return n
-
-    def card_vs_cpu(label, make, steps=3, per_try=None):
-        """`steps` steps on the CPU (the plain versions), then the same dt
-        sequence on the card; optionally the card run's launch counts."""
-        print(f"card vs CPU, {label} float32, {steps} steps (CPU through the plain versions):",
-              flush=True)
-        runs, dts = {}, []
-        for where in ("cpu", "cuda"):
-            s = make(where)
-            s.init_data()
-            if where == "cpu":
-                s.run(max_step=steps, verbose=False, callbacks=[lambda s_: dts.append(s_.dt)])
-            else:  # the same dt sequence on the card
-                K.reset_launch_counts()
-                for d_ in dts:
-                    s.advance(d_)
-                if per_try is not None:
-                    got = {k: v for k, v in K.launch_counts().items() if k in per_try}
-                    want = {k: v * len(dts) for k, v in per_try.items()}
-                    print(f"  launches {got}; expected {want}")
-                    if got != want:
-                        fail(f"{label}: the launch counts do not match the step's structure")
-            runs[where] = s.interior().cpu()
-        err, rel, ok = compare(runs["cuda"], runs["cpu"], RTOL, floor=True)
-        print(f"  max abs err {err:.3e} rel {rel:.3e} (tol {RTOL:g}|cpu| + {RTOL:g} max|cpu| "
-              f"per component) {'ok' if ok else 'DISAGREES'}")
-        if not ok:
-            compare(runs["cuda"], runs["cpu"], RTOL, floor=True, report=True)
-            fail(f"the card and the CPU disagree on {label}")
-
-    FUSED = {"prim_aux": 1, "flatten": 1, "trace_ppm": 3, "ctu_face": 6, "clean_fill": 1}
-    UNFUSED = {"prim_aux": 1, "flatten": 1, "trace_ppm": 3, "trans_apply": 18, "consup": 3,
-               "clean_fill": 1}
-    TWO_D = {"cmpflx": 2, "trans_cmpflx": 2}
-    TWO_D_UNFUSED = {"trans_apply": 4, "cmpflx": 0, "trans_cmpflx": 0}
-    ONE_D = {"cmpflx": 1}
-
-    # path A: the fused 3D structure
-    drive(f"A: Sedov {N_MAIN}^3 float32, {STEPS_MAIN} steps", sedov_sim(N_MAIN), FUSED,
-          max_step=STEPS_MAIN)
-    card_vs_cpu(f"Sedov {N_SMALL}^3", lambda where: sedov_sim(N_SMALL, device=where))
-
-    # path B: the unfused 3D structure
-    drive(f"B: Sedov {N_MAIN}^3 float32 riemann_solver=1, {STEPS_MAIN} steps",
-          sedov_sim(N_MAIN, riemann_solver=1), UNFUSED, max_step=STEPS_MAIN)
-    torch.cuda.empty_cache()
-    flagged = []
-
     def count_shocks(s_):
         q_, _ = au.ctoprim(s_.u, s_.layout, s_.eos, s_.cfg.small_dens, s_.small_temp)
         shk_ = au.shock(q_, s_.geom.dx, s_.layout, s_.cfg.shock_threshold)
-        flagged.append(int(s_.interior(shk_[None]).sum()))
-
-    drive(f"B: Sedov {N_HYBRID}^3 float32 hybrid_riemann=1, {STEPS_HYBRID} steps",
-          sedov_sim(N_HYBRID, hybrid_riemann=1), UNFUSED, max_step=STEPS_HYBRID,
-          callbacks=[count_shocks])
-    print(f"  zones the shock detector flags after each step (the next step's faces beside "
-          f"them take the HLL flux): {flagged}")
-    if max(flagged[:-1]) == 0:
-        fail("path B with hybrid_riemann: no zone was flagged, no face took the HLL flux")
-    card_vs_cpu(f"Sedov {N_SMALL}^3 riemann_solver=1",
-                lambda where: sedov_sim(N_SMALL, device=where, riemann_solver=1),
-                per_try=UNFUSED)
-    card_vs_cpu(f"Sedov {N_SMALL}^3 hybrid_riemann=1",
-                lambda where: sedov_sim(N_SMALL, device=where, hybrid_riemann=1), steps=8)
-
-    # path C: 2D and 1D
-    drive(f"C: 2D Sedov {N_2D}^2 float32, {STEPS_2D} steps", sedov_sim(N_2D, dim=2), TWO_D,
-          max_step=STEPS_2D)
-    torch.cuda.empty_cache()
-    sim = sod_sim(N_1D)
-    t0 = time.perf_counter()
-    n_sod = drive(f"C: 1D Sod n={N_1D} float32 to t=0.2", sim, ONE_D, stop_time=0.2)
-    sod_ms = 1e3 * (time.perf_counter() - t0) / n_sod
-    rho = sim.interior()[sim.layout.URHO].double().cpu().numpy()
-    xc = sim.geom.cell_centers_1d(0, 0).double().cpu().numpy()
-    rho_ex, _, _ = exact_solution(xc, sim.t, 0.5, 1.0, 0.0, 1.0, 0.125, 0.0, 0.1, 1.4)
-    l1 = float(abs(rho - rho_ex).mean() / rho_ex.mean())
-    print(f"  1D Sod at t = {sim.t:.6f}: mean |rho - exact| / mean exact = {l1:.6e} "
-          f"(bound {SOD_L1_BOUND}); {sod_ms:.3f} ms/step over {n_sod} steps, init included "
-          f"[{card}]")
-    if not l1 < SOD_L1_BOUND:
-        fail("1D Sod disagrees with the exact Riemann solution")
-    del sim
-    card_vs_cpu(f"2D Sedov {N_2D_SMALL}^2",
-                lambda where: sedov_sim(N_2D_SMALL, dim=2, device=where), per_try=TWO_D)
-    card_vs_cpu(f"2D Sedov {N_2D_SMALL}^2 riemann_solver=1",
-                lambda where: sedov_sim(N_2D_SMALL, dim=2, device=where, riemann_solver=1),
-                per_try=TWO_D_UNFUSED)
-    card_vs_cpu("1D Sod n=256", lambda where: sod_sim(256, device=where), steps=10,
-                per_try=ONE_D)
-
-    # path D: PLM, the flux limiters, speed_limit, transverse_use_eos in 3D
-    PLM_3D = {"prim_aux": 1, "flatten": 1, "ctu_face": 9, "clean_fill": 1, "trace_ppm": 0}
-    LIMITED_3D = {"prim_aux": 1, "flatten": 1, "trace_ppm": 3, "ctu_face": 6, "consup": 0,
-                  "clean_fill": 1}
-    SPEED_LIMITED_3D = dict(LIMITED_3D, clean_fill=0)
-    NO_KERNELS = {name: 0 for name in K.launch_counts()}
-    drive(f"D: Sedov {N_MAIN}^3 float32 ppm_type=0, {STEPS_MAIN} steps",
-          sedov_sim(N_MAIN, ppm_type=0), PLM_3D, max_step=STEPS_MAIN)
-    drive(f"D: Sedov {N_MAIN}^3 float32 limit_fluxes_on_small_dens=1, 5 steps",
-          sedov_sim(N_MAIN, limit_fluxes_on_small_dens=1), LIMITED_3D, max_step=5)
-    torch.cuda.empty_cache()
-    card_vs_cpu(f"Sedov {N_SMALL}^3 ppm_type=0",
-                lambda where: sedov_sim(N_SMALL, device=where, ppm_type=0), per_try=PLM_3D)
-    card_vs_cpu(f"Sedov {N_SMALL}^3 speed_limit=1",
-                lambda where: sedov_sim(N_SMALL, device=where, speed_limit=1.0),
-                per_try=SPEED_LIMITED_3D)
-    card_vs_cpu(f"Sedov {N_SMALL}^3 transverse_use_eos=1",
-                lambda where: sedov_sim(N_SMALL, device=where, transverse_use_eos=1),
-                per_try=NO_KERNELS)
-
-    # path E: RZ and spherical
-    RZ = {"cmpflx": 4}
-    drive(f"E: 2D RZ Sedov {N_RZ} x {2 * N_RZ} float32, {STEPS_RZ} steps",
-          curvilinear_sim("rz", N_RZ), RZ, max_step=STEPS_RZ)
-    torch.cuda.empty_cache()
-    cuts = {}
-    for geometry, per_try in (("sph", ONE_D), ("rz", RZ)):
-        sim = curvilinear_sim(geometry, N_SPH)
-        t0 = time.perf_counter()
-        n_tried = drive(f"E: {'1D spherical' if geometry == 'sph' else '2D RZ'} Sedov "
-                        f"n={N_SPH} float32 to t=0.01", sim, per_try, stop_time=0.01)
-        ms = 1e3 * (time.perf_counter() - t0) / n_tried
-        rho = sim.interior()[sim.layout.URHO].double().cpu().numpy()
-        cuts[geometry] = rho if geometry == "sph" else 0.5 * (rho[:, N_SPH - 1] + rho[:, N_SPH])
-        print(f"  {ms:.3f} ms/step over {n_tried} steps, init included [{card}]")
-        del sim
-        torch.cuda.empty_cache()
-    rz_l1 = float(abs(cuts["rz"] - cuts["sph"]).mean() / cuts["sph"].mean())
-    peak_shift = abs(int(cuts["rz"].argmax()) - int(cuts["sph"].argmax()))
-    print(f"  RZ midplane vs 1D spherical at t = 0.01: relative L1 {rz_l1:.6e} (bound "
-          f"{RZ_L1_BOUND}), peaks {peak_shift} cells apart (bound {RZ_PEAK_CELLS})")
-    if not (rz_l1 < RZ_L1_BOUND and peak_shift <= RZ_PEAK_CELLS):
-        fail("the RZ midplane disagrees with the 1D spherical run")
-    card_vs_cpu("2D RZ Sedov 32 x 64", lambda where: curvilinear_sim("rz", 32, device=where),
-                per_try=RZ)
-    card_vs_cpu("1D spherical Sedov n=128",
-                lambda where: curvilinear_sim("sph", 128, device=where), steps=10,
-                per_try=ONE_D)
-
-    # path F: double Mach reflection and the acoustic pulse
-    sim = dmr_sim(DMR_CHECK)
-    drive(f"F: 2D double Mach reflection {DMR_CHECK[0]} x {DMR_CHECK[1]} float32 to t=0.05",
-          sim, TWO_D, stop_time=0.05, conserves_mass=False)
-    L = sim.layout
-    rho = sim.interior()[L.URHO].double().cpu().numpy()
-    xc = sim.geom.cell_centers_1d(0, 0).double().cpu().numpy()
-    xs_num = float(xc[abs(np.diff(rho[:, -1])).argmax()])
-    xs_ana = 1 / 6 + 1.0 / np.tan(np.pi / 3) + (10 / np.sin(np.pi / 3)) * sim.t
-    dmr_checks = dict(rho_max=float(rho.max()), shock_x=xs_num, shock_x_exact=xs_ana,
-                      pre_shock_rho=float(rho[-1, 0]))
-    print(f"  DMR at t = {sim.t:.6f}: {dmr_checks} (tests/test_double_mach.py: rho max > 12, "
-          f"|shock x - exact| < {4 * 4.0 / DMR_CHECK[0]}, pre-shock rho 1.4 to 1e-6)")
-    if not (np.isfinite(rho).all() and rho.max() > 12.0
-            and abs(xs_num - xs_ana) < 4 * 4.0 / DMR_CHECK[0]
-            and abs(rho[-1, 0] - 1.4) <= 1e-6 * 1.4):
-        fail("double Mach reflection fails the checks of tests/test_double_mach.py")
-    del sim
-    drive(f"F: 2D double Mach reflection {DMR_BIG[0]} x {DMR_BIG[1]} float32, {STEPS_DMR} "
-          f"steps", dmr_sim(DMR_BIG), TWO_D, max_step=STEPS_DMR, conserves_mass=False)
-    torch.cuda.empty_cache()
-    card_vs_cpu("2D double Mach reflection 64 x 16", lambda where: dmr_sim((64, 16), where),
-                per_try=TWO_D)
-    card_vs_cpu("2D acoustic pulse 64^2", lambda where: pulse_sim(64, where), per_try=TWO_D)
+        ctx.flagged.append(int(s_.interior(shk_[None]).sum()))
 
     # path G: two-level AMR (driver/amr.py) in 3D, 2D and 1D
     def amr_sim(dim, n, device="cuda", tagging=None, regrid_int=2, problem="sedov"):
@@ -1387,57 +1236,6 @@ def main():
             return s_.geom.radius(0) < radius
         return tag
 
-    G_FUSED_WINDOW = {k: v for k, v in FUSED.items() if k != "clean_fill"}
-    amr = amr_sim(3, N_AMR)
-    drive_amr(f"G: 3D Sedov AMR {N_AMR}^3 + 1 level float32, {STEPS_AMR} coarse steps", amr,
-              FUSED, G_FUSED_WINDOW, max_step=STEPS_AMR)
-    print(f"kernel vs plain, the level-1 window of path G3D "
-          f"({' x '.join(str(n) for n in amr.u[1].shape[1:])} grown):", flush=True)
-    ws = window_sim(amr)
-    dtw = amr.estimate_dt() / 2
-    compare_step(inputs(ws, amr.u[1], dtw), "G3D window")
-    g3d_window = tuple(amr.window[1][1])
-    del amr, ws
-    torch.cuda.empty_cache()
-    amr_card_vs_cpu(f"3D Sedov AMR {N_SMALL}^3 + 1 level",
-                    lambda where: amr_sim(3, N_SMALL, where, tagging=ball(0.15), regrid_int=0))
-
-    amr = amr_sim(2, N_AMR_2D)
-    drive_amr(f"G: 2D Sedov AMR {N_AMR_2D}^2 + 1 level float32, {STEPS_AMR_2D} coarse steps",
-              amr, TWO_D, TWO_D, max_step=STEPS_AMR_2D)
-    ws = window_sim(amr)
-    compare_low_dim(inputs_low_dim(ws, amr.u[1], amr.estimate_dt() / 2),
-                    f"G2D window {tuple(amr.u[1].shape[1:])} grown")
-    del amr, ws
-    torch.cuda.empty_cache()
-    amr_card_vs_cpu(f"2D Sedov AMR {N_2D_SMALL}^2 + 1 level",
-                    lambda where: amr_sim(2, N_2D_SMALL, where, tagging=ball(0.15),
-                                          regrid_int=0))
-
-    amr = amr_sim(1, N_AMR_1D, problem="sod")
-    t0 = time.perf_counter()
-    n_g1 = drive_amr(f"G: 1D Sod AMR n={N_AMR_1D} + 1 level float32 to t=0.2", amr, ONE_D, ONE_D,
-                     stop_time=0.2)
-    g1_ms = 1e3 * (time.perf_counter() - t0) / n_g1
-    comp = amr.composite_interior()[amr.sim0.layout.URHO].double().cpu().numpy()
-    xc = amr.geom_full[1].cell_centers_1d(0, 0).double().cpu().numpy()
-    rho_ex, _, _ = exact_solution(xc, amr.t, 0.5, 1.0, 0.0, 1.0, 0.125, 0.0, 0.1, 1.4)
-    g1_l1 = float(abs(comp - rho_ex).mean() / rho_ex.mean())
-    print(f"  1D Sod AMR at t = {amr.t:.6f}: composite mean |rho - exact| / mean exact = "
-          f"{g1_l1:.6e} (bound {SOD_L1_BOUND}); {g1_ms:.3f} ms a coarse step over {n_g1}, "
-          f"init and regrids included [{card}]")
-    if not g1_l1 < SOD_L1_BOUND:
-        fail("1D Sod AMR disagrees with the exact Riemann solution")
-    ws = window_sim(amr)
-    compare_low_dim(inputs_low_dim(ws, amr.u[1], amr.dt / 2),
-                    f"G1D window {tuple(amr.u[1].shape[1:])} grown")
-    del amr, ws
-    amr_card_vs_cpu("1D Sod AMR n=256 + 1 level",
-                    lambda where: amr_sim(1, 256, where, problem="sod", regrid_int=0,
-                                          tagging=lambda s_, u_, l_: (
-                                              s_.geom.cell_centers_1d(0, 0) - 0.5).abs() < 0.1),
-                    steps=4)
-
     # path H: Strang-split reactions (reactions/strang.py: a half-dt burn and
     # clean + fill before the hydro step and after it)
     def blob_sim(n, dtype="float32", eos="gamma_law", device="cuda", physics="burn"):
@@ -1468,57 +1266,6 @@ def main():
 
         sim.reactor.react = timed
         return st
-
-    # the kernels at path H's shapes: the blob's initial state, NPASS = 7,
-    # float32 with the gamma law, float64 with Helmholtz (face kernels)
-    print(f"kernel vs plain, the burning blob {N_MAIN}^3 iso7 (NPASS = 7) {elapsed()}:",
-          flush=True)
-    for dtype, eos in (("float32", "gamma_law"), ("float64", "helmholtz")):
-        s_ = blob_sim(N_MAIN, dtype, eos)
-        s_.init_data()
-        compare_step(inputs(s_, s_.u, s_.estimate_dt()), f"blob {eos} {dtype}",
-                     cells=eos == "gamma_law")
-        del s_
-        torch.cuda.empty_cache()
-
-    FUSED_STRANG = dict(FUSED, clean_fill=3)  # clean + fill after each half burn
-    FACES = {"flatten": 1, "trace_ppm": 3, "ctu_face": 6}  # Helmholtz: no prim_aux/clean_fill
-    h_results = {}
-    for key, dtype, eos, per_try in (("H3-gl", "float32", "gamma_law", FUSED_STRANG),
-                                     ("H3-helm", "float64", "helmholtz", FACES)):
-        sim = blob_sim(N_MAIN, dtype, eos)
-        st = burn_stats(sim)
-        # the steps are timed from the end of init_data (synchronized)
-        stamps = []
-        init = sim.init_data
-
-        def stamped_init(*a, **kw):
-            out = init(*a, **kw)
-            torch.cuda.synchronize()
-            stamps.append(time.perf_counter())
-            return out
-
-        sim.init_data = stamped_init
-        n_h = drive(f"{key}: burning blob {N_MAIN}^3 iso7 {eos} {dtype}, {STEPS_H3} steps", sim,
-                    per_try, max_step=STEPS_H3, outflow=True)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - stamps[0]
-        sim.init_data = init
-        peak = torch.cuda.max_memory_allocated() / 2 ** 30
-        h_results[key] = dict(step_ms=1e3 * wall / n_h, burn_share=st["s"] / wall,
-                              iters=st["iters"], released_erg=st["released"], peak_gib=peak,
-                              zones_per_s=sim.num_zones_advanced / wall)
-        print(f"  [{card}] {1e3 * wall / n_h:.1f} ms a step, the mean of {n_h} steps after "
-              f"init; burns {st['s']:.2f} s of {wall:.2f} s ({st['s'] / wall:.4f}), "
-              f"{st['calls']} half burns, iterations each {st['iters']}; energy released "
-              f"{st['released']:.6e} erg; peak memory {peak:.3f} GiB", flush=True)
-        if not st["released"] > 0.0:
-            fail(f"path {key}: the hot zone released no energy")
-        # one more step under the profiler, the device's kernels only
-        profile_steps(sim, 1, card, host=False)
-        del sim
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
 
     def reacting_card_vs_cpu(label, make, rtol, steps=2, shared_momentum=False):
         """`steps` steps of make("cpu"), then the same dt sequence on
@@ -1567,156 +1314,6 @@ def main():
         return lambda where: blob_sim(N_BLOB_CPU, dtype_card if where == "cuda" else dtype_cpu,
                                       eos, where, physics)
 
-    # float32 on the card against float64 on the CPU: the f32-vs-f64 budget of
-    # tests/test_f32_physics.py:53-75 (1e-4)
-    reacting_card_vs_cpu(f"H3-gl: {N_BLOB_CPU}^3 blob, card float32, CPU float64",
-                         blob_make("float32", "float64", "gamma_law"), F32_VS_F64)
-    reacting_card_vs_cpu(f"H3-helm: {N_BLOB_CPU}^3 blob, float64",
-                         blob_make("float64", "float64", "helmholtz"), F64_RTOL, steps=1)
-
-    # H1: the 1D detonation (powerlaw, gamma law 1.4, float64; cmpflx with
-    # NPASS = 3), tests/test_problems.py:64-79's checks; the same steps on
-    # the CPU hold the fuel burnt, and cmpflx is held on the final state
-    sim = Simulation(detonation.make_params(n=N_DET), problem_init=detonation.problem_init)
-    L = sim.layout
-    det_dts = []
-    t0 = time.perf_counter()
-    n_det = drive(f"H1: detonation n={N_DET} float64 to t=0.4 (at most {STEPS_DET} steps)", sim,
-                  ONE_D, stop_time=0.4, max_step=STEPS_DET, outflow=True,
-                  callbacks=[lambda q_: det_dts.append(q_.dt)])
-    det_ms = 1e3 * (time.perf_counter() - t0) / n_det
-    compare_low_dim(inputs_low_dim(sim, sim.u, sim.dt), f"H1 detonation n={N_DET} float64")
-    ui = sim.interior().double()
-    sims = {}
-    for where in ("cpu", "cuda"):
-        sims[where] = Simulation(detonation.make_params(n=N_DET),
-                                 problem_init=detonation.problem_init, device=where)
-        sims[where].init_data()
-    fuel0 = float(sims["cuda"].interior()[L.UFS].double().sum())
-    fuel_ratio = float(ui[L.UFS].sum()) / fuel0
-    mom_max = float(ui[L.UMX].abs().max())
-    t_cpu = time.perf_counter()
-    for d_ in det_dts:
-        sims["cpu"].advance(d_)
-    t_cpu = time.perf_counter() - t_cpu
-    u_cpu = sims["cpu"].interior()
-    burnt, burnt_cpu = 1.0 - fuel_ratio, 1.0 - float(u_cpu[L.UFS].sum()) / fuel0
-    burnt_err = abs(burnt - burnt_cpu) / burnt_cpu
-    err, rel, _ = compare(ui.cpu(), u_cpu, F64_RTOL, floor=True)
-    print(f"  [{card}] {det_ms:.3f} ms a step; t = {sim.t:.6e} after {sim.step_count} steps; "
-          f"fuel / initial fuel {fuel_ratio:.9f} (tests/test_problems.py asks < 0.9 at n=128 "
-          f"after 2000 steps, t ~ 1.5e-3); max |rho u| {mom_max:.6e} (> 1e-3); the same "
-          f"steps on the CPU ({t_cpu:.1f} s): fuel burnt {burnt:.9e} card, {burnt_cpu:.9e} CPU,"
-          f" {burnt_err:.3e} apart (tol {DET_BURNT_RTOL:g}); state max abs err {err:.3e} rel "
-          f"{rel:.3e}", flush=True)
-    if not (mom_max > 1e-3 and fuel_ratio < 1.0):
-        fail("H1: the detonation did not burn or did not move")
-    if not burnt_err <= DET_BURNT_RTOL:
-        fail("H1: the card and the CPU burnt different amounts of fuel")
-    h_results["H1"] = dict(step_ms=det_ms, fuel_ratio=fuel_ratio, burnt_rel_err=burnt_err)
-    del sim, sims, u_cpu
-    print("card vs CPU, H1: detonation n=64, 10 steps, float64:", flush=True)
-    runs, dts = {}, []
-    for where in ("cpu", "cuda"):
-        s_ = Simulation(detonation.make_params(n=64), problem_init=detonation.problem_init,
-                        device=where)
-        s_.init_data()
-        if where == "cpu":
-            s_.run(max_step=10, verbose=False, callbacks=[lambda q_: dts.append(q_.dt)])
-        else:
-            for d_ in dts:
-                s_.advance(d_)
-        runs[where] = s_.interior().cpu()
-    err, rel, ok = compare(runs["cuda"], runs["cpu"], F64_RTOL, floor=True)
-    print(f"  max abs err {err:.3e} rel {rel:.3e} (tol {F64_RTOL:g}|cpu| + {F64_RTOL:g} "
-          f"max|cpu| per component) {'ok' if ok else 'DISAGREES'}")
-    if not ok:
-        compare(runs["cuda"], runs["cpu"], F64_RTOL, floor=True, report=True)
-        fail("the card and the CPU disagree on the detonation")
-
-    # H-burn: aprox19 with Helmholtz, float64, StrangReactor.react on a 32^3
-    # box at rho 1e6 and T 3e9 +- 10% (tests/test_f32_physics.py:78-116's
-    # setup), the card against the CPU on an 8^3 corner of the same zones
-    from castro_tpu_torch.config import Params
-    from castro_tpu_torch.eos import make_eos
-    from castro_tpu_torch.network import make_network
-    from castro_tpu_torch.reactions.strang import StrangReactor
-    from castro_tpu_torch.state import layout_from_params
-    import dataclasses as dc
-
-    p = Params().with_ns("network", network_name="aprox19").with_ns("eos", eos_name="helmholtz")
-    p = p.with_ns("tpu", dtype="float64")
-    hb = {}
-    for where, n_b in (("cuda", N_SMALL), ("cpu", 8)):
-        net = make_network(p)
-        pp = dc.replace(p, network=dc.replace(p.network, nspec=net.nspec,
-                                              spec_names=net.spec_names))
-        L = layout_from_params(pp)
-        eos = make_eos(pp, net)
-        reactor = StrangReactor(pp, net, eos, L)
-        g = torch.Generator("cpu").manual_seed(7)
-        T = 3e9 * (1.0 + 0.1 * (2 * torch.rand((N_SMALL,) * 3, generator=g,
-                                                dtype=torch.float64) - 1))
-        T = T[:n_b, :n_b, :n_b].to(where)
-        rho = torch.full_like(T, 1e6)
-        xn = torch.zeros((net.nspec,) + T.shape, dtype=T.dtype, device=where)
-        xn[net.spec_names.index("He4")] = 1.0
-        es = eos.rt(rho=rho, T=T, xn=xn)
-        u = torch.zeros((L.NVAR,) + T.shape, dtype=T.dtype, device=where)
-        u[L.URHO], u[L.UTEMP], u[L.UEINT], u[L.UEDEN] = rho, T, rho * es.e, rho * es.e
-        u[L.UFS:L.UFS + L.nspec] = rho[None] * xn
-        if where == "cuda":
-            torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = reactor.react(u, 1e-8)
-        if where == "cuda":
-            torch.cuda.synchronize()
-        hb[where] = (out, time.perf_counter() - t0, reactor.burner.stats.iterations)
-    # the state but its species, and enuc: F64_RTOL |cpu| + F64_RTOL max|cpu|;
-    # the mass fractions within F64_RTOL (a zone's total is one) and
-    # omega_dot within F64_RTOL of its zone's largest rate (species the burn
-    # leaves at zero come out at zero on one device and at 1e-12 on the
-    # other, from the LU solves' rounding)
-    Lb = L
-    gu, ru = hb["cuda"][0][0][:, :8, :8, :8].cpu(), hb["cpu"][0][0]
-    spec = slice(Lb.UFS, Lb.UFS + Lb.nspec)
-    rest = [c for c in range(Lb.NVAR) if not Lb.UFS <= c < Lb.UFS + Lb.nspec]
-    err, rel, ok = compare([gu[rest], hb["cuda"][0][2][:8, :8, :8].cpu()],
-                           [ru[rest], hb["cpu"][0][2]], F64_RTOL, floor=True)
-    x_err = float((gu[spec] / gu[Lb.URHO] - ru[spec] / ru[Lb.URHO]).abs().max())
-    god, rod = hb["cuda"][0][1][:, :8, :8, :8].cpu(), hb["cpu"][0][1]
-    w_err = float(((god - rod).abs() / rod.abs().amax(0, keepdim=True).clamp(min=1e-300)).max())
-    ok = ok and x_err <= F64_RTOL and w_err <= F64_RTOL
-    rel = max(rel, x_err, w_err)
-    print(f"H-burn [{card}]: aprox19 + Helmholtz float64, react(dt=1e-8) on {N_SMALL}^3: "
-          f"{hb['cuda'][1]:.3f} s, {hb['cuda'][2]} iterations; CPU on 8^3: {hb['cpu'][1]:.3f} s,"
-          f" {hb['cpu'][2]} iterations; card vs CPU on the 8^3 corner: state and enuc max abs "
-          f"err {err:.3e} (tol {F64_RTOL:g}|cpu| + {F64_RTOL:g} max|cpu| per component), mass "
-          f"fractions {x_err:.3e} (tol {F64_RTOL:g}), omega_dot {w_err:.3e} of the zone's "
-          f"largest rate (tol {F64_RTOL:g}) {'ok' if ok else 'DISAGREES'}; failed zones card "
-          f"{bool(hb['cuda'][0][3])}, CPU {bool(hb['cpu'][0][3])}", flush=True)
-    if not ok or bool(hb["cuda"][0][3]) != bool(hb["cpu"][0][3]):
-        compare([gu[rest]], [ru[rest]], F64_RTOL, floor=True, report=True)
-        fail("H-burn: the card and the CPU disagree")
-    h_results["H-burn"] = dict(card_s=hb["cuda"][1], iterations=hb["cuda"][2],
-                               cpu_iterations=hb["cpu"][2], max_rel_err=rel)
-    del hb, gu, ru, god, rod
-    torch.cuda.empty_cache()
-
-    # path I: self-gravity (gravity/, the multigrid of solvers/multigrid.py,
-    # the gravity source and its corrector, the sponge): a step with sources
-    # runs prim_aux twice (the second without div u, for the corrector's
-    # primitives), traces the old-time source into the three trace_ppm and
-    # ends in clean_fill twice; two Poisson solves a step
-    from castro_tpu_torch.geometry import geometry_from_params
-    from castro_tpu_torch.gravity import Gravity
-    from castro_tpu_torch.problems import dust_collapse
-    from castro_tpu_torch.problems.util import fill_from_prim
-    from castro_tpu_torch.utils import constants as UC
-
-    i_results = {}
-    FUSED_SRC = dict(FUSED, prim_aux=2, clean_fill=2)
-
     def grav_of(s_):
         return next(fn.gravity for fn in s_.source_fns if fn.name == "grav")
 
@@ -1752,62 +1349,6 @@ def main():
         n_ = s_.geom.n_cell[0] // 2
         ui = s_.interior()[s_.layout.URHO]
         return float(ui[n_ - 1:n_ + 1, n_ - 1:n_ + 1, n_ - 1:n_ + 1].double().mean())
-
-    print(f"kernel vs plain, 3D DustCollapse {N_MAIN}^3 float32 after a step (PoissonGrav; "
-          f"the old-time source traced into trace_ppm, prim_aux without div u) {elapsed()}:",
-          flush=True)
-    s_ = dust_sim(N_MAIN)
-    s_.init_data()
-    s_.advance(GRAV_DT)
-    x = inputs(s_, s_.u, GRAV_DT)
-    dtw = K.wt(GRAV_DT, s_.dtype)
-    src_old = sum(fn(s_, s_.u, x["q"], x["qaux"], s_.t, dtw) for fn in s_.source_fns)
-    s_._reset_sources()
-    srcQ = au.src_to_prim(x["q"], x["qaux"], src_old, s_.layout)
-    compare_step(x, "DustCollapse, srcQ", src=srcQ)
-    args = (s_.u, s_.layout, s_.eos, s_.cfg.small_dens, s_.small_temp, s_.geom.dx)
-    check("prim_aux", K.prim_aux(*args, with_divu=False),
-          K.prim_aux_plain(*args, with_divu=False), "DustCollapse, no divu")
-    del s_, x, src_old, srcQ
-    torch.cuda.empty_cache()
-
-    # I3: the 3D DustCollapse at 128^3 through Simulation.run
-    sim = dust_sim(N_MAIN)
-    grav = grav_of(sim)
-    gst = timed_gravity(sim)
-    rec = {}
-    init = sim.init_data
-
-    def init_rec(*a, **kw):
-        out = init(*a, **kw)
-        rec["rho_c0"] = centre_rho(sim)
-        torch.cuda.synchronize()
-        gst.update(s=0.0, calls=0)
-        rec["t0"] = time.perf_counter()
-        return out
-
-    sim.init_data = init_rec
-    n_i = drive(f"I3: DustCollapse {N_MAIN}^3 float32 PoissonGrav, {STEPS_I3} steps", sim,
-                FUSED_SRC, max_step=STEPS_I3, outflow=True)
-    wall = time.perf_counter() - rec["t0"]
-    sim.init_data = init
-    rho_c1 = centre_rho(sim)
-    solves = grav.solve_stats
-    print(f"  [{card}] {1e3 * wall / n_i:.1f} ms a step after init (the launch-count and "
-          f"outflow bookkeeping included), gravity {gst['s']:.3f} s ({gst['s'] / wall:.4f}); "
-          f"Poisson solves: {len(solves)} for {n_i} steps tried (V-cycles, final max "
-          f"residual): {solves}; centre density {rec['rho_c0']:.9e} -> {rho_c1:.9e}")
-    if len(solves) != 2 * n_i:
-        fail("path I3: not two Poisson solves a step")
-    if any(v >= grav.n_vcycles for v, _ in solves):
-        print(f"  note: a solve ran to the {grav.n_vcycles}-cycle cap (float32 stalled above "
-              f"rtol {grav.rtol:g})")
-    if not rho_c1 > rec["rho_c0"]:
-        fail("path I3: the centre's density did not rise")
-    i_results["I3_128"] = dict(step_ms=1e3 * wall / n_i, gravity_share=gst["s"] / wall,
-                               solves=solves, rho_centre=[rec["rho_c0"], rho_c1])
-    del sim, grav
-    torch.cuda.empty_cache()
 
     def grav_card_vs_cpu(label, make, dtype_card, dtype_cpu, rtol, steps):
         """`steps` steps on the CPU in dtype_cpu, then the same dt sequence on
@@ -1851,141 +1392,6 @@ def main():
             compare(runs["cuda"][rest], runs["cpu"][rest], rtol, floor=True, report=True)
             fail(f"the card and the CPU disagree on {label}")
 
-    # float64 over one step: from the second step on, a perturbation of one
-    # ulp of the state moves it by far more than 1e-8 (a switch of the scheme
-    # flips in some cells of the cold collapse), on one device as on two
-    grav_card_vs_cpu(f"I3 DustCollapse {N_GRAV_CPU}^3", lambda w, d: dust_sim(N_GRAV_CPU, d, w),
-                     "float64", "float64", F64_RTOL, 1)
-    grav_card_vs_cpu(f"I3 DustCollapse {N_GRAV_CPU}^3", lambda w, d: dust_sim(N_GRAV_CPU, d, w),
-                     "float32", "float64", F32_VS_F64, 3)
-
-    # the uniform sphere (tests/test_gravity.py:30-57) at N_SPHERE^3 on the card
-    for gtype in ("PoissonGrav", "MonopoleGrav"):
-        p = Params().with_ns("amr", n_cell=(N_SPHERE,) * 3).with_ns(
-            "geometry", prob_lo=(-1.0,) * 3, prob_hi=(1.0,) * 3).with_ns(
-            "castro", lo_bc=(2, 2, 2), hi_bc=(2, 2, 2), do_grav=1).with_ns(
-            "gravity", gravity_type=gtype).with_ns("tpu", dtype="float32")
-        geom = geometry_from_params(p, device="cuda")
-        gr = Gravity(p, geom, layout_from_params(p), 4)
-        xs = geom.cell_centers_1d(0, 0).double()
-        X, Y, Z = torch.meshgrid(xs, xs, xs, indexing="ij")
-        r = torch.sqrt(X ** 2 + Y ** 2 + Z ** 2)
-        R = 0.5
-        rho = torch.where(r < R, 1.0, 0.0).float()
-        M = 4.0 / 3.0 * np.pi * R ** 3
-        g3 = gr.grav_vector(rho)[0].double()
-        gmag = torch.sqrt((g3 ** 2).sum(0))
-        g_exact = torch.where(r < R, UC.Gconst * M * r / R ** 3, UC.Gconst * M / r ** 2)
-        mask = (r > 0.25) & ((r < 0.4) | (r > 0.65)) & (r < 0.95)
-        rel = ((gmag - g_exact).abs()[mask] / g_exact[mask])
-        inward = bool(((g3[0] * X + g3[1] * Y + g3[2] * Z)[mask] < 0).all())
-        print(f"I3 uniform sphere {N_SPHERE}^3 {gtype} float32 [{card}]: |g| against the "
-              f"analytic field, mean rel err {float(rel.mean()):.4e} (limit 0.05), max "
-              f"{float(rel.max()):.4e} (limit 0.25), inward {inward}; solves "
-              f"{gr.solve_stats}", flush=True)
-        if not (float(rel.mean()) < 0.05 and float(rel.max()) < 0.25 and inward):
-            fail(f"path I3: the uniform sphere's field ({gtype}) misses the analytic one")
-        i_results[f"sphere_{gtype}"] = dict(mean_rel=float(rel.mean()),
-                                            max_rel=float(rel.max()))
-        del gr, g3, X, Y, Z, r, rho, gmag, g_exact
-    torch.cuda.empty_cache()
-
-    # I3 timed at 256^3: STEPS_I3_BIG steps after init, then 1 step under
-    # the profiler, the device traced alone (~2 x 10^5 launches a step)
-    sim = dust_sim(N_BIG)
-    gst = timed_gravity(sim)
-    sim.init_data()
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    gst.update(s=0.0, calls=0)
-    nsolve0 = len(grav_of(sim).solve_stats)
-    t0 = time.perf_counter()
-    sim.run(max_step=STEPS_I3_BIG, verbose=False)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    solves = grav_of(sim).solve_stats[nsolve0:]
-    i_results["I3_256"] = dict(step_ms=1e3 * wall / STEPS_I3_BIG, gravity_share=gst["s"] / wall,
-                               zones_per_s=sim.num_zones_advanced / wall, peak_gib=peak,
-                               solves=solves)
-    print(f"main path timing [{card}]: I3: DustCollapse {N_BIG}^3 float32, {STEPS_I3_BIG} "
-          f"steps after init: {1e3 * wall / STEPS_I3_BIG:.3f} ms/step, "
-          f"{sim.num_zones_advanced / wall:.6e} zones/s, gravity {gst['s']:.3f} s of "
-          f"{wall:.3f} s ({gst['s'] / wall:.4f}, {gst['calls']} fields), peak memory "
-          f"{peak:.3f} GiB; solves (V-cycles, final max residual): {solves}", flush=True)
-    if len(solves) != 2 * STEPS_I3_BIG:
-        fail("path I3: not two Poisson solves a step at 256^3")
-    profile_steps(sim, 1, card, host=False)
-    del sim
-    torch.cuda.empty_cache()
-
-    # I1: 1D spherical DustCollapse (MonopoleGrav, float64) to 0.6 t_ff with
-    # tests/test_convergence.py:36-55's checks
-    s1 = Simulation(dust_collapse.make_params(n=N_I1, dim=1),
-                    problem_init=dust_collapse.problem_init, device="cuda")
-    s1.init_data()
-    L1 = s1.layout
-    rho0_max = float(s1.interior()[L1.URHO].max())
-    t_ff = dust_collapse.free_fall_time(1.0e9)
-    K.reset_launch_counts()
-    t0 = time.perf_counter()
-    s1.run(stop_time=0.6 * t_ff, max_step=4000, verbose=False)
-    torch.cuda.synchronize()
-    i1_s = time.perf_counter() - t0
-    rho = s1.interior()[L1.URHO].double().cpu().numpy()
-    inner = rho[:20]
-    flat_ = float(inner.std() / inner.mean())
-    launches1 = K.launch_counts()
-    path_launches[f"I1: DustCollapse 1D n={N_I1}"] = launches1
-    print(f"I1 [{card}]: 1D spherical DustCollapse n={N_I1} float64 to 0.6 t_ff: "
-          f"{s1.step_count} steps, {i1_s:.3f} s; max rho {rho.max() / rho0_max:.6f} x the "
-          f"initial (limit > 1.5), inner std/mean {flat_:.4e} (limit 0.2), finite and positive "
-          f"{bool(np.isfinite(rho).all() and rho.min() > 0)}; launches {launches1}", flush=True)
-    if not (np.isfinite(rho).all() and rho.min() > 0 and rho.max() > 1.5 * rho0_max
-            and flat_ < 0.2 and launches1["cmpflx"] >= s1.step_count > 0):
-        fail("path I1: the 1D DustCollapse misses test_convergence.py's checks")
-    i_results["I1"] = dict(steps=s1.step_count, s=i1_s, compression=float(rho.max() / rho0_max),
-                           inner_std_over_mean=flat_)
-    del s1
-
-    # IF: the full-physics blob (burning_blob physics="full": Poisson gravity
-    # with order-2 multipole BCs, iso7 Strang, the sponge), gamma law, float32
-    sim = blob_sim(N_MAIN, physics="full")
-    st = burn_stats(sim)
-    gst = timed_gravity(sim)
-    stamps = []
-    init = sim.init_data
-
-    def stamped_init(*a, **kw):
-        out = init(*a, **kw)
-        torch.cuda.synchronize()
-        stamps.append(time.perf_counter())
-        gst.update(s=0.0, calls=0)
-        return out
-
-    sim.init_data = stamped_init
-    n_f = drive(f"IF: full-physics blob {N_MAIN}^3 float32, 1 step", sim,
-                dict(FUSED, prim_aux=2, clean_fill=4), max_step=1, outflow=True)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - stamps[0]
-    sim.init_data = init
-    peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    i_results["IF"] = dict(step_ms=1e3 * wall / n_f, burn_share=st["s"] / wall,
-                           gravity_share=gst["s"] / wall, iters=st["iters"],
-                           released_erg=st["released"], peak_gib=peak,
-                           solves=grav_of(sim).solve_stats)
-    print(f"  [{card}] {1e3 * wall / n_f:.1f} ms a step after init; burns {st['s']:.3f} s "
-          f"({st['s'] / wall:.4f}), gravity {gst['s']:.3f} s ({gst['s'] / wall:.4f}), "
-          f"iterations {st['iters']}, energy released {st['released']:.6e} erg, peak memory "
-          f"{peak:.3f} GiB; solves {grav_of(sim).solve_stats}", flush=True)
-    if not st["released"] > 0.0:
-        fail("path IF: the hot zone released no energy")
-    del sim
-    torch.cuda.empty_cache()
-    reacting_card_vs_cpu(f"IF: {N_BLOB_CPU}^3 blob, card float32, CPU float64",
-                         blob_make("float32", "float64", "gamma_law", "full"), F32_VS_F64,
-                         steps=1)
-
     # IG: composite gravity on two levels (tests/test_composite_gravity.py's
     # blob: 0.01 + 2 exp(-(r/0.25)^2), p = 1, order-4 multipole BCs, tags
     # where rho > 0.5), float32
@@ -2006,96 +1412,9 @@ def main():
 
         return AmrSimulation(p, problem_init=init_, device=device)
 
-    amr = grav_amr(3, N_IG)
-    amr.init_data()
-    amr.run(max_step=1, verbose=False)  # warm-up
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    zones0 = amr.num_zones_advanced
-    t0 = time.perf_counter()
-    amr.run(max_step=1 + STEPS_IG, verbose=False)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    u_ok = all(bool(torch.isfinite(u_).all()) for u_ in amr.u)
-    i_results["IG"] = dict(ms_per_coarse_step=1e3 * wall / STEPS_IG,
-                           zones_per_s=(amr.num_zones_advanced - zones0) / wall,
-                           window=list(amr.window[1][1]), phi_sync_resid=amr.phi_sync_resid,
-                           peak_gib=peak)
-    print(f"main path timing [{card}]: IG: 3D blob {N_IG}^3 + 1 level float32, {STEPS_IG} "
-          f"coarse steps: {1e3 * wall / STEPS_IG:.3f} ms a coarse step, "
-          f"{(amr.num_zones_advanced - zones0) / wall:.6e} zones/s, window "
-          f"{tuple(amr.window[1][1])} (+{len(amr.extra[1])} extra), refined cells "
-          f"{int(amr.masks[1].sum())}, phi_sync_resid {amr.phi_sync_resid:.6e}, peak memory "
-          f"{peak:.3f} GiB; finite {u_ok}", flush=True)
-    if not u_ok or not amr.phi_sync_resid > 0.0:
-        fail("path IG: the composite-gravity run failed")
-    del amr
-    torch.cuda.empty_cache()
-
-    # float64: the blob is at rest in pressure balance, its momenta (gravity
-    # with G in cgs on a unit blob: ~1e-10) are float32's round-off
-    print(f"card vs CPU, IG 2D blob {N_IG_CPU}^2 + 1 level float64, 2 coarse steps {elapsed()}:",
-          flush=True)
-    runs = {}
-    for where in ("cpu", "cuda"):
-        a_ = grav_amr(2, N_IG_CPU, where, "float64")
-        a_.init_data()
-        for _ in range(2):
-            a_.advance(1e-3)
-        runs[where] = ([u_[interior_slice(a_.ng, 2)].cpu() for u_ in a_.u],
-                       [a_.window[1][0].tolist(), a_.window[1][1]], a_.phi_sync_resid)
-    # the tolerance of tests/test_torch_amr.py: F64_RTOL (|cpu| + each
-    # component's largest magnitude), a momentum's magnitude at least
-    # sqrt(max rho x max rho E), the state's momentum scale: the blob is at
-    # rest, its momenta the round-off of the pressure balance
-    ok = runs["cuda"][1] == runs["cpu"][1]
-    Lg, worst = a_.sim0.layout, 0.0
-    for gu_, ru_ in zip(runs["cuda"][0], runs["cpu"][0]):
-        mag = ru_.abs().flatten(1).amax(1)
-        mom = float(torch.sqrt(mag[Lg.URHO] * mag[Lg.UEDEN]))
-        for c in (Lg.UMX, Lg.UMY, Lg.UMZ):
-            mag[c] = max(float(mag[c]), mom)
-        tol = F64_RTOL * (ru_.abs() + mag.reshape(-1, 1, 1))
-        worst = max(worst, float(((gu_ - ru_).abs() / tol).max()))
-    ok = ok and worst <= 1.0
-    print(f"  windows card {runs['cuda'][1]}, CPU {runs['cpu'][1]}; max error {worst:.3e} of "
-          f"the tolerance ({F64_RTOL:g} (|cpu| + max|cpu|) per component, the momenta's "
-          f"magnitude at least sqrt(max rho max rho E)); phi_sync_resid card "
-          f"{runs['cuda'][2]:.6e}, CPU {runs['cpu'][2]:.6e} {'ok' if ok else 'DISAGREES'}")
-    if not ok:
-        fail("the card and the CPU disagree on IG")
-    del runs
-
-    # path J: flame_wave and the surface-burning setups (problems/*.py:
-    # thermal diffusion, rotation, the HSE fill hook, the initial models of
-    # utils/initial_models.py, the triple-alpha, rprox and nova networks),
-    # float64. A 2D step launches cmpflx and trans_cmpflx twice each, a 1D
-    # step cmpflx once; everything else is torch ops (Helmholtz's prim_aux
-    # and clean_fill, as the JAX package leaves them to XLA, and a fill hook
-    # turns the kernel clean_fill off), so the launch counts are TWO_D and
-    # ONE_D a tried step. The kernels are first held on the states of the
-    # path at NPASS = 13 (flame_wave, aprox13), 10 (xrb_mixed, rprox) and 14
-    # (nova)
-    from castro_tpu_torch.problems import (convective_flame, flame_wave, hse_convergence,
-                                           nova, reacting_bubble, toy_flame, xrb_mixed)
-
-    j_results = {}
-
     def sci_sim(mod, n=None, device="cuda"):
         p = mod.make_params() if n is None else mod.make_params(n=n)
         return Simulation(p, problem_init=mod.problem_init, device=device)
-
-    print(f"kernel vs plain, path J's states, float64 {elapsed()}:", flush=True)
-    for label, make in ((f"flame_wave {N_FW[0]} x {N_FW[1]} (NPASS 13)",
-                         lambda: flame_wave.build(n=N_FW)),
-                        ("xrb_mixed 64 x 192 (NPASS 10)", lambda: sci_sim(xrb_mixed)),
-                        ("nova 64 x 128 (NPASS 14)", lambda: sci_sim(nova))):
-        s_ = make()
-        s_.init_data()
-        compare_low_dim(inputs_low_dim(s_, s_.u, s_.estimate_dt()), label)
-        del s_
-        torch.cuda.empty_cache()
 
     def sync_timed(fn, st):
         """fn with the synchronized host time of each call added to st."""
@@ -2141,131 +1460,6 @@ def main():
         sim.init_data = stamped_init
         return st
 
-    # J-fw: flame_wave as the JAX package configures it, timed
-    sim = flame_wave.build(n=N_FW)
-    assert [s_.name for s_ in sim.source_fns] == ["diff", "grav"]
-    st = timed_run(sim)
-    torch.cuda.reset_peak_memory_stats()
-    n_fw = drive(f"J-fw: flame_wave {N_FW[0]} x {N_FW[1]} float64, {STEPS_FW} steps", sim,
-                 TWO_D, max_step=STEPS_FW, conserves_mass=False)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - st["init"]["end"]
-    peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    zones = int(np.prod(N_FW))
-    T_max = float(sim.interior()[sim.layout.UTEMP].max())
-    j_results["J-fw"] = dict(
-        n_cell=list(N_FW), init_s=st["init"]["s"], step_ms=1e3 * wall / n_fw,
-        zones_per_s=zones * sim.step_count / wall, burn_share=st["burn"]["s"] / wall,
-        diffusion_share=st["diff"]["s"] / wall, hse_fill_ms_per_step=1e3 * st["fill"]["s"] / n_fw,
-        hse_fills_per_step=st["fill"]["calls"] / n_fw, iters=st["burn"]["iters"],
-        released_erg=st["burn"]["released"], peak_gib=peak, T_max=T_max)
-    print(f"  [{card}] init_data {st['init']['s']:.3f} s; {1e3 * wall / n_fw:.1f} ms a step, the "
-          f"mean of {n_fw} steps after init, {zones * sim.step_count / wall:.6e} zones/s; burns "
-          f"{st['burn']['s']:.3f} s ({st['burn']['s'] / wall:.4f}), {st['burn']['calls']} half "
-          f"burns, iterations {st['burn']['iters']}; conduction {st['diff']['s']:.4f} s "
-          f"({st['diff']['s'] / wall:.4f}); HSE fill {1e3 * st['fill']['s'] / n_fw:.2f} ms a "
-          f"step ({st['fill']['calls'] / n_fw:.1f} fills a step); energy released "
-          f"{st['burn']['released']:.6e} erg; peak memory {peak:.3f} GiB; max T {T_max:.6e} K",
-          flush=True)
-    if not (st["burn"]["released"] > 0.0 and T_max > 3.5e8):
-        fail("path J-fw: the ignition patch did not burn")
-    profile_steps(sim, 1, card, host=False)
-    del sim
-    torch.cuda.empty_cache()
-
-    j_results["J-fw_vs_cpu"] = reacting_card_vs_cpu(
-        f"J-fw: flame_wave {N_FW_CPU[0]} x {N_FW_CPU[1]}, float64",
-        lambda where: flame_wave.build(n=N_FW_CPU, device=where), F64_RTOL, steps=1,
-        shared_momentum=True)
-
-    # J-hse: hse_convergence to t = 1, HSE fills on both faces; the residual
-    # velocity falls with resolution (tests/test_hse_convergence.py's bounds)
-    v_hse = {}
-    for n_h in N_HSE:
-        sim = hse_convergence.build(n=n_h)
-        drive(f"J-hse: hse_convergence n={n_h} float64 to t=1.0", sim, ONE_D, stop_time=1.0,
-              conserves_mass=False)
-        ui = sim.interior().double()
-        v_hse[n_h] = float((ui[sim.layout.UMX] / ui[sim.layout.URHO]).abs().max())
-        del sim
-    j_results["J-hse"] = dict(max_velocity=v_hse)
-    print(f"  max |u| at t = 1: {v_hse} (bounds: < 5e-4 at n = {N_HSE[0]}, falling at least 3x "
-          f"to n = {N_HSE[1]})", flush=True)
-    if not (v_hse[N_HSE[0]] < 5e-4 and v_hse[N_HSE[1]] < v_hse[N_HSE[0]] / 3.0):
-        fail("path J-hse: the hydrostatic atmosphere does not converge")
-
-    # J-sci: the five setups at the JAX package's default sizes, a few steps
-    for key, mod, per_try in (("toy_flame", toy_flame, ONE_D),
-                              ("convective_flame", convective_flame, TWO_D),
-                              ("reacting_bubble", reacting_bubble, TWO_D),
-                              ("xrb_mixed", xrb_mixed, TWO_D), ("nova", nova, TWO_D)):
-        sim = sci_sim(mod)
-        st = timed_run(sim)
-        n_s = drive(f"J-sci: {key} {' x '.join(map(str, sim.geom.n_cell))} float64, "
-                    f"{STEPS_SCI} steps", sim, per_try, max_step=STEPS_SCI, conserves_mass=False)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - st["init"]["end"]
-        b = st["burn"]
-        j_results[f"J-sci {key}"] = dict(
-            init_s=st["init"]["s"], step_ms=1e3 * wall / n_s, burn_share=b["s"] / wall,
-            diffusion_share=st["diff"]["s"] / wall, iters=b["iters"], released_erg=b["released"],
-            dt=sim.dt, sources=[s_.name for s_ in sim.source_fns])
-        print(f"  [{card}] init_data {st['init']['s']:.3f} s; {1e3 * wall / n_s:.1f} ms a step "
-              f"after init; burns {b['s']:.3f} s ({b['s'] / wall:.4f}), iterations {b['iters']}; "
-              f"conduction {st['diff']['s'] / wall:.4f} of the wall; energy released "
-              f"{b['released']:.6e} erg; last dt {sim.dt:.6e}; sources "
-              f"{[s_.name for s_ in sim.source_fns]}", flush=True)
-        del sim
-        torch.cuda.empty_cache()
-    j_results["J-sci convective_flame_vs_cpu"] = reacting_card_vs_cpu(
-        "J-sci: convective_flame 128 x 96, float64",
-        lambda where: sci_sim(convective_flame, device=where), F64_RTOL, steps=1,
-        shared_momentum=True)
-    j_results["J-sci xrb_mixed_vs_cpu"] = reacting_card_vs_cpu(
-        f"J-sci: xrb_mixed {N_XRB_CPU[0]} x {N_XRB_CPU[1]}, float64",
-        lambda where: sci_sim(xrb_mixed, N_XRB_CPU, device=where), F64_RTOL, steps=1,
-        shared_momentum=True)
-
-    # the probes: each against its plain version, then the entry points
-    print(f"probes vs plain (scripts/prof_cmpflx.py setup at 128^3, float32) {elapsed()}:",
-          flush=True)
-    px = prof_cmpflx.setup(n=120)
-    pargs = prof_cmpflx.cmpflx_args(px)
-    pref = P.probe_cmpflx_plain(*pargs)
-    for label, (tile, threads) in prof_cmpflx.tilings(px["qm"].shape[1:]).items():
-        check("probe_cmpflx", P.probe_cmpflx(*pargs, tile=tile, threads=threads), pref, label)
-    cref = P.probe_copy_plain(px["qm"], px["qp"], px["layout"])
-    for tile in ((8, None), P.BEST_TILE):
-        check("probe_copy", P.probe_copy(px["qm"], px["qp"], px["layout"], tile=tile), cref,
-              f"tile {tile}")
-    vx = torch.full((512, 512), 1.1, dtype=torch.float32, device=dev)
-    vx[0] = torch.linspace(0.3, 3.0, 512, device=dev)
-    for op in P.VPU_OPS:
-        got = P.probe_vpu(vx, op, VPU_CHECK_ITERS)
-        ref = P.probe_vpu_plain(vx, op, VPU_CHECK_ITERS)
-        err, rel, ok = compare(got, ref, VPU_RTOL[op])
-        errs["probe_vpu"] = [max(errs["probe_vpu"][0], err), max(errs["probe_vpu"][1], rel)]
-        print(f"  probe_vpu  {op}, {VPU_CHECK_ITERS} iterations{'':17s} max abs err {err:.3e} "
-              f"rel {rel:.3e} (tol {VPU_RTOL[op]:.3g}|plain|) {'ok' if ok else 'DISAGREES'}")
-        if not ok:
-            compare(got, ref, VPU_RTOL[op], report=True)
-            fail(f"probe_vpu {op} disagrees with its plain version")
-    print("probe entry points (python -m castro_tpu_torch.scripts.prof_cmpflx / prof_vpu):",
-          flush=True)
-    K.reset_launch_counts()
-    probe_ms = prof_cmpflx.run(px, out=lambda line: print("  " + line))
-    vpu_ps, vpu_bound_ps = prof_vpu.run(vx, out=lambda line: print("  " + line))
-    torch.cuda.synchronize()
-    path_launches["probe: the entry points"] = K.launch_counts()
-    print(f"  launches {path_launches['probe: the entry points']}", flush=True)
-    if any(path_launches["probe: the entry points"][k] == 0
-           for k in ("probe_cmpflx", "probe_copy", "probe_vpu")):
-        fail("a probe entry point launched no probe kernel")
-
-    # -- 5. timing ---------------------------------------------------------------------
-    print(f"timing {elapsed()}", flush=True)
-    results = {}
-
     def time_path(key, label, make, steps, profile=0):
         """zones/s, ms/step and peak memory of `steps` steps after 2 warm-up
         steps; with `profile`, that many further steps under torch.profiler."""
@@ -2281,11 +1475,11 @@ def main():
         wall = time.perf_counter() - t0
         zps = (s.num_zones_advanced - zones0) / wall
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
-        results[key] = dict(zones_per_s=zps, step_ms=1e3 * wall / steps, peak_gib=peak)
+        ctx.results[key] = dict(zones_per_s=zps, step_ms=1e3 * wall / steps, peak_gib=peak)
         amr_note = ""
         if hasattr(s, "window"):  # an AmrSimulation: zones as _count_zones counts them
             frac = float(s.masks[1].sum()) / float(np.prod(s.geom_full[1].n_cell))
-            results[key].update(window=list(s.window[1][1]), refined_fraction=frac,
+            ctx.results[key].update(window=list(s.window[1][1]), refined_fraction=frac,
                                 extra_windows=len(s.extra[1]))
             amr_note = (f", level-1 window {tuple(s.window[1][1])} (+{len(s.extra[1])} extra), "
                         f"refined fraction {frac:.4f}, zones a coarse step {s._count_zones(0)}")
@@ -2298,181 +1492,6 @@ def main():
         del s
         torch.cuda.empty_cache()
 
-    time_path(str(N_MAIN), f"A: Sedov {N_MAIN}^3", lambda: sedov_sim(N_MAIN), STEPS_MAIN,
-              profile=3)
-    time_path(str(N_BIG), f"A: Sedov {N_BIG}^3", lambda: sedov_sim(N_BIG), STEPS_BIG)
-    time_path(f"amr-{N_AMR}", f"G: 3D Sedov AMR {N_AMR}^3 + 1 level",
-              lambda: amr_sim(3, N_AMR), STEPS_AMR, profile=3)
-    time_path(f"{N_MAIN}-cg", f"B: Sedov {N_MAIN}^3 riemann_solver=1",
-              lambda: sedov_sim(N_MAIN, riemann_solver=1), 5, profile=2)
-    time_path(f"{N_HYBRID}-hybrid", f"B: Sedov {N_HYBRID}^3 hybrid_riemann=1",
-              lambda: sedov_sim(N_HYBRID, hybrid_riemann=1), 10)
-    try:  # reported, not required: the unfused structure's live set at 264^3
-        time_path(f"{N_BIG}-cg", f"B: Sedov {N_BIG}^3 riemann_solver=1",
-                  lambda: sedov_sim(N_BIG, riemann_solver=1), 2)
-    except torch.cuda.OutOfMemoryError as e:
-        print(f"main path timing [{card}]: B: Sedov {N_BIG}^3 riemann_solver=1 not measured, "
-              f"out of device memory: {str(e).splitlines()[0]}")
-        torch.cuda.empty_cache()
-    time_path(f"{N_2D}^2", f"C: 2D Sedov {N_2D}^2", lambda: sedov_sim(N_2D, dim=2), 5,
-              profile=2)
-    time_path(f"{N_2D}^2-cg", f"C: 2D Sedov {N_2D}^2 riemann_solver=1",
-              lambda: sedov_sim(N_2D, dim=2, riemann_solver=1), 3)
-    time_path(f"{N_MAIN}-plm", f"D: Sedov {N_MAIN}^3 ppm_type=0",
-              lambda: sedov_sim(N_MAIN, ppm_type=0), STEPS_MAIN, profile=2)
-    time_path(f"{N_MAIN}-limiter", f"D: Sedov {N_MAIN}^3 limit_fluxes_on_small_dens=1",
-              lambda: sedov_sim(N_MAIN, limit_fluxes_on_small_dens=1), 5)
-    time_path(f"rz-{N_RZ}", f"E: 2D RZ Sedov {N_RZ} x {2 * N_RZ}",
-              lambda: curvilinear_sim("rz", N_RZ), 5, profile=2)
-    time_path(f"dmr-{DMR_BIG[0]}", f"F: 2D double Mach reflection {DMR_BIG[0]} x {DMR_BIG[1]}",
-              lambda: dmr_sim(DMR_BIG), STEPS_DMR, profile=2)
-
-    time_path("H1", f"H1: detonation n={N_DET}",
-              lambda: Simulation(detonation.make_params(n=N_DET),
-                                 problem_init=detonation.problem_init), 20, profile=5)
-
-    sim = sedov_sim(N_MAIN)
-    sim.init_data()
-    dt = sim.estimate_dt()
-    sim.advance(dt)
-    x = inputs(sim, sim.u, dt)
-    L, cfg, dx, u = x["L"], x["cfg"], x["dx"], sim.u
-    isz = u.element_size()
-    tr = [K.trace_ppm_plain(x["q"], x["qaux"], None, x["flatn"], d, dt, dx[d], L,
-                            cfg.small_dens, cfg.small_pres, cfg.small_ener,
-                            fuse_riemann=dict(coord=0, riemann_solver=0, bnd_mask=None))
-          for d in range(3)]
-
-    def term(t, f):
-        return {"flux": tr[t][2], "qe": tr[t][3], "t_dir": t, "cdtdx": f * dt / dx[t]}
-
-    hsrc = torch.zeros_like(u)
-    # name -> list of (kernel call, plain call, components moved[, elements[, variant]])
-    calls = {}
-    a = (u, L, x["eos"], cfg.small_dens, sim.small_temp, dx)
-    # prim_aux reads six of u's components: not the total energy or the
-    # temperature
-    calls["prim_aux"] = [(lambda: K.prim_aux(*a, courant_dt=dt),
-                          lambda: K.prim_aux_plain(*a, courant_dt=dt),
-                          L.NVAR - 2 + L.NQ + L.NQAUX + 1)]
-    calls["flatten"] = [(lambda: K.flatten(x["q"], L), lambda: K.flatten_plain(x["q"], L), 5)]
-    # the face kernels variant by variant (scripts/prof_faces.py): trace_ppm
-    # with the solve (A) and without (B); ctu_face's pair and final + consup
-    # (A), terms=[] (D, PLM) and the final alone (D, limited)
-    fx = prof_faces.setup(N_MAIN)
-    face_calls = {("trace_ppm", "with the solve"): "trace_ppm",
-                  ("trace_ppm", "without the solve"): "trace_ppm, no solve",
-                  ("ctu_face", "corner pair"): "ctu_face",
-                  ("ctu_face", "final + consup"): "ctu_face",
-                  ("ctu_face", "terms=[]"): "ctu_face, terms=[]",
-                  ("ctu_face", "final alone"): "ctu_face, final alone"}
-    for name, variant, d, kern, plain, comps in prof_faces.variants(fx):
-        calls.setdefault(face_calls[(name, variant)], []).append(
-            (kern, plain, comps, u[0].numel(), variant))
-    ca = (u, L, x["eos"], cfg.lo_bc, cfg.hi_bc, sim.ng, cfg.small_dens, sim.small_temp,
-          x["eta2"], True)
-    calls["clean_fill"] = [(lambda: K.clean_fill(*ca, with_status=True),
-                            lambda: K.clean_fill_plain(*ca, with_status=True), 2 * L.NVAR)]
-    # the unfused structure's kernels at 136^3: trans_apply on a corner and
-    # on a final bundle, consup per direction
-    calls["trans_apply"] = []
-    for n_, terms, q_face, shift in ((0, [term(1, 1 / 3)], tr[0][1], 0),
-                                     (1, [term(2, 1 / 3)], tr[1][0], -1),
-                                     (2, [term(0, 0.5), term(1, 0.5)], tr[2][1], 0)):
-        b = (q_face, *term_bundle(terms, x["qaux"], n_, shift, L), L, cfg.small_pres, True,
-             False)
-        calls["trans_apply"].append((lambda b=b: K.trans_apply(*b),
-                                     lambda b=b: K.trans_apply_plain(*b),
-                                     2 * L.NQ + L.NVAR + 2))
-    calls["consup"] = []
-    for d in range(3):
-        cs = (hsrc, tr[d][2], tr[d][3][L.GDPRES], tr[d][3][L.GDU + d], x["div"], u, d, L,
-              cfg.difmag, dx)
-        fin = dt if d == 2 else None
-        calls["consup"].append((lambda cs=cs, fin=fin: K.consup(*cs, finalize_dt=fin),
-                                lambda cs=cs, fin=fin: K.consup_plain(*cs, finalize_dt=fin),
-                                4 * L.NVAR + 3 + L.NVAR))
-    # path C's kernels at 4104^2
-    sim2 = sedov_sim(N_2D, dim=2)
-    sim2.init_data()
-    dt2 = sim2.estimate_dt()
-    sim2.advance(dt2)
-    y = inputs_low_dim(sim2, sim2.u, dt2)
-    S2 = sim2.u[0].numel()
-    calls["cmpflx"] = [(lambda a=a: K.cmpflx(*a), lambda a=a: K.cmpflx_plain(*a),
-                        2 * L.NQ + 4 + L.NVAR + L.NGDNV, S2) for a in y["solves"]]
-    calls["trans_cmpflx"] = [
-        (lambda a=a: K.trans_cmpflx(*a, True, False),
-         lambda a=a: K.trans_cmpflx_plain(*a, True, False),
-         2 * L.NQ + 2 * L.NVAR + 8 + L.NVAR + L.NGDNV, S2) for a in y["finals"]]
-    del y
-    # the probes at the entry points' shapes: probe_cmpflx at its best shape
-    # (the other tilings are in the entry point's lines), probe_copy the 30
-    # components it must move, probe_vpu the fma body over 512^2
-    SP = px["qm"][0].numel()
-    calls["probe_cmpflx"] = [(lambda: P.probe_cmpflx(*pargs),
-                              lambda: P.probe_cmpflx_plain(*pargs),
-                              2 * L.NQ + 4 + L.NVAR + L.NGDNV, SP)]
-    calls["probe_copy"] = [(lambda: P.probe_copy(px["qm"], px["qp"], px["layout"]),
-                            lambda: P.probe_copy_plain(px["qm"], px["qp"], px["layout"]),
-                            3 * L.NVAR + L.NGDNV, SP)]
-    calls["probe_vpu"] = [(lambda: P.probe_vpu(vx, "fma", VPU_TIME_ITERS),
-                           lambda: P.probe_vpu_plain(vx, "fma", VPU_TIME_ITERS), 2, vx.numel())]
-
-    entries, extra = [], {}
-    print(f"kernel timing {elapsed()} [{card}], float32, at Sedov {N_MAIN}^3 (grown {u.shape[1]}^3; "
-          f"cmpflx and trans_cmpflx at 2D Sedov {N_2D}^2, grown {sim2.u.shape[1]}^2; the "
-          f"probes at 128^3 and, probe_vpu, 512^2 x {VPU_TIME_ITERS} iterations), per "
-          f"launch: the kernel's device time (torch.profiler), the wrapper's and the plain "
-          f"version's time (CUDA events); bound = max(bytes / {HBM_BYTES_PER_S:g} B/s, "
-          f"operations of the plain version / {FP32_OPS_PER_S:g} op/s):", flush=True)
-    by_variant = {}  # ctu_face's variants: the mean over the three directions
-    for name, variants in calls.items():
-        sums, rows = time_kernel(name, variants, u[0].numel(), isz, FP32_OPS_PER_S, reps=20,
-                                 plain_reps=3)
-        for r in rows:
-            print(f"  {name:10s} {r['ms']:9.4f} ms   wrapper {r['wrapper_ms']:9.4f} ms   plain "
-                  f"{r['plain_ms']:9.4f} ms   bound {r['bound_ms']:.4f} ms ({r['comps']} "
-                  f"components, {r['bytes_ms']:.4f} ms; {r['ops_per_cell']:.1f} operations a "
-                  f"cell, {r['ops_ms']:.4f} ms)", flush=True)
-            if name.startswith("ctu_face"):
-                for key in ("ms", "plain_ms", "bound_ms"):
-                    by_variant.setdefault(r["variant"], {}).setdefault(key, 0.0)
-                    by_variant[r["variant"]][key] += r[key] / 3
-        if name not in REPLACES:  # a second variant of a kernel: printed, kept with its kernel
-            extra[name] = sums
-            continue
-        by_path = {label.split(":")[0] + ":" + label.split(":")[1].split(",")[0]: c[name]
-                   for label, c in path_launches.items() if c[name]}
-        entries.append({
-            "name": name, "route": "cuda",
-            "source": f"castro_tpu_torch/csrc/{SOURCE.get(name, name + '.cu')}",
-            "replaces": REPLACES[name], "launches": sum(by_path.values()),
-            "launches_by_path": by_path,
-            "max_abs_err": errs[name][0], "max_rel_err": errs[name][1], "ms": sums["ms"],
-            "wrapper_ms": sums["wrapper_ms"], "plain_ms": sums["plain_ms"],
-            "bound_ms": sums["bound_ms"],
-            "bound_by": sums["bound_by"],
-            "library_ms": None})
-    for e in entries:
-        if e["name"] == "trace_ppm":  # the variant the unfused structure launches
-            e.update({k + "_no_solve": extra["trace_ppm, no solve"][k]
-                      for k in ("ms", "wrapper_ms", "plain_ms", "bound_ms")})
-        if e["name"] == "ctu_face":
-            e["ms_by_variant"] = by_variant
-        if e["name"] in ("trace_ppm", "ctu_face", "prim_aux", "flatten", "clean_fill"):
-            # float32, every direction and variant
-            e["ptxas"] = [r for r in ptxas if r["kernel"].startswith(e["name"] + "_kernel<float")]
-        if e["name"] == "probe_cmpflx":
-            e["entry_point_ms_by_tiling"] = {k: v for k, v in probe_ms.items() if "cmpflx" in k}
-        if e["name"] == "probe_copy":
-            nbytes = prof_cmpflx.copy_bytes(px)
-            e["bytes_moved"] = nbytes
-            e["achieved_GB_s"] = nbytes / e["ms"] / 1e6
-        if e["name"] == "probe_vpu":
-            e["iterations"] = VPU_TIME_ITERS
-            e["ps_per_element_op"] = vpu_ps
-            e["bound_ps_per_element_op"] = vpu_bound_ps
     # the nine step kernels at the reacting layouts: NPASS = 7 (iso7, path
     # H3's) and 19 (aprox19), the same 136^3 Sedov state with that many
     # species; cmpflx and trans_cmpflx on the 3D grid's faces
@@ -2524,82 +1543,1765 @@ def main():
                                        2 * Ll.NQ + 2 * Ll.NVAR + 8 + Ll.NVAR + Ll.NGDNV))
         return cl, ul
 
-    h_launches = {}
-    for label, c in path_launches.items():
-        if label.startswith("H"):
-            for k_, v_ in c.items():
-                h_launches[k_] = h_launches.get(k_, 0) + v_
-    for nspec in (7, 19):
-        cl, ul = layout_calls(nspec)
-        Sl, iszl = ul[0].numel(), ul.element_size()
-        print(f"kernel timing [{card}], float32, Sedov {N_MAIN}^3 with NPASS = {nspec} "
-              f"(NVAR {ul.shape[0]}), per launch as above {elapsed()}:", flush=True)
-        for e in entries:
-            if e["name"] not in cl:
-                continue
-            sums, _ = time_kernel(e["name"], cl[e["name"]], Sl, iszl, FP32_OPS_PER_S, reps=10,
-                                  plain_reps=2)
-            e[f"npass{nspec}"] = dict(
-                ms=sums["ms"], plain_ms=sums["plain_ms"], bound_ms=sums["bound_ms"],
-                bound_by=sums["bound_by"], launches_path_H=h_launches.get(e["name"], 0))
-            print(f"  {e['name']:12s} {sums['ms']:9.4f} ms   plain {sums['plain_ms']:9.4f} ms   "
-                  f"bound {sums['bound_ms']:.4f} ms ({e[f'npass{nspec}']['bound_by']}); "
-                  f"NPASS = 1: {e['ms']:.4f} ms, bound {e['bound_ms']:.4f} ms", flush=True)
-        del cl, ul
+    def phase_kernels():
+
+
+
+
+        print(f"kernel vs plain, {N_MAIN}^3 Sedov float32 (main-path shapes):", flush=True)
+        sim = sedov_sim(N_MAIN)
+        sim.init_data()
+        dt = sim.estimate_dt()
+        compare_step(inputs(sim, sim.u, dt), "Sedov init")
+        sim.advance(dt)
+        compare_step(inputs(sim, sim.u, dt), "after 1 step", off_path=True)
+        del sim
+        print(f"kernel vs plain, {N_SMALL}^3, branches off the main path:", flush=True)
+        for bc, solver, label in ((3, 2, "symmetry walls, HLLC"), (0, 0, "periodic"),
+                                  (5, 0, "no-slip walls")):
+            s = sedov_sim(N_SMALL, bc=bc)
+            s.init_data()
+            dts = s.estimate_dt()
+            s.advance(dts)
+            x = inputs(s, s.u, dts)
+            g = torch.Generator(dev).manual_seed(0)
+            src = 1e-3 * x["q"].abs() * torch.randn(x["q"].shape, device=dev, generator=g)
+            compare_step(x, f"{label}, srcQ", solver=solver, src=src, off_path=True)
+            args = (s.u, s.layout, s.eos, s.cfg.small_dens, s.small_temp, s.geom.dx)
+            check("prim_aux", K.prim_aux(*args, with_divu=False),
+                  K.prim_aux_plain(*args, with_divu=False), f"{label}, no divu")
+
+
+
+
+
+
+
+        print(f"kernel vs plain, {N_MAIN}^3 Sedov float32, the unfused structure's shapes:",
+              flush=True)
+        sim = sedov_sim(N_MAIN)
+        sim.init_data()
+        dt = sim.estimate_dt()
+        sim.advance(dt)
+        compare_unfused_3d(inputs(sim, sim.u, dt), "after 1 step")
+        del sim
+        s = sedov_sim(N_SMALL, bc=3)
+        s.init_data()
+        dts = s.estimate_dt()
+        s.advance(dts)
+        compare_unfused_3d(inputs(s, s.u, dts), f"{N_SMALL}^3 symmetry walls")
+        grown = " x ".join(str(n + 8) for n in RAGGED)
+        print(f"kernel vs plain, Sedov {grown} grown (prime extents), symmetry walls:", flush=True)
+        s = sedov_sim(N_SMALL, bc=3, n_cell=RAGGED)
+        s.init_data()
+        dts = s.estimate_dt()
+        s.advance(dts)
+        x = inputs(s, s.u, dts)
+        compare_step(x, "ragged", off_path=True)
+        compare_step(x, "ragged, HLLC", solver=2)
+        compare_unfused_3d(x, "ragged")
+        del s, x
         torch.cuda.empty_cache()
-    # path J's kernels in float64 at NPASS = 13 on flame_wave's state
-    # (J-fw's grid, its initial state): the bound's operations over the
-    # float64 peak, its bytes at 8 a value
-    j_launches = {}
-    for label, c in path_launches.items():
-        if label.startswith("J"):
-            for k_, v_ in c.items():
-                j_launches[k_] = j_launches.get(k_, 0) + v_
-    sfw = flame_wave.build(n=N_FW)
-    sfw.init_data()
-    yf = inputs_low_dim(sfw, sfw.u, sfw.estimate_dt())
-    Lf, Sf, iszf = sfw.layout, sfw.u[0].numel(), sfw.u.element_size()
-    fcalls = {"cmpflx": [(lambda a=a: K.cmpflx(*a), lambda a=a: K.cmpflx_plain(*a),
-                          2 * Lf.NQ + 4 + Lf.NVAR + Lf.NGDNV) for a in yf["solves"]],
-              "trans_cmpflx": [(lambda a=a: K.trans_cmpflx(*a, True, False),
-                                lambda a=a: K.trans_cmpflx_plain(*a, True, False),
-                                2 * Lf.NQ + 2 * Lf.NVAR + 8 + Lf.NVAR + Lf.NGDNV)
-                               for a in yf["finals"]]}
-    print(f"kernel timing [{card}], float64, flame_wave {N_FW[0]} x {N_FW[1]} (grown "
-          f"{tuple(sfw.u.shape[1:])}, NPASS = {Lf.nspec}), per launch as above, the operations "
-          f"over {FP64_OPS_PER_S:g} op/s {elapsed()}:", flush=True)
-    for e in entries:
-        if e["name"] not in fcalls:
-            continue
-        sums, _ = time_kernel(e["name"], fcalls[e["name"]], Sf, iszf, FP64_OPS_PER_S, reps=10,
-                              plain_reps=2)
-        e["float64_npass13_flame_wave"] = dict(
-            ms=sums["ms"], wrapper_ms=sums["wrapper_ms"], plain_ms=sums["plain_ms"],
-            bound_ms=sums["bound_ms"], bound_by=sums["bound_by"],
-            launches_path_J=j_launches.get(e["name"], 0))
-        print(f"  {e['name']:12s} {sums['ms']:9.4f} ms   wrapper {sums['wrapper_ms']:9.4f} ms   "
-              f"plain {sums['plain_ms']:9.4f} ms   bound {sums['bound_ms']:.4f} ms "
-              f"({e['float64_npass13_flame_wave']['bound_by']}; bytes {sums['bytes_ms']:.4f} ms, "
-              f"operations {sums['ops_ms']:.4f} ms)", flush=True)
-    del sfw, yf, fcalls
-    torch.cuda.empty_cache()
-    for e in entries:
-        if e["name"] in REPLACES and e["name"] not in ("probe_cmpflx", "probe_copy",
-                                                         "probe_vpu"):
-            e["launches_path_H"] = h_launches.get(e["name"], 0)
-            e["launches_path_J"] = j_launches.get(e["name"], 0)
+        print(f"kernel vs plain, 2D Sedov {N_2D}^2 and 1D Sod {N_1D} float32 (path C's shapes):",
+              flush=True)
+        sim = sedov_sim(N_2D, dim=2)
+        sim.init_data()
+        dt = sim.estimate_dt()
+        sim.advance(dt)
+        y = inputs_low_dim(sim, sim.u, dt)
+        compare_low_dim(y, f"2D {N_2D}^2 after 1 step")
+        del sim, y
+        torch.cuda.empty_cache()
+        sim = sod_sim(N_1D)
+        sim.run(max_step=20, verbose=False)
+        compare_low_dim(inputs_low_dim(sim, sim.u, sim.dt), f"1D Sod {N_1D} after 20 steps")
+        del sim
+        print(f"kernel vs plain, 2D {N_2D_SMALL}^2, branches off the main paths:", flush=True)
+        s = sedov_sim(N_2D_SMALL, dim=2, bc=3)
+        s.init_data()
+        for _ in range(3):
+            s.advance(s.estimate_dt())
+        compare_low_dim(inputs_low_dim(s, s.u, s.estimate_dt(), solver=2),
+                        "symmetry walls, HLLC", resets=((True, False), (True, True), (False, False)))
+        del s
+        torch.cuda.empty_cache()
+        print(f"kernel vs plain, RZ {N_RZ} x {2 * N_RZ} (coord 1) and 1D spherical {N_SPH} "
+              f"(coord 2), float32 (path E's shapes):", flush=True)
+        for geometry, n in (("rz", N_RZ), ("sph", N_SPH)):
+            s = curvilinear_sim(geometry, n)
+            s.init_data()
+            dts = s.estimate_dt()
+            s.advance(dts)
+            compare_low_dim(inputs_low_dim(s, s.u, dts), f"{geometry} after 1 step")
+            del s
+            torch.cuda.empty_cache()
+
+        # the reacting layouts: 7, 13 and 19 species (iso7, aprox13, aprox19),
+        # the shock flag, hybrid momenta and an aux component, on the ragged grid
+        # in float32 and float64 (tests/test_torch_cuda_layouts.py's cases)
+        grown_r = tuple(n + 8 for n in RAGGED)
+        print(f"kernel vs plain at the reacting layouts, {' x '.join(map(str, grown_r))} grown "
+              f"(prime extents), float32 and float64 {elapsed()}:", flush=True)
+        for dtype in (torch.float32, torch.float64):
+            for lay in LAYOUTS:
+                compare_layout(StateLayout(dim=3, nspec=lay[0], naux=lay[1], shock_var=lay[2],
+                                           hybrid_momentum=lay[3]), dtype, grown_r)
+
+    # -- 4. the main path -------------------------------------------------------------
+    path_launches = {}
+
+    def mass(sim):
+        """The interior's mass, sum of rho times the cell volume."""
+        vol = sim.geom.volume(0).double()
+        return float((sim.interior()[sim.layout.URHO].double() * vol).sum())
+
+    def drive(label, sim, per_try, max_step=None, stop_time=None, callbacks=None,
+              conserves_mass=True, outflow=False):
+        """Run `sim` through Simulation.run with the launch counts zeroed just
+        before and read just after; check them against `per_try` (launches a
+        tried step; clean_fill once more at init where the kernel cleans),
+        finite values and, unless an inflow feeds the grid, mass
+        conservation; with `outflow`, the mass change must equal the mass the
+        steps' boundary fluxes carried out (no step may be retried). Returns
+        the number of steps tried."""
+        print(f"main path {label}, Simulation.run on the card {elapsed()}", flush=True)
+        tries = {"n": 0, "out": 0.0}
+        step_impl = sim._step_impl
+        if outflow:
+            sim.keep_fluxes = True
+
+        def counted(*a, **kw):
+            tries["n"] += 1
+            out = step_impl(*a, **kw)
+            if outflow:  # interior face fluxes: the first and last face along d
+                dxs = sim.geom.dx
+                for d_, f_ in enumerate(out[3]):
+                    rho_f = f_[sim.layout.URHO].double()
+                    area = float(np.prod([dxs[k] for k in range(len(dxs)) if k != d_]))
+                    net = (rho_f.narrow(d_, rho_f.shape[d_] - 1, 1).sum()
+                           - rho_f.narrow(d_, 0, 1).sum())
+                    tries["out"] += float(a[1]) * area * float(net)
+                out = out[:3] + out[4:]
+            return out
+
+        sim._step_impl = counted
+        K.reset_launch_counts()
+        sim.init_data()
+        mass0 = mass(sim)
+        sim.run(max_step=max_step, stop_time=stop_time, verbose=False, callbacks=callbacks)
+        torch.cuda.synchronize()
+        launches = K.launch_counts()
+        n = tries["n"]
+        expected = {name: per_try.get(name, 0) * n for name in launches}
+        if sim._kernel_clean_fill:
+            expected["clean_fill"] += 1
+        print(f"  {sim.step_count} steps ({n} tried), t = {sim.t:.6e}; launches {launches}; "
+              f"expected {expected}")
+        if launches != expected or any(launches[k] == 0 for k, v in per_try.items() if v):
+            fail(f"path {label}: the launch counts do not match the step's structure")
+        u_end = sim.interior()
+        if not bool(torch.isfinite(u_end).all()):
+            fail(f"path {label}: non-finite state")
+        mass1 = mass(sim)
+        dm = abs(mass1 - mass0 + tries["out"]) / mass0
+        print(f"  mass: {mass0:.9e} -> {mass1:.9e}"
+              + (f", out through the boundaries {tries['out']:.9e}" if outflow else "")
+              + f", relative change {dm:.3e} "
+              + (f"(limit {MASS_RTOL:g})" if conserves_mass else "(inflow: not checked)"))
+        if conserves_mass and dm > MASS_RTOL:
+            fail(f"path {label}: mass is not conserved")
+        if outflow and n != sim.step_count:
+            fail(f"path {label}: a step was retried, its boundary fluxes counted twice")
+        path_launches[label] = launches
+        sim._step_impl = step_impl
+        sim.keep_fluxes = False
+        return n
+
+    def card_vs_cpu(label, make, steps=3, per_try=None):
+        """`steps` steps on the CPU (the plain versions), then the same dt
+        sequence on the card; optionally the card run's launch counts."""
+        print(f"card vs CPU, {label} float32, {steps} steps (CPU through the plain versions):",
+              flush=True)
+        runs, dts = {}, []
+        for where in ("cpu", "cuda"):
+            s = make(where)
+            s.init_data()
+            if where == "cpu":
+                s.run(max_step=steps, verbose=False, callbacks=[lambda s_: dts.append(s_.dt)])
+            else:  # the same dt sequence on the card
+                K.reset_launch_counts()
+                for d_ in dts:
+                    s.advance(d_)
+                if per_try is not None:
+                    got = {k: v for k, v in K.launch_counts().items() if k in per_try}
+                    want = {k: v * len(dts) for k, v in per_try.items()}
+                    print(f"  launches {got}; expected {want}")
+                    if got != want:
+                        fail(f"{label}: the launch counts do not match the step's structure")
+            runs[where] = s.interior().cpu()
+        err, rel, ok = compare(runs["cuda"], runs["cpu"], RTOL, floor=True)
+        print(f"  max abs err {err:.3e} rel {rel:.3e} (tol {RTOL:g}|cpu| + {RTOL:g} max|cpu| "
+              f"per component) {'ok' if ok else 'DISAGREES'}")
+        if not ok:
+            compare(runs["cuda"], runs["cpu"], RTOL, floor=True, report=True)
+            fail(f"the card and the CPU disagree on {label}")
+
+    FUSED = {"prim_aux": 1, "flatten": 1, "trace_ppm": 3, "ctu_face": 6, "clean_fill": 1}
+    UNFUSED = {"prim_aux": 1, "flatten": 1, "trace_ppm": 3, "trans_apply": 18, "consup": 3,
+               "clean_fill": 1}
+    TWO_D = {"cmpflx": 2, "trans_cmpflx": 2}
+    TWO_D_UNFUSED = {"trans_apply": 4, "cmpflx": 0, "trans_cmpflx": 0}
+    ONE_D = {"cmpflx": 1}
+
+    def path_a():
+        # path A: the fused 3D structure
+        drive(f"A: Sedov {N_MAIN}^3 float32, {STEPS_MAIN} steps", sedov_sim(N_MAIN), FUSED,
+              max_step=STEPS_MAIN)
+        card_vs_cpu(f"Sedov {N_SMALL}^3", lambda where: sedov_sim(N_SMALL, device=where))
+
+    def path_b():
+        # path B: the unfused 3D structure
+        drive(f"B: Sedov {N_MAIN}^3 float32 riemann_solver=1, {STEPS_MAIN} steps",
+              sedov_sim(N_MAIN, riemann_solver=1), UNFUSED, max_step=STEPS_MAIN)
+        torch.cuda.empty_cache()
+        flagged = ctx.flagged = []
+
+
+        drive(f"B: Sedov {N_HYBRID}^3 float32 hybrid_riemann=1, {STEPS_HYBRID} steps",
+              sedov_sim(N_HYBRID, hybrid_riemann=1), UNFUSED, max_step=STEPS_HYBRID,
+              callbacks=[count_shocks])
+        print(f"  zones the shock detector flags after each step (the next step's faces beside "
+              f"them take the HLL flux): {flagged}")
+        if max(flagged[:-1]) == 0:
+            fail("path B with hybrid_riemann: no zone was flagged, no face took the HLL flux")
+        card_vs_cpu(f"Sedov {N_SMALL}^3 riemann_solver=1",
+                    lambda where: sedov_sim(N_SMALL, device=where, riemann_solver=1),
+                    per_try=UNFUSED)
+        card_vs_cpu(f"Sedov {N_SMALL}^3 hybrid_riemann=1",
+                    lambda where: sedov_sim(N_SMALL, device=where, hybrid_riemann=1), steps=8)
+
+    def path_c():
+        # path C: 2D and 1D
+        drive(f"C: 2D Sedov {N_2D}^2 float32, {STEPS_2D} steps", sedov_sim(N_2D, dim=2), TWO_D,
+              max_step=STEPS_2D)
+        torch.cuda.empty_cache()
+        sim = sod_sim(N_1D)
+        t0 = time.perf_counter()
+        n_sod = drive(f"C: 1D Sod n={N_1D} float32 to t=0.2", sim, ONE_D, stop_time=0.2)
+        sod_ms = ctx.sod_ms = 1e3 * (time.perf_counter() - t0) / n_sod
+        rho = sim.interior()[sim.layout.URHO].double().cpu().numpy()
+        xc = sim.geom.cell_centers_1d(0, 0).double().cpu().numpy()
+        rho_ex, _, _ = exact_solution(xc, sim.t, 0.5, 1.0, 0.0, 1.0, 0.125, 0.0, 0.1, 1.4)
+        l1 = ctx.l1 = float(abs(rho - rho_ex).mean() / rho_ex.mean())
+        print(f"  1D Sod at t = {sim.t:.6f}: mean |rho - exact| / mean exact = {l1:.6e} "
+              f"(bound {SOD_L1_BOUND}); {sod_ms:.3f} ms/step over {n_sod} steps, init included "
+              f"[{card}]")
+        if not l1 < SOD_L1_BOUND:
+            fail("1D Sod disagrees with the exact Riemann solution")
+        del sim
+        card_vs_cpu(f"2D Sedov {N_2D_SMALL}^2",
+                    lambda where: sedov_sim(N_2D_SMALL, dim=2, device=where), per_try=TWO_D)
+        card_vs_cpu(f"2D Sedov {N_2D_SMALL}^2 riemann_solver=1",
+                    lambda where: sedov_sim(N_2D_SMALL, dim=2, device=where, riemann_solver=1),
+                    per_try=TWO_D_UNFUSED)
+        card_vs_cpu("1D Sod n=256", lambda where: sod_sim(256, device=where), steps=10,
+                    per_try=ONE_D)
+
+    def path_d():
+        # path D: PLM, the flux limiters, speed_limit, transverse_use_eos in 3D
+        PLM_3D = {"prim_aux": 1, "flatten": 1, "ctu_face": 9, "clean_fill": 1, "trace_ppm": 0}
+        LIMITED_3D = {"prim_aux": 1, "flatten": 1, "trace_ppm": 3, "ctu_face": 6, "consup": 0,
+                      "clean_fill": 1}
+        SPEED_LIMITED_3D = dict(LIMITED_3D, clean_fill=0)
+        NO_KERNELS = {name: 0 for name in K.launch_counts()}
+        drive(f"D: Sedov {N_MAIN}^3 float32 ppm_type=0, {STEPS_MAIN} steps",
+              sedov_sim(N_MAIN, ppm_type=0), PLM_3D, max_step=STEPS_MAIN)
+        drive(f"D: Sedov {N_MAIN}^3 float32 limit_fluxes_on_small_dens=1, 5 steps",
+              sedov_sim(N_MAIN, limit_fluxes_on_small_dens=1), LIMITED_3D, max_step=5)
+        torch.cuda.empty_cache()
+        card_vs_cpu(f"Sedov {N_SMALL}^3 ppm_type=0",
+                    lambda where: sedov_sim(N_SMALL, device=where, ppm_type=0), per_try=PLM_3D)
+        card_vs_cpu(f"Sedov {N_SMALL}^3 speed_limit=1",
+                    lambda where: sedov_sim(N_SMALL, device=where, speed_limit=1.0),
+                    per_try=SPEED_LIMITED_3D)
+        card_vs_cpu(f"Sedov {N_SMALL}^3 transverse_use_eos=1",
+                    lambda where: sedov_sim(N_SMALL, device=where, transverse_use_eos=1),
+                    per_try=NO_KERNELS)
+
+    def path_e():
+        # path E: RZ and spherical
+        RZ = {"cmpflx": 4}
+        drive(f"E: 2D RZ Sedov {N_RZ} x {2 * N_RZ} float32, {STEPS_RZ} steps",
+              curvilinear_sim("rz", N_RZ), RZ, max_step=STEPS_RZ)
+        torch.cuda.empty_cache()
+        cuts = {}
+        for geometry, per_try in (("sph", ONE_D), ("rz", RZ)):
+            sim = curvilinear_sim(geometry, N_SPH)
+            t0 = time.perf_counter()
+            n_tried = drive(f"E: {'1D spherical' if geometry == 'sph' else '2D RZ'} Sedov "
+                            f"n={N_SPH} float32 to t=0.01", sim, per_try, stop_time=0.01)
+            ms = 1e3 * (time.perf_counter() - t0) / n_tried
+            rho = sim.interior()[sim.layout.URHO].double().cpu().numpy()
+            cuts[geometry] = rho if geometry == "sph" else 0.5 * (rho[:, N_SPH - 1] + rho[:, N_SPH])
+            print(f"  {ms:.3f} ms/step over {n_tried} steps, init included [{card}]")
+            del sim
+            torch.cuda.empty_cache()
+        rz_l1 = ctx.rz_l1 = float(abs(cuts["rz"] - cuts["sph"]).mean() / cuts["sph"].mean())
+        peak_shift = ctx.peak_shift = abs(int(cuts["rz"].argmax()) - int(cuts["sph"].argmax()))
+        print(f"  RZ midplane vs 1D spherical at t = 0.01: relative L1 {rz_l1:.6e} (bound "
+              f"{RZ_L1_BOUND}), peaks {peak_shift} cells apart (bound {RZ_PEAK_CELLS})")
+        if not (rz_l1 < RZ_L1_BOUND and peak_shift <= RZ_PEAK_CELLS):
+            fail("the RZ midplane disagrees with the 1D spherical run")
+        card_vs_cpu("2D RZ Sedov 32 x 64", lambda where: curvilinear_sim("rz", 32, device=where),
+                    per_try=RZ)
+        card_vs_cpu("1D spherical Sedov n=128",
+                    lambda where: curvilinear_sim("sph", 128, device=where), steps=10,
+                    per_try=ONE_D)
+
+    def path_f():
+        # path F: double Mach reflection and the acoustic pulse
+        sim = dmr_sim(DMR_CHECK)
+        drive(f"F: 2D double Mach reflection {DMR_CHECK[0]} x {DMR_CHECK[1]} float32 to t=0.05",
+              sim, TWO_D, stop_time=0.05, conserves_mass=False)
+        L = sim.layout
+        rho = sim.interior()[L.URHO].double().cpu().numpy()
+        xc = sim.geom.cell_centers_1d(0, 0).double().cpu().numpy()
+        xs_num = float(xc[abs(np.diff(rho[:, -1])).argmax()])
+        xs_ana = 1 / 6 + 1.0 / np.tan(np.pi / 3) + (10 / np.sin(np.pi / 3)) * sim.t
+        dmr_checks = ctx.dmr_checks = dict(rho_max=float(rho.max()), shock_x=xs_num, shock_x_exact=xs_ana,
+                          pre_shock_rho=float(rho[-1, 0]))
+        print(f"  DMR at t = {sim.t:.6f}: {dmr_checks} (tests/test_double_mach.py: rho max > 12, "
+              f"|shock x - exact| < {4 * 4.0 / DMR_CHECK[0]}, pre-shock rho 1.4 to 1e-6)")
+        if not (np.isfinite(rho).all() and rho.max() > 12.0
+                and abs(xs_num - xs_ana) < 4 * 4.0 / DMR_CHECK[0]
+                and abs(rho[-1, 0] - 1.4) <= 1e-6 * 1.4):
+            fail("double Mach reflection fails the checks of tests/test_double_mach.py")
+        del sim
+        drive(f"F: 2D double Mach reflection {DMR_BIG[0]} x {DMR_BIG[1]} float32, {STEPS_DMR} "
+              f"steps", dmr_sim(DMR_BIG), TWO_D, max_step=STEPS_DMR, conserves_mass=False)
+        torch.cuda.empty_cache()
+        card_vs_cpu("2D double Mach reflection 64 x 16", lambda where: dmr_sim((64, 16), where),
+                    per_try=TWO_D)
+        card_vs_cpu("2D acoustic pulse 64^2", lambda where: pulse_sim(64, where), per_try=TWO_D)
+
+    def path_g():
+
+
+
+
+
+
+        G_FUSED_WINDOW = {k: v for k, v in FUSED.items() if k != "clean_fill"}
+        amr = amr_sim(3, N_AMR)
+        drive_amr(f"G: 3D Sedov AMR {N_AMR}^3 + 1 level float32, {STEPS_AMR} coarse steps", amr,
+                  FUSED, G_FUSED_WINDOW, max_step=STEPS_AMR)
+        print(f"kernel vs plain, the level-1 window of path G3D "
+              f"({' x '.join(str(n) for n in amr.u[1].shape[1:])} grown):", flush=True)
+        ws = window_sim(amr)
+        dtw = amr.estimate_dt() / 2
+        compare_step(inputs(ws, amr.u[1], dtw), "G3D window")
+        g3d_window = ctx.g3d_window = tuple(amr.window[1][1])
+        del amr, ws
+        torch.cuda.empty_cache()
+        amr_card_vs_cpu(f"3D Sedov AMR {N_SMALL}^3 + 1 level",
+                        lambda where: amr_sim(3, N_SMALL, where, tagging=ball(0.15), regrid_int=0))
+
+        amr = amr_sim(2, N_AMR_2D)
+        drive_amr(f"G: 2D Sedov AMR {N_AMR_2D}^2 + 1 level float32, {STEPS_AMR_2D} coarse steps",
+                  amr, TWO_D, TWO_D, max_step=STEPS_AMR_2D)
+        ws = window_sim(amr)
+        compare_low_dim(inputs_low_dim(ws, amr.u[1], amr.estimate_dt() / 2),
+                        f"G2D window {tuple(amr.u[1].shape[1:])} grown")
+        del amr, ws
+        torch.cuda.empty_cache()
+        amr_card_vs_cpu(f"2D Sedov AMR {N_2D_SMALL}^2 + 1 level",
+                        lambda where: amr_sim(2, N_2D_SMALL, where, tagging=ball(0.15),
+                                              regrid_int=0))
+
+        amr = amr_sim(1, N_AMR_1D, problem="sod")
+        t0 = time.perf_counter()
+        n_g1 = drive_amr(f"G: 1D Sod AMR n={N_AMR_1D} + 1 level float32 to t=0.2", amr, ONE_D, ONE_D,
+                         stop_time=0.2)
+        g1_ms = ctx.g1_ms = 1e3 * (time.perf_counter() - t0) / n_g1
+        comp = amr.composite_interior()[amr.sim0.layout.URHO].double().cpu().numpy()
+        xc = amr.geom_full[1].cell_centers_1d(0, 0).double().cpu().numpy()
+        rho_ex, _, _ = exact_solution(xc, amr.t, 0.5, 1.0, 0.0, 1.0, 0.125, 0.0, 0.1, 1.4)
+        g1_l1 = ctx.g1_l1 = float(abs(comp - rho_ex).mean() / rho_ex.mean())
+        print(f"  1D Sod AMR at t = {amr.t:.6f}: composite mean |rho - exact| / mean exact = "
+              f"{g1_l1:.6e} (bound {SOD_L1_BOUND}); {g1_ms:.3f} ms a coarse step over {n_g1}, "
+              f"init and regrids included [{card}]")
+        if not g1_l1 < SOD_L1_BOUND:
+            fail("1D Sod AMR disagrees with the exact Riemann solution")
+        ws = window_sim(amr)
+        compare_low_dim(inputs_low_dim(ws, amr.u[1], amr.dt / 2),
+                        f"G1D window {tuple(amr.u[1].shape[1:])} grown")
+        del amr, ws
+        amr_card_vs_cpu("1D Sod AMR n=256 + 1 level",
+                        lambda where: amr_sim(1, 256, where, problem="sod", regrid_int=0,
+                                              tagging=lambda s_, u_, l_: (
+                                                  s_.geom.cell_centers_1d(0, 0) - 0.5).abs() < 0.1),
+                        steps=4)
+
+    def path_h():
+
+
+        # the kernels at path H's shapes: the blob's initial state, NPASS = 7,
+        # float32 with the gamma law, float64 with Helmholtz (face kernels)
+        print(f"kernel vs plain, the burning blob {N_H3}^3 iso7 (NPASS = 7) {elapsed()}:",
+              flush=True)
+        for dtype, eos in (("float32", "gamma_law"), ("float64", "helmholtz")):
+            s_ = blob_sim(N_H3, dtype, eos)
+            s_.init_data()
+            compare_step(inputs(s_, s_.u, s_.estimate_dt()), f"blob {eos} {dtype}",
+                         cells=eos == "gamma_law")
+            del s_
+            torch.cuda.empty_cache()
+
+        FUSED_STRANG = dict(FUSED, clean_fill=3)  # clean + fill after each half burn
+        FACES = {"flatten": 1, "trace_ppm": 3, "ctu_face": 6}  # Helmholtz: no prim_aux/clean_fill
+        h_results = ctx.h_results = {}
+        for key, dtype, eos, per_try in (("H3-gl", "float32", "gamma_law", FUSED_STRANG),
+                                         ("H3-helm", "float64", "helmholtz", FACES)):
+            sim = blob_sim(N_H3, dtype, eos)
+            st = burn_stats(sim)
+            # the steps are timed from the end of init_data (synchronized)
+            stamps = []
+            init = sim.init_data
+
+            def stamped_init(*a, **kw):
+                out = init(*a, **kw)
+                torch.cuda.synchronize()
+                stamps.append(time.perf_counter())
+                return out
+
+            sim.init_data = stamped_init
+            n_h = drive(f"{key}: burning blob {N_H3}^3 iso7 {eos} {dtype}, {STEPS_H3} steps", sim,
+                        per_try, max_step=STEPS_H3, outflow=True)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - stamps[0]
+            sim.init_data = init
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            h_results[key] = dict(step_ms=1e3 * wall / n_h, burn_share=st["s"] / wall,
+                                  iters=st["iters"], released_erg=st["released"], peak_gib=peak,
+                                  zones_per_s=sim.num_zones_advanced / wall)
+            print(f"  [{card}] {1e3 * wall / n_h:.1f} ms a step, the mean of {n_h} steps after "
+                  f"init; burns {st['s']:.2f} s of {wall:.2f} s ({st['s'] / wall:.4f}), "
+                  f"{st['calls']} half burns, iterations each {st['iters']}; energy released "
+                  f"{st['released']:.6e} erg; peak memory {peak:.3f} GiB", flush=True)
+            if not st["released"] > 0.0:
+                fail(f"path {key}: the hot zone released no energy")
+            # one more step under the profiler, the device's kernels only
+            profile_steps(sim, 1, card, host=False)
+            del sim
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+
+
+
+        # float32 on the card against float64 on the CPU: the f32-vs-f64 budget of
+        # tests/test_f32_physics.py:53-75 (1e-4)
+        reacting_card_vs_cpu(f"H3-gl: {N_BLOB_CPU}^3 blob, card float32, CPU float64",
+                             blob_make("float32", "float64", "gamma_law"), F32_VS_F64)
+        reacting_card_vs_cpu(f"H3-helm: {N_BLOB_CPU}^3 blob, float64",
+                             blob_make("float64", "float64", "helmholtz"), F64_RTOL, steps=1)
+
+        # H1: the 1D detonation (powerlaw, gamma law 1.4, float64; cmpflx with
+        # NPASS = 3), tests/test_problems.py:64-79's checks; the same steps on
+        # the CPU hold the fuel burnt, and cmpflx is held on the final state
+        sim = Simulation(detonation.make_params(n=N_DET), problem_init=detonation.problem_init)
+        L = sim.layout
+        det_dts = []
+        t0 = time.perf_counter()
+        n_det = drive(f"H1: detonation n={N_DET} float64 to t=0.4 (at most {STEPS_DET} steps)", sim,
+                      ONE_D, stop_time=0.4, max_step=STEPS_DET, outflow=True,
+                      callbacks=[lambda q_: det_dts.append(q_.dt)])
+        det_ms = ctx.det_ms = 1e3 * (time.perf_counter() - t0) / n_det
+        compare_low_dim(inputs_low_dim(sim, sim.u, sim.dt), f"H1 detonation n={N_DET} float64")
+        ui = sim.interior().double()
+        sims = {}
+        for where in ("cpu", "cuda"):
+            sims[where] = Simulation(detonation.make_params(n=N_DET),
+                                     problem_init=detonation.problem_init, device=where)
+            sims[where].init_data()
+        fuel0 = float(sims["cuda"].interior()[L.UFS].double().sum())
+        fuel_ratio = ctx.fuel_ratio = float(ui[L.UFS].sum()) / fuel0
+        mom_max = ctx.mom_max = float(ui[L.UMX].abs().max())
+        t_cpu = time.perf_counter()
+        for d_ in det_dts:
+            sims["cpu"].advance(d_)
+        t_cpu = time.perf_counter() - t_cpu
+        u_cpu = sims["cpu"].interior()
+        burnt, burnt_cpu = 1.0 - fuel_ratio, 1.0 - float(u_cpu[L.UFS].sum()) / fuel0
+        burnt_err = abs(burnt - burnt_cpu) / burnt_cpu
+        err, rel, _ = compare(ui.cpu(), u_cpu, F64_RTOL, floor=True)
+        print(f"  [{card}] {det_ms:.3f} ms a step; t = {sim.t:.6e} after {sim.step_count} steps; "
+              f"fuel / initial fuel {fuel_ratio:.9f} (tests/test_problems.py asks < 0.9 at n=128 "
+              f"after 2000 steps, t ~ 1.5e-3); max |rho u| {mom_max:.6e} (> 1e-3); the same "
+              f"steps on the CPU ({t_cpu:.1f} s): fuel burnt {burnt:.9e} card, {burnt_cpu:.9e} CPU,"
+              f" {burnt_err:.3e} apart (tol {DET_BURNT_RTOL:g}); state max abs err {err:.3e} rel "
+              f"{rel:.3e}", flush=True)
+        if not (mom_max > 1e-3 and fuel_ratio < 1.0):
+            fail("H1: the detonation did not burn or did not move")
+        if not burnt_err <= DET_BURNT_RTOL:
+            fail("H1: the card and the CPU burnt different amounts of fuel")
+        h_results["H1"] = dict(step_ms=det_ms, fuel_ratio=fuel_ratio, burnt_rel_err=burnt_err)
+        del sim, sims, u_cpu
+        print("card vs CPU, H1: detonation n=64, 10 steps, float64:", flush=True)
+        runs, dts = {}, []
+        for where in ("cpu", "cuda"):
+            s_ = Simulation(detonation.make_params(n=64), problem_init=detonation.problem_init,
+                            device=where)
+            s_.init_data()
+            if where == "cpu":
+                s_.run(max_step=10, verbose=False, callbacks=[lambda q_: dts.append(q_.dt)])
+            else:
+                for d_ in dts:
+                    s_.advance(d_)
+            runs[where] = s_.interior().cpu()
+        err, rel, ok = compare(runs["cuda"], runs["cpu"], F64_RTOL, floor=True)
+        print(f"  max abs err {err:.3e} rel {rel:.3e} (tol {F64_RTOL:g}|cpu| + {F64_RTOL:g} "
+              f"max|cpu| per component) {'ok' if ok else 'DISAGREES'}")
+        if not ok:
+            compare(runs["cuda"], runs["cpu"], F64_RTOL, floor=True, report=True)
+            fail("the card and the CPU disagree on the detonation")
+
+        # H-burn: aprox19 with Helmholtz, float64, StrangReactor.react on a 32^3
+        # box at rho 1e6 and T 3e9 +- 10% (tests/test_f32_physics.py:78-116's
+        # setup), the card against the CPU on an 8^3 corner of the same zones
+        from castro_tpu_torch.config import Params
+        from castro_tpu_torch.eos import make_eos
+        from castro_tpu_torch.network import make_network
+        from castro_tpu_torch.reactions.strang import StrangReactor
+        from castro_tpu_torch.state import layout_from_params
+        import dataclasses as dc
+
+        p = Params().with_ns("network", network_name="aprox19").with_ns("eos", eos_name="helmholtz")
+        p = p.with_ns("tpu", dtype="float64")
+        hb = {}
+        for where, n_b in (("cuda", N_SMALL), ("cpu", 8)):
+            net = make_network(p)
+            pp = dc.replace(p, network=dc.replace(p.network, nspec=net.nspec,
+                                                  spec_names=net.spec_names))
+            L = layout_from_params(pp)
+            eos = make_eos(pp, net)
+            reactor = StrangReactor(pp, net, eos, L)
+            g = torch.Generator("cpu").manual_seed(7)
+            T = 3e9 * (1.0 + 0.1 * (2 * torch.rand((N_SMALL,) * 3, generator=g,
+                                                    dtype=torch.float64) - 1))
+            T = T[:n_b, :n_b, :n_b].to(where)
+            rho = torch.full_like(T, 1e6)
+            xn = torch.zeros((net.nspec,) + T.shape, dtype=T.dtype, device=where)
+            xn[net.spec_names.index("He4")] = 1.0
+            es = eos.rt(rho=rho, T=T, xn=xn)
+            u = torch.zeros((L.NVAR,) + T.shape, dtype=T.dtype, device=where)
+            u[L.URHO], u[L.UTEMP], u[L.UEINT], u[L.UEDEN] = rho, T, rho * es.e, rho * es.e
+            u[L.UFS:L.UFS + L.nspec] = rho[None] * xn
+            if where == "cuda":
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = reactor.react(u, 1e-8)
+            if where == "cuda":
+                torch.cuda.synchronize()
+            hb[where] = (out, time.perf_counter() - t0, reactor.burner.stats.iterations)
+        # the state but its species, and enuc: F64_RTOL |cpu| + F64_RTOL max|cpu|;
+        # the mass fractions within F64_RTOL (a zone's total is one) and
+        # omega_dot within F64_RTOL of its zone's largest rate (species the burn
+        # leaves at zero come out at zero on one device and at 1e-12 on the
+        # other, from the LU solves' rounding)
+        Lb = L
+        gu, ru = hb["cuda"][0][0][:, :8, :8, :8].cpu(), hb["cpu"][0][0]
+        spec = slice(Lb.UFS, Lb.UFS + Lb.nspec)
+        rest = [c for c in range(Lb.NVAR) if not Lb.UFS <= c < Lb.UFS + Lb.nspec]
+        err, rel, ok = compare([gu[rest], hb["cuda"][0][2][:8, :8, :8].cpu()],
+                               [ru[rest], hb["cpu"][0][2]], F64_RTOL, floor=True)
+        x_err = float((gu[spec] / gu[Lb.URHO] - ru[spec] / ru[Lb.URHO]).abs().max())
+        god, rod = hb["cuda"][0][1][:, :8, :8, :8].cpu(), hb["cpu"][0][1]
+        w_err = float(((god - rod).abs() / rod.abs().amax(0, keepdim=True).clamp(min=1e-300)).max())
+        ok = ok and x_err <= F64_RTOL and w_err <= F64_RTOL
+        rel = max(rel, x_err, w_err)
+        print(f"H-burn [{card}]: aprox19 + Helmholtz float64, react(dt=1e-8) on {N_SMALL}^3: "
+              f"{hb['cuda'][1]:.3f} s, {hb['cuda'][2]} iterations; CPU on 8^3: {hb['cpu'][1]:.3f} s,"
+              f" {hb['cpu'][2]} iterations; card vs CPU on the 8^3 corner: state and enuc max abs "
+              f"err {err:.3e} (tol {F64_RTOL:g}|cpu| + {F64_RTOL:g} max|cpu| per component), mass "
+              f"fractions {x_err:.3e} (tol {F64_RTOL:g}), omega_dot {w_err:.3e} of the zone's "
+              f"largest rate (tol {F64_RTOL:g}) {'ok' if ok else 'DISAGREES'}; failed zones card "
+              f"{bool(hb['cuda'][0][3])}, CPU {bool(hb['cpu'][0][3])}", flush=True)
+        if not ok or bool(hb["cuda"][0][3]) != bool(hb["cpu"][0][3]):
+            compare([gu[rest]], [ru[rest]], F64_RTOL, floor=True, report=True)
+            fail("H-burn: the card and the CPU disagree")
+        h_results["H-burn"] = dict(card_s=hb["cuda"][1], iterations=hb["cuda"][2],
+                                   cpu_iterations=hb["cpu"][2], max_rel_err=rel)
+        del hb, gu, ru, god, rod
+        torch.cuda.empty_cache()
+
+    def path_i():
+        # path I: self-gravity (gravity/, the multigrid of solvers/multigrid.py,
+        # the gravity source and its corrector, the sponge): a step with sources
+        # runs prim_aux twice (the second without div u, for the corrector's
+        # primitives), traces the old-time source into the three trace_ppm and
+        # ends in clean_fill twice; two Poisson solves a step
+        from castro_tpu_torch.geometry import geometry_from_params
+        from castro_tpu_torch.gravity import Gravity
+        from castro_tpu_torch.problems import dust_collapse
+        from castro_tpu_torch.problems.util import fill_from_prim
+        from castro_tpu_torch.utils import constants as UC
+
+        i_results = ctx.i_results = {}
+        FUSED_SRC = dict(FUSED, prim_aux=2, clean_fill=2)
+
+
+
+
+
+        print(f"kernel vs plain, 3D DustCollapse {N_MAIN}^3 float32 after a step (PoissonGrav; "
+              f"the old-time source traced into trace_ppm, prim_aux without div u) {elapsed()}:",
+              flush=True)
+        s_ = dust_sim(N_MAIN)
+        s_.init_data()
+        s_.advance(GRAV_DT)
+        x = inputs(s_, s_.u, GRAV_DT)
+        dtw = K.wt(GRAV_DT, s_.dtype)
+        src_old = sum(fn(s_, s_.u, x["q"], x["qaux"], s_.t, dtw) for fn in s_.source_fns)
+        s_._reset_sources()
+        srcQ = au.src_to_prim(x["q"], x["qaux"], src_old, s_.layout)
+        compare_step(x, "DustCollapse, srcQ", src=srcQ)
+        args = (s_.u, s_.layout, s_.eos, s_.cfg.small_dens, s_.small_temp, s_.geom.dx)
+        check("prim_aux", K.prim_aux(*args, with_divu=False),
+              K.prim_aux_plain(*args, with_divu=False), "DustCollapse, no divu")
+        del s_, x, src_old, srcQ
+        torch.cuda.empty_cache()
+
+        # I3: the 3D DustCollapse at 128^3 through Simulation.run
+        sim = dust_sim(N_MAIN)
+        grav = grav_of(sim)
+        gst = timed_gravity(sim)
+        rec = {}
+        init = sim.init_data
+
+        def init_rec(*a, **kw):
+            out = init(*a, **kw)
+            rec["rho_c0"] = centre_rho(sim)
+            torch.cuda.synchronize()
+            gst.update(s=0.0, calls=0)
+            rec["t0"] = time.perf_counter()
+            return out
+
+        sim.init_data = init_rec
+        n_i = drive(f"I3: DustCollapse {N_MAIN}^3 float32 PoissonGrav, {STEPS_I3} steps", sim,
+                    FUSED_SRC, max_step=STEPS_I3, outflow=True)
+        wall = time.perf_counter() - rec["t0"]
+        sim.init_data = init
+        rho_c1 = centre_rho(sim)
+        solves = grav.solve_stats
+        print(f"  [{card}] {1e3 * wall / n_i:.1f} ms a step after init (the launch-count and "
+              f"outflow bookkeeping included), gravity {gst['s']:.3f} s ({gst['s'] / wall:.4f}); "
+              f"Poisson solves: {len(solves)} for {n_i} steps tried (V-cycles, final max "
+              f"residual): {solves}; centre density {rec['rho_c0']:.9e} -> {rho_c1:.9e}")
+        if len(solves) != 2 * n_i:
+            fail("path I3: not two Poisson solves a step")
+        if any(v >= grav.n_vcycles for v, _ in solves):
+            print(f"  note: a solve ran to the {grav.n_vcycles}-cycle cap (float32 stalled above "
+                  f"rtol {grav.rtol:g})")
+        if not rho_c1 > rec["rho_c0"]:
+            fail("path I3: the centre's density did not rise")
+        i_results["I3_128"] = dict(step_ms=1e3 * wall / n_i, gravity_share=gst["s"] / wall,
+                                   solves=solves, rho_centre=[rec["rho_c0"], rho_c1])
+        del sim, grav
+        torch.cuda.empty_cache()
+
+
+        # float64 over one step: from the second step on, a perturbation of one
+        # ulp of the state moves it by far more than 1e-8 (a switch of the scheme
+        # flips in some cells of the cold collapse), on one device as on two
+        grav_card_vs_cpu(f"I3 DustCollapse {N_GRAV_CPU}^3", lambda w, d: dust_sim(N_GRAV_CPU, d, w),
+                         "float64", "float64", F64_RTOL, 1)
+        grav_card_vs_cpu(f"I3 DustCollapse {N_GRAV_CPU}^3", lambda w, d: dust_sim(N_GRAV_CPU, d, w),
+                         "float32", "float64", F32_VS_F64, 3)
+
+        # the uniform sphere (tests/test_gravity.py:30-57) at N_SPHERE^3 on the card
+        for gtype in ("PoissonGrav", "MonopoleGrav"):
+            p = Params().with_ns("amr", n_cell=(N_SPHERE,) * 3).with_ns(
+                "geometry", prob_lo=(-1.0,) * 3, prob_hi=(1.0,) * 3).with_ns(
+                "castro", lo_bc=(2, 2, 2), hi_bc=(2, 2, 2), do_grav=1).with_ns(
+                "gravity", gravity_type=gtype).with_ns("tpu", dtype="float32")
+            geom = geometry_from_params(p, device="cuda")
+            gr = Gravity(p, geom, layout_from_params(p), 4)
+            xs = geom.cell_centers_1d(0, 0).double()
+            X, Y, Z = torch.meshgrid(xs, xs, xs, indexing="ij")
+            r = torch.sqrt(X ** 2 + Y ** 2 + Z ** 2)
+            R = 0.5
+            rho = torch.where(r < R, 1.0, 0.0).float()
+            M = 4.0 / 3.0 * np.pi * R ** 3
+            g3 = gr.grav_vector(rho)[0].double()
+            gmag = torch.sqrt((g3 ** 2).sum(0))
+            g_exact = torch.where(r < R, UC.Gconst * M * r / R ** 3, UC.Gconst * M / r ** 2)
+            mask = (r > 0.25) & ((r < 0.4) | (r > 0.65)) & (r < 0.95)
+            rel = ((gmag - g_exact).abs()[mask] / g_exact[mask])
+            inward = bool(((g3[0] * X + g3[1] * Y + g3[2] * Z)[mask] < 0).all())
+            print(f"I3 uniform sphere {N_SPHERE}^3 {gtype} float32 [{card}]: |g| against the "
+                  f"analytic field, mean rel err {float(rel.mean()):.4e} (limit 0.05), max "
+                  f"{float(rel.max()):.4e} (limit 0.25), inward {inward}; solves "
+                  f"{gr.solve_stats}", flush=True)
+            if not (float(rel.mean()) < 0.05 and float(rel.max()) < 0.25 and inward):
+                fail(f"path I3: the uniform sphere's field ({gtype}) misses the analytic one")
+            i_results[f"sphere_{gtype}"] = dict(mean_rel=float(rel.mean()),
+                                                max_rel=float(rel.max()))
+            del gr, g3, X, Y, Z, r, rho, gmag, g_exact
+        torch.cuda.empty_cache()
+
+        # I3 timed at 128^3: STEPS_I3_BIG steps after init, then 1 step under
+        # the profiler, the device traced alone (~2 x 10^5 launches a step)
+        sim = dust_sim(N_MAIN)
+        gst = timed_gravity(sim)
+        sim.init_data()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        gst.update(s=0.0, calls=0)
+        nsolve0 = len(grav_of(sim).solve_stats)
+        t0 = time.perf_counter()
+        sim.run(max_step=STEPS_I3_BIG, verbose=False)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        solves = grav_of(sim).solve_stats[nsolve0:]
+        i_results["I3_128"] = dict(step_ms=1e3 * wall / STEPS_I3_BIG, gravity_share=gst["s"] / wall,
+                                   zones_per_s=sim.num_zones_advanced / wall, peak_gib=peak,
+                                   solves=solves)
+        print(f"main path timing [{card}]: I3: DustCollapse {N_MAIN}^3 float32, {STEPS_I3_BIG} "
+              f"steps after init: {1e3 * wall / STEPS_I3_BIG:.3f} ms/step, "
+              f"{sim.num_zones_advanced / wall:.6e} zones/s, gravity {gst['s']:.3f} s of "
+              f"{wall:.3f} s ({gst['s'] / wall:.4f}, {gst['calls']} fields), peak memory "
+              f"{peak:.3f} GiB; solves (V-cycles, final max residual): {solves}", flush=True)
+        if len(solves) != 2 * STEPS_I3_BIG:
+            fail("path I3: not two Poisson solves a step at 128^3")
+        profile_steps(sim, 1, card, host=False)
+        del sim
+        torch.cuda.empty_cache()
+
+        # I1: 1D spherical DustCollapse (MonopoleGrav, float64) to 0.6 t_ff with
+        # tests/test_convergence.py:36-55's checks
+        s1 = Simulation(dust_collapse.make_params(n=N_I1, dim=1),
+                        problem_init=dust_collapse.problem_init, device="cuda")
+        s1.init_data()
+        L1 = s1.layout
+        rho0_max = float(s1.interior()[L1.URHO].max())
+        t_ff = dust_collapse.free_fall_time(1.0e9)
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        s1.run(stop_time=0.6 * t_ff, max_step=4000, verbose=False)
+        torch.cuda.synchronize()
+        i1_s = time.perf_counter() - t0
+        rho = s1.interior()[L1.URHO].double().cpu().numpy()
+        inner = rho[:20]
+        flat_ = float(inner.std() / inner.mean())
+        launches1 = K.launch_counts()
+        path_launches[f"I1: DustCollapse 1D n={N_I1}"] = launches1
+        print(f"I1 [{card}]: 1D spherical DustCollapse n={N_I1} float64 to 0.6 t_ff: "
+              f"{s1.step_count} steps, {i1_s:.3f} s; max rho {rho.max() / rho0_max:.6f} x the "
+              f"initial (limit > 1.5), inner std/mean {flat_:.4e} (limit 0.2), finite and positive "
+              f"{bool(np.isfinite(rho).all() and rho.min() > 0)}; launches {launches1}", flush=True)
+        if not (np.isfinite(rho).all() and rho.min() > 0 and rho.max() > 1.5 * rho0_max
+                and flat_ < 0.2 and launches1["cmpflx"] >= s1.step_count > 0):
+            fail("path I1: the 1D DustCollapse misses test_convergence.py's checks")
+        i_results["I1"] = dict(steps=s1.step_count, s=i1_s, compression=float(rho.max() / rho0_max),
+                               inner_std_over_mean=flat_)
+        del s1
+
+        # IF: the full-physics blob (burning_blob physics="full": Poisson gravity
+        # with order-2 multipole BCs, iso7 Strang, the sponge), gamma law, float32
+        sim = blob_sim(N_IF, physics="full")
+        st = burn_stats(sim)
+        gst = timed_gravity(sim)
+        stamps = []
+        init = sim.init_data
+
+        def stamped_init(*a, **kw):
+            out = init(*a, **kw)
+            torch.cuda.synchronize()
+            stamps.append(time.perf_counter())
+            gst.update(s=0.0, calls=0)
+            return out
+
+        sim.init_data = stamped_init
+        n_f = drive(f"IF: full-physics blob {N_IF}^3 float32, 1 step", sim,
+                    dict(FUSED, prim_aux=2, clean_fill=4), max_step=1, outflow=True)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - stamps[0]
+        sim.init_data = init
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        i_results["IF"] = dict(step_ms=1e3 * wall / n_f, burn_share=st["s"] / wall,
+                               gravity_share=gst["s"] / wall, iters=st["iters"],
+                               released_erg=st["released"], peak_gib=peak,
+                               solves=grav_of(sim).solve_stats)
+        print(f"  [{card}] {1e3 * wall / n_f:.1f} ms a step after init; burns {st['s']:.3f} s "
+              f"({st['s'] / wall:.4f}), gravity {gst['s']:.3f} s ({gst['s'] / wall:.4f}), "
+              f"iterations {st['iters']}, energy released {st['released']:.6e} erg, peak memory "
+              f"{peak:.3f} GiB; solves {grav_of(sim).solve_stats}", flush=True)
+        if not st["released"] > 0.0:
+            fail("path IF: the hot zone released no energy")
+        del sim
+        torch.cuda.empty_cache()
+        reacting_card_vs_cpu(f"IF: {N_BLOB_CPU}^3 blob, card float32, CPU float64",
+                             blob_make("float32", "float64", "gamma_law", "full"), F32_VS_F64,
+                             steps=1)
+
+
+        amr = grav_amr(3, N_IG)
+        amr.init_data()
+        amr.run(max_step=1, verbose=False)  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zones0 = amr.num_zones_advanced
+        t0 = time.perf_counter()
+        amr.run(max_step=1 + STEPS_IG, verbose=False)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        u_ok = all(bool(torch.isfinite(u_).all()) for u_ in amr.u)
+        i_results["IG"] = dict(ms_per_coarse_step=1e3 * wall / STEPS_IG,
+                               zones_per_s=(amr.num_zones_advanced - zones0) / wall,
+                               window=list(amr.window[1][1]), phi_sync_resid=amr.phi_sync_resid,
+                               peak_gib=peak)
+        print(f"main path timing [{card}]: IG: 3D blob {N_IG}^3 + 1 level float32, {STEPS_IG} "
+              f"coarse steps: {1e3 * wall / STEPS_IG:.3f} ms a coarse step, "
+              f"{(amr.num_zones_advanced - zones0) / wall:.6e} zones/s, window "
+              f"{tuple(amr.window[1][1])} (+{len(amr.extra[1])} extra), refined cells "
+              f"{int(amr.masks[1].sum())}, phi_sync_resid {amr.phi_sync_resid:.6e}, peak memory "
+              f"{peak:.3f} GiB; finite {u_ok}", flush=True)
+        if not u_ok or not amr.phi_sync_resid > 0.0:
+            fail("path IG: the composite-gravity run failed")
+        del amr
+        torch.cuda.empty_cache()
+
+        # float64: the blob is at rest in pressure balance, its momenta (gravity
+        # with G in cgs on a unit blob: ~1e-10) are float32's round-off
+        print(f"card vs CPU, IG 2D blob {N_IG_CPU}^2 + 1 level float64, 2 coarse steps {elapsed()}:",
+              flush=True)
+        runs = {}
+        for where in ("cpu", "cuda"):
+            a_ = grav_amr(2, N_IG_CPU, where, "float64")
+            a_.init_data()
+            for _ in range(2):
+                a_.advance(1e-3)
+            runs[where] = ([u_[interior_slice(a_.ng, 2)].cpu() for u_ in a_.u],
+                           [a_.window[1][0].tolist(), a_.window[1][1]], a_.phi_sync_resid)
+        # the tolerance of tests/test_torch_amr.py: F64_RTOL (|cpu| + each
+        # component's largest magnitude), a momentum's magnitude at least
+        # sqrt(max rho x max rho E), the state's momentum scale: the blob is at
+        # rest, its momenta the round-off of the pressure balance
+        ok = runs["cuda"][1] == runs["cpu"][1]
+        Lg, worst = a_.sim0.layout, 0.0
+        for gu_, ru_ in zip(runs["cuda"][0], runs["cpu"][0]):
+            mag = ru_.abs().flatten(1).amax(1)
+            mom = float(torch.sqrt(mag[Lg.URHO] * mag[Lg.UEDEN]))
+            for c in (Lg.UMX, Lg.UMY, Lg.UMZ):
+                mag[c] = max(float(mag[c]), mom)
+            tol = F64_RTOL * (ru_.abs() + mag.reshape(-1, 1, 1))
+            worst = max(worst, float(((gu_ - ru_).abs() / tol).max()))
+        ok = ok and worst <= 1.0
+        print(f"  windows card {runs['cuda'][1]}, CPU {runs['cpu'][1]}; max error {worst:.3e} of "
+              f"the tolerance ({F64_RTOL:g} (|cpu| + max|cpu|) per component, the momenta's "
+              f"magnitude at least sqrt(max rho max rho E)); phi_sync_resid card "
+              f"{runs['cuda'][2]:.6e}, CPU {runs['cpu'][2]:.6e} {'ok' if ok else 'DISAGREES'}")
+        if not ok:
+            fail("the card and the CPU disagree on IG")
+        del runs
+
+    def path_j():
+        # path J: flame_wave and the surface-burning setups (problems/*.py:
+        # thermal diffusion, rotation, the HSE fill hook, the initial models of
+        # utils/initial_models.py, the triple-alpha, rprox and nova networks),
+        # float64. A 2D step launches cmpflx and trans_cmpflx twice each, a 1D
+        # step cmpflx once; everything else is torch ops (Helmholtz's prim_aux
+        # and clean_fill, as the JAX package leaves them to XLA, and a fill hook
+        # turns the kernel clean_fill off), so the launch counts are TWO_D and
+        # ONE_D a tried step. The kernels are first held on the states of the
+        # path at NPASS = 13 (flame_wave, aprox13), 10 (xrb_mixed, rprox) and 14
+        # (nova)
+        from castro_tpu_torch.problems import (convective_flame, flame_wave, hse_convergence,
+                                               nova, reacting_bubble, toy_flame, xrb_mixed)
+
+        j_results = ctx.j_results = {}
+
+
+        print(f"kernel vs plain, path J's states, float64 {elapsed()}:", flush=True)
+        for label, make in ((f"flame_wave {N_FW[0]} x {N_FW[1]} (NPASS 13)",
+                             lambda: flame_wave.build(n=N_FW)),
+                            ("xrb_mixed 64 x 192 (NPASS 10)", lambda: sci_sim(xrb_mixed)),
+                            ("nova 64 x 128 (NPASS 14)", lambda: sci_sim(nova))):
+            s_ = make()
+            s_.init_data()
+            compare_low_dim(inputs_low_dim(s_, s_.u, s_.estimate_dt()), label)
+            del s_
+            torch.cuda.empty_cache()
+
+
+
+        # J-fw: flame_wave as the JAX package configures it, timed
+        sim = flame_wave.build(n=N_FW)
+        assert [s_.name for s_ in sim.source_fns] == ["diff", "grav"]
+        st = timed_run(sim)
+        torch.cuda.reset_peak_memory_stats()
+        n_fw = drive(f"J-fw: flame_wave {N_FW[0]} x {N_FW[1]} float64, {STEPS_FW} steps", sim,
+                     TWO_D, max_step=STEPS_FW, conserves_mass=False)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - st["init"]["end"]
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        zones = int(np.prod(N_FW))
+        T_max = float(sim.interior()[sim.layout.UTEMP].max())
+        j_results["J-fw"] = dict(
+            n_cell=list(N_FW), init_s=st["init"]["s"], step_ms=1e3 * wall / n_fw,
+            zones_per_s=zones * sim.step_count / wall, burn_share=st["burn"]["s"] / wall,
+            diffusion_share=st["diff"]["s"] / wall, hse_fill_ms_per_step=1e3 * st["fill"]["s"] / n_fw,
+            hse_fills_per_step=st["fill"]["calls"] / n_fw, iters=st["burn"]["iters"],
+            released_erg=st["burn"]["released"], peak_gib=peak, T_max=T_max)
+        print(f"  [{card}] init_data {st['init']['s']:.3f} s; {1e3 * wall / n_fw:.1f} ms a step, the "
+              f"mean of {n_fw} steps after init, {zones * sim.step_count / wall:.6e} zones/s; burns "
+              f"{st['burn']['s']:.3f} s ({st['burn']['s'] / wall:.4f}), {st['burn']['calls']} half "
+              f"burns, iterations {st['burn']['iters']}; conduction {st['diff']['s']:.4f} s "
+              f"({st['diff']['s'] / wall:.4f}); HSE fill {1e3 * st['fill']['s'] / n_fw:.2f} ms a "
+              f"step ({st['fill']['calls'] / n_fw:.1f} fills a step); energy released "
+              f"{st['burn']['released']:.6e} erg; peak memory {peak:.3f} GiB; max T {T_max:.6e} K",
+              flush=True)
+        if not (st["burn"]["released"] > 0.0 and T_max > 3.5e8):
+            fail("path J-fw: the ignition patch did not burn")
+        profile_steps(sim, 1, card, host=False)
+        del sim
+        torch.cuda.empty_cache()
+
+        j_results["J-fw_vs_cpu"] = reacting_card_vs_cpu(
+            f"J-fw: flame_wave {N_FW_CPU[0]} x {N_FW_CPU[1]}, float64",
+            lambda where: flame_wave.build(n=N_FW_CPU, device=where), F64_RTOL, steps=1,
+            shared_momentum=True)
+
+        # J-hse: hse_convergence to t = 1, HSE fills on both faces; the residual
+        # velocity falls with resolution (tests/test_hse_convergence.py's bounds)
+        v_hse = {}
+        for n_h in N_HSE:
+            sim = hse_convergence.build(n=n_h)
+            drive(f"J-hse: hse_convergence n={n_h} float64 to t=1.0", sim, ONE_D, stop_time=1.0,
+                  conserves_mass=False)
+            ui = sim.interior().double()
+            v_hse[n_h] = float((ui[sim.layout.UMX] / ui[sim.layout.URHO]).abs().max())
+            del sim
+        j_results["J-hse"] = dict(max_velocity=v_hse)
+        print(f"  max |u| at t = 1: {v_hse} (bounds: < 5e-4 at n = {N_HSE[0]}, falling at least 3x "
+              f"to n = {N_HSE[1]})", flush=True)
+        if not (v_hse[N_HSE[0]] < 5e-4 and v_hse[N_HSE[1]] < v_hse[N_HSE[0]] / 3.0):
+            fail("path J-hse: the hydrostatic atmosphere does not converge")
+
+        # J-sci: the five setups at the JAX package's default sizes, a few steps
+        for key, mod, per_try in (("toy_flame", toy_flame, ONE_D),
+                                  ("convective_flame", convective_flame, TWO_D),
+                                  ("reacting_bubble", reacting_bubble, TWO_D),
+                                  ("xrb_mixed", xrb_mixed, TWO_D), ("nova", nova, TWO_D)):
+            sim = sci_sim(mod)
+            st = timed_run(sim)
+            n_s = drive(f"J-sci: {key} {' x '.join(map(str, sim.geom.n_cell))} float64, "
+                        f"{STEPS_SCI} steps", sim, per_try, max_step=STEPS_SCI, conserves_mass=False)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - st["init"]["end"]
+            b = st["burn"]
+            j_results[f"J-sci {key}"] = dict(
+                init_s=st["init"]["s"], step_ms=1e3 * wall / n_s, burn_share=b["s"] / wall,
+                diffusion_share=st["diff"]["s"] / wall, iters=b["iters"], released_erg=b["released"],
+                dt=sim.dt, sources=[s_.name for s_ in sim.source_fns])
+            print(f"  [{card}] init_data {st['init']['s']:.3f} s; {1e3 * wall / n_s:.1f} ms a step "
+                  f"after init; burns {b['s']:.3f} s ({b['s'] / wall:.4f}), iterations {b['iters']}; "
+                  f"conduction {st['diff']['s'] / wall:.4f} of the wall; energy released "
+                  f"{b['released']:.6e} erg; last dt {sim.dt:.6e}; sources "
+                  f"{[s_.name for s_ in sim.source_fns]}", flush=True)
+            del sim
+            torch.cuda.empty_cache()
+        j_results["J-sci convective_flame_vs_cpu"] = reacting_card_vs_cpu(
+            "J-sci: convective_flame 128 x 96, float64",
+            lambda where: sci_sim(convective_flame, device=where), F64_RTOL, steps=1,
+            shared_momentum=True)
+        j_results["J-sci xrb_mixed_vs_cpu"] = reacting_card_vs_cpu(
+            f"J-sci: xrb_mixed {N_XRB_CPU[0]} x {N_XRB_CPU[1]}, float64",
+            lambda where: sci_sim(xrb_mixed, N_XRB_CPU, device=where), F64_RTOL, steps=1,
+            shared_momentum=True)
+
+    def path_k_body(pool):
+        # path K: the spherical and convecting science setups (problems/
+        # subchandra.py, massive_star.py, wdmerger.py, reacting_tests.py,
+        # convect.py, bubbles.py, science_extra.py, gravity_tests.py,
+        # acoustic_pulse.py): subch, aprox21, the NSE bypass, the multigamma
+        # EOS, MonopoleGrav and PoissonGrav in RZ, float64. A 2D Cartesian
+        # step launches cmpflx and trans_cmpflx twice each, a 2D RZ step
+        # cmpflx four times, a 1D step cmpflx once; the rest is torch ops.
+        # The kernels are first held bit for bit at NPASS 3, 17, 19 and 21 on
+        # seeded faces and on the states of subchandra and massive_star
+        from castro_tpu_torch.problems import (bubbles, convect, massive_star, reacting_tests,
+                                               science_extra, subchandra, wdmerger)
+        from castro_tpu_torch.problems import acoustic_pulse as ap_mod
+        from castro_tpu_torch.problems import gravity_tests as gt_mod
+        from castro_tpu_torch.utils import constants as C_
+
+        k_results = ctx.k_results = {}
+        RZ_K = {"cmpflx": 4}
+
+        def face_inputs(L, shape, seed):
+            """Seeded float64 face states, Riemann aux and transverse
+            bundles (tests/test_torch_cuda_layouts.py:_face_inputs)."""
+            rng = np.random.default_rng(seed)
+
+            def state():
+                q = np.zeros((L.NQ,) + shape)
+                q[L.QRHO] = rng.uniform(0.5, 1.5, shape)
+                q[L.QU:L.QW + 1] = rng.uniform(-0.6, 0.6, (3,) + shape)
+                q[L.QPRES] = rng.uniform(0.3, 2.0, shape)
+                q[L.QREINT] = q[L.QPRES] / 0.4
+                q[L.QGAME], q[L.QTEMP] = 1.4, 1.0
+                q[L.QFS:] = rng.uniform(0.0, 1.0, (L.nspec + L.naux,) + shape)
+                return torch.as_tensor(q, dtype=torch.float64, device=dev)
+
+            def bundle():
+                df = 0.2 * rng.standard_normal((L.NVAR,) + shape)
+                df[L.URHO] = rng.uniform(-0.5, 1.2, shape)
+                df[L.UEDEN] = rng.uniform(-1.0, 4.0, shape)
+                return tuple(torch.as_tensor(a, dtype=torch.float64, device=dev) for a in
+                             (df, 0.1 * rng.standard_normal(shape),
+                              0.3 * rng.standard_normal(shape)))
+
+            aux = [torch.as_tensor(rng.uniform(lo, hi, shape), dtype=torch.float64, device=dev)
+                   for lo, hi in ((1.3, 1.7), (1.3, 1.7), (0.5, 1.5), (0.5, 1.5))]
+            return state(), state(), aux, bundle(), bundle()
+
+        print(f"kernel vs plain, path K, seeded float64 faces at NPASS 3, 17, 19, 21 "
+              f"{elapsed()}:", flush=True)
+        for nspec in (3, 17, 19, 21):
+            for dim, shape in ((1, (181,)), (2, (37, 29))):
+                Lk = StateLayout(dim=dim, nspec=nspec)
+                qm, qp, aux, bm, bp = face_inputs(Lk, shape, nspec)
+                for solver, bc, coord in ((0, 2, 0), (2, 3, 0), (0, 2, dim)):
+                    for d in range(dim):
+                        mask = _bnd_masks(shape, dim, 4, (bc,) * dim, (bc,) * dim)[d]
+                        a = (qm, qp, *aux, d, Lk, coord, solver, 1e-12, 1e-20)
+                        what = f"NPASS {nspec} {dim}D d={d} solver {solver} coord {coord}"
+                        check("cmpflx", K.cmpflx(*a, bnd_mask=mask),
+                              K.cmpflx_plain(*a, bnd_mask=mask), what)
+                        if dim == 2 and coord == 0:
+                            a = (qm, qp, bm[0], bp[0], bm[1], bp[1], bm[2], bp[2], *aux, d, Lk,
+                                 0, solver, 1e-12, 1e-20, True, False)
+                            check("trans_cmpflx", K.trans_cmpflx(*a, bnd_mask=mask),
+                                  K.trans_cmpflx_plain(*a, bnd_mask=mask), what)
+                del qm, qp, aux, bm, bp
+
+        def sync_s():
+            torch.cuda.synchronize()
+            return time.perf_counter()
+
+        def instrument(sim):
+            """The burn, the NSE bypass and the gravity field of each call
+            timed on the synchronized host clock; the burner's iterations a
+            half burn and the zones in NSE recorded."""
+            st = {k_: dict(s=0.0, calls=0) for k_ in ("burn", "nse", "grav")}
+            st["burn"]["iters"], st["nse"]["zones"] = [], []
+            r_ = sim.reactor
+            if r_ is not None:
+                react = r_.react
+
+                def timed_react(u_, dt_, shk=None):
+                    t0_ = sync_s()
+                    out = react(u_, dt_, shk)
+                    st["burn"]["s"] += sync_s() - t0_
+                    st["burn"]["calls"] += 1
+                    st["burn"]["iters"].append(r_.burner.stats.iterations)
+                    return out
+
+                r_.react = timed_react
+                if r_.nse is not None:
+                    apply_nse = r_._apply_nse
+
+                    def timed_nse(*a_):
+                        t0_ = sync_s()
+                        out = apply_nse(*a_)
+                        st["nse"]["s"] += sync_s() - t0_
+                        st["nse"]["calls"] += 1
+                        st["nse"]["zones"].append(int(out[2].sum()))
+                        return out
+
+                    r_._apply_nse = timed_nse
+            for fn in sim.source_fns:
+                if fn.name == "grav" and hasattr(fn.gravity, "grav_vector"):
+                    gv = fn.gravity.grav_vector
+
+                    def timed_grav(*a_, gv=gv, **kw_):
+                        t0_ = sync_s()
+                        out = gv(*a_, **kw_)
+                        st["grav"]["s"] += sync_s() - t0_
+                        st["grav"]["calls"] += 1
+                        return out
+
+                    fn.gravity.grav_vector = timed_grav
+            return st
+
+        def timed_steps(key, label, sim, per_try, steps, model_s, extra=None, profile=True):
+            """init_data, then `steps` steps through drive (launch counts
+            against per_try), timed from the end of the set-up: ms a step,
+            zones/s, the burn's, the NSE bypass's and gravity's shares, the
+            burner's iterations a half burn, the zones in NSE, peak memory;
+            then one step under the profiler (the device alone). The set-up
+            is init_data and the capture of the burner's and the NSE
+            bisection's CUDA graphs: one half burn of the initial state, its
+            result discarded, so that the timed steps replay them."""
+            react = None if sim.reactor is None else sim.reactor.react
+            st = instrument(sim)
+            init = sim.init_data
+            stamps = {}
+
+            def stamped_init(*a_, **kw_):
+                t0_ = sync_s()
+                out = init(*a_, **kw_)
+                stamps["init_s"] = sync_s() - t0_
+                t0_ = sync_s()
+                if react is not None:
+                    react(sim.u, 0.5 * sim.estimate_dt())
+                stamps["capture_s"] = sync_s() - t0_
+                stamps["end"] = time.perf_counter()
+                for v_ in st.values():
+                    v_.update(s=0.0, calls=0)
+                st["burn"]["iters"].clear()
+                st["nse"]["zones"].clear()
+                torch.cuda.reset_peak_memory_stats()
+                return out
+
+            sim.init_data = stamped_init
+            n_k = drive(label, sim, per_try, max_step=steps, conserves_mass=False)
+            wall = sync_s() - stamps["end"]
+            sim.init_data = init
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            zones = int(np.prod(sim.geom.n_cell))
+            res = dict(n_cell=list(sim.geom.n_cell), model_s=model_s, init_s=stamps["init_s"],
+                       capture_s=stamps["capture_s"],
+                       step_ms=1e3 * wall / n_k, zones_per_s=zones * sim.step_count / wall,
+                       burn_share=st["burn"]["s"] / wall, nse_share=st["nse"]["s"] / wall,
+                       grav_share=st["grav"]["s"] / wall, iters=st["burn"]["iters"],
+                       nse_zones=st["nse"]["zones"], peak_gib=peak, dt=sim.dt)
+            res.update(extra or {})
+            print(f"  [{card}] {key}: model {model_s:.3f} s + init_data {stamps['init_s']:.3f} "
+                  f"s + the graphs' capture {stamps['capture_s']:.3f} s; {1e3 * wall / n_k:.1f} "
+                  f"ms a step (the mean of {n_k} after the set-up), "
+                  f"{res['zones_per_s']:.6e} zones/s; burn {res['burn_share']:.4f}, NSE bypass "
+                  f"{res['nse_share']:.4f}, gravity {res['grav_share']:.4f} of the wall; burner "
+                  f"iterations a half burn {res['iters']}; zones in NSE {res['nse_zones']}; "
+                  f"peak memory {peak:.3f} GiB; last dt {sim.dt:.6e}", flush=True)
+            prof = profile_steps(sim, 1, card, host=False) if profile else None
+            res["idle_share"] = None if prof is None else prof["idle"]
+            k_results[key] = res
+            return sim
+
+        # K-ms's run and its comparison's model on the card first: the worker
+        # process then steps the comparison on the CPU (8 zones over 2e8 cm,
+        # the innermost zones in the iron core, in NSE, about the zone size
+        # of the timed run) at the first dt of the timed run, some 100 burner
+        # iterations in the NSE zones (this grid's own CFL step, ten times
+        # longer, takes 448, minutes on the CPU), and K-burn's 2^3 corners
+        ms_holder = {}
+        ms_sim = Simulation(massive_star.make_params(n=N_KMS), device="cuda",
+                            problem_init=lambda s_, u_: massive_star.problem_init(
+                                s_, u_, ms_holder["m"]))
+        t0_ = sync_s()
+        ms_holder["m"] = massive_star.build_model(ms_sim)
+        ms_model_s = sync_s() - t0_
+        ms_sim.init_data()
+        dt_ms = ms_sim.estimate_dt()
+        msp = massive_star.make_params(n=N_KMS_CPU).with_ns("geometry",
+                                                          prob_hi=(2.0e8, 1.0, 1.0))
+        ms8 = {}
+        s_ = Simulation(msp, device="cuda", problem_init=lambda a_, b_: massive_star.
+                        problem_init(a_, b_, ms8["m"]))
+        ms8["m"] = massive_star.build_model(s_, nshell=96)
+        jobs = {"ms": pool.submit(cpu_job, "ms", msp, ms8["m"], dt_ms),
+                "burn0": pool.submit(cpu_job, "burn", 0),
+                "burn1": pool.submit(cpu_job, "burn", 1)}
+
+        # K-sub: subchandra in 2D RZ at the JAX geometry, the model built on
+        # the card (the batched bisection walk, captured shells); its kernels
+        # held on the initial state first
+        holder = {}
+        sim = Simulation(subchandra.make_params(n=N_KSUB), device="cuda",
+                         problem_init=lambda s_, u_: subchandra.problem_init(s_, u_, holder["m"]))
+        t0_ = sync_s()
+        holder["m"] = subchandra.build_model(sim)
+        model_s = sync_s() - t0_
+        print(f"K-sub [{card}]: subchandra's model, {len(holder['m']['r'])} shells, "
+              f"{holder['m']['marches']} batched marches for 30 bisection steps: {model_s:.3f} s "
+              f"(limit 60 s) {elapsed()}", flush=True)
+        if model_s > 60.0:
+            fail("path K-sub: the white dwarf's model took more than 60 s")
+        sim.init_data()
+        compare_low_dim(inputs_low_dim(sim, sim.u, sim.estimate_dt()),
+                        f"subchandra RZ {N_KSUB[0]} x {N_KSUB[1]} (NPASS 17)")
+        timed_steps("K-sub", f"K-sub: subchandra RZ {N_KSUB[0]} x {N_KSUB[1]} float64, "
+                    f"{STEPS_KSUB} steps", sim, RZ_K, STEPS_KSUB, model_s,
+                    dict(marches=holder["m"]["marches"]))
+        del sim, holder
+        torch.cuda.empty_cache()
+
+        # the model on the card against the model on the CPU (the JAX test's
+        # star at 24 shells), then subchandra 1D card vs CPU from one model
+        kw_sub = dict(M_WD=0.9 * C_.M_solar, M_He=0.05 * C_.M_solar, pert_temp_factor=25.0)
+        mods = {}
+        for where in ("cuda", "cpu"):
+            s_ = Simulation(subchandra.make_params(dim=1, n=N_KSUB_CPU, **kw_sub), device=where)
+            mods[where] = subchandra.build_model(s_, nshell=24)
+        worst = max(float(np.max(np.abs(mods["cuda"][k_] - mods["cpu"][k_])
+                              / np.maximum(np.abs(mods["cpu"][k_]), 1e-300)))
+                    for k_ in ("density", "temperature", "pressure", "mass"))
+        print(f"K-sub: the 24-shell model on the card against the CPU's, largest relative "
+              f"difference {worst:.3e} (tol {F64_RTOL:g}); marches card "
+              f"{mods['cuda']['marches']}, CPU {mods['cpu']['marches']}", flush=True)
+        if not worst <= F64_RTOL:
+            fail("path K-sub: the card's model disagrees with the CPU's")
+        model1 = mods["cuda"]
+        k_results["K-sub_model_vs_cpu"] = worst
+        k_results["K-sub_vs_cpu"] = reacting_card_vs_cpu(
+            f"K-sub: subchandra 1D n={N_KSUB_CPU}, float64", lambda where: Simulation(
+                subchandra.make_params(dim=1, n=N_KSUB_CPU, **kw_sub), device=where,
+                problem_init=lambda s_, u_: subchandra.problem_init(s_, u_, model1)),
+            F64_RTOL, steps=1)
+
+        # K-ms: massive_star with NSE, 1D spherical (one 768-shell march, built
+        # above) timed; the core stays iron-group dominated (2D RZ is not run:
+        # a step there costs a minute, the burner's ~170 iterations in the NSE
+        # zones)
+        key, sim = "K-ms", ms_sim
+        compare_low_dim(inputs_low_dim(sim, sim.u, dt_ms),
+                        f"massive_star {'x'.join(map(str, sim.geom.n_cell))} (NPASS 19)")
+        # the NSE temperature's bisection: its CUDA graph against the eager
+        # loop on the same zones, bit for bit
+        r_, L_, u_ = sim.reactor, sim.layout, sim.u
+        rho_ = u_[L_.URHO]
+        xn_ = u_[L_.UFS:L_.UFS + L_.nspec] / rho_[None]
+        col = sim.network.column(sim.network.zion / sim.network.aion, xn_, 1)
+        ye_ = torch.clamp(torch.sum(col * xn_, dim=0), 1e-3, 1.0)
+        args_ = (rho_, ye_, xn_, u_[L_.UEINT] / rho_)
+        t0_ = sync_s()
+        eager = r_._bisect(*args_, n=4, graph=False)
+        t_eager = sync_s() - t0_
+        graph_ = r_._bisect(*args_, n=4)  # the capture
+        t0_ = sync_s()
+        graph_ = r_._bisect(*args_, n=4)
+        t_graph = sync_s() - t0_
+        same = all(torch.equal(a_, b_) for a_, b_ in zip(eager, graph_))
+        print(f"K-ms [{card}]: 4 bisections of the NSE temperature on {rho_.numel()} "
+              f"zones, eager {t_eager:.3f} s, CUDA graph {t_graph:.3f} s; bit for bit "
+              f"{'ok' if same else 'DISAGREES'}", flush=True)
+        if not same:
+            fail("path K-ms: the NSE bisection's graph disagrees with the eager loop")
+        label = f"{key}: massive_star {'x'.join(map(str, sim.geom.n_cell))} float64, NSE"
+        # no profiled step: a step is ~2.5e7 device records (the burner's
+        # ~100 iterations a half burn in the NSE zones), minutes to read
+        timed_steps(key, f"{label}, {STEPS_KMS} step(s)", sim, ONE_D, STEPS_KMS, ms_model_s,
+                    dict(nse_bisect_4_eager_s=t_eager, nse_bisect_4_graph_s=t_graph),
+                    profile=False)
+        ui = sim.interior().double()
+        x0 = float(((ui[sim.layout.UFS + 15] + ui[sim.layout.UFS + 16])
+                    / ui[sim.layout.URHO])[0])
+        k_results[key]["xfe_zone0"] = x0
+        print(f"  X(Fe54 + Ni56) at the centre zone {x0:.6f} (limit > 0.5); the first step's "
+              f"dt {dt_ms:.6e} s", flush=True)
+        if not x0 > 0.5:
+            fail(f"path {key}: the core is not iron-group dominated")
+        del sim, ms_sim, ms_holder
+        torch.cuda.empty_cache()
+
+        # K-ms card vs CPU: the card's step of the comparison beside the
+        # worker's CPU step
+        s_ = Simulation(msp, device="cuda", problem_init=lambda a_, b_: massive_star.
+                        problem_init(a_, b_, ms8["m"]))
+        s_.init_data()
+        t0_ = sync_s()
+        s_.advance(dt_ms)
+        card_ms = s_.interior().double().cpu()
+        ms_iters = {"cuda": (s_.reactor.burner.stats.iterations, sync_s() - t0_)}
+        cpu_ms, it_cpu, s_cpu = jobs["ms"].result()
+        ms_iters["cpu"] = (it_cpu, s_cpu)
+        runs = {"cuda": card_ms, "cpu": torch.as_tensor(cpu_ms)}
+        Lm = s_.layout
+        spec = slice(Lm.UFS, Lm.UFS + Lm.nspec)
+        rest = [c_ for c_ in range(Lm.NVAR) if not Lm.UFS <= c_ < Lm.UFS + Lm.nspec]
+        err, rel, ok = compare(runs["cuda"][rest], runs["cpu"][rest], F64_RTOL, floor=True)
+        x_err = float((runs["cuda"][spec] / runs["cuda"][Lm.URHO]
+                       - runs["cpu"][spec] / runs["cpu"][Lm.URHO]).abs().max())
+        print(f"card vs CPU, K-ms: massive_star 1D n={N_KMS_CPU} over 2e8 cm, one step of "
+              f"{dt_ms:.6e} s (the second half burn's iterations, and the step's seconds: card "
+              f"{ms_iters['cuda']}, CPU {ms_iters['cpu']}): "
+              f"max abs err {err:.3e} rel {rel:.3e} (tol {F64_RTOL:g}|cpu| + "
+              f"{F64_RTOL:g} max|cpu|), mass fractions {x_err:.3e} (tol {F64_RTOL:g}) "
+              f"{'ok' if ok and x_err <= F64_RTOL else 'DISAGREES'}", flush=True)
+        if not (ok and x_err <= F64_RTOL):
+            fail("path K-ms: the card and the CPU disagree")
+        k_results["K-ms_vs_cpu"] = dict(max_abs_err=err, max_rel_err=rel, x_err=x_err, dt=dt_ms,
+                                        iterations_and_s=ms_iters)
+
+        # K-burn: aprox21 + Helmholtz, StrangReactor.react on a 16^3 box at
+        # rho 1e9 and T 4e9 +- 10%, without and with network.nse=1 (T_nse 4e9:
+        # half the zones in NSE); the card against the worker's CPU on a 2^3
+        # corner
+        for nse_on in (0, 1):
+            out, secs, iters, Lb = k_burn_react(nse_on, 16, "cuda")
+            cpu_out, it_cpu, s_cpu = jobs[f"burn{nse_on}"].result()
+            kb = {"cuda": (out, secs, iters), "cpu": (cpu_out, s_cpu, it_cpu)}
+            gu, ru = out[0][:, :2, :2, :2].cpu(), torch.as_tensor(cpu_out[0])
+            sp_ = slice(Lb.UFS, Lb.UFS + Lb.nspec)
+            rest = [c_ for c_ in range(Lb.NVAR) if not Lb.UFS <= c_ < Lb.UFS + Lb.nspec]
+            err, rel, ok = compare(gu[rest], ru[rest], F64_RTOL, floor=True)
+            x_err = float((gu[sp_] / gu[Lb.URHO] - ru[sp_] / ru[Lb.URHO]).abs().max())
+            ok = ok and x_err <= F64_RTOL and bool(out[3]) == cpu_out[3]
+            print(f"K-burn [{card}]: aprox21 + Helmholtz, network.nse={nse_on}, react(dt=1e-8) "
+                  f"on 16^3: {kb['cuda'][1]:.3f} s, {kb['cuda'][2]} iterations; card vs CPU on "
+                  f"2^3 (the worker's CPU: {it_cpu} iterations, {s_cpu:.3f} s): max abs err "
+                  f"{err:.3e} rel {rel:.3e}, mass fractions {x_err:.3e} (tol "
+                  f"{F64_RTOL:g}) {'ok' if ok else 'DISAGREES'}", flush=True)
+            if not ok:
+                fail(f"K-burn: the card and the CPU disagree (nse={nse_on})")
+            k_results[f"K-burn nse={nse_on}"] = dict(card_s=kb["cuda"][1], cpu_s=s_cpu,
+                                                     iterations=kb["cuda"][2],
+                                                     cpu_iterations=it_cpu, x_err=x_err)
+        del kb
+        torch.cuda.empty_cache()
+
+        # K-sci: the other setups at the JAX package's default or test sizes,
+        # one step each; card vs CPU on double_bubble, celldet and wdmerger
+        # problem 0
+        def wdm(problem, where="cuda", models=None, n=N_KWDM):
+            p_ = wdmerger.make_params(n=n, mass_P=0.5, mass_S=0.5, problem=problem)
+            return Simulation(p_, device=where, problem_init=lambda s_, u_: wdmerger.problem_init(
+                s_, u_, models=models))
+
+        def plain(params, init, where="cuda", ext=None):
+            return Simulation(params, problem_init=init, device=where,
+                              **({"ext_src": ext(params)} if ext else {}))
+
+        # the 0.5 Msun star, built once on the card for both stars of both
+        # problems and their card-vs-CPU copy (the two stars are equal)
+        t0_ = sync_s()
+        wm_models = wdmerger._wd(wdm(0), 0.5, wdmerger.DEFAULTS["stellar_temp"]) * 2
+        k_results["K-sci wdmerger_models_s"] = sync_s() - t0_
+        print(f"K-sci [{card}]: wdmerger's 0.5 Msun star (512 shells, 30 bisection steps): "
+              f"{k_results['K-sci wdmerger_models_s']:.3f} s", flush=True)
+        rt_, cv_, bb_, se_, gt_ = reacting_tests, convect, bubbles, science_extra, gt_mod
+        sci = [
+            ("wdmerger-0", lambda: wdm(0, models=wm_models), RZ_K),
+            ("wdmerger-1", lambda: wdm(1, models=wm_models), RZ_K),
+            ("reacting_convergence", lambda: plain(rt_.reacting_convergence_params(n=64),
+                                                   rt_.reacting_convergence_init), TWO_D),
+            ("bubble_convergence", lambda: plain(rt_.bubble_convergence_params(n=64),
+                                                 rt_.bubble_convergence_init), TWO_D),
+            ("toy_convect", lambda: plain(cv_.toy_convect_params(), cv_.toy_convect_init), TWO_D),
+            ("test_convect", lambda: plain(cv_.test_convect_params(), cv_.test_convect_init,
+                                           ext=cv_.make_test_convect_source), TWO_D),
+            ("gamma_law_bubble", lambda: plain(bb_.gamma_law_params(), bb_.gamma_law_init),
+             TWO_D),
+            ("double_bubble", lambda: plain(bb_.double_bubble_params(), bb_.double_bubble_init),
+             TWO_D),
+            ("celldet", lambda: plain(se_.celldet_params(), se_.celldet_init), TWO_D),
+            ("planet", lambda: plain(se_.planet_params(), se_.planet_init), TWO_D),
+            ("star_grav", lambda: plain(gt_.star_grav_params(), gt_.star_grav_init), ONE_D),
+            ("hse_adjust", lambda: plain(gt_.hse_adjust_params(), gt_.hse_adjust_init,
+                                         ext=gt_.make_hse_adjust_source), ONE_D),
+            ("hse_general", lambda: plain(gt_.hse_general_params(), gt_.hse_general_init),
+             ONE_D),
+            ("acoustic_pulse_general", lambda: plain(ap_mod.general_params(),
+                                                     ap_mod.general_init), TWO_D),
+        ]
+        for key, make, per_try in sci:
+            sim = make()
+            t0_ = sync_s()
+            n_s = drive(f"K-sci: {key} {' x '.join(map(str, sim.geom.n_cell))} float64, "
+                        f"{STEPS_KSCI} step(s)", sim, per_try, max_step=STEPS_KSCI,
+                        conserves_mass=False)
+            wall = sync_s() - t0_
+            ui = sim.interior()
+            k_results[f"K-sci {key}"] = dict(s_with_init=wall, steps=n_s, dt=sim.dt,
+                                              sources=[s_.name for s_ in sim.source_fns])
+            print(f"  [{card}] {wall:.3f} s with init_data; last dt {sim.dt:.6e}; sources "
+                  f"{[s_.name for s_ in sim.source_fns]}; rho in [{float(ui[0].min()):.4e}, "
+                  f"{float(ui[0].max()):.4e}] {elapsed()}", flush=True)
+            del sim, ui
+            torch.cuda.empty_cache()
+        k_results["K-sci double_bubble_vs_cpu"] = reacting_card_vs_cpu(
+            "K-sci: double_bubble 128 x 128 (multigamma), float64",
+            lambda where: plain(bubbles.double_bubble_params(), bubbles.double_bubble_init,
+                                where), F64_RTOL, steps=1, shared_momentum=True)
+        k_results["K-sci celldet_vs_cpu"] = reacting_card_vs_cpu(
+            f"K-sci: celldet {N_KCD_CPU[0]} x {N_KCD_CPU[1]}, float64",
+            lambda where: plain(science_extra.celldet_params(n=N_KCD_CPU),
+                                science_extra.celldet_init, where), F64_RTOL, steps=1,
+            shared_momentum=True)
+        k_results["K-sci wdmerger-0_vs_cpu"] = reacting_card_vs_cpu(
+            f"K-sci: wdmerger problem 0 {N_KWDM[0]} x {N_KWDM[1]} (RZ PoissonGrav), float64",
+            lambda where: wdm(0, where, wm_models), F64_RTOL, steps=1, shared_momentum=True)
+        # nse_test: its initial state, the NSE distribution on every zone
+        # (aprox19, 6e9 K), card against CPU; no step on the card (its burn
+        # at 6e9 K outside the bypass takes the burner's 1024 iterations)
+        st_ = {}
+        for where in ("cuda", "cpu"):
+            s_ = plain(reacting_tests.nse_test_params(n=64), reacting_tests.nse_test_init, where)
+            t0_ = sync_s()
+            s_.init_data()
+            st_[where] = (s_.interior().double().cpu(), sync_s() - t0_)
+        err, rel, ok = compare(st_["cuda"][0], st_["cpu"][0], F64_RTOL, floor=True)
+        print(f"card vs CPU, K-sci: nse_test n=64 initial state (NSE at 1e9 g/cc, 6e9 K): "
+              f"card {st_['cuda'][1]:.3f} s, CPU {st_['cpu'][1]:.3f} s; max abs err {err:.3e} rel "
+              f"{rel:.3e} (tol {F64_RTOL:g}|cpu| + {F64_RTOL:g} max|cpu|) "
+              f"{'ok' if ok else 'DISAGREES'}", flush=True)
+        if not ok:
+            fail("K-sci: nse_test's initial state differs between the card and the CPU")
+        k_results["K-sci nse_test_init_vs_cpu"] = dict(max_abs_err=err, max_rel_err=rel,
+                                                       card_s=st_["cuda"][1])
+
+    def path_k():
+        # the CPU references of K-ms and K-burn (minutes of eager torch ops on
+        # the host) run in one worker process beside the card's work
+        pool = ProcessPoolExecutor(1, mp_context=multiprocessing.get_context("spawn"))
+        try:
+            path_k_body(pool)
+        finally:
+            pool.shutdown(wait=True, cancel_futures=True)
+
+    def phase_probes():
+        # the probes: each against its plain version, then the entry points
+        print(f"probes vs plain (scripts/prof_cmpflx.py setup at 128^3, float32) {elapsed()}:",
+              flush=True)
+        px = ctx.px = prof_cmpflx.setup(n=120)
+        pargs = ctx.pargs = prof_cmpflx.cmpflx_args(px)
+        pref = P.probe_cmpflx_plain(*pargs)
+        for label, (tile, threads) in prof_cmpflx.tilings(px["qm"].shape[1:]).items():
+            check("probe_cmpflx", P.probe_cmpflx(*pargs, tile=tile, threads=threads), pref, label)
+        cref = P.probe_copy_plain(px["qm"], px["qp"], px["layout"])
+        for tile in ((8, None), P.BEST_TILE):
+            check("probe_copy", P.probe_copy(px["qm"], px["qp"], px["layout"], tile=tile), cref,
+                  f"tile {tile}")
+        vx = ctx.vx = torch.full((512, 512), 1.1, dtype=torch.float32, device=dev)
+        vx[0] = torch.linspace(0.3, 3.0, 512, device=dev)
+        for op in P.VPU_OPS:
+            got = P.probe_vpu(vx, op, VPU_CHECK_ITERS)
+            ref = P.probe_vpu_plain(vx, op, VPU_CHECK_ITERS)
+            err, rel, ok = compare(got, ref, VPU_RTOL[op])
+            errs["probe_vpu"] = [max(errs["probe_vpu"][0], err), max(errs["probe_vpu"][1], rel)]
+            print(f"  probe_vpu  {op}, {VPU_CHECK_ITERS} iterations{'':17s} max abs err {err:.3e} "
+                  f"rel {rel:.3e} (tol {VPU_RTOL[op]:.3g}|plain|) {'ok' if ok else 'DISAGREES'}")
+            if not ok:
+                compare(got, ref, VPU_RTOL[op], report=True)
+                fail(f"probe_vpu {op} disagrees with its plain version")
+        print("probe entry points (python -m castro_tpu_torch.scripts.prof_cmpflx / prof_vpu):",
+              flush=True)
+        K.reset_launch_counts()
+        probe_ms = ctx.probe_ms = prof_cmpflx.run(px, out=lambda line: print("  " + line))
+        vpu_ps, vpu_bound_ps = prof_vpu.run(vx, out=lambda line: print("  " + line))
+        ctx.vpu_ps, ctx.vpu_bound_ps = vpu_ps, vpu_bound_ps
+        torch.cuda.synchronize()
+        path_launches["probe: the entry points"] = K.launch_counts()
+        print(f"  launches {path_launches['probe: the entry points']}", flush=True)
+        if any(path_launches["probe: the entry points"][k] == 0
+               for k in ("probe_cmpflx", "probe_copy", "probe_vpu")):
+            fail("a probe entry point launched no probe kernel")
+
+    def phase_timing():
+        # -- 5. timing ---------------------------------------------------------------------
+        print(f"timing {elapsed()}", flush=True)
+        ctx.results = {}
+        px, pargs, vx, probe_ms = ctx.px, ctx.pargs, ctx.vx, ctx.probe_ms
+        vpu_ps, vpu_bound_ps = ctx.vpu_ps, ctx.vpu_bound_ps
+
+
+        time_path(str(N_MAIN), f"A: Sedov {N_MAIN}^3", lambda: sedov_sim(N_MAIN), STEPS_MAIN,
+                  profile=3)
+        time_path(str(N_BIG), f"A: Sedov {N_BIG}^3", lambda: sedov_sim(N_BIG), STEPS_BIG)
+        time_path(f"amr-{N_AMR}", f"G: 3D Sedov AMR {N_AMR}^3 + 1 level",
+                  lambda: amr_sim(3, N_AMR), STEPS_AMR, profile=3)
+        time_path(f"{N_MAIN}-cg", f"B: Sedov {N_MAIN}^3 riemann_solver=1",
+                  lambda: sedov_sim(N_MAIN, riemann_solver=1), 5, profile=2)
+        time_path(f"{N_HYBRID}-hybrid", f"B: Sedov {N_HYBRID}^3 hybrid_riemann=1",
+                  lambda: sedov_sim(N_HYBRID, hybrid_riemann=1), 10)
+        try:  # reported, not required: the unfused structure's live set at 264^3
+            time_path(f"{N_BIG}-cg", f"B: Sedov {N_BIG}^3 riemann_solver=1",
+                      lambda: sedov_sim(N_BIG, riemann_solver=1), 2)
+        except torch.cuda.OutOfMemoryError as e:
+            print(f"main path timing [{card}]: B: Sedov {N_BIG}^3 riemann_solver=1 not measured, "
+                  f"out of device memory: {str(e).splitlines()[0]}")
+            torch.cuda.empty_cache()
+        time_path(f"{N_2D}^2", f"C: 2D Sedov {N_2D}^2", lambda: sedov_sim(N_2D, dim=2), 5,
+                  profile=2)
+        time_path(f"{N_2D}^2-cg", f"C: 2D Sedov {N_2D}^2 riemann_solver=1",
+                  lambda: sedov_sim(N_2D, dim=2, riemann_solver=1), 3)
+        time_path(f"{N_MAIN}-plm", f"D: Sedov {N_MAIN}^3 ppm_type=0",
+                  lambda: sedov_sim(N_MAIN, ppm_type=0), STEPS_MAIN, profile=2)
+        time_path(f"{N_MAIN}-limiter", f"D: Sedov {N_MAIN}^3 limit_fluxes_on_small_dens=1",
+                  lambda: sedov_sim(N_MAIN, limit_fluxes_on_small_dens=1), 5)
+        time_path(f"rz-{N_RZ}", f"E: 2D RZ Sedov {N_RZ} x {2 * N_RZ}",
+                  lambda: curvilinear_sim("rz", N_RZ), 5, profile=2)
+        time_path(f"dmr-{DMR_BIG[0]}", f"F: 2D double Mach reflection {DMR_BIG[0]} x {DMR_BIG[1]}",
+                  lambda: dmr_sim(DMR_BIG), STEPS_DMR, profile=2)
+
+        time_path("H1", f"H1: detonation n={N_DET}",
+                  lambda: Simulation(detonation.make_params(n=N_DET),
+                                     problem_init=detonation.problem_init), 10, profile=2)
+
+        sim = sedov_sim(N_MAIN)
+        sim.init_data()
+        dt = sim.estimate_dt()
+        sim.advance(dt)
+        x = inputs(sim, sim.u, dt)
+        L, cfg, dx, u = x["L"], x["cfg"], x["dx"], sim.u
+
+        def term(t, f):
+            return {"flux": tr[t][2], "qe": tr[t][3], "t_dir": t, "cdtdx": f * dt / dx[t]}
+
+        isz = u.element_size()
+        tr = [K.trace_ppm_plain(x["q"], x["qaux"], None, x["flatn"], d, dt, dx[d], L,
+                                cfg.small_dens, cfg.small_pres, cfg.small_ener,
+                                fuse_riemann=dict(coord=0, riemann_solver=0, bnd_mask=None))
+              for d in range(3)]
+
+
+        hsrc = torch.zeros_like(u)
+        # name -> list of (kernel call, plain call, components moved[, elements[, variant]])
+        calls = {}
+        a = (u, L, x["eos"], cfg.small_dens, sim.small_temp, dx)
+        # prim_aux reads six of u's components: not the total energy or the
+        # temperature
+        calls["prim_aux"] = [(lambda: K.prim_aux(*a, courant_dt=dt),
+                              lambda: K.prim_aux_plain(*a, courant_dt=dt),
+                              L.NVAR - 2 + L.NQ + L.NQAUX + 1)]
+        calls["flatten"] = [(lambda: K.flatten(x["q"], L), lambda: K.flatten_plain(x["q"], L), 5)]
+        # the face kernels variant by variant (scripts/prof_faces.py): trace_ppm
+        # with the solve (A) and without (B); ctu_face's pair and final + consup
+        # (A), terms=[] (D, PLM) and the final alone (D, limited)
+        fx = prof_faces.setup(N_MAIN)
+        face_calls = {("trace_ppm", "with the solve"): "trace_ppm",
+                      ("trace_ppm", "without the solve"): "trace_ppm, no solve",
+                      ("ctu_face", "corner pair"): "ctu_face",
+                      ("ctu_face", "final + consup"): "ctu_face",
+                      ("ctu_face", "terms=[]"): "ctu_face, terms=[]",
+                      ("ctu_face", "final alone"): "ctu_face, final alone"}
+        for name, variant, d, kern, plain, comps in prof_faces.variants(fx):
+            calls.setdefault(face_calls[(name, variant)], []).append(
+                (kern, plain, comps, u[0].numel(), variant))
+        ca = (u, L, x["eos"], cfg.lo_bc, cfg.hi_bc, sim.ng, cfg.small_dens, sim.small_temp,
+              x["eta2"], True)
+        calls["clean_fill"] = [(lambda: K.clean_fill(*ca, with_status=True),
+                                lambda: K.clean_fill_plain(*ca, with_status=True), 2 * L.NVAR)]
+        # the unfused structure's kernels at 136^3: trans_apply on a corner and
+        # on a final bundle, consup per direction
+        calls["trans_apply"] = []
+        for n_, terms, q_face, shift in ((0, [term(1, 1 / 3)], tr[0][1], 0),
+                                         (1, [term(2, 1 / 3)], tr[1][0], -1),
+                                         (2, [term(0, 0.5), term(1, 0.5)], tr[2][1], 0)):
+            b = (q_face, *term_bundle(terms, x["qaux"], n_, shift, L), L, cfg.small_pres, True,
+                 False)
+            calls["trans_apply"].append((lambda b=b: K.trans_apply(*b),
+                                         lambda b=b: K.trans_apply_plain(*b),
+                                         2 * L.NQ + L.NVAR + 2))
+        calls["consup"] = []
+        for d in range(3):
+            cs = (hsrc, tr[d][2], tr[d][3][L.GDPRES], tr[d][3][L.GDU + d], x["div"], u, d, L,
+                  cfg.difmag, dx)
+            fin = dt if d == 2 else None
+            calls["consup"].append((lambda cs=cs, fin=fin: K.consup(*cs, finalize_dt=fin),
+                                    lambda cs=cs, fin=fin: K.consup_plain(*cs, finalize_dt=fin),
+                                    4 * L.NVAR + 3 + L.NVAR))
+        # path C's kernels at 4104^2
+        sim2 = sedov_sim(N_2D, dim=2)
+        sim2.init_data()
+        dt2 = sim2.estimate_dt()
+        sim2.advance(dt2)
+        y = inputs_low_dim(sim2, sim2.u, dt2)
+        S2 = sim2.u[0].numel()
+        calls["cmpflx"] = [(lambda a=a: K.cmpflx(*a), lambda a=a: K.cmpflx_plain(*a),
+                            2 * L.NQ + 4 + L.NVAR + L.NGDNV, S2) for a in y["solves"]]
+        calls["trans_cmpflx"] = [
+            (lambda a=a: K.trans_cmpflx(*a, True, False),
+             lambda a=a: K.trans_cmpflx_plain(*a, True, False),
+             2 * L.NQ + 2 * L.NVAR + 8 + L.NVAR + L.NGDNV, S2) for a in y["finals"]]
+        del y
+        # the probes at the entry points' shapes: probe_cmpflx at its best shape
+        # (the other tilings are in the entry point's lines), probe_copy the 30
+        # components it must move, probe_vpu the fma body over 512^2
+        SP = px["qm"][0].numel()
+        calls["probe_cmpflx"] = [(lambda: P.probe_cmpflx(*pargs),
+                                  lambda: P.probe_cmpflx_plain(*pargs),
+                                  2 * L.NQ + 4 + L.NVAR + L.NGDNV, SP)]
+        calls["probe_copy"] = [(lambda: P.probe_copy(px["qm"], px["qp"], px["layout"]),
+                                lambda: P.probe_copy_plain(px["qm"], px["qp"], px["layout"]),
+                                3 * L.NVAR + L.NGDNV, SP)]
+        calls["probe_vpu"] = [(lambda: P.probe_vpu(vx, "fma", VPU_TIME_ITERS),
+                               lambda: P.probe_vpu_plain(vx, "fma", VPU_TIME_ITERS), 2, vx.numel())]
+
+        entries, extra = [], {}
+        ctx.entries = entries
+        print(f"kernel timing {elapsed()} [{card}], float32, at Sedov {N_MAIN}^3 (grown {u.shape[1]}^3; "
+              f"cmpflx and trans_cmpflx at 2D Sedov {N_2D}^2, grown {sim2.u.shape[1]}^2; the "
+              f"probes at 128^3 and, probe_vpu, 512^2 x {VPU_TIME_ITERS} iterations), per "
+              f"launch: the kernel's device time (torch.profiler), the wrapper's and the plain "
+              f"version's time (CUDA events); bound = max(bytes / {HBM_BYTES_PER_S:g} B/s, "
+              f"operations of the plain version / {FP32_OPS_PER_S:g} op/s):", flush=True)
+        by_variant = {}  # ctu_face's variants: the mean over the three directions
+        for name, variants in calls.items():
+            sums, rows = time_kernel(name, variants, u[0].numel(), isz, FP32_OPS_PER_S, reps=20,
+                                     plain_reps=3)
+            for r in rows:
+                print(f"  {name:10s} {r['ms']:9.4f} ms   wrapper {r['wrapper_ms']:9.4f} ms   plain "
+                      f"{r['plain_ms']:9.4f} ms   bound {r['bound_ms']:.4f} ms ({r['comps']} "
+                      f"components, {r['bytes_ms']:.4f} ms; {r['ops_per_cell']:.1f} operations a "
+                      f"cell, {r['ops_ms']:.4f} ms)", flush=True)
+                if name.startswith("ctu_face"):
+                    for key in ("ms", "plain_ms", "bound_ms"):
+                        by_variant.setdefault(r["variant"], {}).setdefault(key, 0.0)
+                        by_variant[r["variant"]][key] += r[key] / 3
+            if name not in REPLACES:  # a second variant of a kernel: printed, kept with its kernel
+                extra[name] = sums
+                continue
+            by_path = {label.split(":")[0] + ":" + label.split(":")[1].split(",")[0]: c[name]
+                       for label, c in path_launches.items() if c[name]}
+            entries.append({
+                "name": name, "route": "cuda",
+                "source": f"castro_tpu_torch/csrc/{SOURCE.get(name, name + '.cu')}",
+                "replaces": REPLACES[name], "launches": sum(by_path.values()),
+                "launches_by_path": by_path,
+                "max_abs_err": errs[name][0], "max_rel_err": errs[name][1], "ms": sums["ms"],
+                "wrapper_ms": sums["wrapper_ms"], "plain_ms": sums["plain_ms"],
+                "bound_ms": sums["bound_ms"],
+                "bound_by": sums["bound_by"],
+                "library_ms": None})
+        for e in entries:
+            if e["name"] == "trace_ppm":  # the variant the unfused structure launches
+                e.update({k + "_no_solve": extra["trace_ppm, no solve"][k]
+                          for k in ("ms", "wrapper_ms", "plain_ms", "bound_ms")})
+            if e["name"] == "ctu_face":
+                e["ms_by_variant"] = by_variant
+            if e["name"] in ("trace_ppm", "ctu_face", "prim_aux", "flatten", "clean_fill"):
+                # float32, every direction and variant
+                e["ptxas"] = [r for r in ptxas if r["kernel"].startswith(e["name"] + "_kernel<float")]
+            if e["name"] == "probe_cmpflx":
+                e["entry_point_ms_by_tiling"] = {k: v for k, v in probe_ms.items() if "cmpflx" in k}
+            if e["name"] == "probe_copy":
+                nbytes = prof_cmpflx.copy_bytes(px)
+                e["bytes_moved"] = nbytes
+                e["achieved_GB_s"] = nbytes / e["ms"] / 1e6
+            if e["name"] == "probe_vpu":
+                e["iterations"] = VPU_TIME_ITERS
+                e["ps_per_element_op"] = vpu_ps
+                e["bound_ps_per_element_op"] = vpu_bound_ps
+
+        h_launches = {}
+        for label, c in path_launches.items():
+            if label.startswith("H"):
+                for k_, v_ in c.items():
+                    h_launches[k_] = h_launches.get(k_, 0) + v_
+        for nspec in (7, 19):
+            cl, ul = layout_calls(nspec)
+            Sl, iszl = ul[0].numel(), ul.element_size()
+            print(f"kernel timing [{card}], float32, Sedov {N_MAIN}^3 with NPASS = {nspec} "
+                  f"(NVAR {ul.shape[0]}), per launch as above {elapsed()}:", flush=True)
+            for e in entries:
+                if e["name"] not in cl:
+                    continue
+                sums, rows_l = time_kernel(e["name"], cl[e["name"]], Sl, iszl, FP32_OPS_PER_S,
+                                           reps=10, plain_reps=2)
+                # every variant and direction's device time, and where it came from
+                by_row = [round(r_["ms"], 4) for r_ in rows_l]
+                from_profiler = sum(r_["ms_from"] == "profiler" for r_ in rows_l)
+                e[f"npass{nspec}"] = dict(
+                    ms=sums["ms"], plain_ms=sums["plain_ms"], bound_ms=sums["bound_ms"],
+                    bound_by=sums["bound_by"], launches_path_H=h_launches.get(e["name"], 0),
+                    ms_by_direction=by_row, rows_from_profiler=from_profiler)
+                print(f"  {e['name']:12s} {sums['ms']:9.4f} ms   plain {sums['plain_ms']:9.4f} ms   "
+                      f"bound {sums['bound_ms']:.4f} ms ({e[f'npass{nspec}']['bound_by']}); "
+                      f"NPASS = 1: {e['ms']:.4f} ms, bound {e['bound_ms']:.4f} ms; by direction "
+                      f"{by_row}, {from_profiler} of {len(rows_l)} from the profiler, the rest "
+                      f"from CUDA events around the launch", flush=True)
+            del cl, ul
+            torch.cuda.empty_cache()
+        # path J's kernels in float64 at NPASS = 13 on flame_wave's state
+        # (J-fw's grid, its initial state): the bound's operations over the
+        # float64 peak, its bytes at 8 a value
+        j_launches, k_launches = {}, {}
+        for label, c in path_launches.items():
+            for prefix, acc in (("J", j_launches), ("K", k_launches)):
+                if label.startswith(prefix):
+                    for k_, v_ in c.items():
+                        acc[k_] = acc.get(k_, 0) + v_
+        sfw = flame_wave.build(n=N_FW)
+        sfw.init_data()
+        yf = inputs_low_dim(sfw, sfw.u, sfw.estimate_dt())
+        Lf, Sf, iszf = sfw.layout, sfw.u[0].numel(), sfw.u.element_size()
+        fcalls = {"cmpflx": [(lambda a=a: K.cmpflx(*a), lambda a=a: K.cmpflx_plain(*a),
+                              2 * Lf.NQ + 4 + Lf.NVAR + Lf.NGDNV) for a in yf["solves"]],
+                  "trans_cmpflx": [(lambda a=a: K.trans_cmpflx(*a, True, False),
+                                    lambda a=a: K.trans_cmpflx_plain(*a, True, False),
+                                    2 * Lf.NQ + 2 * Lf.NVAR + 8 + Lf.NVAR + Lf.NGDNV)
+                                   for a in yf["finals"]]}
+        print(f"kernel timing [{card}], float64, flame_wave {N_FW[0]} x {N_FW[1]} (grown "
+              f"{tuple(sfw.u.shape[1:])}, NPASS = {Lf.nspec}), per launch as above, the operations "
+              f"over {FP64_OPS_PER_S:g} op/s {elapsed()}:", flush=True)
+        for e in entries:
+            if e["name"] not in fcalls:
+                continue
+            sums, _ = time_kernel(e["name"], fcalls[e["name"]], Sf, iszf, FP64_OPS_PER_S, reps=10,
+                                  plain_reps=2)
+            e["float64_npass13_flame_wave"] = dict(
+                ms=sums["ms"], wrapper_ms=sums["wrapper_ms"], plain_ms=sums["plain_ms"],
+                bound_ms=sums["bound_ms"], bound_by=sums["bound_by"],
+                launches_path_J=j_launches.get(e["name"], 0))
+            print(f"  {e['name']:12s} {sums['ms']:9.4f} ms   wrapper {sums['wrapper_ms']:9.4f} ms   "
+                  f"plain {sums['plain_ms']:9.4f} ms   bound {sums['bound_ms']:.4f} ms "
+                  f"({e['float64_npass13_flame_wave']['bound_by']}; bytes {sums['bytes_ms']:.4f} ms, "
+                  f"operations {sums['ops_ms']:.4f} ms)", flush=True)
+        del sfw, yf, fcalls
+        torch.cuda.empty_cache()
+        for e in entries:
+            if e["name"] in REPLACES and e["name"] not in ("probe_cmpflx", "probe_copy",
+                                                             "probe_vpu"):
+                e["launches_path_H"] = h_launches.get(e["name"], 0)
+                e["launches_path_J"] = j_launches.get(e["name"], 0)
+                e["launches_path_K"] = k_launches.get(e["name"], 0)
+
+    phases = [("kernels", phase_kernels), ("A", path_a), ("B", path_b), ("C", path_c),
+              ("D", path_d), ("E", path_e), ("F", path_f), ("G", path_g), ("H", path_h),
+              ("I", path_i), ("J", path_j), ("K", path_k), ("probes", phase_probes),
+              ("timing", phase_timing)]
+    names = [name for name, _ in phases]
+    wanted = list(argv) or names
+    unknown = [w for w in wanted if w not in names]
+    if unknown:
+        print(f"unknown phase(s) {unknown}; the phases are {names}", file=sys.stderr)
+        return 2
+    if "timing" in wanted and "probes" not in wanted:
+        wanted.append("probes")  # the timing phase times the probes at their inputs
+    phase_s = {}
+    for phase_key, phase_fn in phases:
+        if phase_key in wanted:
+            phase_t0 = time.perf_counter()
+            phase_fn()
+            phase_s[phase_key] = time.perf_counter() - phase_t0
+            print(f"phase {phase_key}: {phase_s[phase_key]:.1f} s {elapsed()}", flush=True)
+    print("phase times (s): " + json.dumps(phase_s), flush=True)
+    if len(phase_s) < len(phases):
+        # a partial run: no summary, no kernel table (their launch counts and
+        # errors come from every path) and not the whole run's last line
+        print(smi_line())
+        print(f"partial run of the phases {[k for k in names if k in phase_s]}: passed")
+        return 0
+    entries, results = ctx.entries, ctx.results
     step_bound = sum(e["bound_ms"] * FUSED.get(e["name"], 0) for e in entries)
     print(f"summary [{card}]: " + json.dumps({
         "zones_per_s": {k: v["zones_per_s"] for k, v in results.items()},
         "step_ms": {k: v["step_ms"] for k, v in results.items()},
         "peak_gib": {k: v["peak_gib"] for k, v in results.items()},
-        "step_bound_ms_128": step_bound, "sod_1d_ms_per_step": sod_ms, "sod_1d_l1": l1,
-        "shock_zones_flagged": flagged, "rz_vs_spherical_l1": rz_l1,
-        "rz_vs_spherical_peak_cells": peak_shift, "dmr_checks": dmr_checks,
-        "amr_3d": results.get(f"amr-{N_AMR}"), "amr_3d_window_after_run": list(g3d_window),
-        "amr_sod_1d_l1": g1_l1, "amr_sod_1d_ms_per_coarse_step": g1_ms,
-        "path_H": h_results, "path_I": i_results, "path_J": j_results,
-        "detonation": dict(ms_per_step=det_ms, fuel_ratio=fuel_ratio, max_mom=mom_max)}))
+        "step_bound_ms_128": step_bound, "sod_1d_ms_per_step": ctx.sod_ms, "sod_1d_l1": ctx.l1,
+        "shock_zones_flagged": ctx.flagged, "rz_vs_spherical_l1": ctx.rz_l1,
+        "rz_vs_spherical_peak_cells": ctx.peak_shift, "dmr_checks": ctx.dmr_checks,
+        "amr_3d": results.get(f"amr-{N_AMR}"), "amr_3d_window_after_run": list(ctx.g3d_window),
+        "amr_sod_1d_l1": ctx.g1_l1, "amr_sod_1d_ms_per_coarse_step": ctx.g1_ms,
+        "path_H": ctx.h_results, "path_I": ctx.i_results, "path_J": ctx.j_results,
+        "path_K": ctx.k_results, "phase_s": phase_s,
+        "detonation": dict(ms_per_step=ctx.det_ms, fuel_ratio=ctx.fuel_ratio,
+                           max_mom=ctx.mom_max)}))
     print(smi_line())
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
@@ -2608,4 +3310,4 @@ def main():
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

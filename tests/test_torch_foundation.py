@@ -147,14 +147,12 @@ def test_device_rules_and_unported_configs():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             Simulation(params, problem_init=sedov.problem_init)
     for bad in (params.with_ns("castro", time_integration_method=2),
-                params.with_ns("castro", do_react=1).with_ns(
-                    "network", network_name="iso7", nse=1),
                 params.with_ns("castro", do_radiation=1)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             Simulation(bad, device="cpu")
     # the 1D and 2D branches, riemanncg, the HLL hybrid, curvilinear
     # geometry, PLM, the shock flag, hybrid momenta, reactions, gravity,
-    # the sponge, rotation and thermal diffusion are ported
+    # the sponge, rotation, thermal diffusion and the NSE bypass are ported
     for good in (sedov.make_params(n=8, dim=2), sedov.make_params(n=8, dim=1),
                  params.with_ns("castro", riemann_solver=1),
                  params.with_ns("castro", hybrid_riemann=1),
@@ -163,6 +161,8 @@ def test_device_rules_and_unported_configs():
                  params.with_ns("castro", hybrid_momentum=1),
                  params.with_ns("castro", use_shock_var=1),
                  params.with_ns("castro", do_react=1).with_ns("network", network_name="iso7"),
+                 params.with_ns("castro", do_react=1).with_ns("network", network_name="iso7",
+                                                              nse=1),
                  params.with_ns("castro", do_grav=1).with_ns("gravity",
                                                             gravity_type="PoissonGrav"),
                  params.with_ns("castro", do_sponge=1, sponge_lower_density=1e-3,

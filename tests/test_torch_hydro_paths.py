@@ -181,15 +181,13 @@ def test_unported_configurations_raise(name):
 
 
 STILL_UNPORTED = {
-    "nse": (dict(do_react=1), dict(network_name="iso7", nse=1), "queue 1 item 7"),
     "sdc": (dict(time_integration_method=2), {}, "queue 1 item 12"),
 }
 
 
 @pytest.mark.parametrize("name", list(STILL_UNPORTED))
 def test_still_unported_configurations_raise(name):
-    """The NSE bypass of the burn and SDC raise at construction and name
-    their ROADMAP item."""
+    """SDC raises at construction and names its ROADMAP item."""
     castro, network, item = STILL_UNPORTED[name]
     p = sedov.make_params(n=8, dim=1).with_ns("castro", **castro)
     if network:
@@ -206,6 +204,19 @@ FORMERLY_UNPORTED = {
     "transverse_use_eos": (2, dict(transverse_use_eos=1), {}),
     "inflow": (1, dict(lo_bc=(1, 2, 2)), {}),
 }
+
+
+def test_nse_configuration_steps():
+    """network.nse=1, which raised until the NSE bypass was ported
+    (held against the JAX package in tests/test_torch_nse.py), constructs
+    and steps."""
+    p = sedov.make_params(n=8, dim=1).with_ns("castro", do_react=1).with_ns(
+        "network", network_name="iso7", nse=1)
+    sim = Simulation(p, problem_init=sedov.problem_init, device="cpu")
+    assert sim.reactor.nse is not None
+    sim.init_data()
+    sim.advance(sim.estimate_dt())
+    assert bool(torch.isfinite(sim.interior()).all())
 
 
 @pytest.mark.parametrize("name", list(FORMERLY_UNPORTED))

@@ -27,6 +27,8 @@ from castro_tpu_torch.config import Params
 from castro_tpu_torch.eos.helmholtz import HelmholtzEos
 from castro_tpu_torch.integrators.stiff import make_burner
 from castro_tpu_torch.network import make_network
+from castro_tpu_torch.network.aprox21 import Aprox21Network
+from castro_tpu_torch.network.subch import SubchNetwork
 from castro_tpu_torch.network.nova import NovaNetwork
 from castro_tpu_torch.network.rprox import RproxNetwork
 from castro_tpu_torch.network.triple_alpha import TripleAlphaCagoNetwork
@@ -120,13 +122,13 @@ def test_one_burn_matches_jax():
 @pytest.mark.parametrize("name,cls,nspec", [
     ("triple_alpha", TripleAlphaCagoNetwork, 4),
     ("triple_alpha_plus_cago", TripleAlphaCagoNetwork, 4),
-    ("rprox", RproxNetwork, 10), ("nova", NovaNetwork, 14)])
+    ("rprox", RproxNetwork, 10), ("nova", NovaNetwork, 14),
+    ("aprox21", Aprox21Network, 21), ("subch", SubchNetwork, 17)])
 def test_make_network_dispatch(name, cls, nspec):
     net = make_network(Params().with_ns("network", network_name=name))
     assert isinstance(net, cls) and net.nspec == nspec and net.reactive
 
 
-@pytest.mark.parametrize("name", ["aprox21", "subch"])
-def test_make_network_unported_raises(name):
-    with pytest.raises(NotImplementedError, match="item 7"):
-        make_network(Params().with_ns("network", network_name=name))
+def test_make_network_unknown_raises():
+    with pytest.raises(ValueError, match="unknown network"):
+        make_network(Params().with_ns("network", network_name="aprox99"))

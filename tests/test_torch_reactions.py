@@ -163,11 +163,15 @@ def test_strang_react_matches_jax(gate):
     assert (np.abs(tout[2].numpy()[~kept]) > 0).all()
 
 
-def test_strang_nse_raises():
+def test_strang_nse_builds_the_solver():
+    """network.nse=1 (once a raise) gives the reactor its NSE solver; the
+    bypass is held against the JAX package in tests/test_torch_nse.py."""
     p = Params().with_ns("network", nse=1)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        StrangReactor(p, Iso7Network(), GammaLawEos(network=Iso7Network()),
+    r = StrangReactor(p, Iso7Network(), GammaLawEos(network=Iso7Network()),
                       StateLayout(dim=1, nspec=7))
+    assert r.nse is not None
+    assert StrangReactor(Params(), Iso7Network(), GammaLawEos(network=Iso7Network()),
+                         StateLayout(dim=1, nspec=7)).nse is None
 
 
 def test_estdt_burning_matches_jax():
