@@ -27,9 +27,15 @@ update of a level array is functional (a new tensor), so the pre-step
 snapshot of `advance` and the old states of the time interpolation are
 never written through.
 
-Cartesian hydro with gravity and the sponge. What the JAX driver does
-beyond it raises, naming its ROADMAP.md item: radiation (9), MHD (11), SDC
-(12), a device mesh or `amr.distribute_fine` (13), plotfiles and
+Cartesian hydro with gravity and the sponge, and true SDC
+(castro.time_integration_method=2): then level 0 and every window step
+with `Simulation._sdc_step`, whose time-averaged face fluxes, in the exact
+flux form of the SDC sweep, feed the flux registers
+(`castro_tpu/driver/amr.py:149-173`, `:261-286`). As in the JAX driver, a
+level's step is the CTU step otherwise, Strang-split only with
+time_integration_method=0. What the JAX driver does beyond this raises,
+naming its ROADMAP.md item: radiation (9), MHD (11), a device mesh or
+`amr.distribute_fine` (13, the sharded SDC step among them), plotfiles and
 checkpoints (14), and a curvilinear grid (5, the Cartesian slice).
 Refinement ratio 2 on every level.
 """
@@ -203,12 +209,24 @@ class _Level:
                        grav_bc=grav_bc)
 
     def step(self, u, dt, t, ilo, grav_bc=None):
+        if self.sim.sdc is not None:
+            # the window's true-SDC step: its MOL evaluations read only dx
+            # from the window's geometry, and the ring carries the
+            # coarse-fine data as for CTU (castro_tpu/driver/amr.py:149-173)
+            return _sdc_level_step(self.sim, u, dt, t, True)
         return self.sim._step_impl(u, dt, t, ctx=self._ctx(ilo, grav_bc))
 
     def phi(self, rho, ilo, grav_bc):
         """The window's phi from its interior density, Dirichlet on its faces
         with `grav_bc` (PoissonGrav only)."""
         return self.grav._poisson(rho, self._ctx(ilo, grav_bc))[1]
+
+
+def _sdc_level_step(sim, u, dt, t, keep_fluxes):
+    """A level's true-SDC step in the CTU step's form, (u_new, min_rho,
+    bad[, interior face fluxes]), the burn's failure folded into bad."""
+    out = sim._sdc_step(u, dt, t, keep_fluxes=keep_fluxes)
+    return (out[0], out[1], out[2] | out[3]) + tuple(out[4:])
 
 
 def _poisson_gravity(sim):
@@ -249,7 +267,7 @@ class AmrSimulation:
         self.indicators = self._parse_indicators(params)
         self._sim_kw = dict(sim_kw, device=device)
 
-        # radiation, MHD, SDC, reactions and the sources raise in here
+        # radiation and MHD raise in here
         self.sim0 = Simulation(_level_params(params, 0), problem_init=problem_init,
                                **self._sim_kw)
         item = _unported_amr(params, self.sim0, mesh)
@@ -585,7 +603,10 @@ class AmrSimulation:
         self.u_old[l] = self.u[l]
         if l == 0:
             sim = self.sim0
-            out = sim._step_impl(self.u[0], dt, t_level)
+            if sim.sdc is not None:  # castro_tpu/driver/amr.py:261-286
+                out = _sdc_level_step(sim, self.u[0], dt, t_level, sim.keep_fluxes)
+            else:
+                out = sim._step_impl(self.u[0], dt, t_level)
         else:
             lev = self._get_level(l, self.window[l][1])
             sim = lev.sim

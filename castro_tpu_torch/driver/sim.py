@@ -38,8 +38,13 @@ hybrid momenta for clean_fill (`:384`).
 `StepCtx` carries how a step fills ghosts and reduces, and its geometry:
 the AMR driver (`driver/amr.py`) steps its windows through it, with the
 head fill and the status reductions of an explicit context, and a
-window's composite-gravity BCs. Radiation, MHD, SDC and I/O are not
-ported (ROADMAP.md); a configuration that needs them raises.
+window's composite-gravity BCs. With castro.time_integration_method=2 a
+step is true SDC (`sdc/__init__.py`: order 2, or 4 on Lobatto or Radau
+nodes, over the MOL operators of `ops/mol.py` and `ops/fourth_order.py`,
+whose Riemann solves take the cmpflx kernel); with 3 and a reacting
+network it is simplified SDC, the CTU step's advective term feeding the
+forced burner (`_ssdc_step_impl`). Radiation, MHD and I/O are not ported
+(ROADMAP.md); a configuration that needs them raises.
 """
 
 from __future__ import annotations
@@ -115,9 +120,6 @@ def _unported(params):
     c = params.castro
     checks = [
         (c.do_hydro != 1, "castro.do_hydro=0 (queue 1 item 10)"),
-        (c.time_integration_method != 0,
-         f"castro.time_integration_method={c.time_integration_method}, SDC and MOL "
-         "(queue 1 item 12)"),
         (bool(c.do_radiation), "radiation (queue 1 item 9)"),
         (bool(c.do_mhd), "MHD (queue 1 item 11)"),
         (bool(c.do_scf_initial_model),
@@ -216,12 +218,31 @@ class Simulation:
         self._kernel_clean_fill = (self._kernel_prim and problem_fill is None
                                    and not self.layout.hybrid_momentum
                                    and c.speed_limit <= 0.0)
-        # Strang reaction coupling (reactions/strang.py)
+        # Strang reaction coupling (reactions/strang.py); the SDC modes
+        # couple the reactions themselves
         self.reactor = None
-        if c.do_react and self.network.reactive:
+        tim = c.time_integration_method
+        if c.do_react and self.network.reactive and tim == 0:
             from castro_tpu_torch.reactions.strang import StrangReactor
 
             self.reactor = StrangReactor(params, self.network, self.eos, self.layout)
+        # SDC time integration (sdc/__init__.py; castro_tpu/driver/sim.py:
+        # 193-212): true SDC of order 2, or 4 on Lobatto or Radau nodes;
+        # simplified SDC with a reacting network (without one,
+        # time_integration_method=3 takes the CTU step)
+        self.sdc = None
+        self.sdc_simplified = None
+        if tim == 2:
+            from castro_tpu_torch.sdc import TrueSDC2, TrueSDC4, TrueSDC4Radau
+
+            if int(c.sdc_order) >= 4:
+                self.sdc = TrueSDC4Radau(self) if c.sdc_quadrature == 1 else TrueSDC4(self)
+            else:
+                self.sdc = TrueSDC2(self)
+        elif tim == 3 and c.do_react and self.network.reactive:
+            from castro_tpu_torch.sdc import SimplifiedSDC
+
+            self.sdc_simplified = SimplifiedSDC(self)
         self._burn_fail = None
         self.t = 0.0
         self.step_count = 0
@@ -475,17 +496,81 @@ class Simulation:
 
         out = (u_new, min_rho, nan_flag)
         if self.keep_fluxes:
-            ng, dim = self.ng, L.dim
-            fint = []
-            for d in range(dim):
-                idx = [slice(None)] + [slice(ng, -ng)] * dim
-                idx[1 + d] = slice(ng, u.shape[1 + d] - ng + 1)
-                fint.append(fluxes[d][tuple(idx)])
-            out = out + (fint,)
+            out = out + (self._interior_fluxes(fluxes, u.shape[1:]),)
         del fluxes
         if c.source_term_predictor == 1:
             out = out + (pred_out if pred_out is not None else torch.zeros_like(u),)
         return out
+
+    def _interior_fluxes(self, fluxes, grown):
+        """The interior face fluxes of per-direction fluxes on the grown
+        grid of shape `grown`: along d the n+1 faces of the interior,
+        across it the interior cells."""
+        ng, dim = self.ng, self.layout.dim
+        fint = []
+        for d, f in enumerate(fluxes):
+            idx = [slice(None)] + [slice(ng, -ng)] * dim
+            idx[1 + d] = slice(ng, grown[d] - ng + 1)
+            fint.append(f[tuple(idx)])
+        return fint
+
+    def _sdc_step(self, u, dt, t, keep_fluxes=False):
+        """One true-SDC step of the ghost-filled state u (sdc/__init__.py):
+        (u_new, min_rho, nan_flag, burn_fail) as 0-d tensors, the interior's
+        min density and non-finite flag taken after the step's clean + fill
+        as the JAX package takes them (`castro_tpu/driver/sim.py:1186-1193`);
+        with `keep_fluxes` the interior face fluxes of the step's time
+        average follow, for the AMR flux registers
+        (`castro_tpu/driver/amr.py:149-173`, `:261-286`)."""
+        out = self.sdc.advance(u, dt, t, keep_fluxes=keep_fluxes)
+        u_new, fail = out[0], out[1]
+        inner = u_new[interior_slice(self.ng, self.layout.dim)]
+        res = (u_new, torch.min(inner[self.layout.URHO]), ~torch.isfinite(torch.sum(inner)),
+               fail)
+        if keep_fluxes:
+            res = res + (self._interior_fluxes(out[2], u.shape[1:]),)
+        return res
+
+    def _ssdc_step_impl(self, u, dt, t):
+        """One simplified-SDC step (castro_tpu/driver/sim.py:1010-1036): the
+        CTU advective term with the sources summed into it feeds the
+        full-dt coupled burn of SimplifiedSDC, twice; then clean + fill.
+        The advective term takes the kernels of the CTU step on the
+        default context (in 3D prim_aux, flatten, trace_ppm, ctu_face; in
+        1D and 2D cmpflx and trans_cmpflx). Returns (u_new, min_rho,
+        nan_flag) as 0-d tensors, the burn's failure folded into the flag,
+        the checks taken before the clean."""
+        L = self.layout
+        cfg = self.cfg
+        dtw = K.wt(dt, self.dtype)
+
+        def advective(u_k):
+            u_k = self._fill(u_k)
+            div_node = None
+            if self._kernel_prim:
+                q, qaux, div_node = K.prim_aux(u_k, L, self.eos, cfg.small_dens,
+                                               self.small_temp, self.geom.dx)[:3]
+            else:
+                q, qaux = au.ctoprim(u_k, L, self.eos, cfg.small_dens, self.small_temp)
+            src = None
+            if self.source_fns:
+                src = torch.zeros_like(u_k)
+                for fn in self.source_fns:
+                    src = src + fn(self, u_k, q, qaux, t, dtw)
+            srcQ = None if src is None else au.src_to_prim(q, qaux, src, L)
+            hsrc = ctu_hydro(u_k, q, qaux, srcQ, dtw, self.geom, L, cfg, div_node=div_node)[0]
+            return hsrc if src is None else hsrc + src
+
+        self._reset_sources()
+        try:
+            u_new, burn_fail = self.sdc_simplified.advance(self._fill(u), dtw, t, advective)
+        finally:
+            self._reset_sources()
+        inner = u_new[interior_slice(self.ng, L.dim)]
+        min_rho = torch.min(inner[L.URHO])
+        nan_flag = ~torch.isfinite(torch.sum(inner))
+        u_new = self._clean_fill_impl(u_new)
+        return u_new, min_rho, nan_flag | burn_fail
 
     def _pointmass_fix_impl(self, u_old, u_new, point_mass):
         """point_mass_fix_solution=1 (Castro_pointmass.cpp:155): where the
@@ -514,6 +599,15 @@ class Simulation:
         the step's dS/dt for the next (source_term_predictor=1) and applies
         the point-mass fix (point_mass_fix_solution=1)."""
         t = self.t if t is None else t
+        if self.sdc is not None:
+            # one host sync for the checks (castro_tpu/driver/sim.py:1186-1193)
+            u_new, *checks = self._sdc_step(self.u, dt, t)
+            min_rho, nan, fail = torch.stack([x.to(torch.float64) for x in checks]).tolist()
+            return u_new, StepStatus(min_rho=min_rho, has_nan=bool(nan), burn_fail=bool(fail))
+        if self.sdc_simplified is not None:
+            u_new, *checks = self._ssdc_step_impl(self.u, dt, t)
+            min_rho, nan = torch.stack([x.to(torch.float64) for x in checks]).tolist()
+            return u_new, StepStatus(min_rho=min_rho, has_nan=bool(nan))
         stp = self.params.castro.source_term_predictor == 1
         pm = None
         if self._pm_fix:

@@ -29,7 +29,10 @@ evaluations and the Jacobian's backward pass). W is factored in torch ops
 be captured.
 
 Burn state: y = [X_0..X_{nspec-1}, e]; density is constant over the burn
-(the reference's burn_t)."""
+(the reference's burn_t). With `with_forcing` (the SDC couplings) the RHS
+gains a piecewise-constant advective forcing, constant over the burn: it
+adds to the RHS and leaves the Jacobian as it is; on the card it is one
+more static input of the captured iteration, copied in before the replays."""
 
 from __future__ import annotations
 
@@ -85,10 +88,14 @@ class BurnStats:
         self.zone_steps = None
 
 
-def make_burner(network, eos, rtol=1e-6, atol_x=1e-8, atol_e=1e-6, max_substeps=1024):
-    """Returns burn(rho, T, xn, e, dt) -> (xn_new, e_new, fail), all
-    arrays of the grid's shape (xn [nspec, ...]); `burn.stats` holds the
-    last call's BurnStats, `burn.rosenbrock_step` the step itself."""
+def make_burner(network, eos, rtol=1e-6, atol_x=1e-8, atol_e=1e-6, max_substeps=1024,
+                with_forcing=False):
+    """Returns burn(rho, T, xn, e, dt[, xdot_force, edot_force]) -> (xn_new,
+    e_new, fail), all arrays of the grid's shape (xn and xdot_force [nspec,
+    ...]); `burn.stats` holds the last call's BurnStats,
+    `burn.rosenbrock_step` the step itself. `with_forcing`: the burn
+    integrates dX/dt = xdot + xdot_force, de/dt = edot + edot_force (the
+    simplified-SDC coupling, reference `Castro_react.cpp:239-480`)."""
     nspec = network.nspec
     ny = nspec + 1
 
@@ -120,10 +127,15 @@ def make_burner(network, eos, rtol=1e-6, atol_x=1e-8, atol_e=1e-6, max_substeps=
                                           allow_unused=True, materialize_grads=True)
         return rows.permute(1, 0, 2).to(y.dtype)
 
-    def rosenbrock_step(y, rho, h):
-        """One ode23s step, batched: y [nz, ny], rho [nz], h [nz].
-        Returns (y_new, err)."""
-        f0 = rhs_v(y, rho)
+    def rosenbrock_step(y, rho, h, force=None):
+        """One ode23s step, batched: y [nz, ny], rho [nz], h [nz], the
+        forcing [nz, ny] or None. Returns (y_new, err)."""
+
+        def rhs_f(y_):
+            f = rhs_v(y_, rho)
+            return f if force is None else f + force
+
+        f0 = rhs_f(y)
         J = jac_v(y, rho)
         eye = torch.eye(ny, dtype=y.dtype, device=y.device)
         W = eye[None] - (h * D)[:, None, None] * J
@@ -133,22 +145,22 @@ def make_burner(network, eos, rtol=1e-6, atol_x=1e-8, atol_e=1e-6, max_substeps=
             return torch.linalg.lu_solve(LU, piv, b[..., None])[..., 0]
 
         k1 = solve(f0)
-        f1 = rhs_v(y + 0.5 * h[:, None] * k1, rho)
+        f1 = rhs_f(y + 0.5 * h[:, None] * k1)
         k2 = solve(f1 - k1) + k1
         y_new = y + h[:, None] * k2
-        f2 = rhs_v(y_new, rho)
+        f2 = rhs_f(y_new)
         k3 = solve(f2 - E32 * (k2 - f1) - 2.0 * (k1 - f0))
         err = (h / 6.0)[:, None] * (k1 - 2.0 * k2 + k3)
         return y_new, err
 
     def masked_iteration(st):
         """One iteration of the JAX package's loop body over every zone of a
-        chunk, in place on st = [y, rho, t, h, steps, active, dt, t_done]:
-        the step is kept where the zone was active, and `active` is
-        recomputed for the next iteration."""
-        y, rho, t, h, steps, active, dt_t, t_done_t = st
+        chunk, in place on st = [y, rho, t, h, steps, active, dt, t_done
+        (, force)]: the step is kept where the zone was active, and `active`
+        is recomputed for the next iteration."""
+        y, rho, t, h, steps, active, dt_t, t_done_t = st[:8]
         h_eff = torch.where(active, torch.minimum(h, dt_t - t), h)
-        y_new, err = rosenbrock_step(y, rho, h_eff)
+        y_new, err = rosenbrock_step(y, rho, h_eff, st[8] if len(st) > 8 else None)
         scale = atol_x + rtol * torch.maximum(torch.abs(y), torch.abs(y_new))
         scale_e = atol_e + rtol * torch.maximum(torch.abs(y[:, nspec]), torch.abs(y_new[:, nspec]))
         scale = torch.cat([scale[:, :nspec], scale_e[:, None]], dim=1)
@@ -168,27 +180,35 @@ def make_burner(network, eos, rtol=1e-6, atol_x=1e-8, atol_e=1e-6, max_substeps=
 
     loop = GraphLoop(masked_iteration)
 
-    def integrate(y0, rho, dt, t_done):
+    def integrate(y0, rho, dt, t_done, force=None):
         """Advance the zones of one chunk; returns (y, t, steps, iterations)."""
         t = torch.zeros_like(rho)
         st = [y0, rho, t, torch.full_like(t, dt / 16.0),
               torch.zeros(rho.shape, dtype=torch.int32, device=rho.device), t < t_done,
               torch.full((), dt, dtype=t.dtype, device=t.device),
               torch.full((), t_done, dtype=t.dtype, device=t.device)]
-        it, st = loop(st, max_substeps, more=lambda s: bool(s[5].any()))  # one sync a substep
+        if force is not None:
+            st.append(force)
+        it, st = loop(st, max_substeps, more=lambda s: bool(s[5].any()),  # one sync a substep
+                      graph=burn.use_graph)
         return st[0].clone(), st[2].clone(), st[4].clone(), it
 
-    def burn(rho, T, xn, e, dt):
+    def burn(rho, T, xn, e, dt, xdot_force=None, edot_force=None):
         shape = rho.shape
         rho_f = rho.reshape(-1)
         y0 = torch.cat([xn.reshape(nspec, -1), e.reshape(1, -1)], dim=0).T.contiguous()
+        force = None
+        if with_forcing:
+            force = torch.cat([xdot_force.reshape(nspec, -1), edot_force.reshape(1, -1)],
+                              dim=0).T.contiguous()
         # completion threshold in units of the working dtype's epsilon
         eps = float(torch.finfo(y0.dtype).eps)
         t_done = dt * (1.0 - 100.0 * eps)
         ys, ts, ss, its = [], [], [], []
         n = CHUNK_CUDA if y0.is_cuda else CHUNK
         for lo in range(0, y0.shape[0], n):
-            y, t, s, it = integrate(y0[lo:lo + n].clone(), rho_f[lo:lo + n], dt, t_done)
+            y, t, s, it = integrate(y0[lo:lo + n].clone(), rho_f[lo:lo + n], dt, t_done,
+                                    None if force is None else force[lo:lo + n])
             ys.append(y), ts.append(t), ss.append(s), its.append(it)
         y, t = torch.cat(ys), torch.cat(ts)
         burn.stats.iterations = max(its) if its else 0
@@ -203,4 +223,5 @@ def make_burner(network, eos, rtol=1e-6, atol_x=1e-8, atol_e=1e-6, max_substeps=
 
     burn.stats = BurnStats()
     burn.rosenbrock_step = rosenbrock_step
+    burn.use_graph = True  # False: the card runs the iteration eagerly (its tests)
     return burn

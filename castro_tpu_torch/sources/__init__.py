@@ -12,9 +12,8 @@ dt, ctx, fluxes)` (gravity, rotation) supplies its own dt*corr instead,
 and the corrections of several such sources add. Thermal diffusion,
 gravity, rotation, the sponge, the hybrid-momentum source (hybrid_hydro),
 a problem's external source and the 2D RZ geometric source are ported.
-The thermodynamic source stays out of the list, as the JAX package keeps
-it out (`castro_tpu/sources/__init__.py:57-60`; ROADMAP.md queue 1 item
-12).
+The thermodynamic source (`sources/thermo_src.py`) stays out of the list,
+as the JAX package keeps it out (`castro_tpu/sources/__init__.py:57-60`).
 """
 
 from __future__ import annotations

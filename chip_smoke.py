@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py            # every phase: the whole run
     python3 chip_smoke.py K          # the build, then the phases named (kernels,
-                                     # A-K, probes, timing); no kernel table
+                                     # A-L, probes, timing); no kernel table
 
 From the root of a checkout, on a machine with one card and the CUDA
 toolkit. Each phase is one function of main() over its shared state. In
@@ -36,7 +36,7 @@ order:
        B  3D Sedov 128^3 with riemann_solver=1 and 64^3 with
           hybrid_riemann=1 (some zones must be flagged as shocks): the
           unfused structure (trace, trans_apply x18, consup x3);
-       C  2D Sedov 4096^2 (cmpflx x2, trans_cmpflx x2) and 1D Sod n=2048
+       C  2D Sedov 4096^2 (cmpflx x2, trans_cmpflx x2) and 1D Sod n=1024
           to t=0.2 (cmpflx), held against the exact Riemann solution;
        D  3D Sedov 128^3 with PLM (ctu_face x9: three 1D solves, three
           corner pairs, three finals with consup) and with the positivity
@@ -51,7 +51,7 @@ order:
           card vs CPU;
        G  two-level AMR (AmrSimulation.run: windows, subcycling, refluxing,
           avgDown, regrids every 2 steps): 3D Sedov 128^3 + 1 level for 10
-          coarse steps, 2D Sedov 1024^2 + 1 level for 5, 1D Sod n=512 + 1
+          coarse steps, 2D Sedov 1024^2 + 1 level for 5, 1D Sod n=256 + 1
           level to t=0.2 against the exact solution; launch counts against
           the hierarchy's structure (tried level steps, avgDowns, windows
           made), the kernels held on the level-1 window's state, and a
@@ -121,6 +121,25 @@ order:
           StarGrav, hydrostatic_adjust, hse_convergence_general and the
           general acoustic pulse one step each, double_bubble, celldet,
           wdmerger problem 0 and nse_test's initial state card vs CPU;
+       L  SDC and MOL (a MOL evaluation's Riemann solves are cmpflx
+          launches, the rest torch ops; clean_fill after each node update
+          in 3D) and the hydro test setups, float64: L4, true SDC-4 on
+          Lobatto nodes on the 3D acoustic pulse at 128^3, 2 steps timed
+          after a warm one (78 cmpflx launches a step), cmpflx bit for bit
+          on the step's MOL-4 faces in float64 and float32; L-rad (Radau,
+          102) and L2 (SDC-2, 9) at 64^3; the three at 16^3 card vs CPU;
+          L-det, the 1D detonation (n=512) in simplified SDC, SDC-2 and
+          SDC-4 for 20 steps each, the fuel burnt, n=64 card vs CPU; L-blob,
+          H3's blob with simplified SDC at 64^3 (the CTU step's five 3D
+          kernels, two evaluations a step, and the forced burner), one step
+          at 1/8 of the CFL dt after the burner's capture with its burn
+          share, 8^3 card vs CPU; L-amr, the 2D pulse 512^2 + 1 level with
+          SDC-4, 2 coarse steps, mass to 1e-12, 64^2 card vs CPU; L-set,
+          every hydro test setup (KH, RT, Noh, gresho, oddeven, the torus,
+          lw_acoustics, the riemann_2d configurations, the Helmholtz shock
+          tubes) at its default size, init + 2 steps, riemann_2d config 3
+          and sod_stellar test 1 card vs CPU; the CPU references in a
+          worker process beside the card;
      then the probe entry points (castro_tpu_torch/scripts/prof_cmpflx.py
      at 128^3 and prof_vpu.py), each probe first held against its plain
      version (probe_cmpflx at every tiling and probe_copy bit for bit,
@@ -180,7 +199,7 @@ RAGGED = (29, 21, 37)             # interior cells; 37 x 29 x 45 grown, all prim
 N_HYBRID, STEPS_HYBRID = 64, 20   # path B with hybrid_riemann
 N_2D, STEPS_2D = 4096, 10         # path C
 N_2D_SMALL = 64
-N_1D = 2048                       # path C: 1D Sod (cut from 4096)
+N_1D = 1024                       # path C: 1D Sod (cut from 4096, then 2048)
 SOD_L1_BOUND = 0.015              # mean |rho - exact| / mean exact (tests/test_sod.py)
 N_RZ, STEPS_RZ = 2048, 10         # path E: RZ N x 2N, timed
 N_SPH = 512                       # path E: RZ N x 2N and 1D spherical N to t=0.01 (cut
@@ -189,7 +208,7 @@ RZ_L1_BOUND, RZ_PEAK_CELLS = 0.05, 2   # tests/test_sedov_analytic.py
 DMR_CHECK, DMR_BIG, STEPS_DMR = (128, 32), (2048, 512), 10   # path F
 N_AMR, STEPS_AMR = 128, 10        # path G: 3D Sedov with one refined level (256^3 effective)
 N_AMR_2D, STEPS_AMR_2D = 1024, 5  # path G: 2D Sedov
-N_AMR_1D = 512                    # path G: 1D Sod to t=0.2 (cut from 1024)
+N_AMR_1D = 256                    # path G: 1D Sod to t=0.2 (cut from 1024, then 512)
 N_H3, STEPS_H3 = 64, 1            # path H: the burning blob, steps of each EOS (cut from
                                   # 128^3 to keep the whole smoke within 1000 s)
 N_BLOB_CPU = 8                    # paths H, I: the blob's card-vs-CPU copy (the CPU burns
@@ -208,7 +227,7 @@ N_I1 = 128                        # path I: 1D spherical DustCollapse to 0.6 t_f
 N_IG, STEPS_IG = 64, 1            # path I: composite gravity, 3D blob + one level, timed
                                   # (cut from 2 coarse steps)
 N_IG_CPU = 32                     # path I: composite gravity's 2D card-vs-CPU copy
-N_FW, STEPS_FW = (256, 128), 2   # path J: flame_wave, timed after init_data (cut from 512
+N_FW, STEPS_FW = (256, 128), 1   # path J: flame_wave, timed after init_data (cut from 512
                                   # x 256 and 3 steps; at 1024 x 512
                                   # the smoke would not end within its time limit)
 N_FW_CPU = (32, 16)               # path J: flame_wave's card-vs-CPU copy, one step (cut
@@ -233,6 +252,27 @@ F32_VS_F64 = 1e-4                 # card float32 against CPU float64 (tests/test
 CPU_JOB_THREADS = 3               # path K: torch threads of the worker process that runs
                                   # the CPU references beside the card's process
 F64_RTOL = 1e-8                   # card float64 against CPU float64, coupled burns
+# path L: SDC and MOL. name -> (sdc_order, sdc_quadrature); the cmpflx launches
+# of a step a dimension: MOL evaluations (3, 13 on Lobatto nodes, 17 on Radau
+# nodes) x Riemann solves a direction (1 at order 2, 2 at order 4)
+L_SDC = {"L4": (4, 0), "L-rad": (4, 1), "L2": (2, 0)}
+L_SOLVES = {(4, 0): 26, (4, 1): 34, (2, 0): 3}
+N_L4, STEPS_L4 = 128, 2           # L4: the 3D acoustic pulse, float64, timed after 1 warm step
+N_LSMALL = 64                     # L-rad, L2: one step each
+N_LCMP, L_DT_CMP = 16, 2e-3       # L-cmp: L4, L-rad, L2 card vs CPU, one step at this dt
+N_LDET, STEPS_LDET = 512, 20      # L-det: the 1D detonation in the three SDC modes
+N_LDET_CPU, STEPS_LDET_CPU = 64, 10  # L-det card vs CPU, at the CFL dt of the initial state
+# L-det's modes: name -> (time_integration_method, sdc_order); cmpflx launches a step
+L_DET = {"simplified": (3, 2, 2), "sdc2": (2, 2, 3), "sdc4": (2, 4, 26)}
+N_LBLOB = 64                      # L-blob: H3's blob with time_integration_method=3, float64
+                                  # (in float32 the forced burn fails in the hot zones, in
+                                  # the JAX package too: PERF.md, path L)
+L_BLOB_DT_FRAC = 1 / 8            # L-blob: its timed step at this fraction of the CFL dt
+                                  # (cut from 1: the full step's two forced burns take
+                                  # ~400 iterations each, 77 s at 64^3: PERF.md, path L)
+N_LAMR, STEPS_LAMR = 512, 2       # L-amr: 2D acoustic pulse + 1 level, SDC-4, float64
+N_LAMR_CPU = 64
+N_LSET_CPU = {"riemann_2d": 64, "sod_stellar": 128}  # L-set card vs CPU, 2 steps
 # the reacting layouts held kernel vs plain: (nspec, naux, shock flag,
 # hybrid momenta)
 LAYOUTS = [(7, 0, False, False), (13, 0, False, False), (19, 0, False, False),
@@ -663,15 +703,95 @@ def k_burn_react(nse_on, n_b, where):
     return out, time.perf_counter() - t0, reactor.burner.stats.iterations, Lb
 
 
+def l_box_tag(sim, u_int, level):
+    """Path L's AMR tags: the cells within 0.3 < x, y < 0.7."""
+    m = None
+    for d in range(sim.geom.dim):
+        x = sim.geom.cell_centers(d, 0)
+        t = (x > 0.3) & (x < 0.7)
+        m = t if m is None else m & t
+    return m.expand(tuple(u_int.shape[1:]))
+
+
+def l_sim(kind, device, n, order=4, quad=0, tim=2, dtype="float64", dim=3, fixed_dt=-1.0):
+    """Path L's runs, built alike on the card and in the worker process:
+    "pulse" the acoustic pulse with true SDC, "det" the 1D detonation with
+    time_integration_method `tim`, "blob" path H3's blob (iso7, the gamma
+    law) in float64 with simplified SDC (at `fixed_dt` where positive),
+    "amr" the 2D pulse + one level with SDC-4, "riemann_2d" configuration
+    3, "sod_stellar" test 1."""
+    from castro_tpu_torch.driver.sim import Simulation
+    from castro_tpu_torch.problems import (acoustic_pulse, burning_blob, detonation,
+                                           riemann_2d, sod_stellar)
+
+    sdc = dict(time_integration_method=tim, sdc_order=order, sdc_quadrature=quad)
+    if kind == "pulse":
+        p = acoustic_pulse.make_params(n=n, dim=dim, dtype=dtype).with_ns("castro", **sdc)
+        return Simulation(p, problem_init=acoustic_pulse.problem_init, device=device)
+    if kind == "det":
+        p = detonation.make_params(n=n, tim=tim).with_ns("castro", sdc_order=order)
+        return Simulation(p, problem_init=detonation.problem_init, device=device)
+    if kind == "blob":
+        p = burning_blob.make_params(n=n, dtype="float64", eos="gamma_law").with_ns(
+            "castro", time_integration_method=3, fixed_dt=fixed_dt)
+        return Simulation(p, problem_init=burning_blob.problem_init, device=device)
+    if kind == "amr":
+        from castro_tpu_torch.driver.amr import AmrSimulation
+
+        p = acoustic_pulse.make_params(n=n, dim=2).with_ns("castro", use_retry=0, **sdc)
+        p = p.with_ns("amr", max_level=1, regrid_int=0)
+        return AmrSimulation(p, problem_init=acoustic_pulse.problem_init,
+                             problem_tagging=l_box_tag, device=device)
+    if kind == "riemann_2d":
+        return Simulation(riemann_2d.make_params(n=n, config=3),
+                          problem_init=riemann_2d.problem_init, device=device)
+    if kind == "sod_stellar":
+        return Simulation(sod_stellar.make_params(test=1, n=n),
+                          problem_init=sod_stellar.problem_init, device=device)
+    raise ValueError(kind)
+
+
+def l_steps(kind, device, n, dts, **kw):
+    """One of path L's runs stepped by advance at the dts given (an AMR
+    hierarchy's covered cells first averaged down from the fine level).
+    Returns (the interior, or each level's interior, as float64 CPU
+    tensors; the seconds of the steps; the burner's iterations or None)."""
+    import torch
+
+    s_ = l_sim(kind, device, n, **kw)
+    s_.init_data()
+    if kind == "amr":
+        s_._avg_down(0)
+    if device != "cpu":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for d_ in dts:
+        s_.advance(d_)
+    if device != "cpu":
+        torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    if kind == "amr":
+        return [s_.interior(l_).double().cpu() for l_ in range(2)], secs, None
+    burner = getattr(s_.sdc or s_.sdc_simplified, "burner", None)
+    return s_.interior().double().cpu(), secs, None if burner is None else \
+        burner.stats.iterations
+
+
 def cpu_job(kind, *args):
-    """Path K's CPU references, run in a worker process while the card's
-    process goes on: ("ms", params, model, dt) one massive_star step,
-    ("burn", nse_on) K-burn's 2^3 corner. Returns numpy arrays, the
-    burner's iterations and the seconds."""
+    """The CPU references of paths K and L, run in a worker process while
+    the card's process goes on: ("ms", params, model, dt) one massive_star
+    step, ("burn", nse_on) K-burn's 2^3 corner, ("l", l_steps' arguments)
+    one of path L's runs. Returns numpy arrays, the burner's iterations
+    and the seconds."""
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import torch
 
     torch.set_num_threads(CPU_JOB_THREADS)
+    if kind == "l":
+        lkind, n, dts, kw = args
+        out, secs, iters = l_steps(lkind, "cpu", n, dts, **kw)
+        out = [o.numpy() for o in out] if isinstance(out, list) else out.numpy()
+        return out, iters, secs
     if kind == "burn":
         out, secs, iters, _ = k_burn_react(args[0], 2, "cpu")
         return ([o.numpy() for o in out[:3]] + [bool(out[3])], iters, secs)
@@ -2963,6 +3083,345 @@ def main(argv=()):
         finally:
             pool.shutdown(wait=True, cancel_futures=True)
 
+    def path_l_body(pool):
+        # path L: SDC and MOL (sdc/__init__.py, ops/mol.py, ops/fourth_order.py)
+        # and the hydro test setups (problems/hydro_tests.py, riemann_2d.py,
+        # sod_stellar.py). True SDC's MOL evaluations solve their Riemann
+        # problems through cmpflx (1 a direction at order 2, 2 at order 4),
+        # everything else in them is torch ops but clean_fill (3D, after each
+        # node update); simplified SDC's advective term is the CTU step's
+        # kernels. The CPU references run in the worker process beside the
+        # card's work, submitted first.
+        from castro_tpu_torch.ops import fourth_order as t4
+        from castro_tpu_torch.problems import hydro_tests, riemann_2d, sod_stellar
+
+        l_results = ctx.l_results = {}
+
+        def sync_s():
+            torch.cuda.synchronize()
+            return time.perf_counter()
+
+        # the dts of the comparisons, from the CPU's initial states (cheap)
+        def first_dt(kind, n, **kw):
+            s_ = l_sim(kind, "cpu", n, **kw)
+            s_.init_data()
+            return s_.estimate_dt()
+
+        cmp_runs = {}
+        for key, (order, quad) in L_SDC.items():
+            cmp_runs[f"{key}-cmp"] = ("pulse", N_LCMP, [L_DT_CMP], dict(order=order, quad=quad))
+        for mode, (tim, order, _) in L_DET.items():
+            dt_ = first_dt("det", N_LDET_CPU, tim=tim, order=order)
+            cmp_runs[f"L-det-{mode}-cmp"] = ("det", N_LDET_CPU, [dt_] * STEPS_LDET_CPU,
+                                             dict(tim=tim, order=order))
+        cmp_runs["L-blob-cmp"] = ("blob", N_BLOB_CPU, [first_dt("blob", N_BLOB_CPU)], {})
+        cmp_runs["L-amr-cmp"] = ("amr", N_LAMR_CPU, [first_dt("pulse", N_LAMR_CPU, dim=2)] * 2,
+                                 {})
+        for kind, n_ in N_LSET_CPU.items():
+            cmp_runs[f"L-set-{kind}-cmp"] = (kind, n_, [first_dt(kind, n_)] * 2, {})
+        jobs = {key: pool.submit(cpu_job, "l", *run) for key, run in cmp_runs.items()}
+
+        def card_vs_cpu_l(key, rtol, species=False):
+            """The same run on the card, against the worker's: rtol |cpu| +
+            rtol max|cpu| per component; with `species` the mass fractions
+            within rtol (a zone's total is one)."""
+            kind, n_, dts, kw = cmp_runs[key]
+            got, secs, iters = l_steps(kind, "cuda", n_, dts, **kw)
+            ref, iters_cpu, secs_cpu = jobs[key].result()
+            got = got if isinstance(got, list) else [got]
+            ref = [torch.as_tensor(r_) for r_ in (ref if isinstance(ref, list) else [ref])]
+            s_ = l_sim(kind, "cpu", n_, **kw)
+            Ls = s_.sim0.layout if hasattr(s_, "sim0") else s_.layout
+            x_err = 0.0
+            if species:
+                spec = slice(Ls.UFS, Ls.UFS + Ls.nspec)
+                x_err = max(float((g_[spec] / g_[Ls.URHO] - r_[spec] / r_[Ls.URHO]).abs().max())
+                            for g_, r_ in zip(got, ref))
+                rest = [c_ for c_ in range(Ls.NVAR) if not Ls.UFS <= c_ < Ls.UFS + Ls.nspec]
+                got, ref = [g_[rest] for g_ in got], [r_[rest] for r_ in ref]
+            err, rel, ok = compare(got, ref, rtol, floor=True)
+            ok = ok and x_err <= rtol
+            print(f"card vs CPU, {key}: {kind} n={n_}, {len(dts)} step(s) at dt {dts[0]:.6e}: card "
+                  f"{secs:.3f} s, CPU {secs_cpu:.3f} s (worker process); burner iterations card "
+                  f"{iters}, CPU {iters_cpu}; max abs err {err:.3e} rel {rel:.3e} (tol {rtol:g}|cpu| "
+                  f"+ {rtol:g} max|cpu| per component{', mass fractions ' + f'{x_err:.3e}' if species else ''}) "
+                  f"{'ok' if ok else 'DISAGREES'}", flush=True)
+            if not ok:
+                compare(got, ref, rtol, floor=True, report=True)
+                fail(f"path {key}: the card and the CPU disagree")
+            l_results[key] = dict(max_abs_err=err, max_rel_err=rel, x_err=x_err, card_s=secs,
+                                  cpu_s=secs_cpu)
+
+        def drive_l(label, sim, per_step, steps, warm=0, conserves_mass=True, burner=None):
+            """`warm` steps, then `steps` steps through Simulation.run with the
+            launch counts zeroed just before and read just after, held against
+            per_step x the steps tried (clean_fill once more at init where the
+            kernel cleans); finite values, mass conservation (periodic or
+            closed boxes) where asked. Returns (ms a step, peak GiB, the
+            burner's seconds and iterations a call over the timed steps)."""
+            print(f"main path {label}, Simulation.run on the card {elapsed()}", flush=True)
+            tries = {"n": 0}
+            try_step = sim.try_step
+
+            def counted(*a_, **kw_):
+                tries["n"] += 1
+                return try_step(*a_, **kw_)
+
+            sim.try_step = counted
+            bst = dict(s=0.0, calls=0, iters=[])
+            if burner is not None:
+                holder, attr = burner
+                burn = getattr(holder, attr)
+
+                def timed_burn(*a_, **kw_):
+                    t0_ = sync_s()
+                    out = burn(*a_, **kw_)
+                    bst["s"] += sync_s() - t0_
+                    bst["calls"] += 1
+                    bst["iters"].append(burn.stats.iterations)
+                    return out
+
+                setattr(holder, attr, timed_burn)
+            K.reset_launch_counts()
+            sim.init_data()
+            clean0 = K.launch_counts()["clean_fill"]
+            if warm:
+                sim.run(max_step=warm, verbose=False)
+                torch.cuda.synchronize()
+                K.reset_launch_counts()
+                tries["n"] = 0
+                clean0 = 0
+                bst.update(s=0.0, calls=0, iters=[])
+            mass0 = mass(sim)
+            torch.cuda.reset_peak_memory_stats()
+            t0_ = sync_s()
+            sim.run(max_step=warm + steps, verbose=False)
+            wall = sync_s() - t0_
+            launches = K.launch_counts()
+            n = tries["n"]
+            expected = {name: per_step.get(name, 0) * n for name in launches}
+            expected["clean_fill"] += clean0
+            print(f"  {steps} steps ({n} tried) after {warm} warm, t = {sim.t:.6e}; launches "
+                  f"{launches}; expected {expected}")
+            if launches != expected or any(launches[k_] == 0 for k_, v in per_step.items() if v):
+                fail(f"path {label}: the launch counts do not match the step's structure")
+            if not bool(torch.isfinite(sim.interior()).all()):
+                fail(f"path {label}: non-finite state")
+            mass1 = mass(sim)
+            dm = abs(mass1 - mass0) / mass0
+            print(f"  mass: {mass0:.12e} -> {mass1:.12e}, relative change {dm:.3e} "
+                  + (f"(limit 1e-12)" if conserves_mass else "(open boundaries: not checked)"))
+            if conserves_mass and dm > 1e-12:
+                fail(f"path {label}: mass is not conserved")
+            path_launches[label] = launches
+            sim.try_step = try_step
+            if burner is not None:
+                setattr(burner[0], burner[1], burn)
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            return 1e3 * wall / steps, peak, bst
+
+        def mol4_solves(sim, u, dtype):
+            """Every cmpflx argument tuple of one MOL-4 evaluation of u (in
+            `dtype`): per direction the face-centre states, then the
+            face-average states (ops/fourth_order.py:mol4_face_states)."""
+            L, cfg = sim.layout, sim.cfg
+            q_cc, q_avg, qaux, flatn = t4.mol4_prims(sim._fill(u).to(dtype), L, cfg, sim.eos,
+                                                     sim.small_temp)
+            c_, g_ = qaux[L.QC], qaux[L.QGAMC]
+            out = []
+            for d in range(L.dim):
+                qm, qp = t4.mol4_face_states(q_cc, q_avg, flatn, d, L)
+                aux = (shifted(g_, -1, d), g_, shifted(c_, -1, d), c_)
+                for a_, b_ in ((t4.face_avg_to_center(qm, d, L.dim),
+                                t4.face_avg_to_center(qp, d, L.dim)), (qm, qp)):
+                    out.append((a_.contiguous(), b_.contiguous(), *aux, d, L, sim.geom.coord,
+                                cfg.riemann_solver, cfg.small_dens, cfg.small_pres))
+            return out
+
+        # L4: true SDC-4 on Lobatto nodes, the 3D acoustic pulse at 128^3 in
+        # float64; then cmpflx bit for bit on the MOL-4 faces of its state
+        SDC3 = {key: {"cmpflx": 3 * L_SOLVES[oq], "clean_fill": {(4, 0): 8, (4, 1): 12,
+                                                                  (2, 0): 3}[oq]}
+                for key, oq in L_SDC.items()}
+        sim = l_sim("pulse", "cuda", N_L4, order=4, quad=0)
+        ms, peak, _ = drive_l(f"L4: SDC-4 Lobatto, 3D acoustic pulse {N_L4}^3 float64, "
+                              f"{STEPS_L4} steps", sim, SDC3["L4"], STEPS_L4, warm=1)
+        zones = N_L4 ** 3
+        print(f"  [{card}] L4: {ms:.1f} ms a step, {zones / (ms / 1e3):.6e} zones/s, peak memory "
+              f"{peak:.3f} GiB; cmpflx {3 * L_SOLVES[(4, 0)]} launches a step (13 MOL-4 "
+              f"evaluations x 2 solves x 3 directions)", flush=True)
+        prof = profile_steps(sim, 1, card)  # the device's time by kernel, one more step
+        l_results["L4"] = dict(step_ms=ms, zones_per_s=zones / (ms / 1e3), peak_gib=peak,
+                               cmpflx_per_step=3 * L_SOLVES[(4, 0)], mol_evaluations=13,
+                               profile=prof)
+        for dtype in (torch.float64, torch.float32):
+            for k_, args in enumerate(mol4_solves(sim, sim.u, dtype)):
+                what = (f"L4 MOL-4 {'face-centre' if k_ % 2 == 0 else 'face-average'} "
+                        f"d={k_ // 2} {str(dtype)[6:]}")
+                check("cmpflx", K.cmpflx(*args), K.cmpflx_plain(*args), what)
+        del sim
+        torch.cuda.empty_cache()
+
+        # L-rad, L2: SDC-4 on Radau nodes and SDC-2 at 64^3, one step each
+        for key in ("L-rad", "L2"):
+            order, quad = L_SDC[key]
+            sim = l_sim("pulse", "cuda", N_LSMALL, order=order, quad=quad)
+            ms, peak, _ = drive_l(f"{key}: SDC-{order} {'Radau' if quad else 'Lobatto'}, 3D "
+                                  f"acoustic pulse {N_LSMALL}^3 float64, 1 step", sim, SDC3[key], 1)
+            l_results[key] = dict(step_ms=ms, zones_per_s=N_LSMALL ** 3 / (ms / 1e3),
+                                  peak_gib=peak, cmpflx_per_step=SDC3[key]["cmpflx"])
+            print(f"  [{card}] {key}: {ms:.1f} ms a step (with the first step's set-up), "
+                  f"cmpflx {SDC3[key]['cmpflx']} launches a step", flush=True)
+            del sim
+        torch.cuda.empty_cache()
+
+        # L-cmp: the three integrators, 16^3 card vs CPU, float64
+        for key in L_SDC:
+            card_vs_cpu_l(f"{key}-cmp", F64_RTOL)
+
+        # L-det: the 1D detonation in the three SDC modes, 20 steps each
+        for mode, (tim, order, solves) in L_DET.items():
+            sim = l_sim("det", "cuda", N_LDET, tim=tim, order=order)
+            Ld = sim.layout
+            holder = (sim.sdc or sim.sdc_simplified, "burner")
+            sim.init_data()
+            fuel0 = float(sim.interior()[Ld.UFS].double().sum())
+            ms, _, bst = drive_l(f"L-det {mode}: detonation n={N_LDET} float64, {STEPS_LDET} "
+                                 f"steps", sim, {"cmpflx": solves}, STEPS_LDET,
+                                 conserves_mass=False, burner=holder)
+            ratio = float(sim.interior()[Ld.UFS].double().sum()) / fuel0
+            print(f"  [{card}] L-det {mode}: {ms:.2f} ms a step; fuel / initial fuel {ratio:.9f}; "
+                  f"burns {bst['s']:.3f} s, {bst['calls']} burns, iterations "
+                  f"{bst['iters'][:8]}...", flush=True)
+            if not ratio < 1.0:
+                fail(f"L-det {mode}: no fuel burned")
+            l_results[f"L-det-{mode}"] = dict(step_ms=ms, fuel_ratio=ratio,
+                                              burn_s=bst["s"], burns=bst["calls"])
+            card_vs_cpu_l(f"L-det-{mode}-cmp", F64_RTOL, species=True)
+            del sim
+
+        # L-blob: H3's blob (iso7, gamma law) with simplified SDC, float64 (in
+        # float32 the full-dt burn with the advective forcing fails in the hot
+        # zones, the JAX package's too): the forced burner's graph captured by
+        # one burn of the initial state without forcing, then one step at
+        # L_BLOB_DT_FRAC of the initial state's CFL dt
+        sim = l_sim("blob", "cuda", N_LBLOB)
+        sim.init_data()
+        dt_blob = L_BLOB_DT_FRAC * sim.estimate_dt()
+        sim = l_sim("blob", "cuda", N_LBLOB, fixed_dt=dt_blob)
+        sim.init_data()
+        Lb, ub = sim.layout, sim.u
+        zero = torch.zeros_like(ub[Lb.UFS:Lb.UFS + Lb.nspec])
+        t0_ = sync_s()
+        sim.sdc_simplified.burner(ub[Lb.URHO], ub[Lb.UTEMP], ub[Lb.UFS:Lb.UFS + Lb.nspec] /
+                                  ub[Lb.URHO], ub[Lb.UEINT] / ub[Lb.URHO], dt_blob,
+                                  xdot_force=zero, edot_force=zero[0])
+        capture_s = sync_s() - t0_
+        ms, peak, bst = drive_l(f"L-blob: burning blob {N_LBLOB}^3 iso7 gamma law float64, "
+                                f"time_integration_method=3, 1 step at dt {dt_blob:.6e}", sim,
+                                {k_: 2 * v for k_, v in FUSED.items() if k_ != "clean_fill"}
+                                | {"clean_fill": 1}, 1, conserves_mass=False,
+                                burner=(sim.sdc_simplified, "burner"))
+        l_results["L-blob"] = dict(step_ms=ms, zones_per_s=N_LBLOB ** 3 / (ms / 1e3),
+                                   burn_share=bst["s"] / (ms / 1e3), iters=bst["iters"],
+                                   peak_gib=peak, dt=dt_blob, capture_s=capture_s)
+        print(f"  [{card}] L-blob: the graph's capture (a burn without forcing) {capture_s:.3f} "
+              f"s; {ms:.1f} ms a step, burns {bst['s']:.3f} s "
+              f"({bst['s'] / (ms / 1e3):.4f} of the step), {bst['calls']} full-dt burns, "
+              f"iterations {bst['iters']}; peak memory {peak:.3f} GiB", flush=True)
+        del sim
+        torch.cuda.empty_cache()
+        card_vs_cpu_l("L-blob-cmp", F64_RTOL, species=True)
+
+        # L-amr: the 2D pulse 512^2 + one level, SDC-4: a level's step is
+        # 13 MOL-4 evaluations x 2 solves x 2 directions of cmpflx
+        amr = l_sim("amr", "cuda", N_LAMR, dim=2)
+        steps_ = {"n": 0}
+        sdc_step = Simulation._sdc_step
+
+        def counted_sdc(self_, *a_, **kw_):
+            steps_["n"] += 1
+            return sdc_step(self_, *a_, **kw_)
+
+        print(f"main path L-amr: 2D acoustic pulse {N_LAMR}^2 + 1 level, SDC-4 float64, "
+              f"{STEPS_LAMR} coarse steps {elapsed()}", flush=True)
+        amr.init_data()
+        amr._avg_down(0)  # the covered cells from the fine data, so mass is conserved
+        m0 = float(amr.interior(0)[0].double().sum()) / N_LAMR ** 2
+        Simulation._sdc_step = counted_sdc
+        try:
+            K.reset_launch_counts()
+            t0_ = sync_s()
+            amr.run(max_step=STEPS_LAMR, verbose=False)
+            wall = sync_s() - t0_
+            launches = K.launch_counts()
+        finally:
+            Simulation._sdc_step = sdc_step
+        m1 = float(amr.interior(0)[0].double().sum()) / N_LAMR ** 2
+        expected = {k_: (2 * L_SOLVES[(4, 0)] * steps_["n"] if k_ == "cmpflx" else 0)
+                    for k_ in launches}
+        dm = abs(m1 - m0) / m0
+        print(f"  [{card}] {1e3 * wall / STEPS_LAMR:.1f} ms a coarse step; level steps "
+              f"{steps_['n']}, window {tuple(amr.window[1][1])} (+{len(amr.extra[1])} extra); "
+              f"launches {launches}; expected {expected}; mass {m0:.15e} -> {m1:.15e}, "
+              f"relative change {dm:.3e} (limit 1e-12)", flush=True)
+        if launches != expected or dm > 1e-12 or not all(bool(torch.isfinite(u_).all())
+                                                         for u_ in amr.u):
+            fail("path L-amr: launch counts, mass or finiteness")
+        path_launches[f"L-amr: 2D pulse {N_LAMR}^2 + 1 level SDC-4"] = launches
+        l_results["L-amr"] = dict(coarse_step_ms=1e3 * wall / STEPS_LAMR, mass_rel=dm,
+                                  level_steps=steps_["n"], window=list(amr.window[1][1]))
+        del amr
+        torch.cuda.empty_cache()
+        card_vs_cpu_l("L-amr-cmp", F64_RTOL)
+
+        # L-set: every hydro test setup at its JAX default size, init + 2 steps
+        setups = {"kh": (hydro_tests.kh_params(), hydro_tests.kh_init),
+                  "rt": (hydro_tests.rt_params(), hydro_tests.rt_init),
+                  "noh": (hydro_tests.noh_params(), hydro_tests.noh_init),
+                  "gresho": (hydro_tests.gresho_params(), hydro_tests.gresho_init),
+                  "oddeven": (hydro_tests.oddeven_params(), hydro_tests.oddeven_init),
+                  "rotating_torus": (hydro_tests.rotating_torus_params(),
+                                     hydro_tests.rotating_torus_init),
+                  "lw_acoustics": (hydro_tests.lw_acoustics_params(),
+                                   hydro_tests.lw_acoustics_init)}
+        setups.update({f"riemann_2d-c{c_}": (riemann_2d.make_params(config=c_),
+                                             riemann_2d.problem_init)
+                       for c_ in sorted(riemann_2d.CONFIGS)})
+        setups.update({f"sod_stellar-{k_}": (sod_stellar.make_params(test=k_),
+                                             sod_stellar.problem_init)
+                       for k_ in sorted(sod_stellar.TESTS)})
+        set_res = {}
+        for key, (p_, init_) in setups.items():
+            s_ = Simulation(p_, problem_init=init_, device="cuda")
+            K.reset_launch_counts()
+            t0_ = sync_s()
+            s_.init_data()
+            s_.run(max_step=2, verbose=False)
+            wall = sync_s() - t0_
+            launches = {k_: v for k_, v in K.launch_counts().items() if v}
+            # a 1D step with riemanncg (the stellar shock tubes) is torch ops
+            kernels_run = s_.layout.dim == 1 and s_.cfg.riemann_solver == 1 or \
+                sum(launches.values()) > 0
+            ok = bool(torch.isfinite(s_.u).all()) and kernels_run
+            set_res[key] = dict(s=wall, n_cell=list(s_.geom.n_cell), t=s_.t, launches=launches)
+            print(f"  [{card}] L-set {key}: {tuple(s_.geom.n_cell)}, init + 2 steps {wall:.3f} s, "
+                  f"t = {s_.t:.6e}, launches {launches} {'ok' if ok else 'FAILED'}", flush=True)
+            if not ok:
+                fail(f"L-set {key}: non-finite state or no kernel launched")
+            del s_
+        l_results["L-set"] = set_res
+        torch.cuda.empty_cache()
+        for kind in N_LSET_CPU:
+            card_vs_cpu_l(f"L-set-{kind}-cmp", F64_RTOL)
+
+    def path_l():
+        pool = ProcessPoolExecutor(1, mp_context=multiprocessing.get_context("spawn"))
+        try:
+            path_l_body(pool)
+        finally:
+            pool.shutdown(wait=True, cancel_futures=True)
+
     def phase_probes():
         # the probes: each against its plain version, then the entry points
         print(f"probes vs plain (scripts/prof_cmpflx.py setup at 128^3, float32) {elapsed()}:",
@@ -3220,9 +3679,9 @@ def main(argv=()):
         # path J's kernels in float64 at NPASS = 13 on flame_wave's state
         # (J-fw's grid, its initial state): the bound's operations over the
         # float64 peak, its bytes at 8 a value
-        j_launches, k_launches = {}, {}
+        j_launches, k_launches, l_launches = {}, {}, {}
         for label, c in path_launches.items():
-            for prefix, acc in (("J", j_launches), ("K", k_launches)):
+            for prefix, acc in (("J", j_launches), ("K", k_launches), ("L", l_launches)):
                 if label.startswith(prefix):
                     for k_, v_ in c.items():
                         acc[k_] = acc.get(k_, 0) + v_
@@ -3260,10 +3719,11 @@ def main(argv=()):
                 e["launches_path_H"] = h_launches.get(e["name"], 0)
                 e["launches_path_J"] = j_launches.get(e["name"], 0)
                 e["launches_path_K"] = k_launches.get(e["name"], 0)
+                e["launches_path_L"] = l_launches.get(e["name"], 0)
 
     phases = [("kernels", phase_kernels), ("A", path_a), ("B", path_b), ("C", path_c),
               ("D", path_d), ("E", path_e), ("F", path_f), ("G", path_g), ("H", path_h),
-              ("I", path_i), ("J", path_j), ("K", path_k), ("probes", phase_probes),
+              ("I", path_i), ("J", path_j), ("K", path_k), ("L", path_l), ("probes", phase_probes),
               ("timing", phase_timing)]
     names = [name for name, _ in phases]
     wanted = list(argv) or names
@@ -3299,7 +3759,7 @@ def main(argv=()):
         "amr_3d": results.get(f"amr-{N_AMR}"), "amr_3d_window_after_run": list(ctx.g3d_window),
         "amr_sod_1d_l1": ctx.g1_l1, "amr_sod_1d_ms_per_coarse_step": ctx.g1_ms,
         "path_H": ctx.h_results, "path_I": ctx.i_results, "path_J": ctx.j_results,
-        "path_K": ctx.k_results, "phase_s": phase_s,
+        "path_K": ctx.k_results, "path_L": ctx.l_results, "phase_s": phase_s,
         "detonation": dict(ms_per_step=ctx.det_ms, fuel_ratio=ctx.fuel_ratio,
                            max_mom=ctx.mom_max)}))
     print(smi_line())

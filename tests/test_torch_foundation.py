@@ -146,14 +146,20 @@ def test_device_rules_and_unported_configs():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             Simulation(params, problem_init=sedov.problem_init)
-    for bad in (params.with_ns("castro", time_integration_method=2),
+    for bad in (params.with_ns("castro", do_mhd=1),
                 params.with_ns("castro", do_radiation=1)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             Simulation(bad, device="cpu")
     # the 1D and 2D branches, riemanncg, the HLL hybrid, curvilinear
     # geometry, PLM, the shock flag, hybrid momenta, reactions, gravity,
-    # the sponge, rotation, thermal diffusion and the NSE bypass are ported
+    # the sponge, rotation, thermal diffusion, the NSE bypass and SDC are
+    # ported
     for good in (sedov.make_params(n=8, dim=2), sedov.make_params(n=8, dim=1),
+                 params.with_ns("castro", time_integration_method=2),
+                 params.with_ns("castro", time_integration_method=2, sdc_order=4,
+                                sdc_quadrature=1),
+                 params.with_ns("castro", time_integration_method=3, do_react=1).with_ns(
+                     "network", network_name="iso7"),
                  params.with_ns("castro", riemann_solver=1),
                  params.with_ns("castro", hybrid_riemann=1),
                  sedov.make_params(n=8, dim=2, coord=1),

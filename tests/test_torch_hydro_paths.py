@@ -181,19 +181,23 @@ def test_unported_configurations_raise(name):
 
 
 STILL_UNPORTED = {
-    "sdc": (dict(time_integration_method=2), {}, "queue 1 item 12"),
+    "sdc": (dict(time_integration_method=2), dict(distribute_fine=1), "queue 1 item 13"),
 }
 
 
 @pytest.mark.parametrize("name", list(STILL_UNPORTED))
 def test_still_unported_configurations_raise(name):
-    """SDC raises at construction and names its ROADMAP item."""
-    castro, network, item = STILL_UNPORTED[name]
-    p = sedov.make_params(n=8, dim=1).with_ns("castro", **castro)
-    if network:
-        p = p.with_ns("network", **network)
+    """SDC runs on one level and on AMR; the sharded SDC step of a
+    distributed hierarchy raises at construction and names its ROADMAP
+    item."""
+    from castro_tpu_torch.driver.amr import AmrSimulation
+
+    castro, amr, item = STILL_UNPORTED[name]
+    p = sedov.make_params(n=16, dim=1).with_ns("castro", **castro)
+    Simulation(p, problem_init=sedov.problem_init, device="cpu")
+    p = p.with_ns("amr", max_level=1, **amr)
     with pytest.raises(NotImplementedError, match=item + r".*ROADMAP\.md"):
-        Simulation(p, problem_init=sedov.problem_init, device="cpu")
+        AmrSimulation(p, problem_init=sedov.problem_init, device="cpu")
 
 
 FORMERLY_UNPORTED = {
