@@ -34,9 +34,15 @@ def params_from_inputs_text(text: str) -> Params:
     return parse_inputs_text(text)
 
 
+def _rad_from_numpy(a, device, dtype):
+    return None if a is None else torch.tensor(np.asarray(a), dtype=dtype, device=device)
+
+
 def restart_from_jax_checkpoint(sim, path: str):
-    """Restore `sim` (state, t, step, dt, the point mass) from a JAX checkpoint directory,
-    with the state-variable check of the reference restart (Castro_io.cpp:42)."""
+    """Restore `sim` (state, radiation Er, t, step, dt, the point mass) from a JAX
+    checkpoint directory, with the state-variable check of the reference restart
+    (Castro_io.cpp:42). The checkpoint's `u_rad` (`castro_tpu/driver/io.py:78-79`) is
+    the radiation state of a radiation run, interior [n...] gray or [ngroups, n...]."""
     with open(os.path.join(path, "meta.json")) as f:
         meta = json.load(f)
     if meta["version"] > CHECKPOINT_VERSION:
@@ -50,9 +56,14 @@ def restart_from_jax_checkpoint(sim, path: str):
                                   "(ROADMAP.md, queue 1 item 14)")
     with np.load(os.path.join(path, "state.npz")) as data:
         u = data["u"]
+        u_rad = data["u_rad"] if "u_rad" in data else None
     if tuple(u.shape[1:]) != sim.grown_shape():
         raise ValueError(f"checkpoint grid {u.shape[1:]} does not match {sim.grown_shape()}")
+    if (u_rad is not None) != (getattr(sim, "rad", None) is not None):
+        raise ValueError("checkpoint and simulation differ in castro.do_radiation")
     sim.u = state_from_numpy(u, sim.layout, sim.device, sim.dtype)
+    if u_rad is not None:
+        sim.u_rad = _rad_from_numpy(u_rad, sim.device, sim.dtype)
     sim.t = meta["time"]
     sim.step_count = meta["step"]
     sim.dt = meta["dt"]
@@ -64,11 +75,13 @@ def restart_from_jax_checkpoint(sim, path: str):
 
 def hierarchy_to_numpy(amr) -> dict:
     """An AMR hierarchy's state as numpy: per level `u`, `u_old` (None
-    where a level has not stepped yet), `window` ((ilo, shape); level 0
-    the whole domain), `masks` and `extra` (per level, a list of {ilo,
-    shape, u, mask}), and `t`, `step_count`, `dt`. The JAX package's
-    `AmrSimulation` has the same attributes, so the same reading of it
-    gives the form `restore_hierarchy` takes."""
+    where a level has not stepped yet), `u_rad` and `u_rad_old` (radiation
+    Er per level, None without radiation; the form of the JAX checkpoint's
+    `u_rad_<l>`, `castro_tpu/driver/io.py:226-227`), `window` ((ilo,
+    shape); level 0 the whole domain), `masks` and `extra` (per level, a
+    list of {ilo, shape, u, mask}), and `t`, `step_count`, `dt`. The JAX
+    package's `AmrSimulation` has the same attributes, so the same reading
+    of it gives the form `restore_hierarchy` takes."""
     def arr(a):
         if a is None:
             return None
@@ -76,6 +89,8 @@ def hierarchy_to_numpy(amr) -> dict:
 
     return {
         "u": [arr(a) for a in amr.u], "u_old": [arr(a) for a in amr.u_old],
+        "u_rad": [arr(a) for a in getattr(amr, "u_rad", [None] * len(amr.u))],
+        "u_rad_old": [arr(a) for a in getattr(amr, "u_rad_old", [None] * len(amr.u))],
         "masks": [arr(m) for m in amr.masks],
         "window": [None if w is None else (np.asarray(w[0], int).copy(), tuple(w[1]))
                    for w in amr.window],
@@ -88,9 +103,10 @@ def hierarchy_to_numpy(amr) -> dict:
 
 def restore_hierarchy(amr, state: dict):
     """Set the port's `AmrSimulation` to a hierarchy given as numpy (the
-    form of `hierarchy_to_numpy`, from either package): levels, windows,
-    masks, extra windows, time and step count, on the hierarchy's device
-    and in its dtype. The windows must fit the hierarchy's levels."""
+    form of `hierarchy_to_numpy`, from either package): levels, radiation
+    Er (old and new), windows, masks, extra windows, time and step count,
+    on the hierarchy's device and in its dtype. The windows must fit the
+    hierarchy's levels."""
     if len(state["u"]) != amr.max_level + 1:
         raise ValueError(f"hierarchy of {len(state['u'])} levels, expected {amr.max_level + 1}")
     L, dev, dt = amr.sim0.layout, amr.device, amr.dtype
@@ -103,6 +119,13 @@ def restore_hierarchy(amr, state: dict):
 
     amr.u = [tens(a) for a in state["u"]]
     amr.u_old = [tens(a) for a in state.get("u_old", [None] * len(state["u"]))]
+    none = [None] * len(state["u"])
+    if amr._has_rad != any(a is not None for a in state.get("u_rad", none)):
+        raise ValueError("hierarchy and simulation differ in castro.do_radiation")
+    amr.u_rad = [_rad_from_numpy(a, dev, dt) for a in state.get("u_rad", none)]
+    amr.u_rad_old = [_rad_from_numpy(a, dev, dt) for a in state.get("u_rad_old", none)]
+    if amr._has_rad:
+        amr.sim0.u_rad = amr.u_rad[0]
     amr.masks = [mask(m) for m in state["masks"]]
     amr.window = [None if w is None else (np.asarray(w[0], int).copy(), tuple(int(s) for s in w[1]))
                   for w in state["window"]]

@@ -13,20 +13,24 @@
 // The wall mask is the face's position along d, so symmetry and wall runs
 // stay on the kernel. `coord` (0 Cartesian, 1 cylindrical, 2 spherical)
 // drops the pressure from the radial momentum flux of a curvilinear grid,
-// so RZ and spherical runs solve every face here. The TPU's tiling
-// (_tiling, _block_spec) has no counterpart. A grid of fewer than three
-// axes arrives padded with trailing extents of 1.
+// so RZ and spherical runs solve every face here. Built twice (RAD): on
+// the radiation layout the passives start at Q.qfs and a face has Q.ngdnv
+// Godunov components, so the operator-split radiation step (whose q
+// carries QPTOT, QREITOT and each group's Er before the passives) solves
+// here too, its flux limiters and Er written as zeros. The TPU's tiling (_tiling, _block_spec) has no
+// counterpart. A grid of fewer than three axes arrives padded with
+// trailing extents of 1.
 #include "common.cuh"
 #include "riemann.cuh"
 
 namespace ctt {
 
-template <typename T>
+template <typename T, bool RAD>
 __global__ void __launch_bounds__(256) cmpflx_kernel(
     const T* __restrict__ qm, const T* __restrict__ qp, const T* __restrict__ gl,
     const T* __restrict__ gr, const T* __restrict__ cl, const T* __restrict__ cr,
-    T* __restrict__ flux, T* __restrict__ qe, Grid g, Layout L, int d, int coord, int solver,
-    int mask_lo, int mask_hi, T small_dens, T small_pres) {
+    T* __restrict__ flux, T* __restrict__ qe, Grid g, Layout L, QLayout Q, int d, int coord,
+    int solver, int mask_lo, int mask_hi, T small_dens, T small_pres) {
   long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (t >= g.S) return;
   const long long S = g.S;
@@ -45,7 +49,8 @@ __global__ void __launch_bounds__(256) cmpflx_kernel(
   for (int c = 0; c < NUH; ++c) flux[c * S + t] = fl[c];
 #pragma unroll
   for (int c = 0; c < NGDNV; ++c) qe[c * S + t] = qg[c];
-  store_passive_fluxes(L, w, qm, qp, flux, S, t);
+  store_passive_fluxes(L, q_passives<RAD>(Q), w, qm, qp, flux, S, t);
+  zero_godunov_extras<RAD>(Q, qe, S, t);
 }
 
 template <typename T>
@@ -55,12 +60,14 @@ int launch_cmpflx(const void* qm, const void* qp, const void* gl, const void* gr
                   double small_dens, double small_pres, cudaStream_t stream) {
   Grid g{{n[0], n[1], n[2]}, (long long)n[0] * n[1] * n[2]};
   Layout L = layout_of(lay);
-  if (!layout_ok(L) || d < 0 || d > 2 || coord < 0 || coord > 2)
+  QLayout Q = q_layout_of(lay);
+  if (!layout_ok(L) || !q_layout_ok(Q) || d < 0 || d > 2 || coord < 0 || coord > 2)
     return (int)cudaErrorInvalidValue;
   const int threads = 256;
-  cmpflx_kernel<T><<<blocks_for(g.S, threads), threads, 0, stream>>>(
+  auto kernel = q_layout_rad(Q) ? cmpflx_kernel<T, true> : cmpflx_kernel<T, false>;
+  kernel<<<blocks_for(g.S, threads), threads, 0, stream>>>(
       (const T*)qm, (const T*)qp, (const T*)gl, (const T*)gr, (const T*)cl, (const T*)cr,
-      (T*)flux, (T*)qe, g, L, d, coord, solver, mask_lo, mask_hi, T(small_dens),
+      (T*)flux, (T*)qe, g, L, Q, d, coord, solver, mask_lo, mask_hi, T(small_dens),
       T(small_pres));
   return (int)cudaGetLastError();
 }

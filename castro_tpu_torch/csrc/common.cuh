@@ -27,9 +27,11 @@ namespace ctt {
 
 // Conserved, primitive, auxiliary and Godunov-state indices of the kernel
 // path (castro_tpu_torch/state.py without MHD or radiation; the wrappers
-// check the layout). The NUH hydro components of the conserved state come
-// first in every layout; the primitive layout does not change with the
-// shock flag or hybrid momenta, so its passives always start at QFS.
+// check the layout, and the pointwise kernels take a radiation layout's
+// QFS and NGDNV from a QLayout, below). The NUH hydro components of the
+// conserved state come first in every layout; the primitive layout does
+// not change with the shock flag or hybrid momenta, so without radiation
+// its passives always start at QFS.
 enum { URHO = 0, UMX = 1, UMY = 2, UMZ = 3, UEDEN = 4, UEINT = 5, UTEMP = 6, NUH = 7 };
 enum { QRHO = 0, QU = 1, QV = 2, QW = 3, QGAME = 4, QPRES = 5, QREINT = 6, QTEMP = 7, QFS = 8 };
 enum { QGAMC = 0, QC = 1, QDPDR = 2, QDPDE = 3, NQAUX = 4 };
@@ -61,6 +63,40 @@ __device__ __forceinline__ Layout kernel_layout(const Layout& L) {
 inline bool layout_ok(const Layout& L) {
   return L.ufs >= NUH && L.ufs <= NUH + 4 && L.nspec >= 1 && L.npass >= L.nspec &&
          (L.ushk < 0 || (L.ushk >= NUH && L.ushk < L.ufs));
+}
+
+// The primitive and Godunov layouts of the pointwise kernels (cmpflx,
+// trans_apply, trans_cmpflx), the two entries past the Layout's in the
+// layout array: the first passive of q (QFS, or past the radiation
+// components QPTOT, QREITOT and each group's Er on a radiation layout),
+// and the Godunov components of a face (NGDNV, or 6 + 2 ngroups with
+// each group's flux limiter and Er, which these kernels write as zeros,
+// as the operator-split step's plain version does). The other kernels
+// take the hydro layout's QFS and NGDNV, and the wrappers keep radiation
+// layouts from them.
+struct QLayout {
+  int qfs, ngdnv;
+};
+inline QLayout q_layout_of(const int* lay) { return QLayout{lay[4], lay[5]}; }
+inline bool q_layout_ok(const QLayout& Q) { return Q.qfs >= QFS && Q.ngdnv >= NGDNV; }
+// Whether a layout carries radiation components. The pointwise kernels are
+// built twice, RAD false for the other layouts (QFS and NGDNV the
+// compile-time constants, the build of the layouts without radiation as it
+// was) and RAD true for the radiation layout.
+inline bool q_layout_rad(const QLayout& Q) { return Q.qfs != QFS || Q.ngdnv != NGDNV; }
+// The first passive of q: QFS, or a radiation layout's (RAD).
+template <bool RAD>
+__device__ __forceinline__ int q_passives(const QLayout& Q) {
+  if constexpr (RAD) return Q.qfs;
+  return QFS;
+}
+// The Godunov components past the hydro ones (a radiation layout's flux
+// limiters and Er), zero at t; none without RAD.
+template <bool RAD, typename T>
+__device__ __forceinline__ void zero_godunov_extras(const QLayout& Q, T* qe, long long S,
+                                                    long long t) {
+  if constexpr (RAD)
+    for (int c = NGDNV; c < Q.ngdnv; ++c) qe[c * S + t] = T(0);
 }
 
 // BC codes (AMReX phys_bc)

@@ -230,15 +230,16 @@ __device__ void riemann_flux(const T* qm, const T* qp, T gl, T gr, T cl, T cr,
 }
 
 // The components of a pointwise face's flux past the hydro ones, at t:
-// zero for the extras, the upwinded passives from the face states qm, qp
-// (component stride S).
+// zero for the extras, the upwinded passives from the face states qm, qp,
+// whose passives start at qfs (component stride S).
 template <typename T>
-__device__ __forceinline__ void store_passive_fluxes(const Layout& L, const Upwind<T>& w,
-                                                     const T* qm, const T* qp, T* flux,
-                                                     long long S, long long t) {
+__device__ __forceinline__ void store_passive_fluxes(const Layout& L, int qfs,
+                                                     const Upwind<T>& w, const T* qm,
+                                                     const T* qp, T* flux, long long S,
+                                                     long long t) {
   for (int c = NUH; c < L.ufs; ++c) flux[c * S + t] = T(0);
   for (int k = 0; k < L.npass; ++k)
-    flux[(L.ufs + k) * S + t] = upwind(w, qm[(QFS + k) * S + t], qp[(QFS + k) * S + t]);
+    flux[(L.ufs + k) * S + t] = upwind(w, qm[(qfs + k) * S + t], qp[(qfs + k) * S + t]);
 }
 
 }  // namespace ctt

@@ -14,8 +14,9 @@
 // states live in registers only, which is the whole point of the fusion
 // (two [NQ] writes and reads saved against trans_apply x2 + cmpflx). The
 // wall mask is the face's position along d; `coord` drops the pressure from
-// the radial momentum flux of a curvilinear grid, as in cmpflx.cu. A grid
-// of fewer than three axes arrives padded with trailing extents of 1.
+// the radial momentum flux of a curvilinear grid, and the RAD build takes
+// the radiation layout, as in cmpflx.cu. A grid of fewer than three axes arrives padded with trailing
+// extents of 1.
 #include "common.cuh"
 #include "riemann.cuh"
 #include "trans.cuh"
@@ -58,9 +59,9 @@ __device__ __forceinline__ Dens<T> corrected(const T* q, const T* df, const T* d
   return trans_apply(qv, b, p.small_pres, p.reset_density != 0, p.reset_rhoe != 0, out);
 }
 
-template <typename T>
+template <typename T, bool RAD>
 __global__ void __launch_bounds__(256) trans_cmpflx_kernel(
-    const __grid_constant__ TransCmpflxParams<T> p, Grid g, Layout L) {
+    const __grid_constant__ TransCmpflxParams<T> p, Grid g, Layout L, QLayout Q) {
   long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (t >= g.S) return;
   const long long S = g.S;
@@ -79,11 +80,12 @@ __global__ void __launch_bounds__(256) trans_cmpflx_kernel(
   for (int c = 0; c < NGDNV; ++c) p.qe[c * S + t] = qg[c];
   for (int c = NUH; c < L.ufs; ++c) p.flux[c * S + t] = T(0);
   for (int k = 0; k < L.npass; ++k) {
-    const long long iq = (QFS + k) * S + t, iu = (L.ufs + k) * S + t;
+    const long long iq = (q_passives<RAD>(Q) + k) * S + t, iu = (L.ufs + k) * S + t;
     T qm_s = trans_passive(nm, p.qm[iq], p.df_m[iu]);
     T qp_s = trans_passive(np, p.qp[iq], p.df_p[iu]);
     p.flux[iu] = upwind(w, qm_s, qp_s);
   }
+  zero_godunov_extras<RAD>(Q, p.qe, S, t);
 }
 
 template <typename T>
@@ -93,7 +95,8 @@ int launch_trans_cmpflx(const void* const* in, void* flux, void* qe, const int* 
                         double small_pres, cudaStream_t stream) {
   Grid g{{n[0], n[1], n[2]}, (long long)n[0] * n[1] * n[2]};
   Layout L = layout_of(lay);
-  if (!layout_ok(L) || d < 0 || d > 2 || coord < 0 || coord > 2)
+  QLayout Q = q_layout_of(lay);
+  if (!layout_ok(L) || !q_layout_ok(Q) || d < 0 || d > 2 || coord < 0 || coord > 2)
     return (int)cudaErrorInvalidValue;
   TransCmpflxParams<T> p;
   p.qm = (const T*)in[0];
@@ -120,7 +123,8 @@ int launch_trans_cmpflx(const void* const* in, void* flux, void* qe, const int* 
   p.small_dens = T(small_dens);
   p.small_pres = T(small_pres);
   const int threads = 256;
-  trans_cmpflx_kernel<T><<<blocks_for(g.S, threads), threads, 0, stream>>>(p, g, L);
+  auto kernel = q_layout_rad(Q) ? trans_cmpflx_kernel<T, true> : trans_cmpflx_kernel<T, false>;
+  kernel<<<blocks_for(g.S, threads), threads, 0, stream>>>(p, g, L, Q);
   return (int)cudaGetLastError();
 }
 

@@ -33,11 +33,20 @@ with `Simulation._sdc_step`, whose time-averaged face fluxes, in the exact
 flux form of the SDC sweep, feed the flux registers
 (`castro_tpu/driver/amr.py:149-173`, `:261-286`). As in the JAX driver, a
 level's step is the CTU step otherwise, Strang-split only with
-time_integration_method=0. What the JAX driver does beyond this raises,
-naming its ROADMAP.md item: radiation (9), MHD (11), a device mesh or
-`amr.distribute_fine` (13, the sharded SDC step among them), plotfiles and
-checkpoints (14), and a curvilinear grid (5, the Cartesian slice).
-Refinement ratio 2 on every level.
+time_integration_method=0. Radiation, gray or multigroup (the JAX driver's
+branches, `castro_tpu/driver/amr.py:221-234,383-413,573-602,702-762,
+994-1049,1459-1575`): each level keeps its Er (`u_rad`, a leading group
+axis when multigroup, `_rad_cax`) and steps with `Simulation.
+_rad_step_impl`, a window's implicit solve Dirichlet on its faces with the
+parent's Er at the substep's midpoint; the window's ring takes the
+prolonged, time-interpolated coarse Er; the coarse-fine mismatch of the
+radiation fluxes (advective + diffusive) feeds the parent's next implicit
+solve as a deferred-sync rhs; covered coarse Er is the fine average. A
+radiation hierarchy has one window a level (no extras), as in JAX. What the
+JAX driver does beyond this raises, naming its ROADMAP.md item: MHD (11), a
+device mesh or `amr.distribute_fine` (13, the sharded SDC and radiation
+steps among them), plotfiles and checkpoints (14), and a curvilinear grid
+(5, the Cartesian slice). Refinement ratio 2 on every level.
 """
 
 from __future__ import annotations
@@ -216,6 +225,11 @@ class _Level:
             return _sdc_level_step(self.sim, u, dt, t, True)
         return self.sim._step_impl(u, dt, t, ctx=self._ctx(ilo, grav_bc))
 
+    def rad_step(self, u, Er, dt, t, ilo, grav_bc=None, rad_bc=None, rad_rhs_extra=None):
+        """The window's radiation step, with its register fluxes."""
+        return self.sim._rad_step_impl(u, Er, dt, t, ctx=self._ctx(ilo, grav_bc), rad_bc=rad_bc,
+                                       rad_rhs_extra=rad_rhs_extra, keep_rad_flux=True)
+
     def phi(self, rho, ilo, grav_bc):
         """The window's phi from its interior density, Dirichlet on its faces
         with `grav_bc` (PoissonGrav only)."""
@@ -267,7 +281,7 @@ class AmrSimulation:
         self.indicators = self._parse_indicators(params)
         self._sim_kw = dict(sim_kw, device=device)
 
-        # radiation and MHD raise in here
+        # MHD raises in here
         self.sim0 = Simulation(_level_params(params, 0), problem_init=problem_init,
                                **self._sim_kw)
         item = _unported_amr(params, self.sim0, mesh)
@@ -307,6 +321,15 @@ class AmrSimulation:
         self._has_poisson = self._grav0 is not None
         self._cur_grav_bc: Dict[int, object] = {}
         self.phi_sync_resid = None
+        # radiation: per-level Er (a leading group axis when multigroup),
+        # the window Dirichlet data of the current substep, and each level's
+        # deferred-sync rhs for its next implicit solve
+        self._has_rad = self.sim0.rad is not None
+        self._rad_cax = 1 if self.sim0.layout.ngroups > 1 else 0
+        self.u_rad: List = [None] * (self.max_level + 1)
+        self.u_rad_old: List = [None] * (self.max_level + 1)
+        self._cur_rad_bc: Dict[int, object] = {}
+        self._rad_sync_rhs: Dict[int, object] = {}
 
     # ------------------------------------------------------------------ setup
     @staticmethod
@@ -441,16 +464,36 @@ class AmrSimulation:
         self.u[0] = self.sim0.u
         self.masks[0] = torch.ones(self.sim0.geom.n_cell, dtype=torch.bool,
                                    device=self.device)
+        if self._has_rad:
+            self.u_rad[0] = self.sim0.u_rad
         for l in range(1, self.max_level + 1):
             tags = self._tags_for(l - 1)
-            (ilo, shape), extras = self._compute_extra_windows(l, tags)
+            (ilo, shape), extras = self._windows_for(l, tags)
             self.window[l] = (ilo, shape)
             self.u[l] = self._make_window_state(l, (ilo, shape))
             self.masks[l] = self._window_mask(l, tags)
             self.extra[l] = [{"ilo": e[0], "shape": e[1], "u": self._make_window_state(l, e),
                               "mask": self._window_mask(l, tags, win=e), "grav_bc": None}
                              for e in extras]
+            if self._has_rad:
+                self.u_rad[l] = self._prolong_rad(l, (ilo, shape))
         return self
+
+    def _windows_for(self, l, tags):
+        """The level-l primary window and its extras; a radiation hierarchy
+        takes the one bounding window (castro_tpu/driver/amr.py:579-583)."""
+        if self._has_rad:
+            return self._compute_window(l, tags.cpu().numpy()), []
+        return self._compute_extra_windows(l, tags)
+
+    def _prolong_rad(self, l, win=None, frac=None):
+        """The parent's Er (time-interpolated at `frac` between its old and
+        new Er when given) over a level-l window, prolonged."""
+        Er_c = self.u_rad[l - 1] if frac is None else \
+            (1.0 - frac) * self.u_rad_old[l - 1] + frac * self.u_rad[l - 1]
+        cx = (slice(None),) * self._rad_cax
+        return prolong(Er_c[cx + self._parent_rel_slice(l, win=win)], self.dim,
+                       comp_axes=self._rad_cax)
 
     def _make_window_state(self, l, win):
         """Problem data on one window (position-correct shim) + clean."""
@@ -519,7 +562,26 @@ class AmrSimulation:
         new regions)."""
         for l in range(self.max_level):
             tags = self._tags_for(l)
-            (new_ilo, new_shape), new_extras = self._compute_extra_windows(l + 1, tags)
+            (new_ilo, new_shape), new_extras = self._windows_for(l + 1, tags)
+            new_rad = None
+            if self._has_rad:
+                # prolonged coarse Er, the old window's masked fine Er kept
+                # where the windows overlap (castro_tpu/driver/amr.py:717-739)
+                new_rad = self._prolong_rad(l + 1, win=(new_ilo, new_shape))
+                if self.u_rad[l + 1] is not None and fill_new:
+                    old_ilo, old_shape = self.window[l + 1]
+                    lo = np.maximum(new_ilo, old_ilo)
+                    hi = np.minimum(new_ilo + np.asarray(new_shape),
+                                    old_ilo + np.asarray(old_shape))
+                    if np.all(hi > lo):
+                        cx = (slice(None),) * self._rad_cax
+                        src = cx + tuple(slice(int(lo[k] - old_ilo[k]), int(hi[k] - old_ilo[k]))
+                                         for k in range(self.dim))
+                        dst = cx + tuple(slice(int(lo[k] - new_ilo[k]), int(hi[k] - new_ilo[k]))
+                                         for k in range(self.dim))
+                        m_src = self.masks[l + 1][src[self._rad_cax:]]
+                        new_rad = _set(new_rad, dst, torch.where(m_src, self.u_rad[l + 1][src],
+                                                                 new_rad[dst]))
             old_wins = []
             if self.u[l + 1] is not None:
                 old_wins.append((self.window[l + 1][0], self.window[l + 1][1],
@@ -538,16 +600,19 @@ class AmrSimulation:
             self.u[l + 1] = u_new
             self.masks[l + 1] = self._window_mask(l + 1, tags)
             self.extra[l + 1] = new_extra_state
+            if new_rad is not None:
+                self.u_rad[l + 1] = new_rad
 
     # ------------------------------------------------------------------ dt
     def estimate_dt(self) -> float:
         """Level-0 dt respecting all levels (reference computeNewDt with
         subcycling: dt_0 = min_l dt_l * prod(ref_ratio))."""
         c = self.params.castro
-        dt = float(self.sim0._estdt_impl(self.u[0]))
+        dt = float(self.sim0._estdt_impl(self.u[0], self.u_rad[0]))
         for l in range(1, self.max_level + 1):
             lev = self._get_level(l, self.window[l][1])
-            dt = min(dt, float(lev.sim._estdt_impl(self.u[l])) * self.ref_ratio ** l)
+            dt = min(dt, float(lev.sim._estdt_impl(self.u[l], self.u_rad[l]))
+                     * self.ref_ratio ** l)
             for e in self.extra[l]:
                 lev_e = self._get_level(l, e["shape"])
                 dt = min(dt, float(lev_e.sim._estdt_impl(e["u"])) * self.ref_ratio ** l)
@@ -584,10 +649,11 @@ class AmrSimulation:
                      for k in range(self.dim))
 
     @staticmethod
-    def _check(out, what):
+    def _check(out, what, at=1):
         """Raise RuntimeError if a level step failed: one host sync for the
-        min density and the flag together."""
-        mr, bad = torch.stack([out[1].to(torch.float64), out[2].to(torch.float64)]).tolist()
+        min density (out[at]) and the flag (out[at + 1]) together."""
+        mr, bad = torch.stack([out[at].to(torch.float64),
+                               out[at + 1].to(torch.float64)]).tolist()
         if bad or mr <= 0.0:
             raise RuntimeError(f"AMR advance failed {what} (min_rho={mr})")
 
@@ -599,8 +665,11 @@ class AmrSimulation:
     def _advance_level(self, l, dt, t_level):
         """Advance level l by dt; recursively subcycle the finer levels
         (reference Amr::timeStep recursion). Returns level l's interior
-        face fluxes (None without a finer level at level 0)."""
+        face fluxes (None without a finer level at level 0) and, with
+        radiation, its radiation register fluxes (else None)."""
         self.u_old[l] = self.u[l]
+        if self._has_rad:
+            return self._advance_level_rad(l, dt, t_level)
         if l == 0:
             sim = self.sim0
             if sim.sdc is not None:  # castro_tpu/driver/amr.py:261-286
@@ -620,15 +689,53 @@ class AmrSimulation:
             self.u[l] = self._keep_masked(self.u[l], out[0], self.masks[l])
         del out
         self._advance_finer(l, dt, t_level, fluxes)
-        return fluxes
+        return fluxes, None
 
-    def _advance_finer(self, l, dt, t_level, fluxes):
-        """Subcycle level l+1 (if any), then reflux and average down."""
+    def _advance_level_rad(self, l, dt, t_level):
+        """Level l's radiation step (castro_tpu/driver/amr.py:1307-1364):
+        the deferred-sync rhs of the last coarse step into its implicit
+        solve, a window's coarse-Er Dirichlet faces; then the finer levels."""
+        self.u_rad_old[l] = self.u_rad[l]
+        rhs_extra = self._rad_sync_rhs.pop(l, None)
+        if l == 0:
+            out = self.sim0._rad_step_impl(self.u[0], self.u_rad[0], dt, t_level,
+                                           rad_rhs_extra=rhs_extra, keep_rad_flux=True)
+        else:
+            lev = self._get_level(l, self.window[l][1])
+            out = lev.rad_step(self.u[l], self.u_rad[l], dt, t_level, self.window[l][0],
+                               grav_bc=self._cur_grav_bc.get(l),
+                               rad_bc=self._cur_rad_bc.get(l), rad_rhs_extra=rhs_extra)
+        u_new, Er_new, _, _, rad_fluxes, fluxes = out
+        self._check(out, f"(radiation) at level {l}, t={t_level}", at=2)
+        if l == 0:
+            self.u[0] = u_new
+            self.u_rad[0] = Er_new
+        else:
+            self.u[l] = self._keep_masked(self.u[l], u_new, self.masks[l])
+            self.u_rad[l] = torch.where(self.masks[l], Er_new, self.u_rad[l])
+        del out, u_new
+        self._advance_finer(l, dt, t_level, fluxes, rad_fluxes)
+        return fluxes, rad_fluxes
+
+    def _rad_face_pad(self, F, d):
+        """A cell-registered radiation flux with its hi face appended (zero)."""
+        shape = list(F.shape)
+        shape[self._rad_cax + d] = 1
+        return torch.cat([F, torch.zeros(shape, dtype=F.dtype, device=F.device)],
+                         dim=self._rad_cax + d)
+
+    def _advance_finer(self, l, dt, t_level, fluxes, rad_fluxes=None):
+        """Subcycle level l+1 (if any), then reflux and average down (with
+        radiation also its deferred sync and Er average)."""
         if l >= self.max_level:
             return
         # flux register: the coarse side (CrseInit)
         f_coarse = [f * dt for f in fluxes]
         fine_acc = None
+        f_coarse_rad_dt = fine_acc_rad = None
+        if self._has_rad:
+            f_coarse_rad_dt = [self._rad_face_pad(rad_fluxes[d], d) * dt
+                               for d in range(self.dim)]
         # composite gravity: this level's old and new phi bracket the
         # subcycle, the fine windows taking Dirichlet data at each substep's
         # midpoint; the new phi carries the delta-phi sync correction
@@ -642,21 +749,33 @@ class AmrSimulation:
         r = self.ref_ratio
         for i in range(r):
             frac0 = i / r
+            fm = (i + 0.5) / r  # the substep's midpoint
             if phi_old is not None:
-                fm = (i + 0.5) / r  # the substep's midpoint
                 phi_mid = (1.0 - fm) * phi_old + fm * phi_new
                 self._cur_grav_bc[l + 1] = self._window_face_bc(l + 1, phi_mid)
                 for e in extras:
                     e["grav_bc"] = self._window_face_bc(l + 1, phi_mid,
                                                         win=(e["ilo"], e["shape"]))
+            if self._has_rad:
+                Er_mid = (1.0 - fm) * self.u_rad_old[l] + fm * self.u_rad[l]
+                self._cur_rad_bc[l + 1] = self._window_face_bc(l + 1, Er_mid,
+                                                               cax=self._rad_cax)
+                self._set_unmasked_rad_from_coarse(l + 1, frac0)
             self._set_unmasked_from_coarse(l + 1, frac0 + 0.0)
-            fine_fluxes = self._advance_level(l + 1, dt / r, t_level + i * dt / r)
+            fine_fluxes, fine_rad = self._advance_level(l + 1, dt / r, t_level + i * dt / r)
             if fine_acc is None:
                 fine_acc = [torch.zeros_like(coarsen_flux(fine_fluxes[d], d, self.dim))
                             for d in range(self.dim)]
             for d in range(self.dim):
                 fine_acc[d] = fine_acc[d] + coarsen_flux(fine_fluxes[d], d, self.dim) * (dt / r)
             del fine_fluxes
+            if self._has_rad:
+                frc = [coarsen_flux(self._rad_face_pad(fine_rad[d], d), d, self.dim,
+                                    comp_axes=self._rad_cax) * (dt / r)
+                       for d in range(self.dim)]
+                fine_acc_rad = frc if fine_acc_rad is None else \
+                    [a + b for a, b in zip(fine_acc_rad, frc)]
+                del fine_rad
             # the extra windows: ring fill, advance, accumulate, one by one (the
             # JAX package's _advance_extras_batch steps equal shapes as one batch)
             for e in extras:
@@ -670,6 +789,8 @@ class AmrSimulation:
         self._set_unmasked_from_coarse(l + 1, 1.0)
         for e in extras:
             e["u"] = self._ring_fill(l + 1, 1.0, (e["ilo"], e["shape"]), e["u"], e["mask"])
+        if self._has_rad:
+            self._set_unmasked_rad_from_coarse(l + 1, 1.0)
         # reflux (FluxRegister::Reflux): correct the unrefined coarse cells
         # beside the window with (sum of fine flux dt) - (coarse flux dt)
         self._reflux(l, f_coarse, fine_acc)
@@ -679,6 +800,54 @@ class AmrSimulation:
             self._reflux(l, f_coarse, fine_acc_extra[kx], fwin=(e["ilo"], e["shape"]),
                          fmask=e["mask"])
             self._avg_down(l, fwin=(e["ilo"], e["shape"]), fmask=e["mask"], fu=e["u"])
+        if self._has_rad:
+            # the deferred sync: the mismatch feeds level l's next implicit
+            # solve (Radiation::deferred_sync)
+            self._rad_sync_rhs[l] = self._rad_reflux_rhs(l, f_coarse_rad_dt, fine_acc_rad)
+            self._rad_avg_down(l)
+
+    # ---------------------------------------------------------- radiation AMR
+    def _set_unmasked_rad_from_coarse(self, l, frac):
+        """A window's ring Er := the prolonged, time-interpolated coarse Er
+        (the radiation FillPatch; per group when multigroup)."""
+        self.u_rad[l] = torch.where(self.masks[l], self.u_rad[l], self._prolong_rad(l, frac=frac))
+
+    def _rad_reflux_rhs(self, l, f_coarse_dt, fine_acc):
+        """The deferred-sync rhs of level l's next implicit solve: the
+        time-integrated coarse-fine radiation-flux mismatch scattered into
+        the unrefined cells beside the window (reference
+        Radiation::deferred_sync, the scaled FluxRegister::Reflux into the
+        solve's rhs, the scale dt_old/dt taken as 1)."""
+        sim = self._sims_at(l)
+        dim = self.dim
+        cax = self._rad_cax
+        cx = (slice(None),) * cax
+        csl = self._parent_rel_slice(l + 1)
+        cmask = restrict_mask(self.masks[l + 1], dim)
+        rhs = torch.zeros_like(self.u_rad[l])
+        win = rhs[cx + csl]
+        for d in range(dim):
+            fsl = tuple(slice(s.start, s.stop + 1) if k == d else s for k, s in enumerate(csl))
+            delta = fine_acc[d] - f_coarse_dt[d][cx + fsl]
+            m_left = _pad_false(cmask, d, 1, 0)
+            m_right = _pad_false(cmask, d, 0, 1)
+            inv_dx = 1.0 / sim.geom.dx[d]
+            zero = torch.zeros((), dtype=delta.dtype, device=delta.device)
+            gain_r = torch.where(m_left & ~m_right, delta, zero)
+            lose_l = torch.where(~m_left & m_right, delta, zero)
+            k = delta.shape[cax + d]
+            win = win + inv_dx * gain_r.narrow(cax + d, 0, k - 1)
+            win = win - inv_dx * lose_l.narrow(cax + d, 1, k - 1)
+        return _set(rhs, cx + csl, win)
+
+    def _rad_avg_down(self, l):
+        """Covered level-l Er := the average of its level-(l+1) children."""
+        cx = (slice(None),) * self._rad_cax
+        csl = self._parent_rel_slice(l + 1)
+        cmask = restrict_mask(self.masks[l + 1], self.dim)
+        c_from_f = restrict(self.u_rad[l + 1], self.dim, comp_axes=self._rad_cax)
+        self.u_rad[l] = _set(self.u_rad[l], cx + csl,
+                             torch.where(cmask, c_from_f, self.u_rad[l][cx + csl]))
 
     def _advance_extra(self, l, e, dt, t_level):
         """Advance one extra window by dt (the same per-shape Simulation
@@ -770,11 +939,13 @@ class AmrSimulation:
             win = win - lose_l.narrow(d, 1, k - 1) / dx_c
         return _set(rhs, csl, win)
 
-    def _window_face_bc(self, l, phi_c, win=None):
+    def _window_face_bc(self, l, phi_c, win=None, cax=0):
         """Dirichlet values of a cell field on a level-l window's faces,
         linearly interpolated from the parent level's field phi_c (the
-        parent's interior): the coarse-phi boundary registers of composite
-        gravity (Gravity.cpp:418-487). JAX's map_coordinates(order=1,
+        parent's interior, with `cax` leading component axes, a multigroup
+        Er's group axis): the coarse-phi boundary registers of composite
+        gravity (Gravity.cpp:418-487) and the coarse-Er boundary data of AMR
+        radiation (RadBndry). JAX's map_coordinates(order=1,
         mode="nearest") written out: the coordinate's floor and the next
         index, each clamped to [0, n-1], with linear weights."""
         ilo, shape = win if win is not None else self.window[l]
@@ -791,7 +962,7 @@ class AmrSimulation:
                     else:
                         i = np.arange(int(ilo[k]), int(ilo[k]) + shape[k])
                         x = (i + 0.5) / 2.0 - 0.5 - base_c[k]
-                    vals = _lerp_axis(vals, k, x)
+                    vals = _lerp_axis(vals, cax + k, x)
                 (bvl if side == "lo" else bvh).append(vals)
         return (tuple(bvl), tuple(bvh))
 
@@ -856,11 +1027,15 @@ class AmrSimulation:
         # snapshot
         snap_u = list(self.u)
         snap_masks = list(self.masks)
+        snap_rad = list(self.u_rad)
+        snap_sync = dict(self._rad_sync_rhs)
         snap_extra = [[dict(e) for e in lvl] for lvl in self.extra]
 
         def restore():
             self.u = list(snap_u)
             self.masks = list(snap_masks)
+            self.u_rad = list(snap_rad)
+            self._rad_sync_rhs = dict(snap_sync)
             self.extra = [[dict(e) for e in lvl] for lvl in snap_extra]
 
         try:

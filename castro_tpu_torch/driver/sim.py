@@ -43,8 +43,16 @@ step is true SDC (`sdc/__init__.py`: order 2, or 4 on Lobatto or Radau
 nodes, over the MOL operators of `ops/mol.py` and `ops/fourth_order.py`,
 whose Riemann solves take the cmpflx kernel); with 3 and a reacting
 network it is simplified SDC, the CTU step's advective term feeding the
-forced burner (`_ssdc_step_impl`). Radiation, MHD and I/O are not ported
-(ROADMAP.md); a configuration that needs them raises.
+forced burner (`_ssdc_step_impl`). With castro.do_radiation=1 a step is
+the radiation step (`_rad_step_impl`): with radiation.hydro_coupling=1
+(the default) the characteristic rad-CTU step (`ops/rad_hydro.py`, torch
+ops, as the JAX package leaves it to XLA) and the implicit FLD update of
+`radiation/fld.py`; with hydro_coupling=0, do_hydro=0 or a multigroup run
+without groups the operator-split step, the hydro step above on the
+radiation layout (its Riemann solves the cmpflx and trans_cmpflx kernels
+in 1D and 2D; in 3D it raises) with an upwind Er advection before the
+implicit update. castro.do_hydro=0 evolves the sources alone. MHD and I/O
+are not ported (ROADMAP.md); a configuration that needs them raises.
 """
 
 from __future__ import annotations
@@ -119,13 +127,16 @@ def _unported(params):
     """The ROADMAP.md item of the first unported feature a config needs."""
     c = params.castro
     checks = [
-        (c.do_hydro != 1, "castro.do_hydro=0 (queue 1 item 10)"),
-        (bool(c.do_radiation), "radiation (queue 1 item 9)"),
         (bool(c.do_mhd), "MHD (queue 1 item 11)"),
         (bool(c.do_scf_initial_model),
          "castro.do_scf_initial_model, the SCF initial model (queue 1 item 10)"),
     ]
     return next((item for bad, item in checks if bad), None)
+
+
+_SPLIT_3D = ("not ported yet: 3D operator-split radiation through the CTU kernels "
+             "(radiation.hydro_coupling=0, or multigroup without groups, with castro.do_hydro=1 "
+             "in 3D; queue 1 item 9), see ROADMAP.md")
 
 
 def check_io_cadence(params):
@@ -172,9 +183,20 @@ class Simulation:
         self.eos = make_eos(params, self.network)
         self.problem_init = problem_init
         self.problem_fill = problem_fill
-        K.check_kernel_layout(self.layout, dims=(1, 2, 3))
+        K.check_kernel_layout(self.layout, dims=(1, 2, 3), radiation=True)
         self.source_fns = build_sources(params, self.geom, self.layout, self.layout.ngrow,
                                         ext_src=ext_src)
+        # radiation, gray or multigroup FLD (reference final_radiation_call,
+        # Castro_advance.cpp:109; castro_tpu/driver/sim.py:159-168)
+        self.rad = None
+        self.u_rad = None
+        if params.castro.do_radiation:
+            from castro_tpu_torch.radiation.fld import FLDRadiation
+
+            self.rad = FLDRadiation(params, self.geom, self.layout)
+            self.rad.geom_metric()
+            if self.layout.dim == 3 and self._rad_split() and params.castro.do_hydro:
+                raise NotImplementedError(_SPLIT_3D)
 
         c = params.castro
         self.ng = self.layout.ngrow
@@ -212,7 +234,7 @@ class Simulation:
         # fill hook asks for the torch ops (castro_tpu/driver/sim.py:258-260,
         # :380-392)
         self._kernel_prim = (self.cfg.use_kernels and self.layout.dim == 3
-                             and getattr(self.eos, "pallas_safe", False))
+                             and getattr(self.eos, "pallas_safe", False) and self.rad is None)
         if self._kernel_prim:
             K.check_kernel_eos(self.eos, self.layout)
         self._kernel_clean_fill = (self._kernel_prim and problem_fill is None
@@ -284,6 +306,17 @@ class Simulation:
             # (reference initData -> linear_to_hybrid_momentum, Castro.cpp:1154)
             u = update_hybrid_momenta(u, L, self.geom, self.ng)
         self.u = self._clean_fill_impl(u)
+        if self.rad is not None and self.u_rad is None:
+            # radiation in equilibrium with the matter, split over the groups
+            # by Planck weight (a problem may set sim.u_rad after init_data)
+            from castro_tpu_torch.utils import constants as C
+
+            Ti = self.interior()[L.UTEMP]
+            if L.ngroups > 1 and self.rad.nugroup is not None:
+                self.u_rad = (self.rad.planck_weights(Ti)
+                              * (C.a_rad * Ti ** 4)[None].double()).to(self.dtype)
+            else:
+                self.u_rad = C.a_rad * Ti ** 4
         return self.u
 
     def _clean_fill_impl(self, u, with_status=False, t=0.0, ctx=None):
@@ -325,8 +358,9 @@ class Simulation:
                            problem_fill=self.problem_fill, t=t)
 
     # -- dt ------------------------------------------------------------------
-    def _estdt_impl(self, u):
+    def _estdt_impl(self, u, Er=None):
         c = self.params.castro
+        L = self.layout
         dt = estdt_cfl(u, self.layout, self.eos, self.geom, self.ng, c.cfl)
         dt_b = estdt_burning(u, self.layout, self.eos, self.network, self.ng, c.dtnuc_e,
                              c.dtnuc_X, c.dtnuc_X_threshold)
@@ -336,13 +370,22 @@ class Simulation:
         if diff is not None:
             dt = torch.minimum(dt, estdt_temp_diffusion(u, self.layout, self.eos, self.geom,
                                                         self.ng, diff))
+        if self.rad is not None and Er is not None:
+            # the matter-radiation coupling limit (reference estdt_rad,
+            # timestep.cpp:499 / Radiation::EstTimeStep)
+            ui = u[interior_slice(self.ng, L.dim)]
+            rho = ui[L.URHO]
+            e = ui[L.UEINT] / rho
+            es = self.eos.re(rho=rho, e=e, xn=ui[L.UFS: L.UFS + L.nspec] / rho[None])
+            Er_tot = torch.sum(Er, dim=0) if Er.dim() > L.dim else Er
+            dt = torch.minimum(dt, self.rad.estdt(Er_tot, rho, e, es.cv, es.T))
         return dt
 
     def estimate_dt(self) -> float:
         c = self.params.castro
         if c.fixed_dt > 0:
             return c.fixed_dt
-        dt = float(self._estdt_impl(self.u))
+        dt = float(self._estdt_impl(self.u, self.u_rad))
         if self.step_count == 0:
             dt = c.initial_dt if c.initial_dt > 0 else dt * c.init_shrink
         elif self.dt is not None:
@@ -395,7 +438,8 @@ class Simulation:
         c = self.params.castro
         cfg = self.cfg
         dtw = K.wt(dt, self.dtype)
-        check_cfl = bool(c.check_cfl_violation)
+        # source-only evolution (castro.do_hydro=0) checks no Courant number
+        check_cfl = bool(c.check_cfl_violation) and bool(c.do_hydro)
         if not skip_head_fill:
             u = ctx.fill(u, t)
         burn_fail = None
@@ -436,9 +480,15 @@ class Simulation:
             src_eff = src_old + 0.5 * dtw * src_pred
         srcQ = None if src_eff is None else au.src_to_prim(q, qaux, src_eff, L)
 
-        u_new, fluxes = ctu_hydro(u, q, qaux, srcQ, dtw, ctx.geom, L, cfg, div_node=div_node,
-                                  fold_update_dt=dtw,
-                                  trans_eos=self.eos if c.transverse_use_eos else None)[:2]
+        if c.do_hydro:
+            u_new, fluxes = ctu_hydro(u, q, qaux, srcQ, dtw, ctx.geom, L, cfg,
+                                      div_node=div_node, fold_update_dt=dtw,
+                                      trans_eos=self.eos if c.transverse_use_eos else None)[:2]
+        else:
+            # source-only evolution (reference castro.do_hydro=0;
+            # castro_tpu/driver/sim.py:560-570): no fluxes, u_new = u + sources
+            fluxes = [torch.zeros_like(u) for _ in range(L.dim)]
+            u_new = u
         del div_node, srcQ
         if src_eff is not None:
             u_new = u_new + dtw * src_eff
@@ -572,6 +622,283 @@ class Simulation:
         u_new = self._clean_fill_impl(u_new)
         return u_new, min_rho, nan_flag | burn_fail
 
+    # -- radiation -------------------------------------------------------------
+    def _rad_split(self):
+        """Whether the radiation step is the operator-split one: with
+        radiation.hydro_coupling=0, castro.do_hydro=0, or a multigroup run
+        without groups (castro_tpu/driver/sim.py:897-909)."""
+        return not (self.params.radiation.hydro_coupling and self.params.castro.do_hydro
+                    and (self.layout.ngroups == 1 or self.rad.nugroup is not None))
+
+    def _fill_rad(self, Er, ngr=None):
+        """Interior Er [ngroups, n...] grown by ngr ghost cells (default the
+        hydro ghost width): a periodic wrap or an edge clamp, per the hydro
+        BCs."""
+        ng = self.ng if ngr is None else ngr
+        out = Er
+        for d in range(self.layout.dim):
+            n = out.shape[1 + d]
+            idx = torch.arange(-ng, n + ng, device=Er.device)
+            idx = idx % n if self.params.castro.lo_bc[d] == 0 else idx.clamp(0, n - 1)
+            out = out.index_select(1 + d, idx)
+        return out
+
+    def _rad_lambda_grown(self, u_g, Er_g):
+        """The flux limiter lambda [ngroups, grown] from the grown state and
+        Er, Purser-filtered with radiation.filter_lambda_T."""
+        from castro_tpu_torch.ops.stencil import shifted
+        from castro_tpu_torch.radiation.fld import fld_lambda
+
+        L = self.layout
+        rho = u_g[L.URHO]
+        T = u_g[L.UTEMP]
+        lam = []
+        for g in range(L.ngroups):
+            kr = self.rad.kappa_r(rho, torch.clamp(T, min=1e-10))
+            g2 = 0.0
+            for d in range(L.dim):
+                g2 = g2 + ((shifted(Er_g[g], 1, d) - shifted(Er_g[g], -1, d))
+                           / (2 * self.geom.dx[d])) ** 2
+            R = torch.sqrt(g2) / torch.clamp(kr * torch.clamp(Er_g[g], min=1e-30), min=1e-30)
+            lam.append(fld_lambda(R, self.rad.limiter))
+        lam = torch.stack(lam)
+        fT = self.params.radiation.filter_lambda_T
+        if fT > 0:
+            from castro_tpu_torch.radiation.filter import apply_filter
+
+            lam = apply_filter(lam, fT, axes=range(1, lam.dim()))
+        return lam
+
+    def _inelastic_sct(self, Er_g, rho, e_new, T_new, dt):
+        """Compton exchange between the groups after the implicit multigroup
+        update (Radiation::inelastic_scattering, MGFLD.cpp:1655-1685):
+        kappa_s = max(kappa_r - kappa_p, 0) at nu_0 (MGFLD.cpp:1554), one
+        implicit LLPS85 Kompaneets step, the net radiation gain out of the
+        gas internal energy."""
+        rp = self.params.radiation
+        if not rp.do_inelastic_scattering or self.layout.ngroups <= 1:
+            return Er_g, e_new
+        from castro_tpu_torch.radiation import compton
+
+        nu0 = float(np.asarray(self.rad.nugroup)[0])
+        ks = torch.clamp(self.rad.kappa_r(rho, T_new, nu0) - self.rad.kappa_p(rho, T_new, nu0),
+                         min=0.0)
+        ks = ks.to(Er_g.dtype).expand(rho.shape)
+        Er_g, dEr = compton.apply_inelastic_scattering(Er_g, T_new, ks, dt, self.rad.nugroup,
+                                                       self.rad.xnu, self.rad.dlognu)
+        return Er_g, e_new - dEr / rho
+
+    def _implicit_rad(self, u_new, Er, dt, t, ctx, rad_bc, rad_rhs_extra, keep_rad_flux):
+        """The implicit FLD matter coupling of the advected Er (gray or
+        multigroup, then Compton), its energy change added to rho e and
+        rho E, then clean + fill. Returns (u_new, Er_new, diffusion fluxes
+        or None)."""
+        L = self.layout
+        inner = interior_slice(self.ng, L.dim)
+        ui = u_new[inner]
+        rho = ui[L.URHO]
+        rhoinv = 1.0 / rho
+        e = ui[L.UEINT] * rhoinv
+        xn = ui[L.UFS: L.UFS + L.nspec] * rhoinv[None]
+        es = self.eos.re(rho=rho, e=e, xn=xn)
+
+        def eos_re(e_k):
+            return self.eos.re(rho=rho, e=torch.clamp(e_k, min=1e-300), xn=xn)
+
+        metric = self.rad.geom_metric()
+        if Er.dim() > L.dim:
+            out = self.rad.multigroup_update(Er, rho, e, es.T, es.cv, dt,
+                                             nu_centers=self.rad.nugroup, dnu=self.rad.dnugroup,
+                                             eos_re=eos_re, metric=metric, bc_override=rad_bc,
+                                             rhs_extra=rad_rhs_extra, keep_flux=keep_rad_flux)
+            Er_new, e_new = self._inelastic_sct(out[0], rho, out[1], out[2], dt)
+        else:
+            out = self.rad.gray_update(Er, rho, e, es.T, es.cv, dt, eos_re=eos_re,
+                                       metric=metric, bc_override=rad_bc,
+                                       rhs_extra=rad_rhs_extra, keep_flux=keep_rad_flux)
+            Er_new, e_new = out[0], out[1]
+        de = rho * (e_new - e)
+        u_new = u_new.clone()
+        u_new[(L.UEINT,) + inner[1:]] = u_new[(L.UEINT,) + inner[1:]] + de
+        u_new[(L.UEDEN,) + inner[1:]] = u_new[(L.UEDEN,) + inner[1:]] + de
+        u_new = self._clean_fill_impl(u_new, t=t + float(dt), ctx=ctx)
+        return u_new, Er_new, (out[3] if keep_rad_flux else None)
+
+    def _rad_step_impl(self, u, Er, dt, t=0.0, ctx: Optional[StepCtx] = None, rad_bc=None,
+                       rad_rhs_extra=None, keep_rad_flux=False):
+        """One radiation step (reference do_advance_ctu then
+        final_radiation_call; castro_tpu/driver/sim.py:880-1008). Returns
+        (u_new, Er_new, min_rho, nan_flag), the checks 0-d tensors; with
+        `keep_rad_flux` then the radiation register fluxes and the gas
+        fluxes (None without keep_fluxes); else with keep_fluxes the gas
+        fluxes.
+
+        The characteristic rad-CTU step when `_rad_split()` is false; else
+        the hydro step on the radiation layout (or source-only with
+        do_hydro=0), an upwind advection of Er with the new velocities on a
+        1-ghost view, the problem's radiation source (`rad.rad_source_fn(sim,
+        t, dt)`, erg/cm^3/s, into the rhs), and the implicit update. AMR:
+        `rad_bc` = the coarse-Er Dirichlet values on the window's faces,
+        `rad_rhs_extra` = the deferred-sync rhs."""
+        self._reset_sources()
+        try:
+            if not self._rad_split():
+                return self._rad_ctu_step(u, Er, dt, t, ctx, rad_bc, rad_rhs_extra,
+                                          keep_rad_flux)
+            return self._rad_split_step(u, Er, dt, t, ctx, rad_bc, rad_rhs_extra,
+                                        keep_rad_flux)
+        finally:
+            self._reset_sources()
+
+    def _rad_split_step(self, u, Er, dt, t, ctx, rad_bc, rad_rhs_extra, keep_rad_flux):
+        from castro_tpu_torch.ops.stencil import shifted
+
+        L = self.layout
+        if L.dim == 3 and self.params.castro.do_hydro:
+            raise NotImplementedError(_SPLIT_3D)
+        out = self._step(u, dt, t, ctx, None, None)
+        u_new, min_rho, bad = out[:3]
+        hyd_fluxes = out[3] if self.keep_fluxes else None
+        dtw = K.wt(dt, self.dtype)
+
+        # upwind Er advection with the new velocities, on a 1-ghost view
+        multigroup = Er.dim() > L.dim
+        ng = self.ng
+        Er1 = self._fill_rad(Er if multigroup else Er[None], ngr=1)
+        if not multigroup:
+            Er1 = Er1[0]
+        sl1 = tuple(slice(ng - 1, n - ng + 1) for n in u_new.shape[1:])
+        rho1 = torch.clamp(u_new[(L.URHO,) + sl1], min=1e-300)
+        pre = (slice(None),) if multigroup else ()
+        Er_adv = Er
+        for d in range(L.dim):
+            ax = d + (1 if multigroup else 0)
+            vel1 = u_new[(L.momentum_index(d),) + sl1] / rho1
+            vf1 = 0.5 * (vel1 + shifted(vel1, -1, d))  # face i-1/2 at i
+            if multigroup:
+                vf1 = vf1[None]
+            # the edge clamp touches only the outermost ghost plane, which
+            # the face slices below never read
+            F1 = vf1 * torch.where(vf1 > 0, shifted(Er1, -1, ax), Er1)
+            lo = [slice(1, -1)] * L.dim
+            hi = [slice(1, -1)] * L.dim
+            hi[d] = slice(2, None)
+            Er_adv = Er_adv - dtw * (F1[pre + tuple(hi)] - F1[pre + tuple(lo)]) / self.geom.dx[d]
+
+        src_fn = getattr(self.rad, "rad_source_fn", None)
+        if src_fn is not None:
+            q_src = dtw * src_fn(self, t, dtw)
+            rad_rhs_extra = q_src if rad_rhs_extra is None else rad_rhs_extra + q_src
+        u_new, Er_new, rad_fluxes = self._implicit_rad(u_new, Er_adv, dtw, t, ctx or
+                                                       self._default_ctx, rad_bc,
+                                                       rad_rhs_extra, keep_rad_flux)
+        if keep_rad_flux:
+            return u_new, Er_new, min_rho, bad, rad_fluxes, hyd_fluxes
+        if self.keep_fluxes:
+            return u_new, Er_new, min_rho, bad, hyd_fluxes
+        return u_new, Er_new, min_rho, bad
+
+    def _rad_ctu_step(self, u, Er, dt, t, ctx, rad_bc, rad_rhs_extra, keep_rad_flux):
+        """The characteristic rad-CTU step of any dimension: radiation in
+        the CTU eigensystem (trace_ppm_rad, the RADIATION transverse
+        branches, ctu_rad_consup), then the implicit FLD matter coupling
+        (castro_tpu/driver/sim.py:738-878). With `keep_rad_flux` the
+        radiation register fluxes are the advective fluxes of the chain
+        (interior faces, cell-registered) plus the implicit diffusion
+        fluxes; the work terms are sources and are not registered."""
+        from castro_tpu_torch.ops.rad_hydro import ctu_rad_hydro
+
+        L = self.layout
+        c = self.params.castro
+        rp = self.params.radiation
+        ctx = ctx or self._default_ctx
+        dtw = K.wt(dt, self.dtype)
+        u = ctx.fill(u, t)
+        gray = Er.dim() == L.dim
+        Er_int = Er[None] if gray else Er
+        Er_g2 = self._fill_rad(Er_int)
+        lam_g = self._rad_lambda_grown(u, Er_g2)
+        q, qaux = au.ctoprim(u, L, self.eos, self.cfg.small_dens, self.small_temp, Er=Er_g2,
+                             lam=lam_g, rad_limiter=self.rad.limiter)
+        del Er_g2, lam_g
+        src_old = None
+        if self.source_fns:
+            src_old = torch.zeros_like(u)
+            for fn in self.source_fns:
+                src_old = src_old + fn(self, u, q, qaux, t, dtw, ctx=ctx)
+        srcQ = None if src_old is None else au.src_to_prim(q, qaux, src_old, L)
+        want_fluxes = keep_rad_flux or self.keep_fluxes
+        out = ctu_rad_hydro(u, Er_int, q, qaux, srcQ, dtw, self.geom, L, self.cfg,
+                            self.rad.limiter, rp.closure, nugroup=self.rad.nugroup,
+                            dlognu=self.rad.dlognu, fspace_type=rp.fspace_advection_type,
+                            comoving=rp.comoving, flatten_pp_threshold=rp.flatten_pp_threshold,
+                            keep_fluxes=want_fluxes)
+        del q, qaux, srcQ
+        u_new, Er_new = out[0], out[1]
+        if src_old is not None:
+            u_new = u_new + dtw * src_old
+        inner = u_new[interior_slice(self.ng, L.dim)]
+        min_rho = ctx.pmin(inner[L.URHO])
+        nan_flag = ctx.pany(~torch.isfinite(torch.sum(inner)) | ~torch.isfinite(torch.sum(Er_new)))
+        del inner
+        u_new = self._clean_fill_impl(u_new, t=t + dt, ctx=ctx)
+        u_new, Er_new, rad_fluxes = self._implicit_rad(u_new, Er_new[0] if gray else Er_new,
+                                                       dtw, t, ctx, rad_bc, rad_rhs_extra,
+                                                       keep_rad_flux)
+        fint = None
+        if want_fluxes:
+            gas_fluxes, rfluxes = out[2], out[3]
+            if self.keep_fluxes:
+                fint = self._interior_fluxes(gas_fluxes, u.shape[1:])
+        if keep_rad_flux:
+            ng = self.ng
+            for d in range(L.dim):
+                rf = rfluxes[d][0] if gray else rfluxes[d]
+                cax = 0 if gray else 1
+                sl = [slice(None)] * cax + [slice(ng, -ng)] * L.dim
+                sl[cax + d] = slice(ng, rf.shape[cax + d] - ng)
+                rad_fluxes[d] = rad_fluxes[d] + rf[tuple(sl)]
+            return u_new, Er_new, min_rho, nan_flag, rad_fluxes, fint
+        if self.keep_fluxes:
+            return u_new, Er_new, min_rho, nan_flag, fint
+        return u_new, Er_new, min_rho, nan_flag
+
+    def _filter_prim(self):
+        """Purser-filter the primitives every radiation.filter_prim_int steps
+        (Radiation::filter_prim, Radiation.cpp:53-136): rho, u, e and X in
+        primitive form, then the conserved state rebuilt, and Er."""
+        from castro_tpu_torch.radiation.filter import apply_filter
+
+        L = self.layout
+        T_ord = self.params.radiation.filter_prim_T
+        inner = interior_slice(self.ng, L.dim)
+        ui = self.u[inner]
+        rho = ui[L.URHO]
+        rhoinv = 1.0 / torch.clamp(rho, min=1e-300)
+        vel = [ui[L.momentum_index(d)] * rhoinv for d in range(3)]
+        e = ui[L.UEINT] * rhoinv
+        xn = ui[L.UFS: L.UFS + L.nspec] * rhoinv[None]
+        axes = range(L.dim)
+        rho_f = torch.clamp(apply_filter(rho, T_ord, axes=axes), min=self.params.castro.small_dens)
+        vel_f = [apply_filter(v, T_ord, axes=axes) for v in vel]
+        e_f = torch.clamp(apply_filter(e, T_ord, axes=axes), min=1e-300)
+        xn_f = torch.clamp(apply_filter(xn, T_ord, axes=range(1, xn.dim())), 0.0, 1.0)
+        xn_f = xn_f / torch.clamp(torch.sum(xn_f, dim=0), min=1e-300)[None]
+        es = self.eos.re(rho=rho_f, e=e_f, xn=xn_f)
+        ke = 0.5 * rho_f * sum(v * v for v in vel_f)
+        u = self.u.clone()
+        u[(L.URHO,) + inner[1:]] = rho_f
+        for d in range(3):
+            u[(L.momentum_index(d),) + inner[1:]] = rho_f * vel_f[d]
+        u[(L.UEINT,) + inner[1:]] = rho_f * e_f
+        u[(L.UEDEN,) + inner[1:]] = rho_f * e_f + ke
+        u[(L.UTEMP,) + inner[1:]] = es.T
+        u[(slice(L.UFS, L.UFS + L.nspec),) + inner[1:]] = xn_f * rho_f[None]
+        self.u = self._clean_fill_impl(u)
+        if self.u_rad is not None:
+            ax_er = range(1, self.u_rad.dim()) if self.u_rad.dim() > L.dim else range(L.dim)
+            self.u_rad = torch.clamp(apply_filter(self.u_rad, T_ord, axes=ax_er), min=0.0)
+
     def _pointmass_fix_impl(self, u_old, u_new, point_mass):
         """point_mass_fix_solution=1 (Castro_pointmass.cpp:155): where the
         box of 2 cells about the problem centre gained mass, reset the box to
@@ -608,6 +935,13 @@ class Simulation:
             u_new, *checks = self._ssdc_step_impl(self.u, dt, t)
             min_rho, nan = torch.stack([x.to(torch.float64) for x in checks]).tolist()
             return u_new, StepStatus(min_rho=min_rho, has_nan=bool(nan))
+        if self.rad is not None:
+            u_new, Er_new, *checks = self._rad_step_impl(self.u, self.u_rad, dt, t)[:4]
+            min_rho, nan = torch.stack([x.to(torch.float64) for x in checks]).tolist()
+            status = StepStatus(min_rho=min_rho, has_nan=bool(nan))
+            if status.success:
+                self.u_rad = Er_new
+            return u_new, status
         stp = self.params.castro.source_term_predictor == 1
         pm = None
         if self._pm_fix:
@@ -646,6 +980,7 @@ class Simulation:
             t_adv = 0.0
             ok = True
             u_save = self.u
+            u_rad_save = self.u_rad
             nsub = 0
             while t_adv < dt * (1 - 1e-12):
                 step_dt = min(dt_sub, dt - t_adv)
@@ -661,6 +996,7 @@ class Simulation:
                 self._count_zones(nsub)
                 return dt
             self.u = u_save
+            self.u_rad = u_rad_save
             dt_sub *= c.retry_subcycle_factor
             if dt_sub < c.dt_cutoff:
                 break
@@ -693,6 +1029,9 @@ class Simulation:
                 dt = stop_time - self.t
             self.dt = self.advance(dt)
             self.step_count += 1
+            fp = self.params.radiation.filter_prim_int
+            if self.rad is not None and fp > 0 and self.step_count % fp == 0:
+                self._filter_prim()
             if verbose:
                 print(f"STEP {self.step_count} t={self.t:.6e} dt={self.dt:.6e}")
             for cb in callbacks or []:

@@ -14,10 +14,16 @@ import torch
 from castro_tpu_torch.ops.stencil import interior_slice, shifted
 
 
-def ctoprim(u, layout, eos, small_dens=1e-200, small_temp=1e-200):
+def ctoprim(u, layout, eos, small_dens=1e-200, small_temp=1e-200, Er=None, lam=None,
+            rad_limiter=2, rad_closure=3):
     """Conserved -> primitive (+ aux thermodynamics): (q[NQ], qaux[NQAUX]).
     Assumes a cleaned `u` (reference `ctoprim`, advection_util.cpp:27).
-    Radiation is not ported."""
+    On a radiation layout, with the grown Er and lambda [ngroups, grid],
+    it fills QRAD, QPTOT, QREITOT, the gas gamc and c (QGAMCG, QCG), the
+    limiters (QLAMS) and the total gamc and sound speed
+    (advection_util.cpp:163-192); without them those slots are zero, as
+    the JAX package's zero-initialized arrays leave them on the
+    operator-split path."""
     L = layout
     rho = torch.clamp(u[L.URHO], min=small_dens)
     rhoinv = 1.0 / rho
@@ -44,6 +50,32 @@ def ctoprim(u, layout, eos, small_dens=1e-200, small_temp=1e-200):
     qaux[L.QC] = es.cs
     qaux[L.QDPDR] = es.dpdr_e
     qaux[L.QDPDE] = es.dpde
+    if L.radiation:
+        zero = torch.zeros_like(rho)
+        for c in [L.QPTOT, L.QREITOT] + [L.QRAD + g for g in range(L.ngroups)]:
+            q[c] = zero
+        for c in [L.QGAMCG, L.QCG] + [L.QLAMS + g for g in range(L.ngroups)]:
+            qaux[c] = zero
+    if L.radiation and Er is not None:
+        from castro_tpu_torch.ops.rad_hydro import compute_ptot_ctot
+
+        # a problem may hand in float64 Er or lambda in a float32 run
+        Er = Er.to(rho.dtype)
+        lam = lam.to(rho.dtype)
+        for g in range(L.ngroups):
+            q[L.QRAD + g] = Er[g]
+            qaux[L.QLAMS + g] = lam[g]
+        qaux[L.QGAMCG] = es.gam1
+        qaux[L.QCG] = es.cs
+        q = torch.stack(q)
+        ptot, ctot, gamc_tot = compute_ptot_ctot([lam[g] for g in range(L.ngroups)], q, es.cs,
+                                                 L, comoving=True, limiter=rad_limiter,
+                                                 closure=rad_closure)
+        q[L.QPTOT] = ptot
+        q[L.QREITOT] = q[L.QREINT] + torch.sum(Er, dim=0)
+        qaux[L.QC] = ctot
+        qaux[L.QGAMC] = gamc_tot
+        return q, torch.stack(qaux)
     return torch.stack(q), torch.stack(qaux)
 
 

@@ -24,11 +24,13 @@ def small_pressure(dtype) -> float:
     return max(SMALL_PRES, float(torch.finfo(dtype).tiny))
 
 
-def uflatten(q, layout):
-    """Return flatn[grid] in [0,1]; 1 = no flattening."""
+def uflatten(q, layout, pres_comp=None):
+    """Return flatn[grid] in [0,1]; 1 = no flattening. `pres_comp` is the
+    pressure that detects shocks (default QPRES; radiation runs also
+    flatten on QPTOT, Castro_ctu_hydro.cpp:236-239)."""
     L = layout
     dim = L.dim
-    p = q[L.QPRES]
+    p = q[L.QPRES if pres_comp is None else pres_comp]
     flatn = torch.ones_like(p)
     small = small_pressure(p.dtype)
     one, zero = torch.ones_like(p), torch.zeros_like(p)

@@ -17,7 +17,11 @@ three profiling probes of `ops/probes.py`, `prof_cmpflx.cu` and
   consup        one direction's conservative update, 3D          (consup.cu)
 
 The first five and consup are 3D; the three pointwise kernels take a grid
-of any dimension.
+of any dimension and any layout the port has but MHD's: the radiation
+layout of the operator-split radiation step too, whose passives lie past
+QPTOT, QREITOT and each group's Er and whose Godunov state carries each
+group's flux limiter and Er (written as zeros, as the plain versions
+write them).
 
 Each wrapper takes the JAX function's arguments and returns what it
 returns. On a CPU tensor it runs its plain version (`*_plain`, composed from
@@ -230,20 +234,25 @@ def _check(t, name, dtype, shape):
         raise ValueError(f"{name} must be contiguous")
 
 
-def check_kernel_layout(layout, dims=(3,)):
+def check_kernel_layout(layout, dims=(3,), radiation=False):
     """Raise NotImplementedError unless a kernel that takes grids of the
     dimensions `dims` covers this layout: any number of species and aux
-    components, the shock flag and hybrid momenta, but not MHD or radiation
-    (whose states the kernels do not carry)."""
+    components, the shock flag and hybrid momenta, not MHD, and a radiation
+    layout only for the kernels that take one (`radiation`: cmpflx,
+    trans_apply and trans_cmpflx, the pointwise solves of the
+    operator-split radiation step)."""
     L = layout
     if L.dim not in dims:
         raise NotImplementedError(
             f"this CUDA kernel takes {'/'.join(f'{k}D' for k in dims)} grids, not {L.dim}D "
             "(ROADMAP.md, queue 2, kernel coverage)")
-    if L.mhd or L.radiation:
+    if L.mhd:
         raise NotImplementedError(
-            "the CUDA kernels carry no magnetic or radiation components: radiation, MHD "
-            "(queue 1 items 9, 11, ROADMAP.md)")
+            "the CUDA kernels carry no magnetic components: MHD (queue 1 item 11, ROADMAP.md)")
+    if L.radiation and not radiation:
+        raise NotImplementedError(
+            "this CUDA kernel carries no radiation components: 3D operator-split radiation "
+            "through the CTU kernels (queue 1 item 9, ROADMAP.md)")
     if L.nspec < 1:
         raise NotImplementedError("the CUDA kernels need at least one species")
 
@@ -263,9 +272,11 @@ def check_kernel_eos(eos, layout):
 def _layout_args(layout):
     """The layout the kernels take at run time: the first passive conserved
     component, species, passives (species + aux), the shock flag's
-    component (-1 without it)."""
+    component (-1 without it), then the first passive primitive component
+    and the Godunov component count (csrc/common.cuh:QLayout; past the
+    hydro layout's on a radiation layout)."""
     L = layout
-    return _ints(L.UFS, L.nspec, L.nspec + L.naux, L.USHK)
+    return _ints(L.UFS, L.nspec, L.nspec + L.naux, L.USHK, L.QFS, L.NGDNV)
 
 
 def _eos_args(eos, layout, like):
@@ -649,7 +660,7 @@ def cmpflx(qm, qp, gamc_l, gamc_r, c_l, c_r, d, layout, coord, riemann_solver,
         return cmpflx_plain(qm, qp, gamc_l, gamc_r, c_l, c_r, d, layout, coord,
                             riemann_solver, small_dens, small_pres, bnd_mask)
     L = layout
-    check_kernel_layout(L, dims=(1, 2, 3))
+    check_kernel_layout(L, dims=(1, 2, 3), radiation=True)
     coord = _coord(coord)
     solver = _kernel_solver(riemann_solver)
     dt_ = qm.dtype
@@ -687,7 +698,7 @@ def trans_apply(q_face, dflux, dreint_extra, dp, layout, small_pres, reset_densi
         return trans_apply_plain(q_face, dflux, dreint_extra, dp, layout, small_pres,
                                  reset_density, reset_rhoe)
     L = layout
-    check_kernel_layout(L, dims=(1, 2, 3))
+    check_kernel_layout(L, dims=(1, 2, 3), radiation=True)
     dt_ = q_face.dtype
     g = tuple(q_face.shape[1:])
     _check(q_face, "q_face", dt_, (L.NQ,) + g)
@@ -731,7 +742,7 @@ def trans_cmpflx(qm, qp, df_m, df_p, dre_m, dre_p, dp_m, dp_p, gamc_l, gamc_r, c
         return trans_cmpflx_plain(*tensors, d, layout, coord, riemann_solver, small_dens,
                                   small_pres, reset_density, reset_rhoe, bnd_mask)
     L = layout
-    check_kernel_layout(L, dims=(1, 2, 3))
+    check_kernel_layout(L, dims=(1, 2, 3), radiation=True)
     coord = _coord(coord)
     solver = _kernel_solver(riemann_solver)
     dt_ = qm.dtype

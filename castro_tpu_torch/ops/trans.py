@@ -15,8 +15,12 @@ the JAX package leaves it to XLA (`:316-317`).
 The prim interface state is converted to conserved form, the transverse
 flux divergence subtracted, a p-evolution-equation update applied to the
 pressure, with the reference's reset ladder; `use_eos`
-(transverse_use_eos) then recomputes (p, rho e) from the EOS. The
-radiation terms are not ported (ROADMAP.md).
+(transverse_use_eos) then recomputes (p, rho e) from the EOS. With `rad`
+the RADIATION branches of trans.cpp join in (the characteristic rad-CTU
+step, `ops/rad_hydro.py`): the lambda-weighted radiation pressure on the
+transverse momentum, the u.lambda grad Er work on the energy, the
+comoving Er terms and each group's Er update with the QPTOT/QREITOT
+reassembly; they are torch ops, as the JAX package's are XLA.
 
 Face convention: face arrays registered at i = interface i-1/2. For the
 plus state (from cell i) cell_shift=0; for the minus state (from cell i-1)
@@ -50,7 +54,8 @@ def _pass_ranges(layout):
 
 
 def _trans_apply(q_face, cell_shift, n_ax, terms, qaux, layout, small_pres,
-                 transverse_reset_density=True, transverse_reset_rhoe=False, use_eos=None):
+                 transverse_reset_density=True, transverse_reset_rhoe=False, use_eos=None,
+                 rad=None):
     """Apply one or two transverse flux-difference corrections.
 
     terms: list of dicts {flux [NVAR], qe [NGDNV], t_dir, cdtdx}, the
@@ -60,7 +65,10 @@ def _trans_apply(q_face, cell_shift, n_ax, terms, qaux, layout, small_pres,
     and `radial_p_fix` (subtract cdtdx (pgp - pgm) from the radial
     momentum, whose flux lacks the pressure; trans.cpp:303-306).
     `use_eos` (an EOS) recomputes (p, rho e) from (rho, e, X) afterwards
-    (transverse_use_eos; reference reset_edge_state_thermo)."""
+    (transverse_use_eos; reference reset_edge_state_thermo). `rad`, a dict
+    {limiter, closure, fspace_t, comov}, adds the radiation terms
+    (trans.cpp:192-268, 313-334, 419-436, 676-722), each term then carrying
+    its face-registered radiation flux `rflux` [ngroups, grid]."""
     L = layout
 
     def C(arr, t_ax=None, t_off=0):
@@ -81,7 +89,18 @@ def _trans_apply(q_face, cell_shift, n_ax, terms, qaux, layout, small_pres,
     drr = dru = drv = drw = dre_tot = dreint = dp = 0.0
     pass_q, pass_u = _pass_ranges(L)
     dpass = {qc: 0.0 for qc in pass_q}
-    gamc = C(qaux[L.QGAMC])
+    # with radiation the p-evolution equation takes the gas gamma_1
+    # (trans.cpp:216-222)
+    gamc = C(qaux[L.QGAMCG if rad is not None else L.QGAMC])
+    ngr = L.ngroups if rad is not None else 0
+    if rad is not None:
+        from castro_tpu_torch.ops.rad_hydro import edd_factor
+
+        lam_c = [C(qaux[L.QLAMS + g]) for g in range(ngr)]
+        ern = [q_face[L.QRAD + g] for g in range(ngr)]
+        dmom = [0.0, 0.0, 0.0]  # the lambda grad Er momentum, per direction
+        dre_rad = 0.0
+        dern = [0.0] * ngr
 
     for t in terms:
         F = t["flux"]
@@ -130,12 +149,49 @@ def _trans_apply(q_face, cell_shift, n_ax, terms, qaux, layout, small_pres,
             dpass[qc] = dpass[qc] + dflux(uc)
         if t.get("radial_p_fix", False):
             dru = dru + cdtdx * (pgp - pgm)
+        if rad is not None:
+            # the radiation terms, added to the conserved interface state;
+            # the lambda grad Er momentum goes to the transverse direction's
+            # momentum (the reference's 3D trans_single adds it to UMX
+            # always; the JAX package normalizes that, and so does this)
+            rF = t["rflux"]
+            uav = 0.5 * (ugp + ugm)
+            for g in range(ngr):
+                ergm = C(qe[L.GDERADS + g], t_ax=t_ax)
+                ergp = C(qe[L.GDERADS + g], t_ax=t_ax, t_off=1)
+                lamge = lam_c[g] * (ergp - ergm)
+                luge = uav * lamge
+                if rz and t_ax == 0:
+                    # RZ radial transverse: area-weighted (trans.cpp:315-321)
+                    dmom[0] = dmom[0] - 0.5 * hdt * (area_hi + area_lo) * lamge * volinv
+                else:
+                    dmom[t_ax] = dmom[t_ax] - cdtdx * lamge
+                dre_rad = dre_rad - cdtdx * luge
+                f1 = 0.5 * (1.0 - edd_factor(lam_c[g], rad["limiter"], rad["closure"]))
+                if rad["fspace_t"] == 1 and rad["comov"]:
+                    der = cdtdx * uav * f1 * (ergp - ergm)
+                elif rad["fspace_t"] == 2:
+                    der = cdtdx * f1 * 0.5 * (ergp + ergm) * (ugm - ugp)
+                else:  # mixed frame
+                    der = cdtdx * luge
+                rflo = C(rF[g], t_ax=t_ax)
+                rfhi = C(rF[g], t_ax=t_ax, t_off=1)
+                if rz:
+                    dern[g] = dern[g] - hdt * (area_hi * rfhi - area_lo * rflo) * volinv + der
+                else:
+                    dern[g] = dern[g] - cdtdx * (rfhi - rflo) + der
 
     rrnew = rr - drr
     runew = ru - dru
     rvnew = rv - drv
     rwnew = rw - drw
     renew = re - dre_tot
+    if rad is not None:
+        runew = runew + dmom[0]
+        rvnew = rvnew + dmom[1]
+        rwnew = rwnew + dmom[2]
+        renew = renew + dre_rad
+        ernew = [ern[g] + dern[g] for g in range(ngr)]
 
     # negative-density reset (trans.cpp:355-372)
     bad = (rrnew < 0.0) if transverse_reset_density else torch.zeros_like(rr, dtype=torch.bool)
@@ -163,6 +219,19 @@ def _trans_apply(q_face, cell_shift, n_ax, terms, qaux, layout, small_pres,
 
     for qc in pass_q:
         out[qc] = torch.where(bad, q_face[qc], (rr * q_face[qc] - dpass[qc]) / rrnew)
+
+    if rad is not None:
+        # each group's Er, and the total pressure and energy reassembled
+        # (trans.cpp:419-436, 843-857)
+        ptot = out[L.QPRES]
+        reitot = out[L.QREINT]
+        for g in range(ngr):
+            er_g = torch.where(bad, ern[g], ernew[g])
+            out[L.QRAD + g] = er_g
+            ptot = ptot + lam_c[g] * er_g
+            reitot = reitot + er_g
+        out[L.QPTOT] = ptot
+        out[L.QREITOT] = reitot
 
     if use_eos is not None:
         es = use_eos.re(rho=out[L.QRHO],
@@ -257,7 +326,7 @@ def trans_apply_bundle(q, df, dre_x, dp_b, layout, small_pres, reset_density,
 
 
 def _corrected_states(qm, qp, terms, qaux, n_dir, layout, small_pres, reset_density,
-                      reset_rhoe, use_kernels, use_eos_p=None, use_eos_m=None):
+                      reset_rhoe, use_kernels, use_eos_p=None, use_eos_m=None, rad=None):
     """Both interface states of normal n_dir corrected by `terms`: the plus
     state registered at its own cell (shift 0), the minus state at the cell
     below (shift -1)."""
@@ -271,39 +340,43 @@ def _corrected_states(qm, qp, terms, qaux, n_dir, layout, small_pres, reset_dens
                                      reset_density, reset_rhoe))
         return out[1], out[0]
     qpo = _trans_apply(qp, 0, n_dir, terms, qaux, layout, small_pres,
-                       reset_density, reset_rhoe, use_eos=use_eos_p)
+                       reset_density, reset_rhoe, use_eos=use_eos_p, rad=rad)
     qmo = _trans_apply(qm, -1, n_dir, terms, qaux, layout, small_pres,
-                       reset_density, reset_rhoe, use_eos=use_eos_m)
+                       reset_density, reset_rhoe, use_eos=use_eos_m, rad=rad)
     return qmo, qpo
 
 
 def trans_single(qm, qp, flux_t, qe_t, qaux, n_dir, t_dir, cdtdx, layout,
                  small_pres, reset_density=True, reset_rhoe=False, geom_terms=None,
-                 radial_p_fix=False, hdt=None, use_kernels=False, use_eos=None):
+                 radial_p_fix=False, hdt=None, use_kernels=False, use_eos=None,
+                 rflux_t=None, rad=None):
     """Single transverse correction of both interface states
     (reference `trans_single`, trans.cpp:15). `geom_terms` = {area, vol}
-    and `hdt` weight the 2D RZ pass; it and `radial_p_fix` take the torch
-    ops whatever `use_kernels` says, as the JAX package takes XLA."""
-    term = {"flux": flux_t, "qe": qe_t, "t_dir": t_dir, "cdtdx": cdtdx}
+    and `hdt` weight the 2D RZ pass; it, `radial_p_fix` and the radiation
+    terms (`rad`, with the t-direction radiation flux `rflux_t`) take the
+    torch ops whatever `use_kernels` says, as the JAX package takes XLA."""
+    term = {"flux": flux_t, "qe": qe_t, "t_dir": t_dir, "cdtdx": cdtdx, "rflux": rflux_t}
     if geom_terms:
         term.update(geom_terms, hdt=hdt)
     if radial_p_fix:
         term["radial_p_fix"] = True
-    kern = use_kernels and not geom_terms and not radial_p_fix
+    kern = use_kernels and not geom_terms and not radial_p_fix and rad is None
     return _corrected_states(qm, qp, [term], qaux, n_dir, layout, small_pres,
-                             reset_density, reset_rhoe, kern, use_eos, use_eos)
+                             reset_density, reset_rhoe, kern, use_eos, use_eos, rad=rad)
 
 
 def trans_final(qm, qp, flux_t1, qe_t1, flux_t2, qe_t2, qaux,
                 n_dir, t1_dir, t2_dir, cdtdx_t1, cdtdx_t2, layout,
                 small_pres, reset_density=True, reset_rhoe=False, use_kernels=False,
-                use_eos=None):
+                use_eos=None, rflux_t1=None, rflux_t2=None, rad=None):
     """Double transverse correction (reference `trans_final`, trans.cpp:442).
     `use_eos` re-evaluates the plus state only, as the JAX package's XLA
-    path does (`castro_tpu/ops/trans.py:378-381`)."""
+    path does (`castro_tpu/ops/trans.py:378-381`); `rad` as in
+    `trans_single`, with the radiation fluxes of both terms."""
     terms = [
-        {"flux": flux_t1, "qe": qe_t1, "t_dir": t1_dir, "cdtdx": cdtdx_t1},
-        {"flux": flux_t2, "qe": qe_t2, "t_dir": t2_dir, "cdtdx": cdtdx_t2},
+        {"flux": flux_t1, "qe": qe_t1, "t_dir": t1_dir, "cdtdx": cdtdx_t1, "rflux": rflux_t1},
+        {"flux": flux_t2, "qe": qe_t2, "t_dir": t2_dir, "cdtdx": cdtdx_t2, "rflux": rflux_t2},
     ]
     return _corrected_states(qm, qp, terms, qaux, n_dir, layout, small_pres,
-                             reset_density, reset_rhoe, use_kernels, use_eos, None)
+                             reset_density, reset_rhoe, use_kernels and rad is None, use_eos,
+                             None, rad=rad)

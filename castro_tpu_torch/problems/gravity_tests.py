@@ -3,8 +3,8 @@ counterpart of `castro_tpu/problems/gravity_tests.py:22-117`).
 
 - uniform_cube_sphere: the isolated Poisson solve of a uniform sphere
   (problem=1) or cube (problem=2); the sphere's potential is analytic. Its
-  parameters set castro.do_hydro=0, which the port's Simulation does not
-  take yet (ROADMAP.md, queue 1 item 10): build a `Gravity` from them.
+  parameters set castro.do_hydro=0 (source-only evolution in
+  `Simulation`); the tests build a `Gravity` from them.
 - evrard_collapse: the Evrard (1988) adiabatic collapse of a cold
   1/r-density gas sphere under self-gravity.
 

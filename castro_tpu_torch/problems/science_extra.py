@@ -1,14 +1,15 @@
-"""celldet and planet (counterpart of `castro_tpu/problems/science_extra.py`;
-reference `Exec/science/{celldet,planet,bwp-rad}`).
+"""celldet, planet and bwp-rad (counterpart of
+`castro_tpu/problems/science_extra.py`; reference
+`Exec/science/{celldet,planet,bwp-rad}`).
 
 - celldet: a cellular detonation, a hot/cold C/O interface whose position
   is perturbed sinusoidally along y, so that the planar detonation grows
   transverse cells (aprox13, Helmholtz, 2D).
 - planet: a hot-Jupiter atmosphere under constant gravity, an isothermal
   gamma-law column with a shear band.
-
-bwp-rad needs radiation (ROADMAP.md, queue 1 item 9): its functions keep
-their names and raise.
+- bwp-rad: a 0.2 Msun solar-like star in 2D RZ with monopole gravity and
+  gray FLD radiation (Kramers opacity), through the operator-split
+  radiation step (radiation.hydro_coupling=0).
 """
 
 from __future__ import annotations
@@ -102,11 +103,50 @@ def planet_init(sim, u):
     return fill_from_prim(sim, u, rho, (vx, 0.0, 0.0), T=T)
 
 
+BWP_DEFAULTS = dict(rho_c=80.0, T_c=7.0e6, rho_ambient=1.0e-8)
+
+
 def bwp_rad_params(n=(64, 128), **prob):
-    raise NotImplementedError("not ported yet: bwp-rad needs radiation (queue 1 item 9), "
-                              "see ROADMAP.md")
+    p = Params()
+    p = p.with_ns("amr", n_cell=tuple(n), stop_time=100.0)
+    p = p.with_ns("geometry", coord_sys=1, prob_lo=(0.0, 0.0, 0.0), prob_hi=(2.48e10, 4.96e10, 1.0))
+    p = p.with_ns("castro", lo_bc=(3, 2, 0), hi_bc=(2, 2, 0), cfl=0.5, do_grav=1, do_radiation=1,
+                  small_dens=1e-10, small_temp=1e2)
+    p = p.with_ns("gravity", gravity_type="MonopoleGrav")
+    p = p.with_ns("eos", eos_gamma=5.0 / 3.0)
+    # the Kramers opacity kappa = 3.8e22 rho^2 T^-3.5 (inputs_2d)
+    p = p.with_ns("radiation", ngroups=1, lo_bc=(102, 101, 0), hi_bc=(105, 101, 0),
+                  const_kappa_p=3.8e22, kappa_p_exp_m=2.0, kappa_p_exp_n=3.5,
+                  const_kappa_r=3.8e22, kappa_r_exp_m=2.0, kappa_r_exp_n=3.5, limiter=2,
+                  comoving=0, hydro_coupling=0, outer_iters=6)
+    p = p.with_ns("tpu", dtype="float64")
+    return p.replace(problem=dict(BWP_DEFAULTS, **prob))
 
 
 def bwp_rad_init(sim, u):
-    raise NotImplementedError("not ported yet: bwp-rad needs radiation (queue 1 item 9), "
-                              "see ROADMAP.md")
+    """The 0.2 Msun solar-like star: a spherical HSE model (gamma law, T ~
+    rho^(2/3) from the centre) mapped by the spherical radius about the
+    lower axis origin, standing in for `SolarLike_0.2M.hse.1280`."""
+    from castro_tpu_torch.problems.util import model_state
+    from castro_tpu_torch.utils.initial_models import hse_spherical
+
+    pp = dict(BWP_DEFAULTS, **sim.params.problem)
+    L = sim.layout
+    g = sim.geom
+    rmax = float(g.prob_hi[1]) * 1.05
+    nshell = 1024
+    r1 = np.linspace(rmax / (2 * nshell), rmax, nshell)
+    xnj = torch.full((L.nspec,), 1.0 / L.nspec, dtype=torch.float64, device=sim.device)
+
+    def T_of_rho(rho):
+        return torch.clamp(pp["T_c"] * (torch.clamp(rho, min=1e-12) / pp["rho_c"]) ** (2.0 / 3.0),
+                           min=1.0e3)
+
+    model = hse_spherical(sim.eos, r1, pp["rho_c"], pp["T_c"], lambda m: xnj, T_of_rho=T_of_rho,
+                          rho_cutoff=pp["rho_ambient"], device=sim.device)
+    shape = tuple(u.shape[1:])
+    x = g.cell_centers(0, sim.ng).expand(shape).double()
+    y = g.cell_centers(1, sim.ng).expand(shape).double()
+    yc = 0.5 * (g.prob_lo[1] + g.prob_hi[1])
+    rho, T = model_state(sim, u, model, torch.sqrt(x * x + (y - yc) ** 2))
+    return fill_from_prim(sim, u, rho, (0.0, 0.0, 0.0), T=T)

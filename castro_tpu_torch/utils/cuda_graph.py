@@ -1,7 +1,7 @@
 """CUDA-graph replay of a fixed-shape loop body (the spherical march's
-shell, the burner's iteration, the NSE temperature's bisection): these
-are launch-bound, tens of thousands of small launches an iteration, with
-no host read inside."""
+shell, the burner's iteration, the NSE temperature's bisection, a
+multigrid solve's V-cycle): these are launch-bound, hundreds to tens of
+thousands of small launches an iteration, with no host read inside."""
 
 from __future__ import annotations
 
@@ -12,7 +12,7 @@ from functools import partial
 import torch
 
 
-def capture(body, device):
+def capture(body, device, collect=True):
     """Run `body` once eagerly on a side stream (it fills every lazy cache:
     constants made on first use would be host-to-device copies, which a
     capture refuses), then capture one call of it into a CUDA graph and
@@ -20,14 +20,19 @@ def capture(body, device):
     nothing. The cyclic garbage collector is off while the graph is
     captured: a collection there can free an earlier graph (a dead
     simulation's burner holds its graphs in a reference cycle), whose
-    teardown is not allowed during a capture and invalidates it."""
+    teardown is not allowed during a capture and invalidates it. With
+    `collect` a full collection first frees what dead cycles hold; a
+    graph captured every solve (the multigrid's) passes False: with a
+    simulation's objects alive a full collection costs as much as a small
+    solve (PERF.md)."""
     side = torch.cuda.Stream(device=device)
     side.wait_stream(torch.cuda.current_stream(device))
     with torch.cuda.stream(side):
         body()
     torch.cuda.current_stream(device).wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    gc.collect()
+    if collect:
+        gc.collect()
     enabled = gc.isenabled()
     gc.disable()
     try:

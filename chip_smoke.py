@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py            # every phase: the whole run
     python3 chip_smoke.py K          # the build, then the phases named (kernels,
-                                     # A-L, probes, timing); no kernel table
+                                     # A-M, probes, timing); no kernel table
 
 From the root of a checkout, on a machine with one card and the CUDA
 toolkit. Each phase is one function of main() over its shared state. In
@@ -140,6 +140,27 @@ order:
           tubes) at its default size, init + 2 steps, riemann_2d config 3
           and sod_stellar test 1 card vs CPU; the CPU references in a
           worker process beside the card;
+       M  radiation, float64 unless named (radiation/, ops/rad_hydro.py:
+          the characteristic rad-CTU step and the implicit FLD update are
+          torch ops, as the JAX package leaves them to XLA; the
+          operator-split step's solves are cmpflx and trans_cmpflx on the
+          radiation layout): M3, the 3D gray rad-CTU pulse at 128^3, 2
+          steps timed after a warm one, the implicit update's and the
+          CTU-rad chain's shares, V-cycles a solve and each solve's
+          residual against its tolerance, a profile, and 16^3 card vs CPU; M-split, rad_blast (1D spherical, n=128),
+          rad_breakout (n=1024), bwp-rad (2D RZ 64 x 128) and a 2D
+          Cartesian box (256^2) through the operator-split step, launches a
+          step checked, cmpflx / trans_cmpflx / trans_apply bit for bit on
+          each run's state and on the box at ngroups 1 and 4 in float32 and
+          float64, card vs CPU; M-mg, rad_sphere (n=256, 60 groups) against
+          its analytic spectrum, su_olson multigroup (n=512) and
+          rad_shestakov (64 groups) against the JAX tests' checks, a
+          float32 multigroup rad-CTU step at 64^3 (f-space advection,
+          Compton) finite; M-amr, the JAX AMR radiation setup at 256^2 + 1
+          level, 2 coarse steps, total energy, and multigroup + Compton at
+          32^2; M-set, rad_shock (Mach 2), rad_tests' thermal wave and
+          radiation source, init + 2 steps and card vs CPU; the CPU
+          references in a worker process;
      then the probe entry points (castro_tpu_torch/scripts/prof_cmpflx.py
      at 128^3 and prof_vpu.py), each probe first held against its plain
      version (probe_cmpflx at every tiling and probe_copy bit for bit,
@@ -151,7 +172,8 @@ order:
      (castro_tpu_torch/scripts/prof_faces.py); the nine step kernels again
      at NPASS = 7 and 19; cmpflx and trans_cmpflx in float64 at NPASS = 13
      on flame_wave's state (J-fw's grid), the bound's operations over the
-     float64 peak.
+     float64 peak; cmpflx, trans_cmpflx and trans_apply on the radiation
+     layout (the 2D box at 2048^2, ngroups 1 and 4, float32 and float64).
 Any failure exits non-zero. The last two lines are the kernels' JSON and
 the {"ok": true, ...} line. Without a card, or without the package beside
 this file, it exits 2 and prints no result.
@@ -273,6 +295,25 @@ L_BLOB_DT_FRAC = 1 / 8            # L-blob: its timed step at this fraction of t
 N_LAMR, STEPS_LAMR = 512, 2       # L-amr: 2D acoustic pulse + 1 level, SDC-4, float64
 N_LAMR_CPU = 64
 N_LSET_CPU = {"riemann_2d": 64, "sod_stellar": 128}  # L-set card vs CPU, 2 steps
+# path M: radiation. M3 the 3D gray rad-CTU pulse (tests/test_rad_hydro_coupling.py:
+# 182-200), float64, timed after 1 warm step; its card-vs-CPU copy
+N_M3, STEPS_M3, N_M3_CPU = 128, 2, 16
+M_DT = 2e-3                       # the pulse's and the boxes' fixed dt
+N_MBOX, N_MBOX_KERN = 128, 64     # M-split: the 2D Cartesian operator-split box; its kernel
+                                  # checks (ngroups 1 and 4, float32 and float64)
+STEPS_MSPLIT = 2                  # M-split: steps of each run, card and CPU
+N_MSPH, M_SPH_T, M_SPH_DT = 256, 1.0e-13, 1.0e-15  # M-mg: rad_sphere's run, the JAX test's
+                                  # dt, 100 steps (cut from its 1000 to 1e-12 for time; the
+                                  # whole run: python -m castro_tpu_torch.problems.rad_sphere)
+N_MSO, N_MSB = 512, 256           # M-mg: su_olson multigroup, rad_shestakov (64 groups)
+STEPS_MSO, STEPS_MSB = 10, 20     # M-mg: their steps, every check after them (the JAX tests:
+                                  # su_olson 20 and 60 steps, rad_shestakov 40; cut for time,
+                                  # 1.1 and 0.77 s a step on the card, PERF.md section 4)
+N_MMG = 64                        # M-mg: the float32 multigroup rad-CTU step (4 groups,
+                                  # f-space advection and Compton)
+N_MAMR, STEPS_MAMR = 256, 2       # M-amr: tests/test_amr_radiation.py's setup + 1 level
+N_MAMR_MG = 32                    # M-amr: its multigroup + Compton composition
+N_2D_RAD = 2048                   # the timing phase: the kernels on the radiation layout
 # the reacting layouts held kernel vs plain: (nspec, naux, shock flag,
 # hybrid momenta)
 LAYOUTS = [(7, 0, False, False), (13, 0, False, False), (19, 0, False, False),
@@ -778,15 +819,20 @@ def l_steps(kind, device, n, dts, **kw):
 
 
 def cpu_job(kind, *args):
-    """The CPU references of paths K and L, run in a worker process while
+    """The CPU references of paths K, L and M, run in a worker process while
     the card's process goes on: ("ms", params, model, dt) one massive_star
     step, ("burn", nse_on) K-burn's 2^3 corner, ("l", l_steps' arguments)
-    one of path L's runs. Returns numpy arrays, the burner's iterations
+    one of path L's runs, ("m", kind, dts, m_sim's keywords) one of path
+    M's. Returns numpy arrays, the burner's iterations (L, K) or Er (M)
     and the seconds."""
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import torch
 
     torch.set_num_threads(CPU_JOB_THREADS)
+    if kind == "m":
+        mkind, dts, kw = args
+        u_, er_, secs = m_steps(mkind, "cpu", dts, **kw)
+        return u_.numpy(), er_.numpy(), secs
     if kind == "l":
         lkind, n, dts, kw = args
         out, secs, iters = l_steps(lkind, "cpu", n, dts, **kw)
@@ -806,6 +852,152 @@ def cpu_job(kind, *args):
     s_.advance(dt)
     return s_.interior().double().numpy(), s_.reactor.burner.stats.iterations, \
         time.perf_counter() - t0
+
+
+def m_sim(kind, device, n=None, dtype="float64", ngroups=1):
+    """Path M's runs, built alike on the card and in the worker process:
+    "pulse" the 3D rad-CTU pulse (tests/test_rad_hydro_coupling.py:109-200),
+    "mg3d" tests/test_f32_physics.py's multigroup step in 3D (4 groups,
+    f-space advection, Compton),
+    "box" the 2D Cartesian operator-split box (a Sod-like tube with an Er
+    pulse), the setups "rad_blast", "rad_breakout", "bwp_rad", "rad_shock",
+    "thermal_wave", "rad_source", "su_olson_mg", "shestakov", and "amr" /
+    "amr_mg" tests/test_amr_radiation.py's hierarchy. Returns the
+    simulation, initialized, its radiation set as its setup sets it."""
+    import torch
+    from castro_tpu_torch.config import Params
+    from castro_tpu_torch.driver.sim import Simulation
+    from castro_tpu_torch.problems import (rad_blast, rad_breakout, rad_shestakov, rad_shock,
+                                           rad_tests, science_extra, su_olson)
+    from castro_tpu_torch.problems.util import fill_from_prim
+
+    def rad_box(dim, kappa_r, kappa_p, split):
+        p = Params().with_ns("amr", n_cell=(n,) * dim)
+        p = p.with_ns("geometry", prob_lo=(0.0,) * 3, prob_hi=(1.0,) * 3)
+        p = p.with_ns("castro", lo_bc=(0,) * dim, hi_bc=(0,) * dim, do_radiation=1,
+                      small_dens=1e-12, small_temp=1e-12, small_pres=1e-15,
+                      check_cfl_violation=0, fixed_dt=M_DT)
+        mg = dict(lowest_group_hz=1e13, highest_group_hz=1e17,
+                  do_inelastic_scattering=1) if ngroups > 1 else {}
+        p = p.with_ns("radiation", const_kappa_p=kappa_p, const_kappa_r=kappa_r, limiter=2,
+                      ngroups=ngroups, hydro_coupling=0 if split else 1, **mg)
+        return p.with_ns("eos", eos_gamma=5.0 / 3.0).with_ns("tpu", dtype=dtype)
+
+    def pulse_er(s_):
+        r2 = sum((s_.geom.cell_centers(d, 0) - 0.5) ** 2 for d in range(s_.layout.dim))
+        s_.u_rad = s_.u_rad * 0.0 + 1e-6 + 5.0 * torch.exp(-r2 / 0.02)
+
+    post = None
+    if kind == "mg3d":
+        # tests/test_f32_physics.py:319-355's multigroup configuration in 3D
+        p = Params().with_ns("amr", n_cell=(n,) * 3)
+        p = p.with_ns("geometry", prob_lo=(0.0,) * 3, prob_hi=(1.0,) * 3)
+        p = p.with_ns("castro", do_radiation=1, do_hydro=1, lo_bc=(0,) * 3, hi_bc=(0,) * 3,
+                      fixed_dt=2e-7)
+        p = p.with_ns("radiation", ngroups=4, const_kappa_p=1e-6, const_kappa_r=50.0,
+                      limiter=0, lowest_group_hz=1e14, highest_group_hz=1e18,
+                      do_inelastic_scattering=1)
+        p = p.with_ns("tpu", dtype=dtype)
+
+        def init(s_, u):
+            r = s_.geom.radius(s_.ng, center=(0.5, 0.5, 0.5))
+            return fill_from_prim(s_, u, 1.0, (0.0, 0.0, 0.0), T=0.1 + torch.exp(-(r / 0.12) ** 2))
+
+        sim = Simulation(p, problem_init=init, device=device)
+    elif kind == "pulse":
+        def init(s_, u):
+            return fill_from_prim(s_, u, 1.0, (0.0, 0.0, 0.0), p=1.0)
+
+        sim = Simulation(rad_box(3, 1e4, 0.0, False), problem_init=init, device=device)
+        post = pulse_er
+    elif kind == "box":
+        def init(s_, u):
+            x = s_.geom.cell_centers(0, s_.ng).expand(s_.grown_shape())
+            one = torch.ones_like(x)
+            rho = torch.where(x < 0.5, one, 0.25 * one)
+            pres = torch.where(x < 0.5, one, 0.3 * one)
+            return fill_from_prim(s_, u, rho, (0.1, 0.0, 0.0), p=pres)
+
+        sim = Simulation(rad_box(2, 1e4, 1e-3, True), problem_init=init, device=device)
+        post = pulse_er
+    elif kind in ("rad_blast", "rad_breakout"):
+        mod = rad_blast if kind == "rad_blast" else rad_breakout
+        sim = Simulation(mod.make_params(n=n), problem_init=mod.problem_init, device=device)
+    elif kind == "bwp_rad":
+        sim = Simulation(science_extra.bwp_rad_params(n=n), problem_init=science_extra.bwp_rad_init,
+                         device=device)
+    elif kind == "rad_shock":
+        sim = Simulation(rad_shock.make_params(mach=2, n=n), problem_init=rad_shock.problem_init,
+                         device=device)
+
+        def post(s_):
+            s_.u_rad = rad_shock.rad_init(s_)
+    elif kind == "thermal_wave":
+        sim = Simulation(rad_tests.thermal_wave_params(n=n), problem_init=rad_tests.thermal_wave_init,
+                         device=device)
+    elif kind == "rad_source":
+        sim = Simulation(rad_tests.rad_source_params(n=n), problem_init=rad_tests.rad_source_init,
+                         device=device)
+
+        def post(s_):
+            s_.u_rad = rad_tests.rad_source_Er0(s_)
+    elif kind == "su_olson_mg":
+        sim = Simulation(su_olson.mg_params(n=n), problem_init=su_olson.mg_init, device=device)
+        post = su_olson.mg_setup_radiation
+    elif kind == "shestakov":
+        sim = Simulation(rad_shestakov.make_params(n=n), problem_init=rad_shestakov.problem_init,
+                         device=device)
+        post = rad_shestakov.setup_radiation
+    elif kind in ("amr", "amr_mg"):
+        from castro_tpu_torch.driver.amr import AmrSimulation
+
+        p = Params().with_ns("amr", n_cell=(n, n), max_level=1, regrid_int=0,
+                             refinement_indicators=("terr",))
+        p = p.with_ns("geometry", prob_lo=(0.0,) * 3, prob_hi=(1.0,) * 3)
+        p = p.with_ns("castro", do_radiation=1, do_hydro=0, lo_bc=(2, 2), hi_bc=(2, 2),
+                      fixed_dt=2e-7)
+        p = p.with_ns("radiation", const_kappa_p=1e-6, const_kappa_r=50.0, limiter=0, ngroups=1)
+        if kind == "amr_mg":
+            p = p.with_ns("radiation", ngroups=4, lowest_group_hz=1.0e13,
+                          highest_group_hz=1.0e17, do_inelastic_scattering=1,
+                          const_kappa_r=5.0)
+        p = p.replace(extra={"amr.terr.field": "Temp", "amr.terr.value_greater": 0.5})
+
+        def init(s_, u):
+            r = s_.geom.radius(s_.ng, center=(0.5, 0.5))
+            return fill_from_prim(s_, u, 1.0, (0.0, 0.0, 0.0), T=0.1 + torch.exp(-(r / 0.12) ** 2))
+
+        amr = AmrSimulation(p, problem_init=init, device=device)
+        amr.init_data()
+        return amr
+    else:
+        raise ValueError(kind)
+    sim.init_data()
+    if post is not None:
+        post(sim)
+    return sim
+
+
+def m_steps(kind, device, dts, **kw):
+    """One of path M's runs, stepped by advance at the dts given. Returns
+    (the interior, float64 on the CPU; Er likewise; the seconds)."""
+    import torch
+
+    s_ = m_sim(kind, device, **kw)
+    if device != "cpu":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for d_ in dts:
+        s_.advance(d_)
+        s_.step_count += 1
+    if device != "cpu":
+        torch.cuda.synchronize()
+    return s_.interior().double().cpu(), s_.u_rad.double().cpu(), time.perf_counter() - t0
+
+
+def m_first_dt(kind, **kw):
+    """A run's first dt, from its initial state on the CPU."""
+    return m_sim(kind, "cpu", **kw).estimate_dt()
 
 
 def main(argv=()):
@@ -2110,8 +2302,6 @@ def main(argv=()):
                   f"{st['released']:.6e} erg; peak memory {peak:.3f} GiB", flush=True)
             if not st["released"] > 0.0:
                 fail(f"path {key}: the hot zone released no energy")
-            # one more step under the profiler, the device's kernels only
-            profile_steps(sim, 1, card, host=False)
             del sim
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats()
@@ -2394,7 +2584,6 @@ def main(argv=()):
               f"{peak:.3f} GiB; solves (V-cycles, final max residual): {solves}", flush=True)
         if len(solves) != 2 * STEPS_I3_BIG:
             fail("path I3: not two Poisson solves a step at 128^3")
-        profile_steps(sim, 1, card, host=False)
         del sim
         torch.cuda.empty_cache()
 
@@ -2585,7 +2774,6 @@ def main(argv=()):
               flush=True)
         if not (st["burn"]["released"] > 0.0 and T_max > 3.5e8):
             fail("path J-fw: the ignition patch did not burn")
-        profile_steps(sim, 1, card, host=False)
         del sim
         torch.cuda.empty_cache()
 
@@ -2757,7 +2945,7 @@ def main(argv=()):
                     fn.gravity.grav_vector = timed_grav
             return st
 
-        def timed_steps(key, label, sim, per_try, steps, model_s, extra=None, profile=True):
+        def timed_steps(key, label, sim, per_try, steps, model_s, extra=None, profile=False):
             """init_data, then `steps` steps through drive (launch counts
             against per_try), timed from the end of the set-up: ms a step,
             zones/s, the burn's, the NSE bypass's and gravity's shares, the
@@ -3422,6 +3610,354 @@ def main(argv=()):
         finally:
             pool.shutdown(wait=True, cancel_futures=True)
 
+    def path_m_body(pool):
+        # path M: radiation (radiation/, ops/rad_hydro.py, the radiation
+        # branches of driver/sim.py and driver/amr.py). The characteristic
+        # rad-CTU step and the implicit FLD update are torch ops, as the JAX
+        # package leaves them to XLA (M3, M-mg's multigroup step, M-amr, and
+        # every do_hydro=0 setup launch no kernel); the operator-split step
+        # (radiation.hydro_coupling=0) is the hydro step on the radiation
+        # layout, whose Riemann solves are cmpflx (and trans_cmpflx in 2D
+        # Cartesian), held bit for bit on that layout. The CPU references run
+        # in the worker process beside the card's work, submitted first.
+        from castro_tpu_torch.ops import rad_hydro
+        from castro_tpu_torch.problems import rad_sphere, rad_shestakov, su_olson
+        from castro_tpu_torch.utils import constants as C
+
+        m_results = ctx.m_results = {}
+
+        def sync_s():
+            torch.cuda.synchronize()
+            return time.perf_counter()
+
+        split_runs = {"rad_blast": (dict(n=128), {"cmpflx": 1}, "1D spherical n=128"),
+                      "rad_breakout": (dict(n=1024), {"cmpflx": 1}, "1D spherical n=1024"),
+                      "bwp_rad": (dict(n=(64, 128)), {"cmpflx": 4}, "2D RZ 64 x 128"),
+                      "box": (dict(n=N_MBOX), {"cmpflx": 2, "trans_cmpflx": 2},
+                              f"2D Cartesian {N_MBOX}^2")}
+        set_runs = {"rad_shock": dict(n=128), "thermal_wave": dict(n=64),
+                    "rad_source": dict(n=16)}
+        cmp_runs = {"M3-cmp": ("pulse", [M_DT] * 2, dict(n=N_M3_CPU))}
+        for key, (kw, _, _) in split_runs.items():
+            dt_ = M_DT if key == "box" else m_first_dt(key, **kw)
+            cmp_runs[f"M-split-{key}-cmp"] = (key, [dt_] * STEPS_MSPLIT, kw)
+        for key, kw in set_runs.items():
+            cmp_runs[f"M-set-{key}-cmp"] = (key, [m_first_dt(key, **kw)] * 2, kw)
+        jobs = {key: pool.submit(cpu_job, "m", *run) for key, run in cmp_runs.items()}
+
+        def card_vs_cpu_m(key, rtol=F64_RTOL):
+            """The same run on the card against the worker's: rtol |cpu| +
+            rtol max|cpu| per component of the state and of Er."""
+            kind_, dts, kw = cmp_runs[key]
+            got_u, got_er, secs = m_steps(kind_, "cuda", dts, **kw)
+            ref_u, ref_er, secs_cpu = jobs[key].result()
+            ref_u, ref_er = torch.as_tensor(ref_u), torch.as_tensor(ref_er)
+            if got_er.dim() == ref_u.dim() - 1:  # gray: a leading axis of one
+                got_er, ref_er = got_er[None], ref_er[None]
+            err, rel, ok = compare([got_u, got_er], [ref_u, ref_er], rtol, floor=True)
+            print(f"card vs CPU, {key}: {kind_} {kw}, {len(dts)} step(s) at dt {dts[0]:.6e}: card "
+                  f"{secs:.3f} s, CPU {secs_cpu:.3f} s (worker process); max abs err {err:.3e} "
+                  f"rel {rel:.3e} (tol {rtol:g}|cpu| + {rtol:g} max|cpu| per component, state "
+                  f"and Er) {'ok' if ok else 'DISAGREES'}", flush=True)
+            if not ok:
+                compare([got_u, got_er], [ref_u, ref_er], rtol, floor=True, report=True)
+                fail(f"path {key}: the card and the CPU disagree")
+            m_results[key] = dict(max_abs_err=err, max_rel_err=rel, card_s=secs,
+                                  cpu_s=secs_cpu)
+
+        def drive_m(label, sim, per_step, steps, warm=0):
+            """`warm` steps, then `steps` steps through Simulation.run with the
+            launch counts zeroed just before and read just after, held against
+            per_step x the radiation steps tried; finite state and Er.
+            Returns (ms a step, peak GiB, the solves' stats of the timed
+            steps)."""
+            print(f"main path {label}, Simulation.run on the card {elapsed()}", flush=True)
+            tries = {"n": 0}
+            rad_step = sim._rad_step_impl
+
+            def counted(*a_, **kw_):
+                tries["n"] += 1
+                return rad_step(*a_, **kw_)
+
+            sim._rad_step_impl = counted
+            if warm:
+                sim.run(max_step=sim.step_count + warm, verbose=False)
+            tries["n"] = 0
+            n_stats = len(sim.rad.solve_stats)
+            torch.cuda.reset_peak_memory_stats()
+            K.reset_launch_counts()
+            t0_ = sync_s()
+            sim.run(max_step=sim.step_count + steps, verbose=False)
+            wall = sync_s() - t0_
+            launches = K.launch_counts()
+            sim._rad_step_impl = rad_step
+            n = tries["n"]
+            expected = {name: per_step.get(name, 0) * n for name in launches}
+            print(f"  {steps} steps ({n} tried) after {warm} warm, t = {sim.t:.6e}; launches "
+                  f"{launches}; expected {expected}")
+            if launches != expected or any(launches[k_] == 0 for k_, v in per_step.items() if v):
+                fail(f"path {label}: the launch counts do not match the step's structure")
+            if not (bool(torch.isfinite(sim.interior()).all())
+                    and bool(torch.isfinite(sim.u_rad).all()) and float(sim.u_rad.min()) >= 0.0):
+                fail(f"path {label}: non-finite state or negative Er")
+            path_launches[label] = launches
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            return 1e3 * wall / steps, peak, sim.rad.solve_stats[n_stats:]
+
+        # M3: the 3D gray rad-CTU pulse at N_M3^3, float64, a warm step, then
+        # STEPS_M3 timed with the implicit update's and the CTU-rad chain's
+        # shares (each call synchronized)
+        sim = m_sim("pulse", "cuda", n=N_M3)
+        sim.run(max_step=1, verbose=False)
+        shares = {"ctu_rad": 0.0, "implicit": 0.0}
+        chain, implicit = rad_hydro.ctu_rad_hydro, sim._implicit_rad
+
+        def timed(key, fn):
+            def run_(*a_, **kw_):
+                t0_ = sync_s()
+                out = fn(*a_, **kw_)
+                shares[key] += sync_s() - t0_
+                return out
+            return run_
+
+        rad_hydro.ctu_rad_hydro = timed("ctu_rad", chain)
+        sim._implicit_rad = timed("implicit", implicit)
+        sim.rad.solve_history = []  # each solve's tolerance and residual a V-cycle
+        try:
+            ms, peak, stats = drive_m(f"M3: 3D gray rad-CTU pulse {N_M3}^3 float64, {STEPS_M3} "
+                                      f"steps after 1 warm", sim, {}, STEPS_M3)
+        finally:
+            rad_hydro.ctu_rad_hydro = chain
+            del sim._implicit_rad
+        cycles = [c_ for c_, _ in stats]
+        zones = N_M3 ** 3
+        wall_s = ms * STEPS_M3 / 1e3
+        m_results["M3"] = dict(step_ms=ms, zones_per_s=zones / (ms / 1e3), peak_gib=peak,
+                               outer_iters=sim.rad.outer_iters, solves=len(stats),
+                               vcycles_per_solve=sum(cycles) / max(len(cycles), 1),
+                               vcycles_max=max(cycles, default=0),
+                               implicit_share=shares["implicit"] / wall_s,
+                               ctu_rad_share=shares["ctu_rad"] / wall_s)
+        print(f"  [{card}] M3: {ms:.1f} ms a step, {zones / (ms / 1e3):.6e} zones/s, peak memory "
+              f"{peak:.3f} GiB; outer iterations {sim.rad.outer_iters} a step, {len(stats)} solves "
+              f"in {STEPS_M3} steps, V-cycles a solve {m_results['M3']['vcycles_per_solve']:.2f} "
+              f"(max {m_results['M3']['vcycles_max']}); the implicit update "
+              f"{m_results['M3']['implicit_share']:.4f} of the steps, the CTU-rad chain "
+              f"{m_results['M3']['ctu_rad_share']:.4f}", flush=True)
+        # each solve's residual against its tolerance (rtol max|rhs|): where
+        # the solves run their cap, the residual falls and then stays flat
+        # above the tolerance (tests/test_torch_rad_vcycle_cap.py holds the
+        # same plateau against the JAX package on the CPU)
+        plateaus = []
+        for k_, ((tol,), hist) in enumerate(sim.rad.solve_history):
+            res = [h[0] for h in hist]
+            late = res[len(res) // 2:]
+            flat = max(late) / min(late)
+            plateaus.append(dict(vcycles=len(res) - 1, tol=tol, first=res[0], final=res[-1],
+                                 late_max_over_min=flat))
+            print(f"  M3 solve {k_}: {len(res) - 1} V-cycles, residual {res[0]:.3e} -> "
+                  f"{res[-1]:.3e} against the tolerance {tol:.3e} (final / tol "
+                  f"{res[-1] / tol:.3f}); after V-cycles 1, 2, 4, 8, 16: "
+                  f"{', '.join(f'{res[i_]:.2e}' for i_ in (1, 2, 4, 8, 16) if i_ < len(res))}; "
+                  f"max / min over the last half {flat:.3f}")
+            if res[-1] > tol and not (res[-1] < 1e-6 * res[0] and flat < 3.0):
+                fail(f"path M3: solve {k_} stopped at its cap without a round-off plateau")
+        m_results["M3"]["solves_residuals"] = plateaus
+        sim.rad.solve_history = None
+        # one more step under the profiler, the device's kernels only
+        profile_steps(sim, 1, card, host=False)
+        del sim
+        torch.cuda.empty_cache()
+        card_vs_cpu_m("M3-cmp")
+
+        # M-split: the operator-split step through cmpflx / trans_cmpflx on
+        # the radiation layout; each kernel then held bit for bit on the
+        # run's final state
+        for key, (kw, per_step, what) in split_runs.items():
+            sim = m_sim(key, "cuda", **kw)
+            dt_ = cmp_runs[f"M-split-{key}-cmp"][1][0]
+            ms, peak, stats = drive_m(f"M-split {key}: {what}, float64, {STEPS_MSPLIT} steps",
+                                      sim, per_step, STEPS_MSPLIT)
+            print(f"  [{card}] M-split {key}: {ms:.1f} ms a step (the first's set-up in it), "
+                  f"launches a step {per_step}, V-cycles a solve "
+                  f"{sum(c_ for c_, _ in stats) / max(len(stats), 1):.2f}", flush=True)
+            m_results[f"M-split-{key}"] = dict(step_ms=ms, peak_gib=peak, per_step=per_step)
+            compare_low_dim(inputs_low_dim(sim, sim.u, dt_), f"M-split {key} ngroups 1 f64",
+                            resets=((True, False), (False, True)))
+            del sim
+            card_vs_cpu_m(f"M-split-{key}-cmp")
+        for ng_ in (1, 4):
+            for dt_name in ("float32", "float64"):
+                sim = m_sim("box", "cuda", n=N_MBOX_KERN, dtype=dt_name, ngroups=ng_)
+                compare_low_dim(inputs_low_dim(sim, sim.u, M_DT),
+                                f"M-split box {N_MBOX_KERN}^2 ngroups {ng_} {dt_name[5:]}",
+                                resets=((True, False), (False, True)))
+                del sim
+        torch.cuda.empty_cache()
+
+        # M-mg: rad_sphere against its analytic spectrum (the JAX test's
+        # checks), su_olson multigroup and rad_shestakov against theirs, and
+        # a float32 multigroup rad-CTU step with f-space advection and Compton
+        t0_ = sync_s()
+        r_, Er_, fld_ = rad_sphere.run(n=N_MSPH, t_end=M_SPH_T, dt=M_SPH_DT, device="cuda")
+        sph_s = sync_s() - t0_
+        sph = dict(s=sph_s, steps=int(round(M_SPH_T / M_SPH_DT)),
+                   **rad_sphere.score(r_, Er_, M_SPH_T),
+                   vcycles_per_solve=float(np.mean([c_ for c_, _ in fld_.solve_stats])))
+        m_results["M-mg-rad_sphere"] = sph
+        ok = sph["ok"]
+        print(f"  [{card}] M-mg rad_sphere n={N_MSPH}, 60 groups, {sph['steps']} steps of "
+              f"{M_SPH_DT:g} s to {M_SPH_T:g} s: {sph_s:.2f} s; at r = {sph['r_obs']:.4f} against "
+              f"the analytic spectrum: median rel {sph['median_rel']:.4f} (limit 0.10), max rel "
+              f"{sph['max_rel']:.4f} (0.6), energy {sph['energy_rel']:.4f} (0.15), peak shift "
+              f"{sph['peak_shift']} (1); V-cycles a group solve {sph['vcycles_per_solve']:.2f} "
+              f"{'ok' if ok else 'FAILED'}", flush=True)
+        if not ok:
+            fail("M-mg rad_sphere: the spectrum misses the analytic one")
+
+        sim = m_sim("su_olson_mg", "cuda", n=N_MSO)
+        L_ = sim.layout
+        dx_ = float(sim.geom.dx[0])
+        e_mat0 = float(sim.interior()[L_.UEINT].double().sum()) * dx_
+        ms, peak, _ = drive_m(f"M-mg su_olson multigroup n={N_MSO}, {STEPS_MSO} steps", sim, {},
+                              STEPS_MSO)
+        e_rad = float(sim.u_rad.double().sum()) * dx_
+        e_mat = float(sim.interior()[L_.UEINT].double().sum()) * dx_
+        x_ = sim.geom.cell_centers_1d(0).cpu().numpy()
+        injected = 2.0 * su_olson.MG_QN * (int(np.sum(np.abs(x_) <= su_olson.MG_X0)) * dx_) * sim.t
+        bal = abs(e_rad + e_mat - e_mat0 - injected) / injected
+        Er_n = sim.u_rad.cpu().numpy()
+        far = x_ > 3.0
+        asym = Er_n[0][far].max() / max(Er_n[1][far].max(), 1e-300)
+        m_results["M-mg-su_olson"] = dict(step_ms=ms, balance_rel=bal, thin_over_thick_far=asym)
+        print(f"  [{card}] M-mg su_olson MG: {ms:.1f} ms a step; after {STEPS_MSO} steps the "
+              f"energy balance {bal:.3e} (limit 0.02), the thin group's far field / the thick "
+              f"group's {asym:.3e} (limit > 10)", flush=True)
+        if not (bal < 0.02 and asym > 10.0):
+            fail("M-mg su_olson: the energy balance or the picket-fence asymmetry")
+        del sim
+
+        sim = m_sim("shestakov", "cuda", n=N_MSB)
+        L_ = sim.layout
+        sc = rad_shestakov.scales(sim.params)
+        rhoe0 = float(sim.interior()[L_.UEINT].double().sum())
+        sim.params = sim.params.with_ns("castro", fixed_dt=4.5339149910673475e-08)
+        ms, peak, _ = drive_m(f"M-mg rad_shestakov n={N_MSB}, 64 groups, {STEPS_MSB} steps", sim,
+                              {}, STEPS_MSB)
+        Er_n = sim.u_rad.double().cpu().numpy()
+        x_ = sim.geom.cell_centers_1d(0, 0).cpu().numpy()
+        beyond = x_ > 1.5 * sc["x0"] * 0.5
+        prof_ = Er_n.sum(axis=0)
+        spec = Er_n[:, 2]
+        carriers = int((spec > 0.01 * spec.max()).sum())
+        budget = abs((rhoe0 - float(sim.interior()[L_.UEINT].double().sum())) - Er_n.sum()) / \
+            Er_n.sum()
+        m_results["M-mg-shestakov"] = dict(step_ms=ms, peak_gib=peak, carriers=carriers,
+                                           budget_rel=budget)
+        ok = prof_[beyond].max() > 1e-6 * prof_.max() and carriers >= 3 and budget < 0.05
+        print(f"  [{card}] M-mg rad_shestakov: {ms:.1f} ms a step; Er beyond the jump "
+              f"{prof_[beyond].max() / prof_.max():.3e} of the peak (> 1e-6), carrier groups "
+              f"{carriers} (>= 3), energy budget {budget:.3e} (0.05) {'ok' if ok else 'FAILED'}",
+              flush=True)
+        if not ok:
+            fail("M-mg rad_shestakov: the JAX test's checks")
+        del sim
+
+        sim = m_sim("mg3d", "cuda", n=N_MMG, dtype="float32")
+        ms, peak, stats = drive_m(f"M-mg: float32 multigroup rad-CTU {N_MMG}^3 (hot spot), 4 "
+                                  f"groups, f-space advection and Compton, 2 steps", sim, {}, 2)
+        m_results["M-mg-f32"] = dict(step_ms=ms, peak_gib=peak,
+                                     vcycles=[c_ for c_, _ in stats][:8],
+                                     Er_min=float(sim.u_rad.min()), Er_max=float(sim.u_rad.max()))
+        print(f"  [{card}] M-mg f32: {ms:.1f} ms a step (the first's set-up in it), finite, Er in "
+              f"[{m_results['M-mg-f32']['Er_min']:.3e}, {m_results['M-mg-f32']['Er_max']:.3e}]; "
+              f"V-cycles of the first solves {m_results['M-mg-f32']['vcycles']} (float32 "
+              f"solves stall above rtol 1e-6 and run the cap of 15)", flush=True)
+        del sim
+        torch.cuda.empty_cache()
+
+        # M-amr: tests/test_amr_radiation.py's hierarchy at N_MAMR^2 + 1
+        # level (gray, do_hydro=0, float32 as that test), 2 coarse steps,
+        # total energy (composite: uncovered coarse + masked fine) as that
+        # test checks it; the multigroup + Compton composition small
+        from castro_tpu_torch.ops.interlevel import restrict_mask
+
+        def amr_energy(amr):
+            L_ = amr.sim0.layout
+            cov = torch.zeros_like(amr.masks[0])
+            cov[amr._parent_rel_slice(1)] = restrict_mask(amr.masks[1], 2)
+            cmask = amr.masks[0] & ~cov
+            dxc = float(np.prod(amr.sim0.geom.dx))
+            dxf = float(np.prod(amr._sims_at(1).geom.dx))
+            m1 = amr.masks[1]
+            e_ = (amr.interior(0)[L_.UEDEN][cmask].double().sum()
+                  + amr.u_rad[0][cmask].double().sum()) * dxc
+            e_ = e_ + (amr.interior(1)[L_.UEDEN][m1].double().sum()
+                       + amr.u_rad[1][m1].double().sum()) * dxf
+            return float(e_)
+
+        print(f"main path M-amr: radiation hierarchy {N_MAMR}^2 + 1 level, {STEPS_MAMR} coarse "
+              f"steps {elapsed()}", flush=True)
+        amr = m_sim("amr", "cuda", n=N_MAMR)
+        e0 = amr_energy(amr)
+        K.reset_launch_counts()
+        t0_ = sync_s()
+        for _ in range(STEPS_MAMR):
+            amr.advance(2e-7)
+        wall = sync_s() - t0_
+        e1 = amr_energy(amr)
+        launches = {k_: v for k_, v in K.launch_counts().items() if v}
+        ok = abs(e1 - e0) / abs(e0) < 5e-3 and all(
+            bool(torch.isfinite(a_).all()) and float(a_.min()) >= 0.0 for a_ in amr.u_rad) and \
+            not launches and 0 in amr._rad_sync_rhs
+        m_results["M-amr"] = dict(coarse_step_ms=1e3 * wall / STEPS_MAMR,
+                                  energy_rel=abs(e1 - e0) / abs(e0), window=list(amr.window[1][1]))
+        print(f"  [{card}] M-amr: {1e3 * wall / STEPS_MAMR:.1f} ms a coarse step, window "
+              f"{tuple(amr.window[1][1])}, refined cells {int(amr.masks[1].sum())}; total energy "
+              f"{e0:.9e} -> {e1:.9e}, relative {abs(e1 - e0) / abs(e0):.3e} (limit 5e-3, the "
+              f"deferred sync pending); launches {launches} (none: torch ops) "
+              f"{'ok' if ok else 'FAILED'}", flush=True)
+        if not ok:
+            fail("path M-amr: energy, finiteness or the deferred sync")
+        del amr
+        amr = m_sim("amr_mg", "cuda", n=N_MAMR_MG)
+        frac0 = [er.double().sum(dim=tuple(range(1, er.dim()))) / er.double().sum()
+                 for er in amr.u_rad]
+        for _ in range(2):
+            amr.advance(2e-7)
+        moved = []
+        for l_, er in enumerate(amr.u_rad):
+            if not (bool(torch.isfinite(er).all()) and float(er.min()) >= 0.0):
+                fail("path M-amr multigroup: non-finite or negative Er")
+            frac1 = er.double().sum(dim=tuple(range(1, er.dim()))) / er.double().sum()
+            moved.append(float((frac1 - frac0[l_]).abs().max()))
+        m_results["M-amr-mg"] = dict(group_fraction_moved=moved)
+        print(f"  [{card}] M-amr multigroup + Compton {N_MAMR_MG}^2 + 1 level, 2 coarse steps: "
+              f"finite, Er >= 0; the group fractions moved by {moved} on levels 0, 1", flush=True)
+        if not all(m_ > 1e-8 for m_ in moved):
+            fail("path M-amr multigroup: Compton did not redistribute the spectrum")
+        del amr
+        torch.cuda.empty_cache()
+
+        # M-set: rad_shock (Mach 2) and rad_tests at their JAX sizes, init +
+        # 2 steps each on the card, then card vs CPU
+        for key, kw in set_runs.items():
+            dts = cmp_runs[f"M-set-{key}-cmp"][1]
+            sim = m_sim(key, "cuda", **kw)
+            sim.params = sim.params.with_ns("castro", fixed_dt=dts[0])
+            ms, peak, _ = drive_m(f"M-set {key}: {kw}, 2 steps", sim, {}, 2)
+            m_results[f"M-set-{key}"] = dict(step_ms=ms)
+            print(f"  [{card}] M-set {key}: {ms:.1f} ms a step, t = {sim.t:.6e}", flush=True)
+            del sim
+            card_vs_cpu_m(f"M-set-{key}-cmp")
+
+    def path_m():
+        pool = ProcessPoolExecutor(1, mp_context=multiprocessing.get_context("spawn"))
+        try:
+            path_m_body(pool)
+        finally:
+            pool.shutdown(wait=True, cancel_futures=True)
+
     def phase_probes():
         # the probes: each against its plain version, then the entry points
         print(f"probes vs plain (scripts/prof_cmpflx.py setup at 128^3, float32) {elapsed()}:",
@@ -3467,16 +4003,13 @@ def main(argv=()):
         px, pargs, vx, probe_ms = ctx.px, ctx.pargs, ctx.vx, ctx.probe_ms
         vpu_ps, vpu_bound_ps = ctx.vpu_ps, ctx.vpu_bound_ps
 
-
         time_path(str(N_MAIN), f"A: Sedov {N_MAIN}^3", lambda: sedov_sim(N_MAIN), STEPS_MAIN,
-                  profile=3)
+                  profile=1)
         time_path(str(N_BIG), f"A: Sedov {N_BIG}^3", lambda: sedov_sim(N_BIG), STEPS_BIG)
         time_path(f"amr-{N_AMR}", f"G: 3D Sedov AMR {N_AMR}^3 + 1 level",
-                  lambda: amr_sim(3, N_AMR), STEPS_AMR, profile=3)
+                  lambda: amr_sim(3, N_AMR), STEPS_AMR, profile=1)
         time_path(f"{N_MAIN}-cg", f"B: Sedov {N_MAIN}^3 riemann_solver=1",
-                  lambda: sedov_sim(N_MAIN, riemann_solver=1), 5, profile=2)
-        time_path(f"{N_HYBRID}-hybrid", f"B: Sedov {N_HYBRID}^3 hybrid_riemann=1",
-                  lambda: sedov_sim(N_HYBRID, hybrid_riemann=1), 10)
+                  lambda: sedov_sim(N_MAIN, riemann_solver=1), 5, profile=1)
         try:  # reported, not required: the unfused structure's live set at 264^3
             time_path(f"{N_BIG}-cg", f"B: Sedov {N_BIG}^3 riemann_solver=1",
                       lambda: sedov_sim(N_BIG, riemann_solver=1), 2)
@@ -3484,22 +4017,24 @@ def main(argv=()):
             print(f"main path timing [{card}]: B: Sedov {N_BIG}^3 riemann_solver=1 not measured, "
                   f"out of device memory: {str(e).splitlines()[0]}")
             torch.cuda.empty_cache()
+        time_path(f"{N_HYBRID}-hybrid", f"B: Sedov {N_HYBRID}^3 hybrid_riemann=1",
+                  lambda: sedov_sim(N_HYBRID, hybrid_riemann=1), 10)
         time_path(f"{N_2D}^2", f"C: 2D Sedov {N_2D}^2", lambda: sedov_sim(N_2D, dim=2), 5,
-                  profile=2)
+                  profile=1)
         time_path(f"{N_2D}^2-cg", f"C: 2D Sedov {N_2D}^2 riemann_solver=1",
                   lambda: sedov_sim(N_2D, dim=2, riemann_solver=1), 3)
         time_path(f"{N_MAIN}-plm", f"D: Sedov {N_MAIN}^3 ppm_type=0",
-                  lambda: sedov_sim(N_MAIN, ppm_type=0), STEPS_MAIN, profile=2)
+                  lambda: sedov_sim(N_MAIN, ppm_type=0), STEPS_MAIN, profile=1)
         time_path(f"{N_MAIN}-limiter", f"D: Sedov {N_MAIN}^3 limit_fluxes_on_small_dens=1",
                   lambda: sedov_sim(N_MAIN, limit_fluxes_on_small_dens=1), 5)
         time_path(f"rz-{N_RZ}", f"E: 2D RZ Sedov {N_RZ} x {2 * N_RZ}",
-                  lambda: curvilinear_sim("rz", N_RZ), 5, profile=2)
+                  lambda: curvilinear_sim("rz", N_RZ), 5, profile=1)
         time_path(f"dmr-{DMR_BIG[0]}", f"F: 2D double Mach reflection {DMR_BIG[0]} x {DMR_BIG[1]}",
-                  lambda: dmr_sim(DMR_BIG), STEPS_DMR, profile=2)
+                  lambda: dmr_sim(DMR_BIG), STEPS_DMR, profile=1)
 
         time_path("H1", f"H1: detonation n={N_DET}",
                   lambda: Simulation(detonation.make_params(n=N_DET),
-                                     problem_init=detonation.problem_init), 10, profile=2)
+                                     problem_init=detonation.problem_init), 10, profile=1)
 
         sim = sedov_sim(N_MAIN)
         sim.init_data()
@@ -3713,6 +4248,50 @@ def main(argv=()):
                   f"operations {sums['ops_ms']:.4f} ms)", flush=True)
         del sfw, yf, fcalls
         torch.cuda.empty_cache()
+        # path M's kernels on the radiation layout (the operator-split box of
+        # M-split at N_2D_RAD^2, its initial state): cmpflx, trans_cmpflx and
+        # trans_apply, ngroups 1 and 4, float32 and float64; the bytes those
+        # the function must move (the hydro components and the passives of
+        # each state read, not the radiation ones it copies past; every
+        # output written, the Godunov state's radiation components too)
+        m_launches = {}
+        for label, c in path_launches.items():
+            if label.startswith("M"):
+                for k_, v_ in c.items():
+                    m_launches[k_] = m_launches.get(k_, 0) + v_
+        rad_rows = {}
+        for ng_ in (1, 4):
+            for dt_name, ops_ps in (("float32", FP32_OPS_PER_S), ("float64", FP64_OPS_PER_S)):
+                sbox = m_sim("box", "cuda", n=N_2D_RAD, dtype=dt_name, ngroups=ng_)
+                yb = inputs_low_dim(sbox, sbox.u, M_DT)
+                Lb, Sb, iszb = sbox.layout, sbox.u[0].numel(), sbox.u.element_size()
+                qread = 8 + Lb.nspec + Lb.naux
+                bcalls = {
+                    "cmpflx": [(lambda a=a: K.cmpflx(*a), lambda a=a: K.cmpflx_plain(*a),
+                                2 * qread + 4 + Lb.NVAR + Lb.NGDNV) for a in yb["solves"]],
+                    "trans_cmpflx": [(lambda a=a: K.trans_cmpflx(*a, True, False),
+                                      lambda a=a: K.trans_cmpflx_plain(*a, True, False),
+                                      2 * qread + 2 * Lb.NVAR + 8 + Lb.NVAR + Lb.NGDNV)
+                                     for a in yb["finals"]],
+                    "trans_apply": [(lambda a=a: K.trans_apply(a[1], a[3], a[5], a[7], Lb,
+                                                               yb["sp"], True, False),
+                                     lambda a=a: K.trans_apply_plain(a[1], a[3], a[5], a[7], Lb,
+                                                                     yb["sp"], True, False),
+                                     2 * Lb.NQ + Lb.NVAR + 2) for a in yb["finals"]]}
+                print(f"kernel timing [{card}], {dt_name}, the radiation layout (ngroups {ng_}, "
+                      f"NQ {Lb.NQ}, NGDNV {Lb.NGDNV}), box {N_2D_RAD}^2 (grown "
+                      f"{tuple(sbox.u.shape[1:])}), per launch as above {elapsed()}:", flush=True)
+                for name, calls_ in bcalls.items():
+                    sums, _ = time_kernel(name, calls_, Sb, iszb, ops_ps, reps=10, plain_reps=2)
+                    rad_rows.setdefault(name, {})[f"ngroups{ng_}_{dt_name}"] = dict(
+                        ms=sums["ms"], wrapper_ms=sums["wrapper_ms"], plain_ms=sums["plain_ms"],
+                        bound_ms=sums["bound_ms"], bound_by=sums["bound_by"])
+                    print(f"  {name:12s} {sums['ms']:9.4f} ms   wrapper {sums['wrapper_ms']:9.4f} "
+                          f"ms   plain {sums['plain_ms']:9.4f} ms   bound {sums['bound_ms']:.4f} ms "
+                          f"({sums['bound_by']}; bytes {sums['bytes_ms']:.4f} ms, operations "
+                          f"{sums['ops_ms']:.4f} ms)", flush=True)
+                del sbox, yb, bcalls
+                torch.cuda.empty_cache()
         for e in entries:
             if e["name"] in REPLACES and e["name"] not in ("probe_cmpflx", "probe_copy",
                                                              "probe_vpu"):
@@ -3720,10 +4299,14 @@ def main(argv=()):
                 e["launches_path_J"] = j_launches.get(e["name"], 0)
                 e["launches_path_K"] = k_launches.get(e["name"], 0)
                 e["launches_path_L"] = l_launches.get(e["name"], 0)
+                e["launches_path_M"] = m_launches.get(e["name"], 0)
+            if e["name"] in rad_rows:
+                e[f"radiation_layout_{N_2D_RAD}"] = rad_rows[e["name"]]
 
     phases = [("kernels", phase_kernels), ("A", path_a), ("B", path_b), ("C", path_c),
               ("D", path_d), ("E", path_e), ("F", path_f), ("G", path_g), ("H", path_h),
-              ("I", path_i), ("J", path_j), ("K", path_k), ("L", path_l), ("probes", phase_probes),
+              ("I", path_i), ("J", path_j), ("K", path_k), ("L", path_l), ("M", path_m),
+              ("probes", phase_probes),
               ("timing", phase_timing)]
     names = [name for name, _ in phases]
     wanted = list(argv) or names
@@ -3759,7 +4342,8 @@ def main(argv=()):
         "amr_3d": results.get(f"amr-{N_AMR}"), "amr_3d_window_after_run": list(ctx.g3d_window),
         "amr_sod_1d_l1": ctx.g1_l1, "amr_sod_1d_ms_per_coarse_step": ctx.g1_ms,
         "path_H": ctx.h_results, "path_I": ctx.i_results, "path_J": ctx.j_results,
-        "path_K": ctx.k_results, "path_L": ctx.l_results, "phase_s": phase_s,
+        "path_K": ctx.k_results, "path_L": ctx.l_results, "path_M": ctx.m_results,
+        "phase_s": phase_s,
         "detonation": dict(ms_per_step=ctx.det_ms, fuel_ratio=ctx.fuel_ratio,
                            max_mom=ctx.mom_max)}))
     print(smi_line())

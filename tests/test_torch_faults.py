@@ -169,12 +169,12 @@ def test_amr_on_the_command_line(capsys):
 
 
 @pytest.mark.parametrize("change,item", [
-    (dict(castro=dict(do_radiation=1)), "item 9"),
+    (dict(castro=dict(do_mhd=1)), "item 11"),
     (dict(amr=dict(distribute_fine=1)), "item 13"),
     (dict(mesh=True), "item 13"),
     (dict(geometry=dict(coord_sys=1)), "item 5"),
     (dict(tag="soundspeed"), "item 14"),
-], ids=["radiation", "distribute_fine", "mesh", "curvilinear", "derived-tag-field"])
+], ids=["mhd", "distribute_fine", "mesh", "curvilinear", "derived-tag-field"])
 def test_amr_features_not_ported_raise(change, item):
     """What the JAX AMR driver does beyond the port's Cartesian hydro
     raises, naming its ROADMAP.md item."""

@@ -146,14 +146,18 @@ def test_device_rules_and_unported_configs():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             Simulation(params, problem_init=sedov.problem_init)
+    # MHD; 3D operator-split radiation (the CTU kernels keep the hydro
+    # layout: queue 1 item 9)
     for bad in (params.with_ns("castro", do_mhd=1),
-                params.with_ns("castro", do_radiation=1)):
+                params.with_ns("castro", do_radiation=1).with_ns("radiation",
+                                                                 hydro_coupling=0)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             Simulation(bad, device="cpu")
     # the 1D and 2D branches, riemanncg, the HLL hybrid, curvilinear
     # geometry, PLM, the shock flag, hybrid momenta, reactions, gravity,
-    # the sponge, rotation, thermal diffusion, the NSE bypass and SDC are
-    # ported
+    # the sponge, rotation, thermal diffusion, the NSE bypass, SDC,
+    # radiation (the characteristic step in 3D, gray and multigroup; the
+    # operator-split step in 2D) and do_hydro=0 are ported
     for good in (sedov.make_params(n=8, dim=2), sedov.make_params(n=8, dim=1),
                  params.with_ns("castro", time_integration_method=2),
                  params.with_ns("castro", time_integration_method=2, sdc_order=4,
@@ -175,14 +179,21 @@ def test_device_rules_and_unported_configs():
                                 sponge_upper_density=1e-2),
                  params.with_ns("castro", do_rotation=1, rotational_period=1.0),
                  params.with_ns("castro", do_thermal_diffusion=1),
-                 params.with_ns("castro", diffuse_temp=1, add_ext_src=1)):
+                 params.with_ns("castro", diffuse_temp=1, add_ext_src=1),
+                 params.with_ns("castro", do_radiation=1),
+                 params.with_ns("castro", do_radiation=1).with_ns(
+                     "radiation", ngroups=4, lowest_group_hz=1e13, highest_group_hz=1e17),
+                 sedov.make_params(n=8, dim=2).with_ns("castro", do_radiation=1).with_ns(
+                     "radiation", hydro_coupling=0),
+                 params.with_ns("castro", do_hydro=0)):
         Simulation(good, device="cpu")
 
 
 def test_port_loads_no_jax():
-    """`import castro_tpu_torch` and a CPU step, of Sedov and of the 3D
-    DustCollapse (Poisson gravity), load neither jax nor any castro_tpu
-    module (a fresh process: this one has imported JAX)."""
+    """`import castro_tpu_torch` and a CPU step, of Sedov, of the 3D
+    DustCollapse (Poisson gravity) and of the multigroup Su & Olson
+    (radiation), load neither jax nor any castro_tpu module (a fresh
+    process: this one has imported JAX)."""
     code = textwrap.dedent("""
         import sys
         import castro_tpu_torch
@@ -198,6 +209,12 @@ def test_port_loads_no_jax():
         grav.init_data()
         grav.advance(2e-4)
         assert len(grav.source_fns[0].gravity.solve_stats) == 2
+        from castro_tpu_torch.problems import su_olson
+        rad = Simulation(su_olson.mg_params(n=16), problem_init=su_olson.mg_init, device="cpu")
+        rad.init_data()
+        su_olson.mg_setup_radiation(rad)
+        rad.advance(rad.estimate_dt())
+        assert len(rad.rad.solve_stats) > 0
         bad = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
                or m == "jaxlib" or m == "castro_tpu" or m.startswith("castro_tpu.")]
         print("LOADED", bad)

@@ -211,5 +211,13 @@ def test_acoustic_pulse_general():
 
 
 def test_bwp_rad_raises_naming_item_9():
+    """bwp-rad runs since radiation was ported (its 2D RZ setup against the
+    JAX package in tests/test_torch_rad_setups_bwp.py); what of it still
+    raises naming item 9 is its operator-split radiation in 3D, which would
+    take the 3D CTU kernels on the radiation layout."""
+    p = se.bwp_rad_params(n=(8, 16))
+    assert p.radiation.hydro_coupling == 0
+    p3 = p.with_ns("amr", n_cell=(8, 8, 8)).with_ns("geometry", coord_sys=0).with_ns(
+        "castro", lo_bc=(2, 2, 2), hi_bc=(2, 2, 2), do_grav=0)
     with pytest.raises(NotImplementedError, match="item 9"):
-        se.bwp_rad_params()
+        Simulation(p3, device="cpu")
