@@ -42,15 +42,25 @@ parent's Er at the substep's midpoint; the window's ring takes the
 prolonged, time-interpolated coarse Er; the coarse-fine mismatch of the
 radiation fluxes (advective + diffusive) feeds the parent's next implicit
 solve as a deferred-sync rhs; covered coarse Er is the fine average. A
-radiation hierarchy has one window a level (no extras), as in JAX. What the
-JAX driver does beyond this raises, naming its ROADMAP.md item: MHD (11), a
-device mesh or `amr.distribute_fine` (13, the sharded SDC and radiation
-steps among them), plotfiles and checkpoints (14), and a curvilinear grid
-(5, the Cartesian slice). Refinement ratio 2 on every level.
+radiation hierarchy has one window a level (no extras), as in JAX. MHD (the
+CTU-CT step, castro_tpu/driver/amr.py:350-384, 575-700, 744-788,
+1050-1260, 1366-1555): each level keeps its face fields `u_b`; a window's
+ring faces take the divergence-free prolongation (`prolong_face`) of the
+time-interpolated coarse faces, its faces beside a masked cell stay the
+window's own; the CT flux register corrects the coarse faces by the curl
+of the accumulated fine-edge minus coarse-edge EMFs, which equals the
+fine-face restriction on covered faces and the EMF reflux on the
+interface, so div B stays 0 on every level; a regrid re-prolongs the
+window's faces from the coarse level; one window a level, as in JAX. What
+the JAX driver does beyond this raises, naming its ROADMAP.md item: a
+device mesh or `amr.distribute_fine` (13, the sharded SDC, radiation and
+MHD steps among them), plotfiles and checkpoints (14), and a curvilinear
+grid (5, the Cartesian slice). Refinement ratio 2 on every level.
 """
 
 from __future__ import annotations
 
+import itertools
 from typing import Callable, Dict, List, Optional
 
 import numpy as np
@@ -60,8 +70,10 @@ from castro_tpu_torch.config import Params
 from castro_tpu_torch.driver.sim import Simulation, StepCtx, check_io_cadence
 from castro_tpu_torch.driver.tagging import tag_cells
 from castro_tpu_torch.geometry import CoordSys, geometry_from_params
-from castro_tpu_torch.ops.interlevel import (coarsen_flux, prolong, prolong_mask, restrict,
+from castro_tpu_torch.ops.interlevel import (coarsen_flux, prolong, prolong_face,
+                                             prolong_mask, restrict, restrict_edge,
                                              restrict_face, restrict_mask)
+from castro_tpu_torch.mhd.solver import EPS
 from castro_tpu_torch.ops.stencil import interior_slice
 from castro_tpu_torch.utils import constants as C
 
@@ -230,6 +242,10 @@ class _Level:
         return self.sim._rad_step_impl(u, Er, dt, t, ctx=self._ctx(ilo, grav_bc), rad_bc=rad_bc,
                                        rad_rhs_extra=rad_rhs_extra, keep_rad_flux=True)
 
+    def mhd_step(self, u, b, dt, t, ilo, grav_bc=None):
+        """The window's MHD step with its CT register data."""
+        return self.sim._mhd_step_impl(u, b, dt, t, ctx=self._ctx(ilo, grav_bc), keep_ct=True)
+
     def phi(self, rho, ilo, grav_bc):
         """The window's phi from its interior density, Dirichlet on its faces
         with `grav_bc` (PoissonGrav only)."""
@@ -281,7 +297,6 @@ class AmrSimulation:
         self.indicators = self._parse_indicators(params)
         self._sim_kw = dict(sim_kw, device=device)
 
-        # MHD raises in here
         self.sim0 = Simulation(_level_params(params, 0), problem_init=problem_init,
                                **self._sim_kw)
         item = _unported_amr(params, self.sim0, mesh)
@@ -330,6 +345,17 @@ class AmrSimulation:
         self.u_rad_old: List = [None] * (self.max_level + 1)
         self._cur_rad_bc: Dict[int, object] = {}
         self._rad_sync_rhs: Dict[int, object] = {}
+        # MHD: per-level face fields, and their old values for the time
+        # interpolation of the ring faces (castro_tpu/driver/amr.py:349-385)
+        self._has_mhd = bool(params.castro.do_mhd) and self.max_level > 0
+        if self._has_mhd and not params.castro.mhd_ctu:
+            raise ValueError("AMR MHD takes the CTU-CT step (castro.mhd_ctu=1): its CT "
+                             "register data come from it")
+        if self._has_mhd and self._has_rad:
+            raise ValueError("AMR MHD with radiation is not composed (the reference has no "
+                             "rad-MHD)")
+        self.u_b: List = [None] * (self.max_level + 1)
+        self.u_b_old: List = [None] * (self.max_level + 1)
 
     # ------------------------------------------------------------------ setup
     @staticmethod
@@ -466,11 +492,16 @@ class AmrSimulation:
                                    device=self.device)
         if self._has_rad:
             self.u_rad[0] = self.sim0.u_rad
+        if self._has_mhd:
+            self.u_b[0] = self.sim0.u_b
         for l in range(1, self.max_level + 1):
             tags = self._tags_for(l - 1)
             (ilo, shape), extras = self._windows_for(l, tags)
             self.window[l] = (ilo, shape)
-            self.u[l] = self._make_window_state(l, (ilo, shape))
+            if self._has_mhd:
+                self.u[l], self.u_b[l] = self._make_window_state_mhd(l, (ilo, shape))
+            else:
+                self.u[l] = self._make_window_state(l, (ilo, shape))
             self.masks[l] = self._window_mask(l, tags)
             self.extra[l] = [{"ilo": e[0], "shape": e[1], "u": self._make_window_state(l, e),
                               "mask": self._window_mask(l, tags, win=e), "grav_bc": None}
@@ -480,9 +511,10 @@ class AmrSimulation:
         return self
 
     def _windows_for(self, l, tags):
-        """The level-l primary window and its extras; a radiation hierarchy
-        takes the one bounding window (castro_tpu/driver/amr.py:579-583)."""
-        if self._has_rad:
+        """The level-l primary window and its extras; a radiation or MHD
+        hierarchy takes the one bounding window (castro_tpu/driver/amr.py:
+        579-583)."""
+        if self._has_rad or self._has_mhd:
             return self._compute_window(l, tags.cpu().numpy()), []
         return self._compute_extra_windows(l, tags)
 
@@ -505,6 +537,24 @@ class AmrSimulation:
             u = self.problem_init(_GeomShim(lev.sim, self._win_geom(l, win=win)), u)
         return lev.sim._clean_fill_impl(u.to(self.dtype))
 
+    def _make_window_state_mhd(self, l, win):
+        """Problem data (u, b) on one window (reference Amr::init calls
+        initData a level: the MHD hooks define the face field analytically,
+        so the window's B is divergence-free by construction, as at level
+        0), the magnetic energy folded in, the faces filled, the MHD clean."""
+        ilo, shape = win
+        mhd = self._get_level(l, shape).sim.mhd
+        gshape = tuple(s + 2 * self.ng for s in shape)
+        u = torch.zeros((self.sim0.layout.NVAR,) + gshape, dtype=self.dtype, device=self.device)
+        b = tuple(torch.zeros(gshape, dtype=self.dtype, device=self.device) for _ in range(3))
+        if self.problem_init is not None:
+            u, b = self.problem_init(_GeomShim(mhd.sim, self._win_geom(l, win=win)), u, b)
+        b = tuple(torch.as_tensor(bb, dtype=self.dtype, device=self.device).expand(gshape)
+                  for bb in b)
+        u = mhd.add_magnetic_energy(u.to(self.dtype), b)
+        b = mhd.fill_b_all(b)
+        return mhd._clean(u, b), b
+
     def _tags_for(self, l):
         """Dense tags over level l's full grid (window tags scattered)."""
         sim = self._sims_at(l)
@@ -526,10 +576,12 @@ class AmrSimulation:
         return prolong_mask(tags_global_c[self._coarse_slice(l, win=win)], self.dim)
 
     # ------------------------------------------------------------------ regrid
-    def _migrate_window(self, l, win, old_wins, fill_new=True):
+    def _migrate_window(self, l, win, old_wins, fill_new=True, b_clean=None):
         """A (new) level-l window's state: prolonged coarse data everywhere,
         then the old windows' valid (masked) fine data where they overlap.
-        Returns the grown, cleaned state."""
+        Returns the grown, cleaned state; with `b_clean`, the window's
+        migrated face field, the MHD clean (its energy reset takes the
+        magnetic energy out)."""
         new_ilo, new_shape = win
         lev = self._get_level(l, new_shape)
         c_int = self.u[l - 1][interior_slice(self.ng, self.dim)]
@@ -554,7 +606,10 @@ class AmrSimulation:
         pads = []
         for _ in range(self.dim):
             pads += [self.ng, self.ng]
-        return lev.sim._clean_fill_impl(torch.nn.functional.pad(new_int, pads))
+        new_u = torch.nn.functional.pad(new_int, pads)
+        if b_clean is not None:
+            return lev.sim.mhd._clean(new_u, b_clean)
+        return lev.sim._clean_fill_impl(new_u)
 
     def regrid(self, fill_new=True):
         """Re-tag every level; move or resize the windows (the extras too),
@@ -589,8 +644,16 @@ class AmrSimulation:
                 old_wins += [(e["ilo"], e["shape"], e["u"], e["mask"])
                              for e in self.extra[l + 1]]
             # the primary first (its _parent_rel_slice reads window[l + 1]
-            # only through the explicit win argument)
-            u_new = self._migrate_window(l + 1, (new_ilo, new_shape), old_wins, fill_new)
+            # only through the explicit win argument). MHD: the face field
+            # is the divergence-free prolongation of the coarse faces
+            # everywhere (the covered coarse faces carry the fine data
+            # through the CT register, so re-prolonging keeps div B = 0
+            # exactly through a window's move; old fine faces copied into a
+            # moved window would seed divergence at the seam)
+            new_b = self._prolong_window_b(l + 1, win=(new_ilo, new_shape)) \
+                if self._has_mhd else None
+            u_new = self._migrate_window(l + 1, (new_ilo, new_shape), old_wins, fill_new,
+                                         b_clean=new_b)
             new_extra_state = [
                 {"ilo": e[0], "shape": e[1],
                  "u": self._migrate_window(l + 1, e, old_wins, fill_new),
@@ -602,17 +665,24 @@ class AmrSimulation:
             self.extra[l + 1] = new_extra_state
             if new_rad is not None:
                 self.u_rad[l + 1] = new_rad
+            if new_b is not None:
+                self.u_b[l + 1] = new_b
 
     # ------------------------------------------------------------------ dt
     def estimate_dt(self) -> float:
         """Level-0 dt respecting all levels (reference computeNewDt with
         subcycling: dt_0 = min_l dt_l * prod(ref_ratio))."""
         c = self.params.castro
-        dt = float(self.sim0._estdt_impl(self.u[0], self.u_rad[0]))
+
+        def level_dt(sim, l):
+            if self._has_mhd:
+                return float(sim._mhd_estdt_impl(self.u[l], self.u_b[l]))
+            return float(sim._estdt_impl(self.u[l], self.u_rad[l]))
+
+        dt = level_dt(self.sim0, 0)
         for l in range(1, self.max_level + 1):
             lev = self._get_level(l, self.window[l][1])
-            dt = min(dt, float(lev.sim._estdt_impl(self.u[l], self.u_rad[l]))
-                     * self.ref_ratio ** l)
+            dt = min(dt, level_dt(lev.sim, l) * self.ref_ratio ** l)
             for e in self.extra[l]:
                 lev_e = self._get_level(l, e["shape"])
                 dt = min(dt, float(lev_e.sim._estdt_impl(e["u"])) * self.ref_ratio ** l)
@@ -670,6 +740,8 @@ class AmrSimulation:
         self.u_old[l] = self.u[l]
         if self._has_rad:
             return self._advance_level_rad(l, dt, t_level)
+        if self._has_mhd:
+            return self._advance_level_mhd(l, dt, t_level)
         if l == 0:
             sim = self.sim0
             if sim.sdc is not None:  # castro_tpu/driver/amr.py:261-286
@@ -717,6 +789,29 @@ class AmrSimulation:
         self._advance_finer(l, dt, t_level, fluxes, rad_fluxes)
         return fluxes, rad_fluxes
 
+    def _advance_level_mhd(self, l, dt, t_level):
+        """Level l's MHD step (castro_tpu/driver/amr.py:1366-1393) with its
+        CT register data; the window keeps its whole face field (the ring
+        faces are refilled from the coarse level before every substep);
+        then the finer levels. Returns (interior gas fluxes, CT data)."""
+        self.u_b_old[l] = self.u_b[l]
+        if l == 0:
+            out = self.sim0._mhd_step_impl(self.u[0], self.u_b[0], dt, t_level, keep_ct=True)
+        else:
+            lev = self._get_level(l, self.window[l][1])
+            out = lev.mhd_step(self.u[l], self.u_b[l], dt, t_level, self.window[l][0],
+                               grav_bc=self._cur_grav_bc.get(l))
+        u_new, b_new, _, _, fluxes, ct = out
+        self._check(out, f"(MHD) at level {l}, t={t_level}", at=2)
+        if l == 0:
+            self.u[0] = u_new
+        else:
+            self.u[l] = self._keep_masked(self.u[l], u_new, self.masks[l])
+        self.u_b[l] = b_new
+        del out, u_new
+        self._advance_finer(l, dt, t_level, fluxes, ct)
+        return fluxes, ct
+
     def _rad_face_pad(self, F, d):
         """A cell-registered radiation flux with its hi face appended (zero)."""
         shape = list(F.shape)
@@ -724,11 +819,16 @@ class AmrSimulation:
         return torch.cat([F, torch.zeros(shape, dtype=F.dtype, device=F.device)],
                          dim=self._rad_cax + d)
 
-    def _advance_finer(self, l, dt, t_level, fluxes, rad_fluxes=None):
+    def _advance_finer(self, l, dt, t_level, fluxes, aux=None):
         """Subcycle level l+1 (if any), then reflux and average down (with
-        radiation also its deferred sync and Er average)."""
+        radiation also its deferred sync and Er average; with MHD first the
+        CT register's correction of the coarse faces). `aux`: level l's
+        radiation register fluxes, or its CT data."""
         if l >= self.max_level:
             return
+        rad_fluxes = aux if self._has_rad else None
+        mhd_E_acc: Dict = {}
+        mhd_FB_acc: Dict = {}
         # flux register: the coarse side (CrseInit)
         f_coarse = [f * dt for f in fluxes]
         fine_acc = None
@@ -761,8 +861,12 @@ class AmrSimulation:
                 self._cur_rad_bc[l + 1] = self._window_face_bc(l + 1, Er_mid,
                                                                cax=self._rad_cax)
                 self._set_unmasked_rad_from_coarse(l + 1, frac0)
+            if self._has_mhd:
+                self._set_unmasked_b_from_coarse(l + 1, frac0)
             self._set_unmasked_from_coarse(l + 1, frac0 + 0.0)
             fine_fluxes, fine_rad = self._advance_level(l + 1, dt / r, t_level + i * dt / r)
+            if self._has_mhd:
+                self._ct_fine_register(l + 1, fine_rad, dt / r, mhd_E_acc, mhd_FB_acc)
             if fine_acc is None:
                 fine_acc = [torch.zeros_like(coarsen_flux(fine_fluxes[d], d, self.dim))
                             for d in range(self.dim)]
@@ -791,6 +895,11 @@ class AmrSimulation:
             e["u"] = self._ring_fill(l + 1, 1.0, (e["ilo"], e["shape"]), e["u"], e["mask"])
         if self._has_rad:
             self._set_unmasked_rad_from_coarse(l + 1, 1.0)
+        if self._has_mhd:
+            self._set_unmasked_b_from_coarse(l + 1, 1.0)
+            # the CT register first: the gas avgDown's MHD clean takes the
+            # corrected coarse faces
+            self._ct_correct_coarse(l, aux, mhd_E_acc, mhd_FB_acc, dt)
         # reflux (FluxRegister::Reflux): correct the unrefined coarse cells
         # beside the window with (sum of fine flux dt) - (coarse flux dt)
         self._reflux(l, f_coarse, fine_acc)
@@ -848,6 +957,156 @@ class AmrSimulation:
         c_from_f = restrict(self.u_rad[l + 1], self.dim, comp_axes=self._rad_cax)
         self.u_rad[l] = _set(self.u_rad[l], cx + csl,
                              torch.where(cmask, c_from_f, self.u_rad[l][cx + csl]))
+
+    # ---------------------------------------------------------- MHD AMR (CT)
+    def _coarse_b_win(self, l, frac, win=None):
+        """The parent's face fields, time-interpolated at `frac`, over
+        level l's window footprint (parent-local), with one more face along
+        each normal for `prolong_face`'s mid-plane faces. Components >= dim
+        are cell-represented (2D Bz, 1D By and Bz)."""
+        csl = self._parent_rel_slice(l, win=win)
+        ng, dim = self.ng, self.dim
+        out = []
+        for d in range(3):
+            b_new = self.u_b[l - 1][d]
+            b_old = self.u_b_old[l - 1][d] if self.u_b_old[l - 1] is not None else b_new
+            bi = (1.0 - frac) * b_old + frac * b_new
+            sl = tuple(slice(csl[a].start + ng, csl[a].stop + ng + (1 if a == d else 0))
+                       for a in range(dim))
+            out.append(bi[sl])
+        return out
+
+    def _prolong_b_win(self, l, frac, win=None):
+        """The window's fine interior faces, prolonged divergence-free from
+        the time-interpolated coarse faces (the face FillPatch: each fine
+        octant's divergence is its parent's, so zero stays zero)."""
+        bc = self._coarse_b_win(l, frac, win=win)
+        return [prolong_face(bc[d], d, self.dim) if d < self.dim
+                else prolong(bc[d], self.dim, comp_axes=0) for d in range(3)]
+
+    def _prolong_window_b(self, l, win=None):
+        """A whole window's face field from the coarse level, filled (a
+        regrid's window; the covered coarse faces carry the fine data
+        through the CT register)."""
+        shape = (win if win is not None else self.window[l])[1]
+        pads = [self.ng, self.ng] * self.dim
+        fine = [torch.nn.functional.pad(f, pads) for f in self._prolong_b_win(l, 1.0, win=win)]
+        return self._get_level(l, shape).sim.mhd.fill_b_all(tuple(fine))
+
+    def _set_unmasked_b_from_coarse(self, l, frac):
+        """The window's ring faces := the prolonged, time-interpolated coarse
+        faces (the face FillPatch). Only faces with no masked cell beside
+        them: a face beside a masked cell is the fine CT evolution's, so the
+        masked interior's div B is never touched."""
+        dim, ng = self.dim, self.ng
+        fine = self._prolong_b_win(l, frac)
+        m = self.masks[l]
+        isl = tuple(slice(ng, ng + s) for s in self.window[l][1])
+        b = list(self.u_b[l])
+        for d in range(3):
+            if d < dim:
+                mp = _pad_false(m, d, 1, 0)
+                n = m.shape[d]
+                adj = mp.narrow(d, 0, n) | mp.narrow(d, 1, n)
+            else:
+                adj = m
+            b[d] = _set(b[d], isl, torch.where(adj, b[d][isl], fine[d]))
+        self.u_b[l] = self._get_level(l, self.window[l][1]).sim.mhd.fill_b_all(tuple(b))
+
+    def _ct_fine_register(self, l_fine, ct_f, dt_f, acc_E, acc_FB):
+        """One fine substep's CT data (edge EMFs, cell-B fluxes) restricted
+        to the parent's edges and faces over the window footprint, times
+        dt_f, accumulated (FluxRegister::FineAdd for CT)."""
+        dim, ng = self.dim, self.ng
+        nw = self.window[l_fine][1]
+        for k, Ef in ct_f["E"].items():
+            sl = tuple(slice(ng, ng + nw[a] + (0 if a == k else 1)) for a in range(dim))
+            r = restrict_edge(Ef[sl], k, dim) * dt_f
+            acc_E[k] = r if k not in acc_E else acc_E[k] + r
+        for key, Ff in (ct_f.get("FB") or {}).items():
+            sl = tuple(slice(ng, ng + nw[a] + (1 if a == key[0] else 0)) for a in range(dim))
+            r = restrict_face(Ff[sl], key[0], dim) * dt_f
+            acc_FB[key] = r if key not in acc_FB else acc_FB[key] + r
+
+    def _ct_correct_coarse(self, l, ct_c, acc_E, acc_FB, dt):
+        """The CT flux register's correction of level l's face field: b +=
+        curl(dE dt), dE = the accumulated fine-edge EMF integrals less the
+        coarse EMF times dt on the coarse edges beside a covered cell, zero
+        elsewhere. The discrete div(curl) vanishes, so the correction makes
+        no divergence anywhere; on the covered faces the fine CT updates
+        telescope and it equals the fine-face restriction (avgDown), on the
+        uncovered interface faces it is the EMF reflux (Balsara's
+        divergence-free AMR in one formula; reference FluxRegister + EMF
+        consistency, Source/mhd/Castro_mhd.cpp). The cell-represented
+        components (2D Bz) reflux and average down as conserved scalars."""
+        dim, ng = self.dim, self.ng
+        sim = self._sims_at(l)
+        n = tuple(self.geom_full[l].n_cell) if l == 0 else self.window[l][1]
+        csl = self._parent_rel_slice(l + 1)
+        cmask = restrict_mask(self.masks[l + 1], dim)
+        b = list(self.u_b[l])
+
+        for k, Ef_int in acc_E.items():
+            Ec = ct_c["E"][k]  # the grown level-l edge array
+            sl = tuple(slice(csl[a].start + ng, csl[a].stop + ng + (0 if a == k else 1))
+                       for a in range(dim))
+            dE = Ef_int - dt * Ec[sl]
+            # the edge mask: a covered cell beside the edge in its plane
+            axes = [a for a in range(dim) if a != k]
+            mp = cmask
+            for a in axes:
+                mp = _pad_false(mp, a, 1, 1)
+            adj = None
+            for offs in itertools.product((0, 1), repeat=len(axes)):
+                v = mp
+                for a, o in zip(axes, offs):
+                    v = v.narrow(a, o, cmask.shape[a] + 1)
+                adj = v if adj is None else (adj | v)
+            dE = torch.where(adj, dE, 0.0)
+            # into a whole-level edge field, zero elsewhere, so that the
+            # faces just outside the footprint get their edge terms too
+            dE_full = torch.zeros(tuple(n[a] + (0 if a == k else 1) for a in range(dim)),
+                                  dtype=dE.dtype, device=dE.device)
+            dE_full[tuple(slice(csl[a].start, csl[a].start + dE.shape[a])
+                          for a in range(dim))] = dE
+            for c in axes:
+                t = 3 - c - k
+                if c >= dim or t >= dim:
+                    continue
+                m_ = dE_full.shape[t]
+                diff = dE_full.narrow(t, 1, m_ - 1) - dE_full.narrow(t, 0, m_ - 1)
+                upd = -EPS[(c, t, k)] * diff / sim.geom.dx[t]
+                fsl = tuple(slice(ng, ng + n[a] + (1 if a == c else 0)) for a in range(dim))
+                b[c] = _set(b[c], fsl, b[c][fsl] + upd)
+
+        # the cell-represented components: the flux reflux on the interface
+        # cells, avgDown on the covered cells
+        cells = tuple(slice(ng, ng + n[a]) for a in range(dim))
+        for c in range(dim, 3):
+            bc_int = b[c][cells]
+            win_v = bc_int[csl]
+            for d in range(dim):
+                key = (d, c)
+                if key not in acc_FB:
+                    continue
+                Fc = ct_c["FB"][key]
+                fsl = tuple(slice(csl[a].start + ng, csl[a].stop + ng + (1 if a == d else 0))
+                            for a in range(dim))
+                delta = acc_FB[key] - dt * Fc[fsl]
+                m_left = _pad_false(cmask, d, 1, 0)
+                m_right = _pad_false(cmask, d, 0, 1)
+                inv_dx = 1.0 / sim.geom.dx[d]
+                gain_r = torch.where(m_left & ~m_right, delta, 0.0)
+                lose_l = torch.where(~m_left & m_right, delta, 0.0)
+                k_ = delta.shape[d]
+                win_v = win_v + inv_dx * gain_r.narrow(d, 0, k_ - 1)
+                win_v = win_v - inv_dx * lose_l.narrow(d, 1, k_ - 1)
+            fine_c = restrict(self.u_b[l + 1][c][tuple(slice(ng, ng + s)
+                                                       for s in self.window[l + 1][1])],
+                              dim, comp_axes=0)
+            win_v = torch.where(cmask, fine_c, win_v)
+            b[c] = _set(b[c], cells, _set(bc_int, csl, win_v))
+        self.u_b[l] = self._sims_at(l).mhd.fill_b_all(tuple(b))
 
     def _advance_extra(self, l, e, dt, t_level):
         """Advance one extra window by dt (the same per-shape Simulation
@@ -1013,10 +1272,9 @@ class AmrSimulation:
         blk = torch.where(cmask[None], c_from_f, u_int[(slice(None),) + csl])
         u_int = _set(u_int, (slice(None),) + csl, blk)
         u = _set(self.u[l], idx, u_int)
-        if l == 0:
-            self.u[l] = self.sim0._clean_fill_impl(u)
-        else:
-            self.u[l] = self._get_level(l, self.window[l][1]).sim._clean_fill_impl(u)
+        sim = self.sim0 if l == 0 else self._get_level(l, self.window[l][1]).sim
+        # MHD: the MHD clean, its energy reset against the level's faces
+        self.u[l] = sim.mhd._clean(u, self.u_b[l]) if self._has_mhd else sim._clean_fill_impl(u)
 
     def advance(self, dt):
         """Advance the whole hierarchy by dt with retry (reference
@@ -1028,6 +1286,7 @@ class AmrSimulation:
         snap_u = list(self.u)
         snap_masks = list(self.masks)
         snap_rad = list(self.u_rad)
+        snap_b = list(self.u_b)
         snap_sync = dict(self._rad_sync_rhs)
         snap_extra = [[dict(e) for e in lvl] for lvl in self.extra]
 
@@ -1035,6 +1294,7 @@ class AmrSimulation:
             self.u = list(snap_u)
             self.masks = list(snap_masks)
             self.u_rad = list(snap_rad)
+            self.u_b = list(snap_b)
             self._rad_sync_rhs = dict(snap_sync)
             self.extra = [[dict(e) for e in lvl] for lvl in snap_extra]
 

@@ -51,8 +51,13 @@ ops, as the JAX package leaves it to XLA) and the implicit FLD update of
 without groups the operator-split step, the hydro step above on the
 radiation layout (its Riemann solves the cmpflx and trans_cmpflx kernels
 in 1D and 2D; in 3D it raises) with an upwind Er advection before the
-implicit update. castro.do_hydro=0 evolves the sources alone. MHD and I/O
-are not ported (ROADMAP.md); a configuration that needs them raises.
+implicit update. castro.do_hydro=0 evolves the sources alone. With
+castro.do_mhd=1 a step is the MHD step (`_mhd_step_impl`, `mhd/`): the
+CTU-CT step (castro.mhd_ctu=1, the default) or the RK2 flux-CT step, in
+torch ops as the JAX package leaves MHD to XLA, with the same Strang
+halves, old-time sources traced into the interface states and correctors;
+the face fields `u_b` ride beside `u`. I/O is not ported (ROADMAP.md); a
+configuration that needs it raises.
 """
 
 from __future__ import annotations
@@ -127,7 +132,6 @@ def _unported(params):
     """The ROADMAP.md item of the first unported feature a config needs."""
     c = params.castro
     checks = [
-        (bool(c.do_mhd), "MHD (queue 1 item 11)"),
         (bool(c.do_scf_initial_model),
          "castro.do_scf_initial_model, the SCF initial model (queue 1 item 10)"),
     ]
@@ -183,7 +187,9 @@ class Simulation:
         self.eos = make_eos(params, self.network)
         self.problem_init = problem_init
         self.problem_fill = problem_fill
-        K.check_kernel_layout(self.layout, dims=(1, 2, 3), radiation=True)
+        if not self.layout.mhd:
+            # no kernel carries B: the MHD step is torch ops (mhd/solver.py)
+            K.check_kernel_layout(self.layout, dims=(1, 2, 3), radiation=True)
         self.source_fns = build_sources(params, self.geom, self.layout, self.layout.ngrow,
                                         ext_src=ext_src)
         # radiation, gray or multigroup FLD (reference final_radiation_call,
@@ -234,12 +240,22 @@ class Simulation:
         # fill hook asks for the torch ops (castro_tpu/driver/sim.py:258-260,
         # :380-392)
         self._kernel_prim = (self.cfg.use_kernels and self.layout.dim == 3
-                             and getattr(self.eos, "pallas_safe", False) and self.rad is None)
+                             and getattr(self.eos, "pallas_safe", False) and self.rad is None
+                             and not self.layout.mhd)
         if self._kernel_prim:
             K.check_kernel_eos(self.eos, self.layout)
         self._kernel_clean_fill = (self._kernel_prim and problem_fill is None
                                    and not self.layout.hybrid_momentum
                                    and c.speed_limit <= 0.0)
+        # ideal MHD inside the driver (reference: MHD is Castro with
+        # USE_MHD=TRUE, do_advance_ctu calling construct_ctu_mhd_source,
+        # Source/mhd/Castro_mhd.cpp; castro_tpu/driver/sim.py:170-181)
+        self.mhd = None
+        self.u_b = None
+        if c.do_mhd:
+            from castro_tpu_torch.mhd.solver import MhdSolver
+
+            self.mhd = MhdSolver(self)
         # Strang reaction coupling (reactions/strang.py); the SDC modes
         # couple the reactions themselves
         self.reactor = None
@@ -292,8 +308,22 @@ class Simulation:
 
     def init_data(self):
         """Fill the state from the problem hook (reference Castro::initData,
-        Castro.cpp:934), enforce UEDEN = UEINT + KE, then clean and fill."""
+        Castro.cpp:934), enforce UEDEN = UEINT + KE, then clean and fill.
+        With MHD the hook takes (sim, u, b) and returns (u, b) (reference
+        problem_initialize_mhd_data.H); the magnetic energy is then folded
+        into UEDEN (Castro::add_magnetic_e, Castro.H:823-850), the state
+        cleaned and the face fields filled."""
         u = self.allocate()
+        if self.mhd is not None:
+            b = tuple(torch.zeros(self.grown_shape(), dtype=self.dtype, device=self.device)
+                      for _ in range(3))
+            if self.problem_init is not None:
+                u, b = self.problem_init(self, u, b)
+            b = tuple(torch.as_tensor(bb, dtype=self.dtype, device=self.device)
+                      .expand(self.grown_shape()) for bb in b)
+            self.u = self.mhd._clean(self.mhd.add_magnetic_energy(u.to(self.dtype), b), b)
+            self.u_b = tuple(self.mhd._fill_b(bb, d) for d, bb in enumerate(b))
+            return self.u
         if self.problem_init is not None:
             u = self.problem_init(self, u)
         L = self.layout
@@ -385,12 +415,24 @@ class Simulation:
         c = self.params.castro
         if c.fixed_dt > 0:
             return c.fixed_dt
-        dt = float(self._estdt_impl(self.u, self.u_rad))
+        if self.mhd is not None:
+            dt = float(self._mhd_estdt_impl(self.u, self.u_b))
+        else:
+            dt = float(self._estdt_impl(self.u, self.u_rad))
         if self.step_count == 0:
             dt = c.initial_dt if c.initial_dt > 0 else dt * c.init_shrink
         elif self.dt is not None:
             dt = min(dt, c.change_max * self.dt)
         return min(dt, c.max_dt)
+
+    def _mhd_estdt_impl(self, u, b):
+        """The MHD dt limit (reference estdt_mhd, timestep.cpp:148) and the
+        burning limiter (castro_tpu/driver/sim.py:1038-1046)."""
+        c = self.params.castro
+        dt = self.mhd.estdt(u, b, c.cfl)
+        dt_b = estdt_burning(u, self.layout, self.eos, self.network, self.ng, c.dtnuc_e,
+                             c.dtnuc_X, c.dtnuc_X_threshold)
+        return dt if isinstance(dt_b, float) else torch.minimum(dt, dt_b)
 
     # -- the step --------------------------------------------------------------
     def _step_impl(self, u, dt, t=0.0, ctx: Optional[StepCtx] = None, src_pred=None,
@@ -580,6 +622,104 @@ class Simulation:
         if keep_fluxes:
             res = res + (self._interior_fluxes(out[2], u.shape[1:]),)
         return res
+
+    def _mhd_step_impl(self, u, b, dt, t=0.0, ctx: Optional[StepCtx] = None, keep_ct=False):
+        """One driver MHD step (castro_tpu/driver/sim.py:1048-1144; reference
+        do_advance_ctu with USE_MHD, Castro_advance_ctu.cpp:16 and
+        Castro_mhd.cpp): a half-dt Strang burn, the old-time sources traced
+        into the CTU-CT interface states (srcQ), the MHD advance (CTU-CT, or
+        RK2 flux-CT with castro.mhd_ctu=0), the old sources added, the
+        time-centred corrector (a source's own with the step's gas fluxes),
+        the second half burn, the MHD clean. Returns (u_new, b_new, min_rho,
+        nan_flag), the checks 0-d tensors taken before the corrector (the
+        burn's failure folded into the flag); with keep_ct (AMR, CTU-CT
+        only) then the interior gas fluxes (per direction n+1 faces along
+        it, the interior across) and the CT data {"E": edge EMFs, "FB":
+        cell-B fluxes}, grown: the AMR driver slices the edges itself, as
+        it needs their +1 planes."""
+        self._reset_sources()
+        try:
+            return self._mhd_step(u, b, dt, t, ctx, keep_ct)
+        finally:
+            self._reset_sources()
+
+    def _mhd_step(self, u, b, dt, t, ctx, keep_ct):
+        from castro_tpu_torch.mhd.solver import MhdState
+
+        ctx = ctx or self._default_ctx
+        L = self.layout
+        c = self.params.castro
+        dtw = K.wt(dt, self.dtype)
+        u = ctx.fill(u, t)
+        b = self.mhd.fill_b_all(b)
+
+        burn_fail = torch.zeros((), dtype=torch.bool, device=u.device)
+        if self.reactor is not None:
+            u, _, _, bf = self.reactor.react(u, 0.5 * dtw, u[L.USHK] if L.shock_var else None)
+            burn_fail = burn_fail | bf
+            u = self.mhd._clean(u, b, ctx)
+
+        q, qaux = au.ctoprim(u, L, self.eos, self.cfg.small_dens, self.small_temp)
+        src_old = None
+        src_old_terms = []
+        if self.source_fns:
+            src_old = torch.zeros_like(u)
+            for fn in self.source_fns:
+                term = fn(self, u, q, qaux, t, dtw, ctx=ctx)
+                src_old_terms.append(term)
+                src_old = src_old + term
+        srcQ = None if src_old is None else au.src_to_prim(q, qaux, src_old, L)
+        del q, qaux
+
+        ct_data = None
+        if c.mhd_ctu:
+            out = self.mhd.step_ctu(MhdState(u, b), dtw, srcQ=srcQ, keep_fluxes=True,
+                                    keep_ct=keep_ct, ctx=ctx)
+            (u_new, b_new), fluxes = out[0], out[1]
+            if keep_ct:
+                ct_data = out[2]
+        else:
+            if keep_ct:
+                raise ValueError("the CT register data of AMR come from the CTU-CT step "
+                                 "(castro.mhd_ctu=1)")
+            u_new, b_new = self.mhd.step_rk2(MhdState(u, b), dtw, ctx=ctx)
+            fluxes = None
+        del srcQ
+        if src_old is not None:
+            u_new = u_new + dtw * src_old
+
+        inner = u_new[interior_slice(self.ng, L.dim)]
+        min_rho = ctx.pmin(inner[L.URHO])
+        nan_flag = ctx.pany(~torch.isfinite(torch.sum(inner)))
+        del inner
+
+        if self.source_fns:
+            q2, qaux2 = au.ctoprim(u_new, L, self.eos, self.cfg.small_dens, self.small_temp)
+            src_new = torch.zeros_like(u)
+            corr = None
+            src_old_generic = src_old
+            for fn, term in zip(self.source_fns, src_old_terms):
+                if hasattr(fn, "corrector"):
+                    cfn = fn.corrector(self, u, u_new, t, dtw, ctx=ctx, fluxes=fluxes)
+                    corr = cfn if corr is None else corr + cfn
+                    src_old_generic = src_old_generic - term
+                else:
+                    src_new = src_new + fn(self, u_new, q2, qaux2, t + dt, dtw, ctx=ctx)
+            u_new = u_new + 0.5 * dtw * (src_new - src_old_generic)
+            if corr is not None:
+                u_new = u_new + dtw * corr
+
+        if self.reactor is not None:
+            u_new, _, _, bf2 = self.reactor.react(u_new, 0.5 * dtw,
+                                                  u_new[L.USHK] if L.shock_var else None)
+            burn_fail = burn_fail | bf2
+
+        u_new = self.mhd._clean(u_new, b_new, ctx)
+        burn_fail = ctx.pany(burn_fail)
+        if keep_ct:
+            return (u_new, b_new, min_rho, nan_flag | burn_fail,
+                    self._interior_fluxes(fluxes, u.shape[1:]), ct_data)
+        return u_new, b_new, min_rho, nan_flag | burn_fail
 
     def _ssdc_step_impl(self, u, dt, t):
         """One simplified-SDC step (castro_tpu/driver/sim.py:1010-1036): the
@@ -926,6 +1066,15 @@ class Simulation:
         the step's dS/dt for the next (source_term_predictor=1) and applies
         the point-mass fix (point_mass_fix_solution=1)."""
         t = self.t if t is None else t
+        if self.mhd is not None:
+            # the face fields are kept only on success
+            # (castro_tpu/driver/sim.py:1178-1185)
+            u_new, b_new, *checks = self._mhd_step_impl(self.u, self.u_b, dt, t)
+            min_rho, nan = torch.stack([x.to(torch.float64) for x in checks]).tolist()
+            status = StepStatus(min_rho=min_rho, has_nan=bool(nan))
+            if status.success:
+                self.u_b = b_new
+            return u_new, status
         if self.sdc is not None:
             # one host sync for the checks (castro_tpu/driver/sim.py:1186-1193)
             u_new, *checks = self._sdc_step(self.u, dt, t)
@@ -981,6 +1130,7 @@ class Simulation:
             ok = True
             u_save = self.u
             u_rad_save = self.u_rad
+            u_b_save = self.u_b
             nsub = 0
             while t_adv < dt * (1 - 1e-12):
                 step_dt = min(dt_sub, dt - t_adv)
@@ -997,6 +1147,7 @@ class Simulation:
                 return dt
             self.u = u_save
             self.u_rad = u_rad_save
+            self.u_b = u_b_save
             dt_sub *= c.retry_subcycle_factor
             if dt_sub < c.dt_cutoff:
                 break

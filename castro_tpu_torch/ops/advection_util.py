@@ -50,6 +50,13 @@ def ctoprim(u, layout, eos, small_dens=1e-200, small_temp=1e-200, Er=None, lam=N
     qaux[L.QC] = es.cs
     qaux[L.QDPDR] = es.dpdr_e
     qaux[L.QDPDE] = es.dpde
+    if L.mhd:
+        # the MHD layout's magnetic and total-pressure slots, zero as in
+        # the JAX package's arrays (the MHD step builds its own extended
+        # primitives, mhd/solver.py:ctoprim_ext)
+        zero = torch.zeros_like(rho)
+        for c in (L.QMAGX, L.QMAGY, L.QMAGZ, L.QPTOT):
+            q[c] = zero
     if L.radiation:
         zero = torch.zeros_like(rho)
         for c in [L.QPTOT, L.QREITOT] + [L.QRAD + g for g in range(L.ngroups)]:

@@ -11,7 +11,8 @@ overwrites (the reference's problem_bc_fill).
 One gather per axis (wrap, clamp or reflect index map) in x, y, z order,
 then the sign flips of that axis: a ghost cell takes the value of its source
 cell composed axis by axis. `ops/kernels.py:clean_fill` fuses this with
-`clean_state` on the card.
+`clean_state` on the card. `fill_face` is the same for one face-centred
+field of MHD (counterpart of `castro_tpu/ops/fill.py:fill_face`).
 """
 
 from __future__ import annotations
@@ -45,6 +46,77 @@ def axis_fill_index(N, ng, lo, hi):
     else:
         idx[n + ng:] = np.arange(n + ng - 1, n - 1, -1)
     return idx
+
+
+def _face_fill_index_normal(N, ng, lo, hi):
+    """Ghost index map and parity sign along the face-normal axis of a
+    face-registered field (face i-1/2 at index i; interior faces ng ..
+    ng+n-1, the hi domain face ng+n in the ghost margin). Walls mirror
+    about the wall face with odd parity, the hi wall face pinned to 0;
+    outflow and inflow clamp; periodic wraps (face j to j -/+ n)."""
+    n = N - 2 * ng
+    idx = np.arange(N)
+    sgn = np.ones(N)
+    for j in range(ng):
+        k = ng - 1 - j  # distance below the lo wall face (at index ng)
+        if lo == INTERIOR:
+            idx[j] = j + n
+        elif lo in WALLS:
+            idx[j] = ng + 1 + k
+            sgn[j] = -1.0
+        else:
+            idx[j] = ng
+    for j in range(ng + n, N):
+        k = j - (ng + n)
+        if hi == INTERIOR:
+            idx[j] = j - n
+        elif hi in WALLS:
+            if k == 0:
+                idx[j] = ng + n - 1
+                sgn[j] = 0.0  # the wall face itself: no penetration
+            else:
+                idx[j] = ng + n - k
+                sgn[j] = -1.0
+        else:
+            idx[j] = ng + n - 1
+    return idx, sgn
+
+
+def _scale_axis(b, d, dim, sv):
+    """b times the numpy vector sv along axis d (a no-op where sv is all 1)."""
+    if np.all(sv == 1.0):
+        return b
+    shape = [1] * dim
+    shape[d] = len(sv)
+    return b * torch.as_tensor(sv.reshape(shape), dtype=b.dtype, device=b.device)
+
+
+def fill_face(b, df, dim, ng, lo_bc, hi_bc):
+    """The ghost margin of one face field normal to `df` (face i-1/2 at
+    index i, ng ghosts a side; reference `filfc.f90` and the face-variable
+    BC records of Castro_setup). Along df: periodic wrap, outflow clamp,
+    or an odd mirror about the wall face with the hi wall face pinned to
+    0 (the velocity-like normal component). Across it the field is
+    cell-registered: wrap, clamp or an even mirror, odd at a no-slip wall
+    (like tangential velocity)."""
+    for d in range(dim):
+        N = b.shape[d]
+        n = N - 2 * ng
+        lo, hi = lo_bc[d], hi_bc[d]
+        if d == df:
+            idx, sgn = _face_fill_index_normal(N, ng, lo, hi)
+            b = _scale_axis(torch.index_select(b, d, torch.as_tensor(idx, device=b.device)),
+                            d, dim, sgn)
+        else:
+            b = torch.index_select(b, d, torch.as_tensor(axis_fill_index(N, ng, lo, hi),
+                                                         device=b.device))
+            sv = np.ones(N)
+            if lo == NOSLIPWALL:
+                sv[:ng] = -1.0
+            if hi == NOSLIPWALL:
+                sv[n + ng:] = -1.0
+            b = _scale_axis(b, d, dim, sv)
+    return b
 
 
 def axis_flips(layout, d, lo, hi):

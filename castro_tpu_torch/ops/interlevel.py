@@ -6,10 +6,10 @@ registers.
 Counterpart of `castro_tpu/ops/interlevel.py` (reference: AMReX
 CellConservativeLinear, `average_down`, `FluxRegister::CrseInit/FineAdd/
 Reflux`, `Source/driver/Castro.cpp:2549-2700`). Dense whole-array torch
-ops, as the JAX package leaves them to XLA. `restrict_face` serves the
-phi flux register of composite gravity; MHD's other face operators
-(`prolong_face`, `restrict_edge`) come with MHD (ROADMAP.md, queue 1 item
-11).
+ops, as the JAX package leaves them to XLA. The face operators serve MHD
+on AMR (`prolong_face`, the divergence-free face fillpatch; `restrict_face`
+and `restrict_edge`, the CT flux register) and `restrict_face` the phi
+flux register of composite gravity.
 """
 
 from __future__ import annotations
@@ -98,6 +98,46 @@ def restrict_face(bf, d, dim):
     for k in range(dim):
         if k == d:
             continue
+        n = out.shape[k]
+        out = out.reshape(out.shape[:k] + (n // 2, 2) + out.shape[k + 1:]).mean(dim=k + 1)
+    return out
+
+
+def prolong_face(bc, d, dim):
+    """Divergence-free face prolongation (ratio 2) of one face field.
+
+    bc: the coarse face array, face I-1/2 at index I, with n+1 entries
+    along the normal d (the caller slices one extra hi face from the grown
+    coarse field) and n across it. Fine faces on coarse face planes (even
+    fine index 2I) copy the coarse value, constant over their 2^(dim-1)
+    transverse children; the mid-plane fine face (odd index) is the mean of
+    the two bracketing coarse faces. With every dim field prolonged so,
+    each fine cell's divergence equals its parent's, so zero stays zero
+    (the CT analog of AMReX face_divfree interpolation; reference MHD
+    fillpatch, `Source/mhd/Castro_mhd.cpp` Mag_Type StateData). Returns 2n
+    entries along every axis (fine face 2n is dropped: the at-index
+    convention stores faces 0 .. 2n-1)."""
+    n = bc.shape[d]
+    lo = bc.narrow(d, 0, n - 1)
+    out = _interleave(lo, 0.5 * (lo + bc.narrow(d, 1, n - 1)), d)
+    for k in range(dim):
+        if k != d:
+            out = torch.repeat_interleave(out, 2, dim=k)
+    return out
+
+
+def restrict_edge(E, k, dim):
+    """Edge-EMF restriction of the CT flux register (Balsara-style EMF
+    averaging at coarse-fine boundaries): E_k lives on k-directed edges at
+    (a1-1/2, a2-1/2) at (i_a1, i_a2), cell-centred along k. Coarse edges
+    are the even fine edges across k; along k a coarse edge is the mean of
+    its 2 fine edges. In 2D (k out of plane) a corner subsample."""
+    idx = [slice(None)] * E.dim()
+    for a in range(dim):
+        if a != k:
+            idx[a] = slice(0, None, 2)
+    out = E[tuple(idx)]
+    if k < dim:
         n = out.shape[k]
         out = out.reshape(out.shape[:k] + (n // 2, 2) + out.shape[k + 1:]).mean(dim=k + 1)
     return out

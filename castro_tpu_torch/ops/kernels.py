@@ -248,7 +248,8 @@ def check_kernel_layout(layout, dims=(3,), radiation=False):
             "(ROADMAP.md, queue 2, kernel coverage)")
     if L.mhd:
         raise NotImplementedError(
-            "the CUDA kernels carry no magnetic components: MHD (queue 1 item 11, ROADMAP.md)")
+            "the CUDA kernels carry no magnetic components: the MHD step is torch ops "
+            "(mhd/solver.py), as the JAX package's is XLA")
     if L.radiation and not radiation:
         raise NotImplementedError(
             "this CUDA kernel carries no radiation components: 3D operator-split radiation "

@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py            # every phase: the whole run
     python3 chip_smoke.py K          # the build, then the phases named (kernels,
-                                     # A-M, probes, timing); no kernel table
+                                     # A-N, probes, timing); no kernel table
 
 From the root of a checkout, on a machine with one card and the CUDA
 toolkit. Each phase is one function of main() over its shared state. In
@@ -161,6 +161,24 @@ order:
           32^2; M-set, rad_shock (Mach 2), rad_tests' thermal wave and
           radiation source, init + 2 steps and card vs CPU; the CPU
           references in a worker process;
+       N  ideal MHD (mhd/, the MHD branches of driver/sim.py and
+          driver/amr.py), float64 unless named, torch ops throughout as
+          the JAX package leaves MHD to XLA (every kernel's launches on the
+          path must read 0): N3, the 3D CTU-CT step on the periodic Alfven
+          wave at 128^3 through Simulation.run, 2 steps timed after a warm
+          one, a profiled step, div B, 16^3 card vs CPU over 3 steps;
+          N-rk2, castro.mhd_ctu=0 at 64^3, div B, 16^3 card vs CPU;
+          N2, Orszag-Tang at 1024^2, 3 steps timed after a warm one and
+          profiled, 64^2 card vs CPU, one float32 step at 256^2 against
+          the CPU's; N1, Brio-Wu (n=200 to t=0.1), Dai-Woodward and the
+          fast rarefaction (n=128, 20 steps) through MhdSimulation with the
+          JAX tests' checks; N-set, loop advection (div B, the loop's
+          drift), the species contact, RT with constant gravity through
+          Simulation and its card vs CPU; N-amr, two-level Orszag-Tang
+          256^2 + 1 level, 3 coarse steps timed and one profiled, div B on
+          both levels, the covered coarse faces against the fine faces'
+          restriction, 32^2 + 1 level card vs CPU with equal windows and
+          masks;
      then the probe entry points (castro_tpu_torch/scripts/prof_cmpflx.py
      at 128^3 and prof_vpu.py), each probe first held against its plain
      version (probe_cmpflx at every tiling and probe_copy bit for bit,
@@ -314,6 +332,19 @@ N_MMG = 64                        # M-mg: the float32 multigroup rad-CTU step (4
 N_MAMR, STEPS_MAMR = 256, 2       # M-amr: tests/test_amr_radiation.py's setup + 1 level
 N_MAMR_MG = 32                    # M-amr: its multigroup + Compton composition
 N_2D_RAD = 2048                   # the timing phase: the kernels on the radiation layout
+# path N: ideal MHD, float64 unless named. N3 the 3D CTU-CT step on the periodic
+# Alfven wave, timed after 1 warm step; its card-vs-CPU copy and steps
+N_N3, STEPS_N3, N_N3_CPU, STEPS_N_CPU = 128, 2, 16, 3
+N_NRK2 = 64                       # N-rk2: castro.mhd_ctu=0, the RK2 flux-CT step (CPU copy 16^3)
+N_N2, STEPS_N2, N_N2_CPU, N_N2_F32 = 1024, 3, 64, 256   # N2: Orszag-Tang; its CPU copy;
+                                  # one float32 step against the CPU's
+N_NAMR, STEPS_NAMR, N_NAMR_CPU = 256, 3, 32   # N-amr: Orszag-Tang + 1 level (a static box)
+N_NBW = 200                       # N1: Brio-Wu to t = 0.1 (cut from 512, then from 400,
+                                  # tests/test_mhd.py's size: 90-104 ms a step on the card,
+                                  # host-bound, 39.6 s at 400; its checks hold from 128 up)
+DIVB_MAX = 1e-10                  # |div B| over the interior (masked cells on a window)
+COVERED_FACES_MAX = 5e-3          # covered coarse faces against the fine faces' restriction
+                                  # (tests/test_mhd_amr.py: the initial data differ at O(dx^2))
 # the reacting layouts held kernel vs plain: (nspec, naux, shock flag,
 # hybrid momenta)
 LAYOUTS = [(7, 0, False, False), (13, 0, False, False), (19, 0, False, False),
@@ -699,7 +730,8 @@ def profile_steps(sim, steps, card, host=True):
           f"device time by name (us/step, launches/step):")
     for dev_us, count, key in rows[:14]:
         print(f"  {dev_us / steps:10.1f}  {count / steps:5.1f}  {key[:90]}")
-    return dict(idle=1.0 - busy / wall_us, busy_us=busy / steps, wall_us=wall_us / steps)
+    return dict(idle=1.0 - busy / wall_us, busy_us=busy / steps, wall_us=wall_us / steps,
+                launches=sum(r[1] for r in rows) / steps)
 
 
 def k_burn_react(nse_on, n_b, where):
@@ -998,6 +1030,132 @@ def m_steps(kind, device, dts, **kw):
 def m_first_dt(kind, **kw):
     """A run's first dt, from its initial state on the CPU."""
     return m_sim(kind, "cpu", **kw).estimate_dt()
+
+
+def n_sim(kind, device, n, dtype="float64"):
+    """Path N's runs, built alike on the card and on the CPU, through the
+    Simulation (castro.do_mhd=1): "alfven" the 3D periodic Alfven wave (CTU-CT),
+    "alfven_rk2" the same with castro.mhd_ctu=0, "ot" Orszag-Tang, "rt" the
+    magnetized Rayleigh-Taylor setup with constant gravity (n x 2n), "amr"
+    Orszag-Tang + one level over N-amr's static box. Returns the simulation,
+    not initialized."""
+    from castro_tpu_torch.driver.sim import Simulation
+    from castro_tpu_torch.problems import mhd_tests, orszag_tang
+
+    if kind in ("alfven", "alfven_rk2"):
+        p = mhd_tests.alfven_params(n=n, dim=3).with_ns(
+            "castro", mhd_ctu=int(kind == "alfven")).with_ns("tpu", dtype=dtype)
+        return Simulation(p, problem_init=mhd_tests.alfven_init, device=device)
+    if kind == "ot":
+        return Simulation(orszag_tang.make_params(n=n, dtype=dtype),
+                          problem_init=orszag_tang.problem_init, device=device)
+    if kind == "rt":
+        return Simulation(mhd_tests.rt_params(n=(n, 2 * n)).with_ns("tpu", dtype=dtype),
+                          problem_init=mhd_tests.rt_init, device=device)
+    if kind == "amr":
+        from castro_tpu_torch.driver.amr import AmrSimulation
+
+        p = orszag_tang.make_params(n=n, dtype=dtype).with_ns("amr", max_level=1, regrid_int=0,
+                                                              n_error_buf=2)
+        # path L's box, tests/test_mhd_amr.py's static tags
+        return AmrSimulation(p, problem_init=orszag_tang.problem_init, problem_tagging=l_box_tag,
+                             device=device)
+    raise ValueError(kind)
+
+
+def n_div_b(sim, l=None):
+    """max |div B| over a single-level run's interior, or over level l's
+    valid region of a hierarchy (its masked cells above level 0)."""
+    import torch
+
+    from castro_tpu_torch.ops.stencil import interior_slice
+
+    if l is None:
+        div = sim.mhd.div_b(sim.u_b)[interior_slice(sim.ng, sim.layout.dim, 0)]
+        return float(div.abs().max())
+    s_ = sim._sims_at(l)
+    div = s_.mhd.div_b(sim.u_b[l])[interior_slice(sim.ng, sim.dim, 0)]
+    if l > 0:
+        div = torch.where(sim.masks[l], div, 0.0)
+    return float(div.abs().max())
+
+
+def n_compare(got, ref, rtol, report=False):
+    """Card against CPU for n_steps' outputs, pairs of (state [NVAR, ...],
+    face fields [3, ...]) a level: rtol |cpu| + rtol times a scale, each
+    state component's largest |cpu| but the momenta's, which share their
+    vector's, and for the face fields max(|B|, sqrt(2 max |rho E|)), the
+    field whose pressure is the largest energy density (a field that is 0
+    but for round-off, as B with B_0 = 0, has no scale of its own).
+    Returns (max abs err, max rel err where cpu != 0, all within)."""
+    import torch
+
+    from castro_tpu_torch.state import StateLayout
+
+    L = StateLayout(dim=got[0].dim() - 1, mhd=True)
+    worst, worst_rel, ok = 0.0, 0.0, True
+    for i in range(0, len(got), 2):
+        u_r = ref[i]
+        mag = u_r.abs().flatten(1).amax(1)
+        mom = [L.UMX, L.UMY, L.UMZ]
+        mag[mom] = mag[mom].max()
+        bscale = max(float(ref[i + 1].abs().max()), float(torch.sqrt(2 * u_r[L.UEDEN].abs().max())))
+        for g, r, scale in ((got[i], u_r, mag.reshape((-1,) + (1,) * (u_r.dim() - 1))),
+                            (got[i + 1], ref[i + 1], bscale)):
+            d = (g - r).abs()
+            worst = max(worst, float(d.max()))
+            nz = r != 0
+            if bool(nz.any()):
+                worst_rel = max(worst_rel, float((d[nz] / r[nz].abs()).max()))
+            excess = d - (rtol * r.abs() + rtol * scale)
+            good = bool((excess <= 0).all()) and bool(torch.isfinite(g).all())
+            ok = ok and good
+            if report and not good:
+                idx = tuple(int(v) for v in torch.unravel_index(excess.argmax(), excess.shape))
+                print(f"    level {i // 2} {'state' if g is got[i] else 'faces'} "
+                      f"{tuple(g.shape)}: worst at {idx}: card {float(g[idx])!r} cpu "
+                      f"{float(r[idx])!r}; {int((excess > 0).sum())} elements outside",
+                      file=sys.stderr)
+    return worst, worst_rel, ok
+
+
+def n_steps(kind, device, n, steps, dtype="float64"):
+    """One of path N's runs, `steps` steps by advance at the CFL dt of its
+    initial state (the CPU's, so that both devices take the same dt).
+    Returns ([the interior and the interior faces of every level, float64
+    on the CPU], the masks and windows of a hierarchy, the seconds)."""
+    import torch
+
+    from castro_tpu_torch.ops.stencil import interior_slice
+
+    s_ = n_sim(kind, device, n, dtype)
+    s_.init_data()
+    ref = n_sim(kind, "cpu", n, dtype)
+    ref.init_data()
+    dt = ref.estimate_dt()
+    del ref
+    if device != "cpu":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        s_.advance(dt)
+    if device != "cpu":
+        torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    amr = hasattr(s_, "masks")
+    levels = range(s_.max_level + 1) if amr else [None]
+    out, meta = [], []
+    for l in levels:
+        u_ = s_.u[l] if amr else s_.u
+        b_ = s_.u_b[l] if amr else s_.u_b
+        ng, dim = s_.ng, (s_.dim if amr else s_.layout.dim)
+        out.append(u_[interior_slice(ng, dim)].double().cpu())
+        isl = interior_slice(ng, dim, 0)
+        out.append(torch.stack([bb[isl] for bb in b_]).double().cpu())
+        if amr:
+            meta.append((s_.masks[l].cpu(), tuple(int(v) for v in s_.window[l][0]),
+                         tuple(s_.window[l][1])))
+    return out, meta, secs
 
 
 def main(argv=()):
@@ -3958,6 +4116,270 @@ def main(argv=()):
         finally:
             pool.shutdown(wait=True, cancel_futures=True)
 
+    def path_n():
+        # path N: ideal MHD (mhd/, the MHD branches of driver/sim.py and
+        # driver/amr.py, ops/fill.py:fill_face, the face operators of
+        # ops/interlevel.py). The JAX package runs MHD in XLA, no Pallas
+        # kernel: every step here is torch ops and launches none of the
+        # twelve kernels (launches_path_N).
+        from castro_tpu_torch.mhd import MhdSimulation
+        from castro_tpu_torch.ops.interlevel import restrict_face, restrict_mask
+        from castro_tpu_torch.problems import mhd_tests as mt
+
+        n_results = ctx.n_results = {}
+
+        def sync_s():
+            torch.cuda.synchronize()
+            return time.perf_counter()
+
+        def no_kernels(label):
+            launches = K.launch_counts()
+            path_launches[label] = launches
+            if any(launches.values()):
+                fail(f"path {label}: the MHD path launched a kernel: {launches}")
+
+        def card_vs_cpu_n(label, kind, n, steps=STEPS_N_CPU, dtype="float64", rtol=F64_RTOL):
+            """The same steps on the card and on the CPU: rtol |cpu| + rtol
+            max|cpu| per component of the state and of each face field (and
+            the same windows and masks on a hierarchy)."""
+            K.reset_launch_counts()
+            got, meta_g, secs = n_steps(kind, "cuda", n, steps, dtype)
+            no_kernels(f"{label} (card)")
+            ref, meta_r, secs_cpu = n_steps(kind, "cpu", n, steps, dtype)
+            same = all(bool(torch.equal(a[0], b[0])) and a[1:] == b[1:]
+                       for a, b in zip(meta_g, meta_r))
+            err, rel, ok = n_compare(got, ref, rtol)
+            print(f"card vs CPU, {label}: {kind} n={n} {dtype}, {steps} step(s): card {secs:.3f} s, "
+                  f"CPU {secs_cpu:.3f} s; max abs err {err:.3e} rel {rel:.3e} (tol {rtol:g}|cpu| "
+                  f"+ {rtol:g} max|cpu| per component, the momenta their vector's, the face fields "
+                  f"max(|B|, sqrt(2 max rho E)))"
+                  + (f"; windows and masks {'equal' if same else 'DIFFER'}" if meta_g else "")
+                  + f" {'ok' if ok else 'DISAGREES'}", flush=True)
+            if not ok:
+                n_compare(got, ref, rtol, report=True)
+                fail(f"path {label}: the card and the CPU disagree")
+            if not same:
+                fail(f"path {label}: the card's and the CPU's windows or masks differ")
+            n_results[label] = dict(max_abs_err=err, max_rel_err=rel, card_s=secs, cpu_s=secs_cpu)
+
+        def drive_n(label, sim, steps, warm=0, profile=False):
+            """`warm` steps, then `steps` through Simulation.run with the
+            launch counts zeroed just before and read just after (all must
+            stay 0); finite state, div B. Returns (ms a step, peak GiB)."""
+            print(f"main path {label}, Simulation.run on the card {elapsed()}", flush=True)
+            sim.init_data()
+            if warm:
+                sim.run(max_step=sim.step_count + warm, verbose=False)
+            torch.cuda.reset_peak_memory_stats()
+            K.reset_launch_counts()
+            t0_ = sync_s()
+            sim.run(max_step=sim.step_count + steps, verbose=False)
+            wall = sync_s() - t0_
+            no_kernels(label)
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            divb = n_div_b(sim)
+            finite = bool(torch.isfinite(sim.interior()).all()) and all(
+                bool(torch.isfinite(bb).all()) for bb in sim.u_b)
+            print(f"  {steps} steps after {warm} warm, t = {sim.t:.6e}: {1e3 * wall / steps:.1f} "
+                  f"ms a step, peak {peak:.3f} GiB, max |div B| {divb:.3e} (limit {DIVB_MAX:g}), "
+                  f"launches of the twelve kernels 0", flush=True)
+            if not finite:
+                fail(f"path {label}: non-finite state or face field")
+            if divb > DIVB_MAX:
+                fail(f"path {label}: div B {divb:.3e} above {DIVB_MAX:g}")
+            res = dict(step_ms=1e3 * wall / steps, peak_gib=peak, div_b=divb, t=sim.t,
+                       zones_per_s=float(np.prod(sim.geom.n_cell)) / (wall / steps))
+            if profile:
+                prof = profile_steps(sim, 1, card, host=False)
+                if prof is not None:
+                    res.update(profile_busy_ms=prof["busy_us"] / 1e3,
+                               profile_wall_ms=prof["wall_us"] / 1e3, idle=prof["idle"],
+                               device_launches=prof["launches"])
+                if n_div_b(sim) > DIVB_MAX:
+                    fail(f"path {label}: div B above {DIVB_MAX:g} after the profiled step")
+            return res
+
+        # N3: the 3D CTU-CT step at N_N3^3, full width, then card vs CPU
+        sim = n_sim("alfven", "cuda", N_N3)
+        res = drive_n(f"N3: 3D CTU-CT Alfven wave {N_N3}^3 float64, {STEPS_N3} steps after 1 "
+                      f"warm", sim, STEPS_N3, warm=1, profile=True)
+        n_results["N3"] = res
+        print(f"  [{card}] N3: {res['step_ms']:.1f} ms a step, {res['zones_per_s']:.6e} zones/s, "
+              f"peak {res['peak_gib']:.3f} GiB, idle {res.get('idle', float('nan')):.4f}, "
+              f"device launches a step {res.get('device_launches', float('nan')):.0f}", flush=True)
+        del sim
+        torch.cuda.empty_cache()
+        card_vs_cpu_n("N3-cmp", "alfven", N_N3_CPU)
+
+        # N-rk2: the RK2 flux-CT step (castro.mhd_ctu=0)
+        sim = n_sim("alfven_rk2", "cuda", N_NRK2)
+        n_results["N-rk2"] = drive_n(f"N-rk2: 3D RK2 flux-CT Alfven wave {N_NRK2}^3 float64",
+                                     sim, 2)
+        del sim
+        card_vs_cpu_n("N-rk2-cmp", "alfven_rk2", N_N3_CPU)
+
+        # N2: Orszag-Tang, timed; card vs CPU; one float32 step
+        sim = n_sim("ot", "cuda", N_N2)
+        n_results["N2"] = drive_n(f"N2: Orszag-Tang {N_N2}^2 float64, {STEPS_N2} steps after 1 "
+                                  f"warm", sim, STEPS_N2, warm=1, profile=True)
+        del sim
+        torch.cuda.empty_cache()
+        card_vs_cpu_n("N2-cmp", "ot", N_N2_CPU)
+        card_vs_cpu_n("N2-f32", "ot", N_N2_F32, steps=1, dtype="float32", rtol=RTOL)
+
+        # N1: the Riemann tubes, MhdSimulation at the JAX tests' sizes
+        # (tests/test_mhd.py, tests/test_mhd_problems.py) with their checks
+        K.reset_launch_counts()
+        bw = MhdSimulation(mt.brio_wu_params(n=N_NBW), problem_init=mt.tube_init())
+        t0_ = sync_s()
+        bw.run(stop_time=0.1)
+        bw_s = sync_s() - t0_
+        rho = bw.interior()[bw.base.layout.URHO].double().cpu().numpy()
+        x = bw.base.geom.cell_centers_1d(0, 0).double().cpu().numpy()
+        plateau = float(rho[(x > 0.44) & (x < 0.47)].mean())
+        contact = float(rho[(x > 0.62) & (x < 0.65)].mean())
+        bw_ok = (np.isfinite(rho).all() and rho.min() > 0
+                 and np.allclose(rho[x < 0.05], 1.0, rtol=1e-6)
+                 and np.allclose(rho[x > 0.95], 0.125, rtol=1e-6)
+                 and 0.6 < plateau < 0.85 and 0.2 < contact < 0.4
+                 and np.isclose(rho.mean(), (1.0 + 0.125) / 2, rtol=1e-10))
+        print(f"  [{card}] N1 Brio-Wu n={N_NBW} to t=0.1: {bw.step_count} steps, {bw_s:.2f} s; plateau "
+              f"{plateau:.4f} (0.6-0.85), post-contact {contact:.4f} (0.2-0.4), mean rho "
+              f"{rho.mean():.12f} (0.5625) {'ok' if bw_ok else 'FAILS'}", flush=True)
+        if not bw_ok:
+            fail("path N1: Brio-Wu misses tests/test_mhd.py's checks")
+        n_results["N1-brio_wu"] = dict(steps=bw.step_count, s=bw_s, plateau=plateau,
+                                       contact=contact)
+        del bw
+
+        def tube(params, init, nsteps=20):
+            m_ = MhdSimulation(params, problem_init=init)
+            m_.init_data()
+            dt_ = 0.5 * m_.estdt()
+            for _ in range(nsteps):
+                m_.state = m_.step(m_.state, dt_)
+                m_.t += dt_
+            return m_, m_.interior().double().cpu().numpy()
+
+        dw, ui = tube(mt.dai_woodward_params(n=128), mt.tube_init(mt.DAI_WOODWARD))
+        L = dw.base.layout
+        dw_ok = np.isfinite(ui).all() and ui[L.URHO].max() > 1.081 and ui[L.URHO].min() > 0.1
+        fr, ui2 = tube(mt.fast_rarefaction_params(n=128), mt.tube_init(mt.FAST_RAREFACTION))
+        fr_ok = np.isfinite(ui2).all() and ui2[L.URHO][ui2.shape[1] // 2] < 0.99
+        print(f"  N1 Dai-Woodward n=128, 20 steps: rho {ui[L.URHO].min():.4f} .. "
+              f"{ui[L.URHO].max():.4f} (max > 1.081, min > 0.1) {'ok' if dw_ok else 'FAILS'}; "
+              f"fast rarefaction n=128, 20 steps: centre rho {ui2[L.URHO][ui2.shape[1] // 2]:.4f} "
+              f"(< 0.99) {'ok' if fr_ok else 'FAILS'}", flush=True)
+        if not (dw_ok and fr_ok):
+            fail("path N1: a tube misses tests/test_mhd_problems.py's checks")
+        del dw, fr
+
+        # N-set: loop advection, the species contact (MhdSimulation, the
+        # JAX tests' sizes and checks), the RT setup through Simulation
+        # with constant gravity (the old source traced and the corrector)
+        n_ = 32
+        lp = MhdSimulation(mt.loop_advection_params(n=n_), problem_init=mt.loop_advection_init)
+        lp.init_data()
+        div0 = lp.div_b_max()
+        dt_ = 0.4 * lp.estdt()
+
+        def loop_centre(m_):
+            b2 = sum(bb[interior_slice(m_.base.ng, 2, 0)].double() ** 2 for bb in m_.state.b[:2])
+            g_ = m_.base.geom
+            return [float((b2 * g_.cell_centers(d, 0).double()).sum() / b2.sum()) for d in (0, 1)]
+
+        c0 = loop_centre(lp)
+        for _ in range(10):
+            lp.state = lp.step(lp.state, dt_)
+            lp.t += dt_
+        c1 = loop_centre(lp)
+        pp_ = mt.LOOP_DEFAULTS
+        shift = [c1[0] - c0[0], c1[1] - c0[1]]
+        want = [pp_["u_x"] * lp.t, pp_["u_y"] * lp.t]
+        off = max(abs(a - b) for a, b in zip(shift, want)) * n_
+        lp_ok = (div0 < 1e-12 and lp.div_b_max() < 1e-11 and bool(torch.isfinite(
+            lp.interior()).all()) and off < 0.5)
+        print(f"  N-set loop advection n={n_}, 10 steps: div B {div0:.3e} -> {lp.div_b_max():.3e} "
+              f"(1e-12, 1e-11); the loop's |B|^2 centroid moved ({shift[0]:.5f}, {shift[1]:.5f}) "
+              f"against u t = ({want[0]:.5f}, {want[1]:.5f}), {off:.3f} cells off (< 0.5) "
+              f"{'ok' if lp_ok else 'FAILS'}", flush=True)
+        if not lp_ok:
+            fail("path N-set: loop advection")
+        del lp
+        sp_ = MhdSimulation(mt.species_params(n=64), problem_init=mt.species_init)
+        sp_.init_data()
+        Ls = sp_.base.layout
+        X0 = sp_.interior()[Ls.UFS: Ls.UFS + 2].double().cpu().numpy()
+        dt_ = 0.4 * sp_.estdt()
+        for _ in range(12):
+            sp_.state = sp_.step(sp_.state, dt_)
+        ui = sp_.interior().double().cpu().numpy()
+        X1 = ui[Ls.UFS: Ls.UFS + 2]
+        frac0, frac1 = X0[0] / X0.sum(0), X1[0] / X1.sum(0)
+        nx = X0.shape[1]
+        best = int(np.argmin([np.abs(np.roll(frac0, k_) - frac1).mean() for k_ in range(nx)]))
+        expect = 1.0 * dt_ * 12 * nx
+        sp_ok = (np.allclose(X1.sum(0), ui[Ls.URHO], rtol=1e-10)
+                 and min(abs(best - expect), nx - abs(best - expect)) < 2.0)
+        print(f"  N-set species contact n=64, 12 steps: shifted {best} cells (expected "
+              f"{expect:.2f}), species sum to rho {'ok' if sp_ok else 'FAILS'}", flush=True)
+        if not sp_ok:
+            fail("path N-set: the species contact")
+        del sp_
+        no_kernels("N1 and N-set (MhdSimulation)")
+        rt = n_sim("rt", "cuda", 16)
+        n_results["N-set-rt"] = drive_n("N-set RT 16 x 32, constant gravity", rt, 3)
+        del rt
+        card_vs_cpu_n("N-set-rt-cmp", "rt", 16)
+
+        # N-amr: two-level Orszag-Tang, the CT register; card vs CPU
+        print(f"main path N-amr: Orszag-Tang {N_NAMR}^2 + 1 level float64, {STEPS_NAMR} coarse "
+              f"steps {elapsed()}", flush=True)
+        amr = n_sim("amr", "cuda", N_NAMR)
+        amr.init_data()
+        div_init = [n_div_b(amr, l_) for l_ in range(2)]
+        K.reset_launch_counts()
+        t0_ = sync_s()
+        amr.run(max_step=STEPS_NAMR, verbose=False)
+        wall = sync_s() - t0_
+        no_kernels("N-amr")
+        prof = profile_steps(amr, 1, card, host=False)  # one more coarse step, profiled
+        divs = [n_div_b(amr, l_) for l_ in range(2)]
+        ng_, dim_ = amr.ng, amr.dim
+        csl = amr._parent_rel_slice(1)
+        cmask = restrict_mask(amr.masks[1], dim_)
+        worst = 0.0
+        for d in range(dim_):
+            fine = amr.u_b[1][d][tuple(slice(ng_, ng_ + s_ + (1 if a == d else 0))
+                                       for a, s_ in enumerate(amr.window[1][1]))]
+            rf = restrict_face(fine, d, dim_)
+            coarse = amr.u_b[0][d][tuple(slice(s_.start + ng_, s_.stop + ng_ + (1 if a == d else 0))
+                                         for a, s_ in enumerate(csl))]
+            n_d = cmask.shape[d]
+            inner = cmask.narrow(d, 0, n_d - 1) & cmask.narrow(d, 1, n_d - 1)
+            diff = (rf.narrow(d, 1, n_d - 1) - coarse.narrow(d, 1, n_d - 1)).abs()[inner]
+            worst = max(worst, float(diff.max()))
+        amr_ok = max(divs) < DIVB_MAX and worst < COVERED_FACES_MAX and bool(
+            torch.isfinite(amr.interior(0)).all())
+        n_results["N-amr"] = dict(coarse_step_ms=1e3 * wall / STEPS_NAMR, div_b=divs,
+                                  div_b_init=div_init, covered_faces_max=worst,
+                                  window=list(amr.window[1][1]),
+                                  refined_cells=int(amr.masks[1].sum()))
+        if prof is not None:
+            n_results["N-amr"].update(profile_busy_ms=prof["busy_us"] / 1e3,
+                                      profile_wall_ms=prof["wall_us"] / 1e3, idle=prof["idle"],
+                                      device_launches=prof["launches"])
+        print(f"  [{card}] N-amr: {1e3 * wall / STEPS_NAMR:.1f} ms a coarse step, window "
+              f"{tuple(amr.window[1][1])}, {int(amr.masks[1].sum())} refined cells; max |div B| "
+              f"{divs[0]:.3e} / {divs[1]:.3e} (limit {DIVB_MAX:g}); covered coarse faces against "
+              f"the fine faces' restriction {worst:.3e} (< {COVERED_FACES_MAX:g}) "
+              f"{'ok' if amr_ok else 'FAILS'}", flush=True)
+        if not amr_ok:
+            fail("path N-amr: div B, the covered faces or a non-finite state")
+        del amr
+        torch.cuda.empty_cache()
+        card_vs_cpu_n("N-amr-cmp", "amr", N_NAMR_CPU, steps=2)
+
     def phase_probes():
         # the probes: each against its plain version, then the entry points
         print(f"probes vs plain (scripts/prof_cmpflx.py setup at 128^3, float32) {elapsed()}:",
@@ -4300,13 +4722,16 @@ def main(argv=()):
                 e["launches_path_K"] = k_launches.get(e["name"], 0)
                 e["launches_path_L"] = l_launches.get(e["name"], 0)
                 e["launches_path_M"] = m_launches.get(e["name"], 0)
+            # path N (MHD) is torch ops: 0 for every kernel, checked there
+            e["launches_path_N"] = sum(c.get(e["name"], 0) for label, c in path_launches.items()
+                                       if label.startswith("N"))
             if e["name"] in rad_rows:
                 e[f"radiation_layout_{N_2D_RAD}"] = rad_rows[e["name"]]
 
     phases = [("kernels", phase_kernels), ("A", path_a), ("B", path_b), ("C", path_c),
               ("D", path_d), ("E", path_e), ("F", path_f), ("G", path_g), ("H", path_h),
               ("I", path_i), ("J", path_j), ("K", path_k), ("L", path_l), ("M", path_m),
-              ("probes", phase_probes),
+              ("N", path_n), ("probes", phase_probes),
               ("timing", phase_timing)]
     names = [name for name, _ in phases]
     wanted = list(argv) or names
@@ -4343,6 +4768,7 @@ def main(argv=()):
         "amr_sod_1d_l1": ctx.g1_l1, "amr_sod_1d_ms_per_coarse_step": ctx.g1_ms,
         "path_H": ctx.h_results, "path_I": ctx.i_results, "path_J": ctx.j_results,
         "path_K": ctx.k_results, "path_L": ctx.l_results, "path_M": ctx.m_results,
+        "path_N": ctx.n_results,
         "phase_s": phase_s,
         "detonation": dict(ms_per_step=ctx.det_ms, fuel_ratio=ctx.fuel_ratio,
                            max_mom=ctx.mom_max)}))

@@ -169,7 +169,7 @@ def test_amr_on_the_command_line(capsys):
 
 
 @pytest.mark.parametrize("change,item", [
-    (dict(castro=dict(do_mhd=1)), "item 11"),
+    (dict(castro=dict(do_mhd=1), mesh=True), "item 13"),
     (dict(amr=dict(distribute_fine=1)), "item 13"),
     (dict(mesh=True), "item 13"),
     (dict(geometry=dict(coord_sys=1)), "item 5"),

@@ -146,19 +146,20 @@ def test_device_rules_and_unported_configs():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             Simulation(params, problem_init=sedov.problem_init)
-    # MHD; 3D operator-split radiation (the CTU kernels keep the hydro
-    # layout: queue 1 item 9)
-    for bad in (params.with_ns("castro", do_mhd=1),
-                params.with_ns("castro", do_radiation=1).with_ns("radiation",
-                                                                 hydro_coupling=0)):
+    # 3D operator-split radiation (the CTU kernels keep the hydro layout:
+    # queue 1 item 9)
+    for bad in (params.with_ns("castro", do_radiation=1).with_ns("radiation",
+                                                                 hydro_coupling=0),):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             Simulation(bad, device="cpu")
     # the 1D and 2D branches, riemanncg, the HLL hybrid, curvilinear
     # geometry, PLM, the shock flag, hybrid momenta, reactions, gravity,
     # the sponge, rotation, thermal diffusion, the NSE bypass, SDC,
     # radiation (the characteristic step in 3D, gray and multigroup; the
-    # operator-split step in 2D) and do_hydro=0 are ported
+    # operator-split step in 2D), do_hydro=0 and MHD are ported
     for good in (sedov.make_params(n=8, dim=2), sedov.make_params(n=8, dim=1),
+                 params.with_ns("castro", do_mhd=1),
+                 params.with_ns("castro", do_mhd=1, mhd_ctu=0),
                  params.with_ns("castro", time_integration_method=2),
                  params.with_ns("castro", time_integration_method=2, sdc_order=4,
                                 sdc_quadrature=1),
