@@ -1,18 +1,26 @@
-"""Per-variant times of the two face kernels, trace_ppm and ctu_face.
+"""Per-variant times of the two face kernels, trace_ppm and ctu_face, and
+of the standalone consup.
 
-    python -m castro_tpu_torch.scripts.prof_faces [n=128] [reps=20] [device=cpu]
+    python -m castro_tpu_torch.scripts.prof_faces [n=128] [reps=20] [nspec=1] [dtype=float32]
+                                                  [device=cpu]
 
 From the 3D Sedov state of bench.py (n^3 interior, float32; r_init 0.1,
 exp_energy 0.5) one step after init, the plain versions make every input.
 Then it times, direction by direction, each variant that a step structure
 launches: trace_ppm with the 1D solve (the fused step) and without it (the
 unfused step); ctu_face's corner pair and final stage with consup (the
-fused step), terms=[] (PLM) and the final stage alone (the flux limiters).
-Each time is the mean of `reps` back-to-back calls of the wrapper (CUDA
-events), beside the variant's byte bound: each input read once and each
-output written once at 3.35 TB/s. Every line carries the card's name and
-power limit. On the card unless device=cpu, where the plain versions run
-and the times are the CPU's.
+fused step), terms=[] (PLM) and the final stage alone (the flux limiters);
+then consup alone, one line for each direction, on the same fluxes (the
+unfused step's three launches, finalizing on d = 2). `nspec` > 1 gives
+the state that many species (NPASS = nspec); dtype=float64 casts every
+input to float64. Each time is the mean of `reps`
+back-to-back calls of the wrapper (CUDA events), beside the variant's
+byte bound: each input read once and each output written once at 3.35
+TB/s. Every line carries the card's name and power limit. On the card
+unless device=cpu, where the plain versions run and the times are the
+CPU's. The file runs against another checkout's package too
+(`PYTHONPATH=<checkout> python <this file>`), whose consup wrapper has the
+same signature.
 """
 
 from __future__ import annotations
@@ -107,6 +115,33 @@ def variants(x):
     return out
 
 
+def cast(x, dtype):
+    """The inputs `x` with every float32 tensor in them cast to `dtype`."""
+    if isinstance(x, torch.Tensor):
+        return x.to(dtype) if x.dtype == torch.float32 else x
+    if isinstance(x, dict):
+        return {k: cast(v, dtype) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return type(x)(cast(v, dtype) for v in x)
+    return x
+
+
+def consup_variants(x):
+    """[(d, kernel call, plain call, components moved a cell)] of the
+    standalone consup in each direction, as the unfused step launches it:
+    hsrc, flux and u [NVAR], pg, ug and div in; hsrc' and flux' out."""
+    L, cfg, dt, dx, tr = x["layout"], x["cfg"], x["dt"], x["dx"], x["tr"]
+    out = []
+    for d in range(3):
+        cs = (x["hsrc"], tr[d][2], tr[d][3][L.GDPRES], tr[d][3][L.GDU + d], x["div"], x["u"],
+              d, L, cfg.difmag, dx)
+        fin = dt if d == 2 else None
+        out.append((d, lambda cs=cs, fin=fin: K.consup(*cs, finalize_dt=fin),
+                    lambda cs=cs, fin=fin: K.consup_plain(*cs, finalize_dt=fin),
+                    5 * L.NVAR + 3))
+    return out
+
+
 def bound_ms(x, comps):
     """The byte bound of a variant that moves `comps` components a cell."""
     u = x["u"]
@@ -114,21 +149,28 @@ def bound_ms(x, comps):
 
 
 def run(x, reps=20, out=print):
-    """Time every variant in every direction; returns {(kernel, variant, d): ms}."""
+    """Time every variant in every direction, then consup alone; returns
+    {(kernel, variant, d): ms}."""
     device = x["u"].device
     label = card_label(device)
     res = {}
-    for name, variant, d, kern, _, comps in variants(x):
+    rows = [(name, variant, d, kern, comps) for name, variant, d, kern, _, comps in variants(x)]
+    rows += [("consup", "alone", d, kern, comps) for d, kern, _, comps in consup_variants(x)]
+    for name, variant, d, kern, comps in rows:
         ms = mean_ms(kern, device, reps)
         res[(name, variant, d)] = ms
-        out(f"{name:10s} {variant:18s} d={d} {ms:8.4f} ms  bound {bound_ms(x, comps):.4f} ms "
-            f"({comps} components a cell)  [{label}]")
+        bound = bound_ms(x, comps)
+        out(f"{name:10s} {variant:18s} d={d} {ms:8.4f} ms  bound {bound:.4f} ms "
+            f"({comps} components a cell, {bound / ms:.3f} of it; NPASS "
+            f"{x['layout'].nspec + x['layout'].naux}, {str(x['u'].dtype)[6:]})  [{label}]")
     return res
 
 
 def main(argv=None):
-    a = parse_args(sys.argv[1:] if argv is None else argv, n=128, reps=20)
-    run(setup(a["n"], a["device"]), reps=a["reps"])
+    a = parse_args(sys.argv[1:] if argv is None else argv, n=128, reps=20, nspec=1,
+                   dtype="float32")
+    x = setup(a["n"], a["device"], nspec=a["nspec"])
+    run(cast(x, getattr(torch, a["dtype"])), reps=a["reps"])
     return 0
 
 

@@ -9,7 +9,9 @@ exp(x*1e-9)). The time of one iteration is the best of 3 launches at 60000
 iterations minus the best of 3 at 10000, over n^2 * 50000 element-ops; on
 the card each op's picoseconds stand beside its bound from the published
 rate of compute capability 9.0 (128 FP32 and 16 MUFU instructions a clock
-on each SM, `nvidia-smi`'s maximum SM clock, the device's SM count). On the
+on each SM, `nvidia-smi`'s maximum SM clock, the device's SM count) and the
+pipe that bounds it: FP32 for fma (two instructions, FMUL and FADD) and
+fma_rn (one FFMA), MUFU for div, rsqrt, recip_approx and exp. On the
 CPU (device=cpu) the plain versions run, at the iteration counts
 `lo=`/`hi=` (default 10/60), and the times are the CPU's.
 """
@@ -28,6 +30,12 @@ from castro_tpu_torch.scripts.common import card_label, parse_args, time_once_ms
 INSTRUCTIONS = {"fma": (2, 0), "fma_rn": (1, 0), "div": (1, 1), "rsqrt": (1, 1),
                 "recip_approx": (1, 1), "exp": (1, 1)}
 FP32_PER_CLOCK_SM, MUFU_PER_CLOCK_SM = 128, 16
+
+
+def pipe(op):
+    """The pipe whose rate bounds a body: FP32 or MUFU."""
+    fp32, mufu = INSTRUCTIONS[op]
+    return "FP32" if fp32 / FP32_PER_CLOCK_SM >= mufu / MUFU_PER_CLOCK_SM else "MUFU"
 
 
 def bound_ps(op, sms, clock_hz):
@@ -70,7 +78,7 @@ def run(x, lo=10000, hi=60000, out=print):
         res[op] = ps
         line = f"{op}: {1.0 / ps:.2f} Telem-iter/s -> per-elem-op {ps:.4f} ps"
         if bounds is not None:
-            line += f" (bound {bounds[op]:.4f} ps, {bounds[op] / ps:.3f} of it)"
+            line += f" (bound {bounds[op]:.4f} ps, {pipe(op)} pipe, {bounds[op] / ps:.3f} of it)"
         out(f"{line}  [{label}]")
     return res, bounds
 

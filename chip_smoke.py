@@ -13,8 +13,8 @@ order:
      profiling probes) from castro_tpu_torch/csrc and print each compiled
      kernel's registers, stack, shared memory and spills (ptxas -v), every
      direction and variant of trace_ppm and ctu_face among them, and
-     fail unless prim_aux, flatten and clean_fill have no stack and no
-     spills;
+     fail unless prim_aux, flatten, clean_fill, consup (its march and rows
+     kernels) and every probe_vpu body have no stack and no spills;
   3. hold each kernel against its plain PyTorch version on the card, at the
      main paths' shapes (3D Sedov 128^3 interior, 136^3 grown; 2D Sedov
      4096^2, 4104^2 grown; 1D Sod 4096; float32), and on the branches the
@@ -187,8 +187,12 @@ order:
      kernel under torch.profiler; G3D's window and refined fraction) and each kernel (its device time under
      torch.profiler) beside its bound and its plain version's time (CUDA
      events); trace_ppm and ctu_face variant by variant
-     (castro_tpu_torch/scripts/prof_faces.py); the nine step kernels again
-     at NPASS = 7 and 19; cmpflx and trans_cmpflx in float64 at NPASS = 13
+     (castro_tpu_torch/scripts/prof_faces.py); consup direction by
+     direction at NPASS = 1 and 19, float32 and float64 (the float64 inputs
+     the float32 ones cast, each first held against its plain version), each
+     beside its bound; probe_vpu's fma beside its FLOP bound and its ceiling
+     of two FP32 instructions a step, and fma_rn (one FFMA) beside the FLOP
+     bound; the nine step kernels again at NPASS = 7 and 19; cmpflx and trans_cmpflx in float64 at NPASS = 13
      on flame_wave's state (J-fw's grid), the bound's operations over the
      float64 peak; cmpflx, trans_cmpflx and trans_apply on the radiation
      layout (the 2D box at 2048^2, ngroups 1 and 4, float32 and float64).
@@ -224,8 +228,10 @@ from concurrent.futures import ProcessPoolExecutor
 EXACT = ("flatten", "trace_ppm", "ctu_face", "cmpflx", "trans_apply", "trans_cmpflx",
          "consup", "probe_cmpflx", "probe_copy")
 RTOL = 2e-5
-# kernels whose ptxas rows must show no stack and no spills
-NO_STACK = ("prim_aux_kernel", "flatten_kernel", "clean_fill_kernel")
+# kernels whose ptxas rows must show no stack and no spills, in float32 and
+# float64 (probe_vpu, float32 alone, is held to the same apart)
+NO_STACK = ("prim_aux_kernel", "flatten_kernel", "clean_fill_kernel", "consup_march_kernel",
+            "consup_rows_kernel")
 MASS_RTOL = 1e-6
 # H100 SXM, published peaks (NVIDIA's data sheet): HBM bytes/s and float32
 # operations/s outside the tensor cores
@@ -530,14 +536,16 @@ def time_ms(fn, reps, warm=2):
     return start.elapsed_time(end) / reps
 
 
-def kernel_device_ms(fn, reps):
+def kernel_device_ms(fn, reps, name=None):
     """Device time of one launch of the kernel that `fn` launches, from
-    torch.profiler: the median of the kernel's own records (ctt::, without
-    the wrapper's allocations and fills) over the calls traced. The
-    profiler can drop records of a trace (at NPASS 7 and 19 it returned
-    none for some directions of trace_ppm and ctu_face): traces are taken
-    until `reps` records are in hand, at most four; with none, the device
-    records it did see are printed and None is returned."""
+    torch.profiler: the median of the kernel's own records (ctt::, or
+    ctt::<name>... given `name`; without the wrapper's allocations and
+    fills) over the calls traced. The profiler can drop records of a trace
+    (at NPASS 7 and 19 it returned none for some directions of trace_ppm
+    and ctu_face), and once handed probe_vpu's trace the records of the
+    kernel timed before it (probe_copy's): traces are taken until `reps`
+    records are in hand, at most four; with none, the device records it
+    did see are printed and None is returned."""
     import statistics
 
     import torch
@@ -556,7 +564,7 @@ def kernel_device_ms(fn, reps):
             if e.device_type != torch.autograd.DeviceType.CUDA:
                 continue
             seen.add(e.name[:60])
-            if "ctt::" in e.name:
+            if f"ctt::{name or ''}" in e.name:
                 dev_us = getattr(e, "self_device_time_total", None)
                 got.append(dev_us if dev_us is not None
                            else getattr(e, "self_cuda_time_total", 0.0))
@@ -643,7 +651,7 @@ def time_kernel(name, variants, S, itemsize, ops_per_s, reps, plain_reps):
     for kern, plain, comps, *more in variants:
         S_ = more[0] if more else S
         w_ms = time_ms(kern, reps=reps)
-        k_ms = kernel_device_ms(kern, reps=reps)
+        k_ms = kernel_device_ms(kern, reps=reps, name=name)
         ms_from = "profiler"
         if k_ms is None:
             k_ms, ms_from = kernel_event_ms(kern, reps=reps), "events"
@@ -1225,6 +1233,11 @@ def main(argv=()):
             r.get("stack", -1) != 0 or r.get("spill_stores", -1) != 0 for r in cells):
         fail(f"ptxas: {NO_STACK} must build for float32 and float64 with no stack and no "
              f"spills: {cells}")
+    vpu_rows = [r for r in ptxas if r["kernel"].startswith("probe_vpu_kernel")]
+    if len(vpu_rows) != len(P.VPU_OPS) or any(
+            r.get("stack", -1) != 0 or r.get("spill_stores", -1) != 0 for r in vpu_rows):
+        fail(f"ptxas: probe_vpu_kernel must build for each body with no stack and no spills: "
+             f"{vpu_rows}")
 
     def sedov_sim(n, dtype="float32", bc=2, device="cuda", dim=3, n_cell=None, **castro):
         p = sedov.make_params(n=n, dim=dim, stop_time=1.0, r_init=0.1, exp_energy=0.5,
@@ -2011,7 +2024,15 @@ def main(argv=()):
             cl["trans_cmpflx"].append((lambda tc=tc: K.trans_cmpflx(*tc),
                                        lambda tc=tc: K.trans_cmpflx_plain(*tc),
                                        2 * Ll.NQ + 2 * Ll.NVAR + 8 + Ll.NVAR + Ll.NGDNV))
+        if nspec == 19:
+            cl["consup, float64"] = consup_f64_calls(fxl)
         return cl, ul
+
+    def consup_f64_calls(fx_):
+        """consup alone in each direction on prof_faces.setup's inputs cast
+        to float64 (the kernel's float64 build at the same state)."""
+        x64 = prof_faces.cast(fx_, torch.float64)
+        return [(kern, plain, comps) for _, kern, plain, comps in prof_faces.consup_variants(x64)]
 
     def phase_kernels():
 
@@ -4557,9 +4578,21 @@ def main(argv=()):
               f"version's time (CUDA events); bound = max(bytes / {HBM_BYTES_PER_S:g} B/s, "
               f"operations of the plain version / {FP32_OPS_PER_S:g} op/s):", flush=True)
         by_variant = {}  # ctu_face's variants: the mean over the three directions
+        by_direction = {}  # consup's rows: {"npass1_float32": [{d, ms, bound_ms, share}], ...}
+
+        def direction_rows(key, rows_):
+            by_direction[key] = [dict(d=d_, ms=r_["ms"], bound_ms=r_["bound_ms"],
+                                      share=r_["bound_ms"] / r_["ms"], ms_from=r_["ms_from"])
+                                 for d_, r_ in enumerate(rows_)]
+            print(f"  consup by direction, {key.replace('_', ', ')}: " + "; ".join(
+                f"d={r_['d']} {r_['ms']:.4f} ms, {r_['share']:.3f} of {r_['bound_ms']:.4f}"
+                for r_ in by_direction[key]), flush=True)
+
         for name, variants in calls.items():
             sums, rows = time_kernel(name, variants, u[0].numel(), isz, FP32_OPS_PER_S, reps=20,
                                      plain_reps=3)
+            if name == "consup":
+                direction_rows("npass1_float32", rows)
             for r in rows:
                 print(f"  {name:10s} {r['ms']:9.4f} ms   wrapper {r['wrapper_ms']:9.4f} ms   plain "
                       f"{r['plain_ms']:9.4f} ms   bound {r['bound_ms']:.4f} ms ({r['comps']} "
@@ -4599,11 +4632,40 @@ def main(argv=()):
                 nbytes = prof_cmpflx.copy_bytes(px)
                 e["bytes_moved"] = nbytes
                 e["achieved_GB_s"] = nbytes / e["ms"] / 1e6
+            if e["name"] == "consup":
+                e["ptxas"] = [r for r in ptxas if r["kernel"].startswith("consup_")]
+                e["by_direction"] = by_direction
             if e["name"] == "probe_vpu":
                 e["iterations"] = VPU_TIME_ITERS
                 e["ps_per_element_op"] = vpu_ps
                 e["bound_ps_per_element_op"] = vpu_bound_ps
+                e["ptxas"] = [r for r in ptxas if r["kernel"].startswith("probe_vpu_kernel")]
+                # fma is two dependent FP32 instructions (FMUL, FADD: the
+                # library builds with --fmad=false), so at the published
+                # 67 TFLOP/s, which counts an FFMA as two operations, it can
+                # take no less than twice the FLOP bound; fma_rn is one FFMA
+                e["ceiling_ms"] = 2 * e["bound_ms"]
+                e["share_of_bound"] = e["bound_ms"] / e["ms"]
+                e["share_of_ceiling"] = e["ceiling_ms"] / e["ms"]
+                rn_ms = kernel_device_ms(lambda: P.probe_vpu(vx, "fma_rn", VPU_TIME_ITERS),
+                                         reps=5, name="probe_vpu") or kernel_event_ms(
+                    lambda: P.probe_vpu(vx, "fma_rn", VPU_TIME_ITERS), reps=5)
+                e["fma_rn"] = dict(ms=rn_ms, bound_ms=e["bound_ms"],
+                                   share_of_bound=e["bound_ms"] / rn_ms)
+                print(f"  probe_vpu  fma {e['ms']:.4f} ms: {e['share_of_bound']:.3f} of the "
+                      f"{e['bound_ms']:.4f} ms bound ({FP32_OPS_PER_S:g} op/s, 2 a step), "
+                      f"{e['share_of_ceiling']:.3f} of the {e['ceiling_ms']:.4f} ms ceiling of two "
+                      f"FP32 instructions a step; fma_rn (one FFMA) {rn_ms:.4f} ms: "
+                      f"{e['bound_ms'] / rn_ms:.3f} of the {e['bound_ms']:.4f} ms bound [{card}]",
+                      flush=True)
 
+        f64_calls = consup_f64_calls(fx)
+        for (kern, plain, _), d in zip(f64_calls, range(3)):
+            check("consup", kern(), plain(), f"float64, NPASS = 1, d={d}")
+        _, rows = time_kernel("consup", f64_calls, u[0].numel(), 8, FP64_OPS_PER_S, reps=10,
+                              plain_reps=1)
+        direction_rows("npass1_float64", rows)
+        del f64_calls
         h_launches = {}
         for label, c in path_launches.items():
             if label.startswith("H"):
@@ -4631,6 +4693,14 @@ def main(argv=()):
                       f"NPASS = 1: {e['ms']:.4f} ms, bound {e['bound_ms']:.4f} ms; by direction "
                       f"{by_row}, {from_profiler} of {len(rows_l)} from the profiler, the rest "
                       f"from CUDA events around the launch", flush=True)
+                if e["name"] == "consup" and nspec == 19:
+                    direction_rows("npass19_float32", rows_l)
+            if "consup, float64" in cl:
+                for (kern, plain, _), d in zip(cl["consup, float64"], range(3)):
+                    check("consup", kern(), plain(), f"float64, NPASS = {nspec}, d={d}")
+                _, rows_l = time_kernel("consup", cl["consup, float64"], Sl, 8, FP64_OPS_PER_S,
+                                        reps=10, plain_reps=1)
+                direction_rows(f"npass{nspec}_float64", rows_l)
             del cl, ul
             torch.cuda.empty_cache()
         # path J's kernels in float64 at NPASS = 13 on flame_wave's state

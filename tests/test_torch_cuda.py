@@ -576,6 +576,22 @@ def test_probe_vpu_kernel(card, op):
         P.probe_vpu(x.double(), op, 1)
 
 
+@pytest.mark.parametrize("op", ["fma", "div"])
+@pytest.mark.parametrize("shape,iters", [((333, 271), 137), ((777, 773), 53)],
+                         ids=["90243x137", "600621x53"])
+def test_probe_vpu_kernel_ragged(card, op, shape, iters):
+    """Bit for bit at an element count that is no multiple of the four
+    elements a thread carries (the first fills part of one wave, the second
+    three), over iteration counts that are no multiple of the unroll
+    factors 50 and 10."""
+    from castro_tpu_torch.ops import probes as P
+
+    n = shape[0] * shape[1]
+    x = torch.linspace(0.3, 3.0, n, device=card).reshape(shape)
+    got = P.probe_vpu(x, op, iters)
+    assert torch.equal(got, P.probe_vpu_plain(x, op, iters))
+
+
 @DTYPES
 @pytest.mark.parametrize("bc", ["dirichlet", "periodic"])
 def test_multigrid_card_vs_cpu(card, dtype, bc):

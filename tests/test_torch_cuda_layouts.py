@@ -262,6 +262,36 @@ def test_consup_kernel(card, dtype, layout):
                    f"consup d={d} fin={fin}")
 
 
+# consup's march (d = 0, 1: a thread a column, segments of cells along d)
+# and its rows (d = 2: 31 cells a warp over the flattened grid) on extents
+# that are no multiple of a block's 256 columns, a segment or a warp's 31
+# cells
+@DTYPES
+@pytest.mark.parametrize("layout", [(1, 0, False, False)] + LAYOUTS[:1] + LAYOUTS[2:4],
+                         ids=["npass1", "iso7", "aprox19", "iso7-shock"])
+@pytest.mark.parametrize("shape", [(37, 29, 23), (5, 3, 70)], ids=["37x29x23", "5x3x70"])
+@pytest.mark.parametrize("d", [0, 1, 2])
+def test_consup_kernel_ragged(card, dtype, layout, shape, d):
+    """Accumulating and finalizing, bit for bit."""
+    L = _layout(layout)
+    eos = _eos(L)
+    u = _state(L, 5, dtype, card, shape=shape)
+    q, qaux = ctoprim(u, L, eos, SMALL["small_dens"], SMALL["small_temp"])
+    div = K.prim_aux_plain(u, L, eos, SMALL["small_dens"], SMALL["small_temp"], DX)[2]
+    flux, qe = K.cmpflx_plain(shifted(q, -1, 1 + d), q, shifted(qaux[L.QGAMC], -1, d),
+                              qaux[L.QGAMC], shifted(qaux[L.QC], -1, d), qaux[L.QC], d, L, 0, 0,
+                              SMALL["small_dens"], SMALL["small_pres"])
+    # the solve gives the extras (shock flag, hybrid momenta) no flux; give
+    # them one, which takes the viscosity (the shock flag's passes through)
+    flux[L.UTEMP + 1:L.UFS] = 0.5 * u[L.UTEMP + 1:L.UFS] + 0.25
+    args = (0.1 * u, flux, qe[L.GDPRES], qe[L.GDU + d], 50.0 * div, u, d, L, 0.1, DX)
+    for fin in (None, DT):
+        before = K.consup.launches
+        _exact(K.consup(*args, finalize_dt=fin), K.consup_plain(*args, finalize_dt=fin),
+               f"consup d={d} fin={fin}")
+        assert K.consup.launches == before + 1
+
+
 def test_term_bundle_matches_plain_shapes(card):
     """The passive share of a bundle is formed per component: a check that
     the plain bundle carries every passive row the kernels read."""

@@ -222,3 +222,40 @@ def test_consup_plain_vs_pallas(d, with_fin):
     # the temperature row takes no viscosity
     np.testing.assert_array_equal(got[1][TL.UTEMP].numpy(), flux[TL.UTEMP])
     assert K.consup.launches == 0
+
+
+# (nspec, shock_var): the layouts test_consup_plain_vs_pallas does not
+# reach, a species sum over several components and the shock flag, whose
+# flux takes no viscosity
+@pytest.mark.parametrize("d", [0, 1, 2])
+@pytest.mark.parametrize("nspec,shock", [(3, False), (2, True)], ids=["nspec3", "nspec2-shock"])
+def test_consup_plain_vs_pallas_layouts(nspec, shock, d):
+    JL = JLayout(dim=3, nspec=nspec, shock_var=shock)
+    TL = StateLayout(dim=3, nspec=nspec, shock_var=shock)
+    shape = SHAPES[3]
+    dx = (1.0 / 4, 1.0 / 8, 1.0 / 12)
+    rng = np.random.default_rng(80 + 3 * nspec + d)
+    f32 = np.float32
+    hsrc = (0.1 * rng.standard_normal((TL.NVAR,) + shape)).astype(f32)
+    flux = rng.standard_normal((TL.NVAR,) + shape).astype(f32)
+    flux[TL.UTEMP] = 0.0
+    x = rng.uniform(0.2, 1.0, (nspec,) + shape)
+    flux[TL.UFS:TL.UFS + nspec] = flux[TL.URHO] * x / x.sum(0) * rng.uniform(0.9, 1.1, shape)
+    flux[TL.UFS:TL.UFS + nspec, 3, 4, 5] = 0.0  # the normalization's zero-sum branch
+    u = rng.uniform(0.5, 1.5, (TL.NVAR,) + shape).astype(f32)
+    pg = rng.uniform(0.3, 2.0, shape).astype(f32)
+    ug = rng.uniform(-0.5, 0.5, shape).astype(f32)
+    div = rng.uniform(-3.0, 1.0, shape).astype(f32)
+    fin = f32(2e-3) if d == 2 else None  # the unfused step finalizes on its last direction
+    arrs = (hsrc, flux, pg, ug, div, u)
+    ref = _interpret(pk.consup_pallas, *(jnp.asarray(a) for a in arrs), d, JL, 0.1, dx,
+                     finalize_dt=fin)
+    got = K.consup(*(_t(a) for a in arrs), d, TL, 0.1, dx, finalize_dt=fin)
+    _close(got, ref, f"nspec={nspec} shock={shock} d={d}")
+    # the species fluxes sum to the density flux wherever they did not sum to 0
+    fl = got[1].numpy()
+    ssum = fl[TL.UFS:TL.UFS + nspec].sum(0)
+    np.testing.assert_allclose(ssum[ssum != 0.0], fl[TL.URHO][ssum != 0.0], rtol=1e-5, atol=1e-6)
+    if shock:  # neither fluxed nor viscous: the flux passes through
+        np.testing.assert_array_equal(fl[TL.USHK], flux[TL.USHK])
+    assert K.consup.launches == 0

@@ -206,7 +206,8 @@ def test_entry_points_run_on_the_cpu():
 
 def test_face_profile_runs_on_the_cpu():
     """scripts/prof_faces.py: every variant of the two face kernels in every
-    direction, each call the same function as its plain version."""
+    direction, and consup alone in every direction, each call the same
+    function as its plain version."""
     x = prof_faces.setup(n=8, device="cpu")
     calls = prof_faces.variants(x)
     assert sorted({(k, v) for k, v, *_ in calls}) == sorted(
@@ -220,9 +221,16 @@ def test_face_profile_runs_on_the_cpu():
         assert len(got) == len(ref) > 0
         for g_, r_ in zip(got, ref):
             assert torch.equal(g_, r_), (name, variant, d)
+    alone = prof_faces.consup_variants(x)
+    assert [d for d, *_ in alone] == [0, 1, 2]
+    for d, kern, plain, comps in alone:
+        assert comps == 5 * x["layout"].NVAR + 3
+        for g_, r_ in zip(kern(), plain()):
+            assert torch.equal(g_, r_), ("consup", d)
     lines = []
     res = prof_faces.run(x, reps=1, out=lines.append)
-    assert len(res) == 18 and all(v > 0 for v in res.values())
+    assert len(res) == 21 and all(v > 0 for v in res.values())
+    assert sorted(k for k in res if k[0] == "consup") == [("consup", "alone", d) for d in range(3)]
     assert all("[CPU, plain versions; not a device measurement]" in ln for ln in lines)
 
 
